@@ -1,0 +1,138 @@
+"""Apply a :class:`QuantRecipe` to a whole parameter tree (the port of
+``repro.core.apply``, serving path).
+
+:func:`quantize_params` turns every quantizable weight into an
+:class:`OCSQuantLinear` leaf (expanded int8 values + scales + expansion
+spec). Weights with a leading layer dim (``[L, Cin, Cout]``) are quantized
+per slice and restacked: each layer gets its own split table and scale.
+The tree is a nested dict of tensors laid out like
+``models.transformer.init_params``.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..device import resolve_device
+from .ocs import OCSQuantLinear, OCSSpec, make_ocs_quant_linear
+from .quantizer import QuantParams
+from .recipe import QuantRecipe
+
+__all__ = ["quantize_params", "path_str", "map_with_path", "tree_to"]
+
+
+def path_str(path) -> str:
+    """``("layers", "attn", "wq")`` -> ``"layers/attn/wq"`` (the reference's
+    key-path spelling, which the recipe's skip patterns match against)."""
+    return "/".join(str(p) for p in path)
+
+
+def map_with_path(fn: Callable, tree, path=(), *, is_leaf=None):
+    """Map ``fn(path, leaf)`` over a nested dict/list tree (leaves are
+    anything that is not a dict, list or tuple, or what ``is_leaf``
+    accepts)."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(path, tree)
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, path + (k,), is_leaf=is_leaf)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_path(fn, v, path + (i,), is_leaf=is_leaf)
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def tree_to(tree, device):
+    """Copy of a parameter tree (tensors and OCSQuantLinear leaves) on
+    ``device``; tensors already there are shared, not copied."""
+    dev = torch.device(device)
+
+    def move(_path, leaf):
+        if isinstance(leaf, torch.Tensor):
+            return leaf.to(dev)
+        if isinstance(leaf, OCSQuantLinear):
+            w, sp = leaf.weight, leaf.spec
+            return OCSQuantLinear(
+                weight=QuantParams(w.values.to(dev), w.scale.to(dev), w.bits,
+                                   w.channel_axis),
+                spec=OCSSpec(sp.src.to(dev), sp.mult.to(dev), sp.bias.to(dev)),
+                n_orig=leaf.n_orig,
+                a_bits=leaf.a_bits,
+                a_scale=None if leaf.a_scale is None else leaf.a_scale.to(dev),
+            )
+        return leaf
+
+    return map_with_path(move, tree)
+
+
+def _is_quantizable(path: str, leaf, recipe: QuantRecipe) -> bool:
+    if not isinstance(leaf, torch.Tensor) or leaf.ndim < 2:
+        return False
+    if not leaf.is_floating_point():
+        return False
+    return not recipe.should_skip(path)
+
+
+def _quant_linear_stacked(w: torch.Tensor, recipe: QuantRecipe) -> OCSQuantLinear:
+    """Build a (possibly stacked) OCSQuantLinear from [..., Cin, Cout]."""
+    w = w.to(torch.float32)
+    lead = tuple(w.shape[:-2])
+    flat = w.reshape((-1,) + tuple(w.shape[-2:]))
+    lins = [
+        make_ocs_quant_linear(
+            flat[i],
+            recipe.ocs_ratio,
+            recipe.w_bits,
+            qa=recipe.qa_split,
+            clip_method=recipe.w_clip,
+            per_channel=recipe.per_channel,
+            pad_to=recipe.pad_to,
+        )
+        for i in range(flat.shape[0])
+    ]
+    if not lead:
+        return lins[0]
+
+    # Restack: values/scales/specs get the leading dims back. Scales are
+    # stored broadcast-ready against the values.
+    def stack(get):
+        return torch.stack([get(l) for l in lins]).reshape(
+            lead + tuple(get(lins[0]).shape)
+        )
+
+    values = stack(lambda l: l.weight.values)
+    if lins[0].weight.channel_axis == 1:  # per-channel: [Cout] -> [..., 1, Cout]
+        scale = stack(lambda l: l.weight.scale[None, :])
+    else:  # per-tensor: scalar -> [..., 1, 1]
+        scale = stack(lambda l: l.weight.scale[None, None])
+    qp = QuantParams(values=values, scale=scale, bits=recipe.w_bits, channel_axis=None)
+    spec = OCSSpec(
+        src=stack(lambda l: l.spec.src),
+        mult=stack(lambda l: l.spec.mult),
+        bias=stack(lambda l: l.spec.bias),
+    )
+    return OCSQuantLinear(
+        weight=qp, spec=spec, n_orig=int(w.shape[-2]), a_bits=recipe.a_bits
+    )
+
+
+def quantize_params(params, recipe: QuantRecipe, *, device=None):
+    """Replace quantizable weights with OCSQuantLinear integer leaves.
+
+    Runs on ``device`` (``None`` = the card; raises without one unless
+    ``device="cpu"``); leaves are moved there first.
+    """
+    dev = resolve_device(device)
+    if not recipe.wants_weight_quant():
+        return params
+
+    def visit(path, leaf):
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.to(dev)
+        p = path_str(path)
+        if not _is_quantizable(p, leaf, recipe):
+            return leaf
+        return _quant_linear_stacked(leaf, recipe)
+
+    return map_with_path(visit, params)

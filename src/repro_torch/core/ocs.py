@@ -1,0 +1,257 @@
+"""Outlier Channel Splitting (paper §3), the port of ``repro.core.ocs``.
+
+A linear layer ``y = x @ W`` (``W: [Cin, Cout]``) is expanded by duplicating
+the input channels that hold outliers. Weight OCS (Eq. 3) splits row ``m``
+of ``W`` into two rows and duplicates activation channel ``m`` unchanged;
+the expansion is the affine spec ``x_exp[..., c] = x[..., src[c]] * mult[c]
++ bias[c]``, so ``x_exp @ W_exp == x @ W`` in float.
+
+Quantization-aware splitting (§3.3) splits ``w`` into ``((w - Δ/2)/2, (w +
+Δ/2)/2)`` so that ``Q(w) = Q(w1) + Q(w2)`` exactly; Δ comes from a short
+fixed-point iteration (naive halving first, then QA re-splits).
+
+**Where the port differs from the reference in how, not what.** The
+reference splits on the host: each of the ``ceil(r*C)`` splits recomputes
+``np.abs(w).max(axis=1)`` over the whole matrix and re-``concatenate`` s it,
+which at glm4-9b widths is host-minutes per matrix (``lm_head`` [4096,
+151552] takes 82 splits, ``w_down`` [13696, 4096] takes 274). The port runs
+the *same* splits on the tensor's device into a preallocated ``[C+n, N]``
+buffer and keeps the row-max vector up to date (two rows change per
+split), with the same first-index argmax tie rule and the same float32
+arithmetic for ``(row ∓ Δ/2)/2``: the expanded weights and ``src`` are
+bitwise the reference's.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .clipping import find_clip
+from .quantizer import QuantParams, qmax, quantize_tensor
+
+__all__ = [
+    "OCSSpec",
+    "n_splits_for_ratio",
+    "split_weights",
+    "expand_activations",
+    "OCSQuantLinear",
+    "make_ocs_quant_linear",
+]
+
+
+@dataclasses.dataclass
+class OCSSpec:
+    """Affine channel-expansion spec: x_exp[c] = x[src[c]] * mult[c] + bias[c]."""
+
+    src: torch.Tensor  # int32 [C_exp]
+    mult: torch.Tensor  # f32   [C_exp]
+    bias: torch.Tensor  # f32   [C_exp]
+
+    @staticmethod
+    def identity(n_channels: int, device=None) -> "OCSSpec":
+        return OCSSpec(
+            src=torch.arange(n_channels, dtype=torch.int32, device=device),
+            mult=torch.ones(n_channels, dtype=torch.float32, device=device),
+            bias=torch.zeros(n_channels, dtype=torch.float32, device=device),
+        )
+
+
+def n_splits_for_ratio(n_channels: int, ratio: float) -> int:
+    """ceil(r * C) splits (paper §3.4); 0 for r == 0."""
+    if ratio <= 0:
+        return 0
+    return int(math.ceil(ratio * n_channels))
+
+
+def expand_activations(x: torch.Tensor, spec: OCSSpec) -> torch.Tensor:
+    """Apply the expansion spec along the last axis of x."""
+    return x[..., spec.src.long()] * spec.mult + spec.bias
+
+
+# ---------------------------------------------------------------------------
+# Weight OCS (offline, on the weight's device)
+
+
+def _run_splits(w: torch.Tensor, n_splits: int, delta: float, qa: bool):
+    """``n_splits`` greedy splits of the row holding the current global max
+    |value| (§3.4). Returns ``(w_exp [C+n, N] f32, src [C+n] int32)``."""
+    c, n = w.shape
+    dev = w.device
+    out = torch.empty((c + n_splits, n), dtype=torch.float32, device=dev)
+    out[:c] = w
+    src = torch.empty((c + n_splits,), dtype=torch.int32, device=dev)
+    src[:c] = torch.arange(c, dtype=torch.int32, device=dev)
+    rowmax = torch.empty((c + n_splits,), dtype=torch.float32, device=dev)
+    rowmax[:c] = w.abs().amax(dim=1)
+    # The reference computes row -/+ 0.5*delta with the Python float rounded
+    # to float32 (numpy's weak-scalar rule); the rounded value is exact in
+    # float32, so torch's scalar cast reproduces it.
+    half = float(np.float32(0.5 * delta)) if (qa and delta > 0) else None
+    for k in range(n_splits):
+        cur = c + k
+        idx = torch.argmax(rowmax[:cur]).reshape(1)  # first index on ties
+        row = out.index_select(0, idx)
+        if half is not None:
+            r1 = (row - half) / 2.0
+            r2 = (row + half) / 2.0
+        else:
+            r1 = row / 2.0
+            r2 = r1
+        out[cur : cur + 1] = r2
+        out.index_copy_(0, idx, r1)
+        src[cur : cur + 1] = src.index_select(0, idx)
+        rowmax[cur : cur + 1] = r2.abs().amax(dim=1)
+        rowmax.index_copy_(0, idx, r1.abs().amax(dim=1))
+    return out, src
+
+
+def split_weights(
+    w: torch.Tensor,
+    ratio: float,
+    bits: int,
+    *,
+    qa: bool = True,
+    clip_method: Optional[str] = None,
+    fixed_point_iters: int = 2,
+    n_splits: Optional[int] = None,
+) -> Tuple[torch.Tensor, OCSSpec, float]:
+    """Weight OCS on ``w: [Cin, Cout]`` (float32, on any device).
+
+    Returns ``(w_expanded, spec, clip_threshold)``: ``spec`` duplicates
+    activations unchanged (mult=1, bias=0) and ``clip_threshold`` is the
+    post-split threshold chosen by ``clip_method`` (max|w| when None).
+    """
+    w = w.to(torch.float32)
+    if w.ndim != 2:
+        raise ValueError(f"split_weights expects [Cin, Cout], got {tuple(w.shape)}")
+    n = n_splits_for_ratio(w.shape[0], ratio) if n_splits is None else int(n_splits)
+    if n == 0:
+        spec = OCSSpec.identity(w.shape[0], device=w.device)
+        t = find_clip(w, bits, clip_method)
+        return w, spec, float(t)
+
+    # Pass 1: naive halving to estimate the post-split grid step.
+    w_est, src_est = _run_splits(w, n, 0.0, False)
+    thresh = find_clip(w_est, bits, clip_method)
+    delta = thresh / qmax(bits)
+    if qa:
+        w_exp, src = w_est, src_est
+        for _ in range(max(1, fixed_point_iters)):
+            w_exp, src = _run_splits(w, n, delta, True)
+            new_thresh = find_clip(w_exp, bits, clip_method)
+            new_delta = new_thresh / qmax(bits)
+            if abs(new_delta - delta) <= 1e-7 * max(delta, 1e-12):
+                thresh, delta = new_thresh, new_delta
+                break
+            thresh, delta = new_thresh, new_delta
+    else:
+        w_exp, src = w_est, src_est
+
+    c_exp = src.shape[0]
+    spec = OCSSpec(
+        src=src,
+        mult=torch.ones(c_exp, dtype=torch.float32, device=w.device),
+        bias=torch.zeros(c_exp, dtype=torch.float32, device=w.device),
+    )
+    return w_exp, spec, float(thresh)
+
+
+# ---------------------------------------------------------------------------
+# Fused state for a quantized linear layer
+
+
+@dataclasses.dataclass
+class OCSQuantLinear:
+    """Serving-ready quantized linear: expanded int weights + expansion spec.
+
+    ``y = (expand_activations(x, spec) [quantized to a_bits at serve time])
+          @ dequant(weight)``. Stacked leaves (``[L, C_exp, Cout]`` values,
+    ``[L, 1, Cout]`` scales, ``[L, C_exp]`` spec) slice per layer with
+    :meth:`layer`.
+    """
+
+    weight: QuantParams  # int values [C_exp(+pad), Cout]
+    spec: OCSSpec
+    n_orig: int = 0
+    a_bits: Optional[int] = None
+    a_scale: Optional[torch.Tensor] = None  # activation scale from calibration
+
+    def is_packed(self) -> bool:
+        """True if the expansion is pure duplication (mult 1, or 0 on pad
+        rows; bias 0): the dynamic-W8A8 contract. Read back from the device
+        once per leaf and cached; slices inherit their stack's answer."""
+        packed = self.__dict__.get("_packed")
+        if packed is None:
+            mult, bias = self.spec.mult, self.spec.bias
+            packed = not (
+                bool(((mult != 0.0) & (mult != 1.0)).any()) or bool((bias != 0.0).any())
+            )
+            self._packed = packed
+        return packed
+
+    def layer(self, i: int) -> "OCSQuantLinear":
+        """Slice one layer of a stacked leaf (views, no copy)."""
+        out = OCSQuantLinear(
+            weight=QuantParams(
+                values=self.weight.values[i],
+                scale=self.weight.scale[i],
+                bits=self.weight.bits,
+                channel_axis=self.weight.channel_axis,
+            ),
+            spec=OCSSpec(
+                src=self.spec.src[i], mult=self.spec.mult[i], bias=self.spec.bias[i]
+            ),
+            n_orig=self.n_orig,
+            a_bits=self.a_bits,
+            a_scale=None if self.a_scale is None else self.a_scale[i],
+        )
+        out._packed = self.is_packed()
+        return out
+
+
+def _pad_expanded(w_exp: torch.Tensor, spec: OCSSpec, pad: int):
+    """Zero rows appended to the expanded dim; the spec maps them to channel
+    0 with mult 0 (they quantize exactly to 0)."""
+    if pad == 0:
+        return w_exp, spec
+    dev = w_exp.device
+    w_exp = torch.cat(
+        [w_exp, torch.zeros((pad, w_exp.shape[1]), dtype=w_exp.dtype, device=dev)], 0
+    )
+    spec = OCSSpec(
+        src=torch.cat([spec.src, torch.zeros(pad, dtype=torch.int32, device=dev)]),
+        mult=torch.cat([spec.mult, torch.zeros(pad, dtype=torch.float32, device=dev)]),
+        bias=torch.cat([spec.bias, torch.zeros(pad, dtype=torch.float32, device=dev)]),
+    )
+    return w_exp, spec
+
+
+def make_ocs_quant_linear(
+    w: torch.Tensor,
+    ratio: float,
+    bits: int,
+    *,
+    qa: bool = True,
+    clip_method: Optional[str] = None,
+    per_channel: bool = False,
+    pad_to: int = 1,
+) -> OCSQuantLinear:
+    """Full offline weight pipeline: OCS split -> (clip) -> integer quantize.
+
+    ``pad_to`` zero-pads the expanded contraction dim to a multiple. The
+    reference's shard-local ``groups`` split serves tensor-parallel meshes,
+    which one card does not have.
+    """
+    w_exp, spec, thresh = split_weights(
+        w, ratio, bits, qa=qa, clip_method=clip_method
+    )
+    w_exp, spec = _pad_expanded(w_exp, spec, (-w_exp.shape[0]) % pad_to)
+    clip = None if per_channel else thresh
+    qp = quantize_tensor(
+        w_exp, bits, channel_axis=1 if per_channel else None, clip=clip
+    )
+    return OCSQuantLinear(weight=qp, spec=spec, n_orig=int(w.shape[0]))

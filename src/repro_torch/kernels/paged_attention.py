@@ -1,0 +1,253 @@
+"""Paged-attention decode over the KV page pool: CUDA kernel wrapper, its
+plain PyTorch version, and the pool helpers every pool writer shares.
+
+Replaces ``repro/kernels/paged_attention.py::_paged_attn_kernel``
+(``paged_attention_kernel`` / ``paged_attention``), the Pallas TPU kernel
+that every decode-attention layer of the paged engine runs, for float32
+and int8 pools with one query row per lane (Q = 1 per step; the kernel
+also takes Q > 1). The CUDA source is ``csrc/paged_attention.cu``: one
+block per (lane, KV head) appends the lane's new K/V rows into its pages
+and runs online-softmax attention over the pages its position reaches. What
+bounds it on the card: the bytes of the attended pages. Unlike the JAX
+kernel, which returned a new pool through input/output aliasing, the CUDA
+kernel **updates the pool in place** and returns the same dict.
+
+The plain version has the kernel's numerics — f32 after dequantization,
+trash pages select-zeroed — computed as the reference's
+``paged_attention_gather_ref`` does (gather, one-shot softmax); it is not
+the reference's ``paged_attention_xla`` int8 branch, which requantizes q
+and the softmax weights. The int4 pages and the packed-nibble helpers
+arrive with the precision tiers (ROADMAP A12).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from .build import load
+from .ref import inv_qmax
+
+__all__ = [
+    "NEG_INF",
+    "TRASH_PAGE",
+    "quant_rows",
+    "pool_kind",
+    "append_rows",
+    "paged_attention_plain",
+    "paged_attention_cuda",
+    "launches",
+    "reset_launches",
+]
+
+NEG_INF = -1e30  # finite: exp(NEG_INF - NEG_INF) == 1, never NaN
+TRASH_PAGE = 0  # reserved pool page (serving.kv_cache.TRASH_PAGE): never read
+
+# The card's per-block shared memory, for the kernel's tiles.
+_MAX_SMEM = 232448
+
+# Wrapper calls that launched the CUDA kernel.
+launches = 0
+
+_lib = None
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def quant_rows(x: torch.Tensor, qmax: float = 127.0):
+    """Symmetric absmax quantization over the last axis -> (int8, f32 scale).
+
+    The one grid of every KV-row writer (prefill pages, the fused append,
+    the CUDA kernel): reciprocal-multiply form, ``scale = max(amax, 1e-30)
+    * float32(1/qmax)``, ``q = floor(x * (1/scale) + 0.5)``, bitwise the
+    reference's ``quant_rows``.
+    """
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp_min(amax, 1e-30) * inv_qmax(qmax)
+    q = torch.clamp(torch.floor(xf * torch.reciprocal(scale) + 0.5), -qmax, qmax)
+    return q.to(torch.int8), scale[..., 0]
+
+
+def pool_kind(pool) -> str:
+    """Precision tier of a page pool by value dtype: int8 -> "int8",
+    anything else -> "float" (packed int4 pools arrive later)."""
+    dt = pool["k"].dtype
+    if dt == torch.int8:
+        return "int8"
+    if dt == torch.uint8:
+        raise NotImplementedError("int4 page pools: ROADMAP A12")
+    return "float"
+
+
+def append_rows(pool: Dict, k_new, v_new, table, pos) -> Dict:
+    """Scatter Q tokens' K/V rows through the block table into a *copy* of
+    the pool (the plain, functional form of the kernel's in-place append).
+
+    k_new/v_new: ``[B, Q, KV, hd]``; table: ``[B, T]``; pos: ``[B]`` first
+    token position per lane; positions clamp to ``[0, T*ps - 1]``.
+    """
+    ps = pool["k"].shape[2]
+    t = table.shape[1]
+    qn = k_new.shape[1]
+    dev = k_new.device
+    lin = torch.clamp(
+        pos.long()[:, None] + torch.arange(qn, device=dev)[None, :], 0, t * ps - 1
+    )
+    pidx = torch.gather(table.long(), 1, lin // ps)  # [B, Q]
+    slot = lin % ps
+    out = {key: val.clone() for key, val in pool.items()}
+    if pool_kind(pool) == "int8":
+        k_q, k_s = quant_rows(k_new)
+        v_q, v_s = quant_rows(v_new)
+        out["k"][pidx, :, slot, :] = k_q
+        out["v"][pidx, :, slot, :] = v_q
+        out["k_scale"][pidx, :, slot] = k_s
+        out["v_scale"][pidx, :, slot] = v_s
+    else:
+        out["k"][pidx, :, slot, :] = k_new.to(torch.float32).to(pool["k"].dtype)
+        out["v"][pidx, :, slot, :] = v_new.to(torch.float32).to(pool["v"].dtype)
+    return out
+
+
+def _q_rows(q: torch.Tensor, kvh: int) -> torch.Tensor:
+    """[B, Q, H, hd] -> [B, KV, Q*rep, hd] f32, scaled by hd^-1/2 (row ``qr``
+    is query ``qr // rep``, rep ``qr % rep``)."""
+    b, qn, h, hd = q.shape
+    qf = q.to(torch.float32) * float(torch.tensor(hd ** -0.5, dtype=torch.float32))
+    qf = qf.reshape(b, qn, kvh, h // kvh, hd)
+    return qf.movedim(1, 2).reshape(b, kvh, qn * (h // kvh), hd)
+
+
+def _rows_out(out: torch.Tensor, qn: int) -> torch.Tensor:
+    """[B, KV, Q*rep, hd] -> [B, Q, H, hd] (inverse of :func:`_q_rows`)."""
+    b, kvh, qr, hd = out.shape
+    out = out.reshape(b, kvh, qn, qr // qn, hd)
+    return out.movedim(2, 1).reshape(b, qn, kvh * (qr // qn), hd)
+
+
+def paged_attention_plain(pool, table, pos, q, k_new, v_new) -> Tuple:
+    """Plain version: append, gather ``pool[table]``, dequantize, zero the
+    trash pages (a select: NaN poison dies), one-shot f32 softmax.
+
+    q: ``[B, Q, H, hd]`` post-RoPE (unscaled); k_new/v_new ``[B, Q, KV,
+    hd]``. Returns ``(out [B, Q, H, hd] f32, appended pool copy)``.
+    """
+    b, qn, h, hd = q.shape
+    kvh, ps = pool["k"].shape[1:3]
+    t = table.shape[1]
+    dev = q.device
+    new_pool = append_rows(pool, k_new, v_new, table, pos)
+    int8 = pool_kind(pool) == "int8"
+    tl = table.long()
+
+    def flat(x):  # [B, T, KV, ps, ...] -> [B, KV, T*ps, ...]
+        return x.movedim(2, 1).reshape((b, kvh, t * ps) + tuple(x.shape[4:]))
+
+    readable = torch.repeat_interleave(table != TRASH_PAGE, ps, dim=1)  # [B, T*ps]
+
+    def dequant(vals, scale):
+        x = flat(vals).to(torch.float32)
+        if scale is not None:
+            x = x * flat(scale)[..., None]
+        return torch.where(readable[:, None, :, None], x, torch.zeros((), device=dev))
+
+    kf = dequant(new_pool["k"][tl], new_pool["k_scale"][tl] if int8 else None)
+    vf = dequant(new_pool["v"][tl], new_pool["v_scale"][tl] if int8 else None)
+    q2 = _q_rows(q, kvh)  # [B, KV, QR, hd]
+    jrow = torch.arange(q2.shape[2], device=dev) // (h // kvh)
+    bound = pos.long()[:, None] + jrow[None, :]  # [B, QR]
+    vis = torch.arange(t * ps, device=dev)[None, None, :] <= bound[:, :, None]
+    vis = vis & readable[:, None, :]
+    s = torch.einsum("bgrd,bgsd->bgrs", q2, kf)
+    s = s + torch.where(vis[:, None], 0.0, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgrs,bgsd->bgrd", p, vf)
+    return _rows_out(out, qn), new_pool
+
+
+def _bind():
+    global _lib
+    if _lib is None:
+        fn = load("paged_attention").paged_attention_launch
+        c_int, c_float, c_void_p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+        fn.argtypes = [
+            c_void_p, c_void_p, c_void_p,  # q, k_new, v_new (bf16)
+            c_void_p, c_void_p, c_void_p, c_void_p, c_int,  # pools, scales, int8
+            c_void_p, c_void_p, c_void_p,  # table, pos, out
+            c_int, c_int, c_int, c_int, c_int, c_int, c_int,  # B Q H KV hd ps T
+            c_float, c_float, c_float, c_void_p,  # q_scale, qmax, inv_qmax, stream
+        ]
+        fn.restype = c_int
+        _lib = fn
+    return _lib
+
+
+def _smem_bytes(qr: int, hd: int, ps: int) -> int:
+    return 4 * (qr * hd + ps * (hd + 1) + ps * hd + qr * ps + qr * hd + 3 * qr)
+
+
+def paged_attention_cuda(pool, table, pos, q, k_new, v_new) -> Tuple:
+    """Launch the CUDA kernel: fused append (in place) + paged flash decode.
+
+    Takes float32 or int8 pools and bfloat16 q/k_new/v_new (the model's
+    activations); raises on anything else. Returns ``(out [B, Q, H, hd] f32, pool)`` with
+    ``pool`` the same dict, its tensors updated in place.
+    """
+    global launches
+    b, qn, h, hd = q.shape
+    kind = pool_kind(pool)
+    tensors = [("q", q), ("k_new", k_new), ("v_new", v_new), ("table", table),
+               ("pos", pos), ("pool k", pool["k"]), ("pool v", pool["v"])]
+    if kind == "int8":
+        tensors += [("k_scale", pool["k_scale"]), ("v_scale", pool["v_scale"])]
+    for name, t in tensors:
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"paged_attention_cuda: {name} must be on {q.device} (CUDA)")
+        if not t.is_contiguous():
+            raise ValueError(f"paged_attention_cuda: {name} must be contiguous")
+    for name, t in (("q", q), ("k_new", k_new), ("v_new", v_new)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name} must be bfloat16, got {t.dtype}")
+    p_pages, kvh, ps, hdp = pool["k"].shape
+    if kind == "float" and pool["k"].dtype != torch.float32:
+        raise ValueError(f"float pools must be float32, got {pool['k'].dtype}")
+    if kind == "int8" and pool["k_scale"].dtype != torch.float32:
+        raise ValueError("int8 pool scales must be float32")
+    if hdp != hd or k_new.shape != (b, qn, kvh, hd) or v_new.shape != k_new.shape:
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)}, k_new {tuple(k_new.shape)}, "
+            f"pool {tuple(pool['k'].shape)}"
+        )
+    if h % kvh:
+        raise ValueError(f"heads {h} not a multiple of KV heads {kvh}")
+    if table.dtype != torch.int32 or table.ndim != 2 or table.shape[0] != b:
+        raise ValueError("table must be int32 [B, T]")
+    if pos.dtype != torch.int32 or tuple(pos.shape) != (b,):
+        raise ValueError("pos must be int32 [B]")
+    smem = _smem_bytes(qn * (h // kvh), hd, ps)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"tiles need {smem} bytes of shared memory (> {_MAX_SMEM})")
+    t = table.shape[1]
+    out = torch.empty((b, qn, h, hd), dtype=torch.float32, device=q.device)
+    int8 = kind == "int8"
+    fn = _bind()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        pool["k"].data_ptr(), pool["v"].data_ptr(),
+        pool["k_scale"].data_ptr() if int8 else None,
+        pool["v_scale"].data_ptr() if int8 else None,
+        int(int8), table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        b, qn, h, kvh, hd, ps, t,
+        float(torch.tensor(hd ** -0.5, dtype=torch.float32)), 127.0, inv_qmax(127.0),
+        stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"paged_attention launch failed: cudaError {err}")
+    launches += 1
+    return out, pool

@@ -12,6 +12,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test (make test-fast skips)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where torch.cuda.is_available() is false"
+    )
 
 
 try:  # pragma: no cover - exercised only where hypothesis exists
