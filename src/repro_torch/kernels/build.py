@@ -6,7 +6,8 @@ built when a module is imported: :func:`load` builds a library at its first
 use, and :func:`build_all` starts one ``nvcc`` per source at once (what
 ``chip_smoke.py`` calls up front). Libraries go to ``build/repro_torch`` at
 the repository root (listed in ``.gitignore``), or to
-``$REPRO_TORCH_BUILD_DIR``; a library older than its source is rebuilt.
+``$REPRO_TORCH_BUILD_DIR``; a library older than its source or than a
+shared header in ``csrc`` (``*.cuh``) is rebuilt.
 No fast-math flag is passed: the kernels' quantization must round exactly
 like the reference's.
 """
@@ -26,6 +27,9 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = {
     "fused_qmatmul": "fused_qmatmul.cu",
     "paged_attention": "paged_attention.cu",
+    "dynamic_quant": "dynamic_quant.cu",
+    "quant_matmul": "quant_matmul.cu",
+    "ocs_matmul": "ocs_matmul.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -62,7 +66,10 @@ def _lib_path(name: str) -> Path:
 
 def _stale(name: str) -> bool:
     lib = _lib_path(name)
-    return not lib.exists() or lib.stat().st_mtime < (CSRC / SOURCES[name]).stat().st_mtime
+    if not lib.exists():
+        return True
+    deps = [CSRC / SOURCES[name], *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in deps)
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:

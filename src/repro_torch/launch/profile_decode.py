@@ -1,11 +1,13 @@
 """Where a decode step's time goes, on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_decode [--layers 40]
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+        [--layers 40] [--matmul-mode dequant|w8a8]
 
 Builds glm4-9b at full width (``--layers`` deep; random weights from
 ``--seed``), quantizes it with the serving launcher's recipe and serves 8
 requests (16-256-token prompts) with ``EngineConfig(max_batch=8,
-max_len=512, matmul_mode="w8a8", kv_bits=8)``. The first engine step
+max_len=512, matmul_mode=--matmul-mode)``: ``dequant`` (the default) on
+float32 KV pages, ``w8a8`` on int8 pages. The first engine step
 (admission, 8 prefills, one decode) runs unprofiled; the next ``--steps``
 decode steps run under ``torch.profiler`` (CPU + CUDA activity). Prints
 the device time per kernel family (the hand-written kernels' launches and
@@ -35,10 +37,11 @@ from ..serving import EngineConfig, Request, ServingEngine
 # Kernel families by (mangled) kernel name substring.
 FAMILIES = (
     ("fused_qmatmul: row_quant", "row_quant_kernel"),
-    ("fused_qmatmul: int8_gemm", "int8_gemm_kernel"),
-    ("fused_qmatmul: epilogue", "epilogue_kernel"),
+    ("int8_gemm (fused_qmatmul)", "int8_gemm_kernel"),
+    ("wo_gemm (ocs_matmul / quant_matmul)", "wo_gemm_kernel"),
+    ("epilogue", "epilogue_kernel"),
     ("paged_attention", "paged_attention_kernel"),
-    ("memset (fused_qmatmul workspace)", "Memset"),
+    ("memset (int8 workspace)", "Memset"),
 )
 
 
@@ -55,6 +58,7 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=40)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--matmul-mode", default="dequant", choices=["dequant", "w8a8"])
     ap.add_argument("--out", default="chiprun_out/profile_decode.json")
     args = ap.parse_args(argv)
     dev = resolve_device(None)
@@ -64,8 +68,10 @@ def main(argv=None):
     q = quantize_params(params, QuantRecipe(w_bits=8, w_clip="mse", ocs_ratio=0.02,
                                             per_channel=True, pad_to=1), device=dev)
     del params
-    eng = ServingEngine(cfg, q, EngineConfig(max_batch=8, max_len=512, matmul_mode="w8a8",
-                                             kv_bits=8, page_size=16), device=dev)
+    kv_bits = 8 if args.matmul_mode == "w8a8" else None
+    eng = ServingEngine(cfg, q, EngineConfig(max_batch=8, max_len=512,
+                                             matmul_mode=args.matmul_mode,
+                                             kv_bits=kv_bits, page_size=16), device=dev)
     rng = np.random.default_rng(args.seed)
     for i in range(8):
         plen = int(rng.integers(16, 257))
@@ -99,7 +105,8 @@ def main(argv=None):
             other_top.append((us, e.key))
     device_us = sum(fam.values()) + other
     steps = args.steps
-    print(f"profiled {steps} decode steps, {cfg.n_layers} layers, 8 lanes: wall "
+    print(f"profiled {steps} decode steps ({args.matmul_mode}), {cfg.n_layers} layers, "
+          f"8 lanes: wall "
           f"{wall_us / steps / 1e3:.2f} ms/step (profiler on)")
     if device_us == 0:
         print("device time: not measured (the profiler recorded no device activity)")
@@ -112,7 +119,8 @@ def main(argv=None):
               f"{100 * (1 - device_us / wall_us):.1f}%")
         for us, key in sorted(other_top, reverse=True)[:8]:
             print(f"    other: {key[:90]}: {us / steps / 1e3:.3f} ms/step")
-    out = dict(layers=cfg.n_layers, steps=steps, wall_ms_per_step=wall_us / steps / 1e3,
+    out = dict(layers=cfg.n_layers, steps=steps, matmul_mode=args.matmul_mode,
+               wall_ms_per_step=wall_us / steps / 1e3,
                device_ms_per_step={k: v / steps / 1e3 for k, v in fam.items()},
                other_ms_per_step=other / steps / 1e3,
                busy_share=(device_us / wall_us) if wall_us else None,

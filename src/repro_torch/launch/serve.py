@@ -5,9 +5,13 @@ initialized dense model (weights from ``--seed``), quantized once with the
 reference launcher's recipe (``QuantRecipe(w_bits=--bits, w_clip=--clip,
 ocs_ratio=--ocs-ratio, per_channel=True, pad_to=1)``), then served through
 :class:`repro_torch.serving.ServingEngine`. Engine flags are generated from
-``EngineConfig``. Runs on the card; ``--device cpu`` runs the plain
-PyTorch path at smoke size.
+``EngineConfig``: with none given it serves the engine defaults,
+weight-only ``dequant`` matmuls on float32 KV pages; ``--matmul-mode w8a8
+--kv-bits 8`` serves dynamic W8A8 on int8 pages, and ``--ocs-ratio 0`` the
+clip-only tree (no OCS split). Runs on the card; ``--device cpu`` runs the
+plain PyTorch path at smoke size.
 
+    python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu
     python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu \
         --matmul-mode w8a8 --kv-bits 8
 """

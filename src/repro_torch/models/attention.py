@@ -107,18 +107,20 @@ def attention(
     cfg: ModelConfig,
     *,
     positions: torch.Tensor,
+    mode: str,
     kv_prefix: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     return_kv: bool = False,
 ):
-    """Full-sequence causal attention. x: [B, S, d]; positions: [B, S].
+    """Full-sequence causal attention. x: [B, S, d]; positions: [B, S];
+    ``mode`` is the quantized-matmul mode (see ``layers.dense``).
     ``kv_prefix`` ([B, M, KV, hd] K and V of an already-prefilled prompt
     prefix) is concatenated on the key side; ``return_kv`` also returns
     this call's post-RoPE K/V for the page writes."""
     b, s, _ = x.shape
     hd, h, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    q = dense(params["wq"], x, name="attn_q").reshape(b, s, h, hd)
-    k = dense(params["wk"], x, name="attn_k").reshape(b, s, kvh, hd)
-    v = dense(params["wv"], x, name="attn_v").reshape(b, s, kvh, hd)
+    q = dense(params["wq"], x, mode=mode, name="attn_q").reshape(b, s, h, hd)
+    k = dense(params["wk"], x, mode=mode, name="attn_k").reshape(b, s, kvh, hd)
+    v = dense(params["wv"], x, mode=mode, name="attn_v").reshape(b, s, kvh, hd)
     if cfg.qk_norm:
         q = rms_norm(params["q_norm"], q, cfg.norm_eps)
         k = rms_norm(params["k_norm"], k, cfg.norm_eps)
@@ -135,7 +137,7 @@ def attention(
         q_pos = q_pos + n_prefix
     out = _flash_over_kv(q, kq, vq, q_pos, cfg.attn_chunk, n_prefix)
     out = out.to(x.dtype).reshape(b, s, h * hd)
-    y = dense(params["wo"], out, name="attn_o")
+    y = dense(params["wo"], out, mode=mode, name="attn_o")
     if return_kv:
         return y, (k, v)
     return y
@@ -149,6 +151,7 @@ def attention_decode(
     cfg: ModelConfig,
     *,
     table: torch.Tensor,
+    mode: str,
 ):
     """Paged decode attention. x: [B, Q, d]; pos: [B] int32 position of each
     lane's first query token; ``pool`` is this layer's page pool and
@@ -157,9 +160,9 @@ def attention_decode(
     one ``paged_attention`` call. Returns (y [B, Q, d], pool)."""
     b, qn, _ = x.shape
     hd, h, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    q = dense(params["wq"], x, name="attn_q").reshape(b, qn, h, hd)
-    k = dense(params["wk"], x, name="attn_k").reshape(b, qn, kvh, hd)
-    v = dense(params["wv"], x, name="attn_v").reshape(b, qn, kvh, hd)
+    q = dense(params["wq"], x, mode=mode, name="attn_q").reshape(b, qn, h, hd)
+    k = dense(params["wk"], x, mode=mode, name="attn_k").reshape(b, qn, kvh, hd)
+    v = dense(params["wv"], x, mode=mode, name="attn_v").reshape(b, qn, kvh, hd)
     if cfg.qk_norm:
         q = rms_norm(params["q_norm"], q, cfg.norm_eps)
         k = rms_norm(params["k_norm"], k, cfg.norm_eps)
@@ -170,4 +173,4 @@ def attention_decode(
         pool, table, pos, q.contiguous(), k.contiguous(), v.contiguous()
     )
     out = out.to(x.dtype).reshape(b, qn, h * hd)
-    return dense(params["wo"], out, name="attn_o"), new_pool
+    return dense(params["wo"], out, mode=mode, name="attn_o"), new_pool

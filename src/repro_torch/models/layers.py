@@ -2,15 +2,28 @@
 ``repro.models.layers``).
 
 ``dense`` is the entry point for every matmul. Its weight is a float tensor
-or an :class:`OCSQuantLinear`; the latter always runs dynamic **w8a8** —
-"the production serving mode", the one quantized-matmul mode the port has
-(the engine refuses the others at construction) — where every 2-D
-quantized matmul goes through the fused W8A8 kernel
-(``kernels.ops.fused_quant_matmul``: the CUDA kernel on the card, its plain
-version on the CPU). The reference's ``serving_mode`` context is not
-carried over: it chooses between modes, and a mode argument returns with
-the second mode (ROADMAP A6, A12). Activations stay bfloat16 between
-layers, as in the reference (``embed`` casts).
+or an :class:`OCSQuantLinear`; for the latter the ``mode`` argument (the
+engine's ``matmul_mode``, threaded down from the model functions) picks the
+quantized matmul, and every 2-D one goes through a kernel
+(``kernels.ops``: the CUDA kernel on the card, its plain version on the
+CPU):
+
+* ``dequant`` (the reference's default) -- weight-only int8:
+  ``ops.ocs_quant_matmul`` (B4; B5 when the weight has no OCS split) on the
+  bf16 activations, whose tail duplicates are gathered inside the kernel.
+  The port follows the reference's **kernel route** numerics: float32 sums
+  of the exact products of the widened activations and the int8 weights,
+  then ``* w_scale``, rounded once to the activation dtype. It does not
+  follow the reference's XLA route, which first rounds the dequantized
+  weights to bf16 (``expand_activations(x) @ w.dequant(bf16)``).
+* ``w8a8`` -- dynamic per-row int8 activations: the fused W8A8 kernel
+  ``ops.fused_quant_matmul`` (B1).
+* ``w4a8`` raises (ROADMAP A12).
+
+The mode is an argument, never a module global. Calibrated activation grids
+(``a_scale``) have no producer on the serving path and are not ported.
+Activations stay bfloat16 between layers, as in the reference (``embed``
+casts).
 """
 from __future__ import annotations
 
@@ -19,7 +32,9 @@ import torch
 from ..core.ocs import OCSQuantLinear
 from ..kernels import ops as kops
 
-__all__ = ["dense", "rms_norm", "embed", "swiglu"]
+__all__ = ["MODES", "dense", "rms_norm", "embed", "swiglu"]
+
+MODES = ("dequant", "w8a8")
 
 
 def _check_packed(w: OCSQuantLinear) -> None:
@@ -35,33 +50,58 @@ def _check_packed(w: OCSQuantLinear) -> None:
         )
 
 
+def _flat_w_scale(w: OCSQuantLinear) -> torch.Tensor:
+    """Per-column scales ``[N]`` (a per-tensor scale broadcast)."""
+    ws = w.weight.scale.reshape(-1)
+    if ws.numel() == 1:
+        return ws.expand(w.weight.values.shape[-1])
+    return ws
+
+
 def _fused_w8a8(w: OCSQuantLinear, x: torch.Tensor, bits: int) -> torch.Tensor:
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     src_tail = w.spec.src[w.n_orig:]
     y = kops.fused_quant_matmul(
-        x2, w.weight.values, w.weight.scale.reshape(-1), src_tail, bits=bits,
+        x2, w.weight.values, _flat_w_scale(w).contiguous(), src_tail, bits=bits,
         out_dtype=x.dtype,
     )
     return y.reshape(lead + (y.shape[-1],))
 
 
-def dense(w, x: torch.Tensor, *, name: str = "") -> torch.Tensor:
-    """y = x @ w with quantization-aware dispatch. x: [..., Cin]; ``name``
+def _ocs_dequant(w: OCSQuantLinear, x: torch.Tensor) -> torch.Tensor:
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    y = kops.ocs_quant_matmul(
+        x2, w.weight.values, _flat_w_scale(w), w.spec.src[w.n_orig:],
+        tail_mult=w.spec.mult[w.n_orig:], out_dtype=x.dtype,
+    )
+    return y.reshape(lead + (y.shape[-1],))
+
+
+def dense(w, x: torch.Tensor, *, mode: str, name: str = "") -> torch.Tensor:
+    """y = x @ w with quantization-aware dispatch. x: [..., Cin]; ``mode``
+    is ``"dequant"`` or ``"w8a8"`` (ignored for float weights); ``name``
     labels errors."""
     if isinstance(w, OCSQuantLinear):
+        what = name or "dense"
+        if mode == "w4a8":
+            raise NotImplementedError(f"{what}: matmul mode 'w4a8' is ROADMAP A12")
+        if mode not in MODES:
+            raise ValueError(f"{what}: matmul mode must be one of {MODES}, got {mode!r}")
         if w.a_bits is not None and w.a_scale is not None:
             raise NotImplementedError(
-                "static calibrated activation grids: ROADMAP A6"
+                f"{what}: static calibrated activation grids (a_scale) are not "
+                "ported (ROADMAP A10/A14)"
             )
         if w.weight.values.ndim != 2 or w.spec.mult.ndim != 1:
             raise ValueError(
-                f"{name or 'dense'}: slice stacked quantized weights per layer "
-                "before the matmul"
+                f"{what}: slice stacked quantized weights per layer before the matmul"
             )
-        bits = w.a_bits if w.a_bits is not None else 8
+        if mode == "dequant":
+            return _ocs_dequant(w, x)
         _check_packed(w)
-        return _fused_w8a8(w, x, bits)
+        return _fused_w8a8(w, x, w.a_bits if w.a_bits is not None else 8)
     return x @ w.to(x.dtype)
 
 

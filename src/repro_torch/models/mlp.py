@@ -16,7 +16,7 @@ def mlp_params_shape(cfg: ModelConfig, d_ff: int = 0):
     return {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
 
 
-def mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    g = dense(params["w_gate"], x, name="mlp_gate")
-    u = dense(params["w_up"], x, name="mlp_up")
-    return dense(params["w_down"], swiglu(g, u), name="mlp_down")
+def mlp(params, x: torch.Tensor, cfg: ModelConfig, *, mode: str) -> torch.Tensor:
+    g = dense(params["w_gate"], x, mode=mode, name="mlp_gate")
+    u = dense(params["w_up"], x, mode=mode, name="mlp_up")
+    return dense(params["w_down"], swiglu(g, u), mode=mode, name="mlp_down")

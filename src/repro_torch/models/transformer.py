@@ -8,6 +8,10 @@ runs two functions:
 * :func:`prefill_into_pages` — one request's prompt suffix through the
   full-sequence block, its K/V written straight into the page pools;
 * :func:`decode_step` — one token per lane against the paged caches.
+
+Both take ``mode``, the quantized-matmul mode every ``layers.dense`` call
+of the model runs (``"dequant"``, the reference's default, or
+``"w8a8"``).
 """
 from __future__ import annotations
 
@@ -119,18 +123,20 @@ def _head(params, cfg: ModelConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def _block(cfg: ModelConfig, p, x, positions, *, kv_prefix=None):
+def _block(cfg: ModelConfig, p, x, positions, *, mode: str, kv_prefix=None):
     """One layer over a full sequence; returns (x, (k, v))."""
     h = rms_norm(p["norm1"]["scale"], x, cfg.norm_eps)
     a, kv = attention(
-        p["attn"], h, cfg, positions=positions, kv_prefix=kv_prefix, return_kv=True
+        p["attn"], h, cfg, positions=positions, mode=mode, kv_prefix=kv_prefix,
+        return_kv=True,
     )
     x = x + a
     h = rms_norm(p["norm2"]["scale"], x, cfg.norm_eps)
-    return x + mlp(p["mlp"], h, cfg), kv
+    return x + mlp(p["mlp"], h, cfg, mode=mode), kv
 
 
-def decode_tokens(params, tokens: torch.Tensor, caches, cfg: ModelConfig):
+def decode_tokens(params, tokens: torch.Tensor, caches, cfg: ModelConfig, *,
+                  mode: str = "dequant"):
     """Q tokens per lane ``[B, Q]`` against the paged caches -> (logits
     ``[B, Q, V]``, caches with ``pos`` advanced by Q). ``caches`` holds
     ``layers[i]["attn"]`` (page pools), ``table`` ``[B, T]`` and ``pos``
@@ -145,20 +151,21 @@ def decode_tokens(params, tokens: torch.Tensor, caches, cfg: ModelConfig):
         p = layer_params(params, i)
         h = rms_norm(p["norm1"]["scale"], x, cfg.norm_eps)
         a, pool = attention_decode(
-            p["attn"], h, caches["layers"][i]["attn"], pos, cfg, table=table
+            p["attn"], h, caches["layers"][i]["attn"], pos, cfg, table=table, mode=mode
         )
         x = x + a
         h = rms_norm(p["norm2"]["scale"], x, cfg.norm_eps)
-        x = x + mlp(p["mlp"], h, cfg)
+        x = x + mlp(p["mlp"], h, cfg, mode=mode)
         new_layers.append({"attn": pool})
     x = rms_norm(params["final_norm"]["scale"], x, cfg.norm_eps)
-    logits = dense(_head(params, cfg), x, name="lm_head")
+    logits = dense(_head(params, cfg), x, mode=mode, name="lm_head")
     return logits, {"layers": new_layers, "table": table, "pos": pos + qn}
 
 
-def decode_step(params, token: torch.Tensor, caches, cfg: ModelConfig):
+def decode_step(params, token: torch.Tensor, caches, cfg: ModelConfig, *,
+                mode: str = "dequant"):
     """serve_step: one new token ``[B, 1]`` -> (logits ``[B, V]``, caches)."""
-    logits, new_caches = decode_tokens(params, token, caches, cfg)
+    logits, new_caches = decode_tokens(params, token, caches, cfg, mode=mode)
     return logits[:, 0, :], new_caches
 
 
@@ -171,6 +178,7 @@ def prefill_into_pages(
     *,
     length: torch.Tensor,
     prefix_ids: torch.Tensor,
+    mode: str = "dequant",
 ):
     """Prefill one request's prompt suffix straight into the page pools.
 
@@ -196,9 +204,9 @@ def prefill_into_pages(
     for i in range(cfg.n_layers):
         p = layer_params(params, i)
         kv_prefix = _kvc.gather_prefix(pools[i], prefix_ids) if n_hit else None
-        x, (k, v) = _block(cfg, p, x, positions, kv_prefix=kv_prefix)
+        x, (k, v) = _block(cfg, p, x, positions, mode=mode, kv_prefix=kv_prefix)
         new_pools.append(_kvc.write_prompt_pages(pools[i], k, v, page_ids))
     x = rms_norm(params["final_norm"]["scale"], x, cfg.norm_eps)
     # Only the last real token goes through the lm_head (the widest matmul).
     last_h = x[:, length.long() - 1]  # [1, 1, d]
-    return dense(_head(params, cfg), last_h, name="lm_head")[:, 0, :], new_pools
+    return dense(_head(params, cfg), last_h, mode=mode, name="lm_head")[:, 0, :], new_pools

@@ -30,8 +30,8 @@ class EngineConfig:
     matmul_mode: str = dataclasses.field(
         default="dequant",
         metadata={
-            "help": "w8a8 = dynamic per-row int8 activations (ported); "
-            "dequant (ROADMAP A6) and w4a8 (A12) are not ported yet",
+            "help": "dequant = weight-only int8 (fused OCS matmul); w8a8 = "
+            "dynamic per-row int8 activations; w4a8 is not ported yet (A12)",
             "choices": ["dequant", "w8a8", "w4a8"],
         },
     )

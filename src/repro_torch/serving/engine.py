@@ -11,7 +11,17 @@ eos is reached. A lane whose logits go nonfinite is retired with
 ``finish_reason="error"``. Preemption, chunked prefill, speculation,
 sampling, tracing and drift monitoring are later slices (ROADMAP A7-A10).
 
-The engine runs on the card unless built with ``device="cpu"``.
+Every linear layer of prefill and decode runs in ``EngineConfig.matmul_mode``
+(passed to the model functions, which pass it to every ``layers.dense``):
+
+* ``"dequant"`` (the default) -- weight-only int8 through the fused OCS
+  matmul (kernel B4; B5 for weights with no OCS split, as a clip-only
+  ``ocs_ratio=0`` tree has);
+* ``"w8a8"`` -- dynamic per-row int8 activations through the fused W8A8
+  kernel (B1).
+
+``"w4a8"`` is refused at construction (ROADMAP A12). The engine runs on the
+card unless built with ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -27,7 +37,6 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.apply import tree_to
 from ..device import resolve_device
-from ..models import layers
 from ..models import transformer as T
 from . import kv_cache as kvc
 from .config import EngineConfig
@@ -79,11 +88,10 @@ class ServingEngine:
     ):
         self.device = resolve_device(device)
         config = config if config is not None else EngineConfig()
-        if config.matmul_mode != "w8a8":
-            item = {"dequant": "A6", "w4a8": "A12"}[config.matmul_mode]
+        if config.matmul_mode == "w4a8":
             raise NotImplementedError(
-                f"matmul_mode={config.matmul_mode!r} is not ported yet "
-                f"(ROADMAP {item}); the port serves matmul_mode='w8a8'"
+                "matmul_mode='w4a8' is not ported yet (ROADMAP A12); the port "
+                "serves 'dequant' and 'w8a8'"
             )
         if config.kv_bits == 4:
             raise NotImplementedError("kv_bits=4 page pools: ROADMAP A12")
@@ -167,6 +175,7 @@ class ServingEngine:
                 torch.as_tensor(ids, device=dev),
                 length=torch.as_tensor([m], dtype=torch.int32, device=dev),
                 prefix_ids=torch.as_tensor(hit_ids, dtype=torch.int32, device=dev),
+                mode=self.matmul_mode,
             )
         finite = bool(torch.isfinite(logits).all())
         first = int(torch.argmax(logits[0]))  # sync: the prefill has retired
@@ -320,7 +329,7 @@ class ServingEngine:
         t0 = time.perf_counter()
         with torch.no_grad():
             logits, self.caches = T.decode_step(
-                self.params, self.tokens, self.caches, self.cfg
+                self.params, self.tokens, self.caches, self.cfg, mode=self.matmul_mode
             )
             finite = torch.isfinite(logits).all(dim=-1)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]

@@ -1,20 +1,22 @@
 """Port parity, engine: the greedy paged ``ServingEngine`` of ``repro_torch``
-against ``repro``'s, configured alike (``matmul_mode="w8a8"``, reserve
-admission, monolithic prefill; the reference with
-``KernelConfig(matmul="xla", attn="xla")``: the XLA W8A8 composition,
-bitwise the fused kernel, and f32-after-dequant paged attention).
+against ``repro``'s, configured alike (reserve admission, monolithic
+prefill) in each matmul mode. The reference runs ``KernelConfig(attn="xla")``
+(f32-after-dequant paged attention) and ``matmul="xla"`` for ``w8a8`` (the
+XLA W8A8 composition, bitwise the fused kernel) or ``matmul="pallas"`` for
+``dequant`` (the kernel route, whose numerics the port follows).
 
 * Allocator state (free list, refcounts, prefix-cache keys, LRU) is
   identical after every engine step, retirements included: it is host code
   driven by the same request lengths.
 * Greedy tokens are equal until a near-tie: the two stacks' logits differ
-  by float ulps amplified by dynamic W8A8 (see test_torch_model.py), so
+  by float ulps (amplified by dynamic W8A8; see test_torch_model.py), so
   at the first position where a request's tokens differ the reference's
-  top-2 logit margin must be within ``TIE_TOL``: about twice the largest
-  port-vs-reference logit difference seen in the model test (0.109),
-  since a flip needs the margin inside both sides' error. With the pinned
-  seed, float pools part at two near-ties and int8 pools at four (margins
-  <= 0.031, one an exact tie); the other requests match token for token.
+  top-2 logit margin, under the same mode and kernel route, must be within
+  ``TIE_TOL``: about twice the largest port-vs-reference logit difference
+  seen in the model test (0.109), since a flip needs the margin inside
+  both sides' error. With the pinned seed, w8a8 on float pools parts at
+  two near-ties and on int8 pools at four (margins <= 0.031, one an exact
+  tie); the other requests match token for token.
 * On int8 pools, the bytes prefill wrote into layer 0's pages are
   bitwise equal (deeper layers inherit the ulp flips).
 """
@@ -25,7 +27,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from _torch_interop import glm_smoke, glm_smoke_served, torch_threads  # noqa: F401
+from _torch_interop import (  # noqa: F401
+    SERVE_RECIPE, glm_smoke, glm_smoke_served, jax_tree_to_numpy, torch_threads)
 
 from repro.models import layers as JL
 from repro.models import transformer as JT
@@ -63,33 +66,52 @@ def quantized(glm_smoke, glm_smoke_served):
     return (glm_smoke[0],) + tuple(glm_smoke_served)
 
 
+def _matmul_kernel(mode):
+    return "pallas" if mode == "dequant" else "xla"
+
+
 @functools.lru_cache(maxsize=None)
-def _w8a8_forward(cfg):
+def _forward(cfg, mode):
     def fwd(params, toks):
-        with JL.serving_mode("w8a8", kernel="xla"):
+        with JL.serving_mode(mode, kernel=_matmul_kernel(mode)):
             return JT.forward(params, toks, cfg)
 
     return jax.jit(fwd)
 
 
-def _top2_margin(cfg, params, tokens, pad=64):
+def _top2_margin(cfg, params, tokens, mode, pad=64):
     """The reference's top-2 logit margin after ``tokens`` (its own causal
-    full-sequence forward, the same W8A8 numerics; zero-padded to one
-    length so it compiles once)."""
+    full-sequence forward, the same matmul numerics as its engine in
+    ``mode``; zero-padded to one length so it compiles once)."""
     toks = np.zeros((1, pad), np.int32)
     toks[0, : len(tokens)] = tokens
-    lg = _w8a8_forward(cfg)(params, jnp.asarray(toks))
+    lg = _forward(cfg, mode)(params, jnp.asarray(toks))
     top = np.sort(np.asarray(lg[0, len(tokens) - 1].astype(jnp.float32)))[::-1]
     return float(top[0] - top[1])
 
 
-@pytest.mark.parametrize("kv_bits", [None, 8])
-def test_engine_matches_reference(kv_bits, quantized):
+# The w8a8 cases keep the ids they had before the dequant cases came.
+@pytest.mark.parametrize("kv_bits,matmul_mode", [
+    pytest.param(None, "w8a8", id="None"),
+    pytest.param(8, "w8a8", id="8"),
+    pytest.param(None, "dequant", id="dequant-None"),
+    pytest.param(8, "dequant", id="dequant-8"),
+])
+def test_engine_matches_reference(kv_bits, matmul_mode, quantized):
     cfg, qj, qt = quantized
-    common = dict(max_batch=3, max_len=64, matmul_mode="w8a8", kv_bits=kv_bits)
-    je = JEngine(cfg, qj, JConfig(**common, kernels=KernelConfig(matmul="xla", attn="xla")))
+    _serve_both(cfg, qj, qt, dict(max_batch=3, max_len=64, matmul_mode=matmul_mode,
+                                  kv_bits=kv_bits))
+
+
+def _serve_both(cfg, qj, qt, common, prompts=None):
+    """Serve the same requests on both engines; allocator state identical
+    after every step, tokens equal up to near-ties."""
+    mode = common["matmul_mode"]
+    kv_bits = common["kv_bits"]
+    kernels = KernelConfig(matmul=_matmul_kernel(mode), attn="xla")
+    je = JEngine(cfg, qj, JConfig(**common, kernels=kernels))
     te = TEngine(cfg, qt, TConfig(**common), device="cpu")
-    prompts = _prompts(cfg.vocab, seed=0)
+    prompts = prompts or _prompts(cfg.vocab, seed=0)
     for i, p in enumerate(prompts):
         je.submit(JRequest(uid=i, prompt=p, max_new_tokens=8))
         te.submit(TRequest(uid=i, prompt=p, max_new_tokens=8))
@@ -123,5 +145,37 @@ def test_engine_matches_reference(kv_bits, quantized):
         assert len(got) == len(want)
         diverge = next((j for j, (x, y) in enumerate(zip(got, want)) if x != y), None)
         if diverge is not None:  # a near-tie: both candidates nearly equal
-            margin = _top2_margin(cfg, qj, prompts[uid] + want[:diverge])
+            margin = _top2_margin(cfg, qj, prompts[uid] + want[:diverge], mode)
             assert margin <= TIE_TOL, (uid, diverge, margin)
+
+
+def test_clip_only_tree_serves_dequant(glm_smoke):
+    """An ``ocs_ratio=0`` tree (no OCS split: every matmul is B5), converted
+    from the reference's through numpy, serves in ``dequant`` mode like the
+    reference's engine."""
+    from repro.core.apply import quantize_params as j_quantize_params
+    from repro.core.recipe import QuantRecipe as JRecipe
+    from repro_torch.interop import params_from_numpy
+
+    cfg, params = glm_smoke
+    qj = j_quantize_params(params, JRecipe(**dict(SERVE_RECIPE, ocs_ratio=0.0)))
+    qt = params_from_numpy(jax_tree_to_numpy(qj), "cpu")
+    wq = qt["layers"]["attn"]["wq"]
+    assert wq.weight.values.shape[1] == wq.n_orig  # [L, K, N]: no duplicate rows
+    _serve_both(cfg, qj, qt, dict(max_batch=3, max_len=64, matmul_mode="dequant",
+                                  kv_bits=None), prompts=_prompts(cfg.vocab, seed=0)[:4])
+
+
+def test_default_engine_config_serves(quantized):
+    """``EngineConfig()`` defaults (dequant matmuls, float32 pages) serve to
+    completion."""
+    cfg, _, qt = quantized
+    eng = TEngine(cfg, qt, TConfig(max_batch=3, max_len=64), device="cpu")
+    prompts = _prompts(cfg.vocab, seed=1)
+    for i, p in enumerate(prompts):
+        eng.submit(TRequest(uid=i, prompt=p, max_new_tokens=6))
+    done = eng.run()
+    st = eng.stats()
+    assert st["matmul_mode"] == "dequant" and st["kv_bits"] == 0.0
+    assert st["completed"] == len(done) == len(prompts)
+    assert all(r.finish_reason == "length" and len(r.output) == 6 for r in done)

@@ -16,9 +16,13 @@ from _torch_interop import torch_threads  # noqa: F401
 from repro_torch.configs import smoke_config
 from repro_torch.core.apply import quantize_params
 from repro_torch.core.recipe import QuantRecipe
+from repro_torch.kernels import dynamic_quant as tdq
 from repro_torch.kernels import fused_qmatmul as tfq
+from repro_torch.kernels import ocs_matmul as tom
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels import quant_matmul as tqm
+from repro_torch.models import layers
 from repro_torch.models import transformer as T
 from repro_torch.serving import EngineConfig, ServingEngine
 
@@ -88,11 +92,11 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
         quantize_params(params, recipe)
     q = quantize_params(params, recipe, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        ServingEngine(cfg, q, EngineConfig(matmul_mode="w8a8", max_len=64))
+        ServingEngine(cfg, q, EngineConfig(max_len=64))
     from repro_torch.launch import serve
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        serve.main(["--arch", "glm4-9b", "--smoke", "--matmul-mode", "w8a8"])
+        serve.main(["--arch", "glm4-9b", "--smoke"])
 
 
 def test_ops_refuse_devices_without_a_kernel():
@@ -101,6 +105,12 @@ def test_ops_refuse_devices_without_a_kernel():
         ops.fused_quant_matmul(x, x, x, x)
     with pytest.raises(ValueError, match="no kernel"):
         ops.paged_attention({}, x, x, x, x, x)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.ocs_quant_matmul(x, x, x, x)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.quant_matmul(x, x, x)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.dynamic_quant(x)
 
 
 def test_cuda_request_never_gets_the_plain_result(monkeypatch):
@@ -113,11 +123,24 @@ def test_cuda_request_never_gets_the_plain_result(monkeypatch):
                         lambda *a, **k: plain_calls.append(1))
     monkeypatch.setattr(tpa, "paged_attention_plain",
                         lambda *a, **k: plain_calls.append(1))
-    launches0 = (tfq.launches, tpa.launches)
+    for mod, name in ((tom, "ocs_quant_matmul_plain"), (tqm, "quant_matmul_plain"),
+                      (tdq, "dynamic_quant_plain")):
+        monkeypatch.setattr(mod, name, lambda *a, **k: plain_calls.append(1))
+    mods = (tfq, tpa, tom, tqm, tdq)
+    launches0 = [m.launches for m in mods]
     x = torch.zeros((2, 8))
     w8 = torch.zeros((8, 4), dtype=torch.int8)
     with pytest.raises((ValueError, RuntimeError)):
         ops.fused_quant_matmul(x, w8, torch.ones(4), torch.zeros(0, dtype=torch.int32))
+    for xx in (x, x.to(torch.int8)):
+        with pytest.raises((ValueError, RuntimeError)):
+            ops.quant_matmul(xx, w8, torch.ones(4))
+        for s in (0, 2):  # S == 0 routes to quant_matmul's wrapper
+            with pytest.raises((ValueError, RuntimeError)):
+                ops.ocs_quant_matmul(xx[:, : 8 - s], w8, torch.ones(4),
+                                     torch.zeros(s, dtype=torch.int32))
+    with pytest.raises((ValueError, RuntimeError)):
+        ops.dynamic_quant(x)
     pool = {"k": torch.zeros((2, 1, 4, 8)), "v": torch.zeros((2, 1, 4, 8))}
     q = torch.zeros((1, 1, 2, 8))
     kn = torch.zeros((1, 1, 1, 8))
@@ -125,14 +148,32 @@ def test_cuda_request_never_gets_the_plain_result(monkeypatch):
         ops.paged_attention(pool, torch.zeros((1, 1), dtype=torch.int32),
                             torch.zeros(1, dtype=torch.int32), q, kn, kn)
     assert not plain_calls
-    assert (tfq.launches, tpa.launches) == launches0  # refusals launch nothing
+    assert [m.launches for m in mods] == launches0  # refusals launch nothing
+
+
+def test_dense_refuses_unported_modes():
+    """``dense`` takes the mode as an argument: ``w4a8`` names its ROADMAP
+    item; a mode it does not know raises; float weights ignore the mode."""
+    cfg = smoke_config("glm4-9b")
+    params = T.init_params(cfg, seed=0, device="cpu")
+    q = quantize_params(params, QuantRecipe(w_bits=8, ocs_ratio=0.02, per_channel=True),
+                        device="cpu")
+    w = q["lm_head"]
+    x = torch.zeros((1, cfg.d_model), dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="A12"):
+        layers.dense(w, x, mode="w4a8")
+    with pytest.raises(ValueError, match="matmul mode"):
+        layers.dense(w, x, mode="int4")
+    for mode in layers.MODES:
+        assert layers.dense(w, x, mode=mode).shape == (1, cfg.vocab)
+    assert torch.equal(layers.dense(params["lm_head"], x, mode="w4a8"),
+                       x @ params["lm_head"].to(x.dtype))
 
 
 def test_unported_modes_raise_at_engine_construction():
     cfg = smoke_config("glm4-9b")
     params = T.init_params(cfg, seed=0, device="cpu")
     for kw, item in (
-        (dict(), "A6"),  # the default matmul_mode is "dequant"
         (dict(matmul_mode="w4a8"), "A12"),
         (dict(matmul_mode="w8a8", admission="optimistic"), "A9"),
         (dict(matmul_mode="w8a8", prefill_budget=64), "A9"),
@@ -152,3 +193,16 @@ def test_launch_serve_smoke_on_cpu(capsys):
     assert stats["completed"] == 3
     assert stats["decoded_tokens"] == 3 * 3  # the first token comes from prefill
     assert stats["kv_bits"] == 8.0
+
+
+@pytest.mark.parametrize("extra", [[], ["--ocs-ratio", "0"]], ids=["default", "clip-only"])
+def test_launch_serve_defaults_on_cpu(extra):
+    """With no ``--matmul-mode`` the launcher serves the engine default,
+    ``dequant`` on float32 pages; ``--ocs-ratio 0`` serves the clip-only
+    tree."""
+    from repro_torch.launch import serve
+
+    stats = serve.main(["--arch", "glm4-9b", "--smoke", "--device", "cpu",
+                        "--n-requests", "3", "--max-new", "4", "--max-len", "64", *extra])
+    assert stats["completed"] == 3 and stats["errors"] == 0
+    assert stats["matmul_mode"] == "dequant" and stats["kv_bits"] == 0.0
