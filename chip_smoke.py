@@ -20,20 +20,25 @@ Phases (any failure raises, and the script exits non-zero with no result):
    yardstick the port never calls, and its bound.
    ``fused_qmatmul`` (B1) at every glm4-9b linear shape (the layer-0 and
    ``lm_head`` weights just quantized) with M in {1, 8, 256}: bitwise.
-   ``paged_attention`` (B2) on int8 and float32 pools (8 lanes, ragged
-   positions, one all-trash lane, Q = 1): appended pools bitwise, outputs
-   within ``B2_ATOL``. ``ocs_matmul`` (B4) weight-only at every shape with
-   M in {1, 8, 256}: f32 outputs within the summation-order bound
-   (``WO_TOL_FACTOR``), bf16 outputs within one bf16 ulp; int8 mode at
-   M in {8, 256}: bitwise. ``dynamic_quant`` (B3) at K in {4096, 13696},
-   M in {1, 8, 256}: bitwise.
+   ``paged_attention`` (B2) on int8, float32 and packed int4 pools (8
+   lanes, ragged positions, one all-trash lane, a NaN-poisoned trash page,
+   Q = 1): appended pools bitwise, outputs within ``B2_ATOL``.
+   ``ocs_matmul`` (B4) weight-only at every shape with M in {1, 8, 256}:
+   f32 outputs within the summation-order bound (``WO_TOL_FACTOR``), bf16
+   outputs within one bf16 ulp; int8 mode at M in {8, 256}: bitwise.
+   ``dynamic_quant`` (B3) at K in {4096, 13696}, M in {1, 8, 256}:
+   bitwise. ``w4a8_qmatmul`` (B6) at every shape (the layer-0 and lm_head
+   leaves converted with ``to_w4a8(., 0.05)`` on the card) with M in {1, 8,
+   256}: bitwise, f32 and bf16 outputs.
 4. Serve phases: every launch count set to 0 just before each and read just
    after. ``ServingEngine`` serves 8 seeded requests (prompts of 16-256
    tokens, 32 new tokens each, greedy) with ``EngineConfig(max_batch=8,
    max_len=512, page_size=16)`` and (a) ``matmul_mode="w8a8", kv_bits=8``,
-   (b) the defaults, ``dequant`` on float32 pages. Asserts that every
-   request finishes by length, that parameters and pools lie on the card,
-   that the phase's matmul kernel (B1 for w8a8, B4 for dequant) ran 7*L+1
+   (b) the defaults, ``dequant`` on float32 pages, (c) ``matmul_mode="w4a8",
+   kv_bits=4``: the engine converts the int8 tree to W4A8 leaves on the
+   card. Asserts that every request finishes by length, that parameters
+   and pools lie on the card (pools of the phase's dtype), that the phase's
+   matmul kernel (B1 for w8a8, B4 for dequant, B6 for w4a8) ran 7*L+1
    times per decode step and per prefill call and the others not at all,
    and ``paged_attention`` L times per decode step.
 5. Clip-only tree: the OCS tree is freed, the same seeded weights are made
@@ -45,8 +50,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
 6. Reference check: a smoke-size glm4-9b run through prefill and
    teacher-forced decode on the card (kernels) and on the CPU (plain
    versions) from the same weights, in w8a8 (int8 pages), dequant (float
-   pages) and dequant on a clip-only tree; logits agree within
-   ``MODEL_RTOL`` of the largest logit.
+   pages), dequant on a clip-only tree and w4a8 (int4 pages); logits agree
+   within ``MODEL_RTOL`` of the largest logit.
 
 Output: a ``kernels`` JSON line (every kernel's launches on its path,
 error, times and bound), the ``nvidia-smi`` line, and last
@@ -220,28 +225,34 @@ def kernel_phase_b1(qparams, cfg, gen, iters):
     return rows
 
 
-def make_b2_case(gen, int8: bool, B=8, H=32, KV=2, hd=128, ps=16, max_len=512):
-    """Pools, ragged tables (lane 7 all trash), positions up to max_len-1."""
+def make_b2_case(gen, kind, B=8, H=32, KV=2, hd=128, ps=16, max_len=512):
+    """``kind`` ("int8", "float32" or "int4") pools, ragged tables (lane 7
+    all trash), positions up to max_len-1."""
     import torch
 
     T = max_len // ps
     P = B * T + 1
-    if int8:
-        pool = {
-            "k": torch.randint(-127, 128, (P, KV, ps, hd), generator=gen, device="cuda",
-                               dtype=torch.int8),
-            "v": torch.randint(-127, 128, (P, KV, ps, hd), generator=gen, device="cuda",
-                               dtype=torch.int8),
-            "k_scale": torch.rand((P, KV, ps), generator=gen, device="cuda") * 0.02 + 1e-3,
-            "v_scale": torch.rand((P, KV, ps), generator=gen, device="cuda") * 0.02 + 1e-3,
-        }
-    else:
+    if kind == "float32":
         pool = {
             "k": torch.randn((P, KV, ps, hd), generator=gen, device="cuda"),
             "v": torch.randn((P, KV, ps, hd), generator=gen, device="cuda"),
         }
+    else:
+        lo, hi, dt, row = ((-127, 128, torch.int8, hd) if kind == "int8"
+                           else (0, 256, torch.int32, hd // 2))
+        pool = {
+            "k": torch.randint(lo, hi, (P, KV, ps, row), generator=gen, device="cuda",
+                               dtype=dt),
+            "v": torch.randint(lo, hi, (P, KV, ps, row), generator=gen, device="cuda",
+                               dtype=dt),
+            "k_scale": torch.rand((P, KV, ps), generator=gen, device="cuda") * 0.02 + 1e-3,
+            "v_scale": torch.rand((P, KV, ps), generator=gen, device="cuda") * 0.02 + 1e-3,
+        }
+        if kind == "int4":  # packed nibbles
+            pool["k"] = pool["k"].to(torch.uint8)
+            pool["v"] = pool["v"].to(torch.uint8)
     # Trash page poisoned: it must never reach an output.
-    for key in ("k_scale", "v_scale") if int8 else ("k", "v"):
+    for key in ("k", "v") if kind == "float32" else ("k_scale", "v_scale"):
         pool[key][0] = float("nan")
     pos = torch.tensor([17, 511, 256, 40, 130, 300, 5, 0], dtype=torch.int32)[:B]
     table = torch.zeros((B, T), dtype=torch.int32)
@@ -259,12 +270,12 @@ def make_b2_case(gen, int8: bool, B=8, H=32, KV=2, hd=128, ps=16, max_len=512):
 def b2_bound_ms(pool, table, pos, q):
     import torch
 
-    int8 = pool["k"].dtype != torch.float32
+    scaled = pool["k"].dtype != torch.float32
     b, qn, h, hd = q.shape
-    kvh, ps = pool["k"].shape[1:3]
+    kvh, ps, hdp = pool["k"].shape[1:4]
     t = table.shape[1]
-    elt = 1 if int8 else 4
-    row = kvh * (2 * hd * elt + (8 if int8 else 0))  # k + v (+ 2 scales)
+    elt = pool["k"].element_size()  # hdp = hd / 2 bytes for int4 pools
+    row = kvh * (2 * hdp * elt + (8 if scaled else 0))  # k + v (+ 2 scales)
     pages = attended = 0
     tab = table.cpu()
     for i, p in enumerate(pos.cpu().tolist()):
@@ -284,20 +295,20 @@ def kernel_phase_b2(gen, iters):
     from repro_torch.kernels import paged_attention as pa
 
     rows = []
-    for int8 in (True, False):
-        pool, table, pos, q, kn, vn = make_b2_case(gen, int8)
+    for kind in ("int8", "float32", "int4"):
+        pool, table, pos, q, kn, vn = make_b2_case(gen, kind)
         want_out, want_pool = pa.paged_attention_plain(pool, table, pos, q, kn, vn)
         work = {k: v.clone() for k, v in pool.items()}
         got_out, got_pool = pa.paged_attention_cuda(work, table, pos, q, kn, vn)
         torch.cuda.synchronize()
         for key in want_pool:
             if not same_bits(got_pool[key], want_pool[key]):
-                raise AssertionError(f"paged_attention int8={int8}: pool {key} differs")
+                raise AssertionError(f"paged_attention {kind}: pool {key} differs")
         if not torch.isfinite(got_out).all():
             raise AssertionError("paged_attention: nonfinite output (trash page leaked)")
         err = (got_out - want_out).abs().max().item()
         if err > B2_ATOL:
-            raise AssertionError(f"paged_attention int8={int8}: max |d| {err} > {B2_ATOL}")
+            raise AssertionError(f"paged_attention {kind}: max |d| {err} > {B2_ATOL}")
         if got_out[7].abs().max().item() != 0.0:
             raise AssertionError("paged_attention: the all-trash lane is not exact zeros")
         ms = time_ms(lambda: pa.paged_attention_cuda(work, table, pos, q, kn, vn), iters)
@@ -308,9 +319,11 @@ def kernel_phase_b2(gen, iters):
         b, _, h, hd = q.shape
         kvh, ps = pool["k"].shape[1:3]
         tl = table.long()
-        kg = want_pool["k"][tl].float()
-        vg = want_pool["v"][tl].float()
-        if int8:
+        kg, vg = want_pool["k"][tl], want_pool["v"][tl]
+        if kind == "int4":
+            kg, vg = pa.unpack_int4(kg), pa.unpack_int4(vg)
+        kg, vg = kg.float(), vg.float()
+        if kind != "float32":
             kg = kg * want_pool["k_scale"][tl][..., None]
             vg = vg * want_pool["v_scale"][tl][..., None]
         L = tl.shape[1] * ps
@@ -325,11 +338,11 @@ def kernel_phase_b2(gen, iters):
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qf, kg, vg, attn_mask=mask),
                          iters)
         bound, by = b2_bound_ms(pool, table, pos, q)
-        rows.append(dict(pool="int8" if int8 else "float32", B=b, H=h, KV=kvh, hd=hd,
+        rows.append(dict(pool=kind, B=b, H=h, KV=kvh, hd=hd,
                          ps=ps, T=int(table.shape[1]), ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound, bound_by=by,
                          max_abs_err=err))
-        log(f"B2 paged_attention pool={'int8' if int8 else 'float32'} B={b} H={h}/{kvh} "
+        log(f"B2 paged_attention pool={kind} B={b} H={h}/{kvh} "
             f"hd={hd} ps={ps}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
             f"bound_ms={bound:.5f} ({by}) max_abs_err={err:.3g} pools bitwise=yes")
     return rows
@@ -556,13 +569,111 @@ def kernel_phase_b3(gen, iters):
     return rows, dq.launches
 
 
+# The W4A8 tier's outlier fraction: EngineConfig's default, the reference's.
+W4A8_RATIO = 0.05
+
+
+def w4a8_bound_ms(m, k, s, t, n):
+    """Each input read once (x bf16, the packed int4 weights, the int8
+    outlier rows, both scales, src_tail and outlier_idx), the bf16 output
+    written once, at HBM rate; or the int8 multiply-adds of both products
+    at 1,979 TOP/s: the larger."""
+    byts = m * k * 2 + (k + s) // 2 * n + t * n + 8 * n + 4 * (s + t) + m * n * 2
+    ops = 2.0 * m * (k + s + t) * n
+    t_b, t_o = byts / HBM_BPS, ops / INT8_OPS
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def kernel_phase_b6(qparams, gen, iters):
+    """w4a8_qmatmul at every glm4-9b linear shape x M in {1, 8, 256}: the
+    layer-0 and lm_head leaves converted with ``to_w4a8`` on the card;
+    bitwise against the plain version with f32 and bf16 outputs; timed with
+    bf16 outputs, as ``dense`` calls it."""
+    import torch
+    from repro_torch.core.ocs import to_w4a8
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import w4a8_qmatmul as w4k
+
+    weights = layer_weights(qparams)
+    groups = {}
+    for name, w in weights.items():
+        groups.setdefault((w.n_orig, w.weight.values.shape[1]), []).append(name)
+    rows = []
+    for (k, n), names in groups.items():
+        lin = to_w4a8(weights[names[0]], W4A8_RATIO)
+        w4, w8 = lin.w4, lin.w8
+        src = lin.spec.src[lin.n_orig:].contiguous()
+        oidx = lin.outlier_idx
+        s, t = src.shape[0], oidx.shape[0]
+
+        def kern(x, ws, out_dtype):
+            return w4k.w4a8_matmul_cuda(x, ws[0], lin.s4, ws[1], lin.s8, src, oidx,
+                                        out_dtype=out_dtype)
+
+        def plain(x, out_dtype):
+            return w4k.w4a8_matmul_plain(x, w4, lin.s4, w8, lin.s8, src, oidx,
+                                         out_dtype=out_dtype)
+
+        nbytes = w4.numel() + w8.numel()
+        n_copies = max(1, math.ceil(2 * L2_BYTES / nbytes))
+        copies = [(w4, w8)] + [(w4.clone(), w8.clone()) for _ in range(n_copies - 1)]
+        # Library yardstick: torch._int_mm on the materialized expanded
+        # activations and the int4 weights unpacked to int8 before the
+        # timing, the outlier product likewise, then the epilogue.
+        ke = k + s
+        kp, tp = ke + (-ke) % 8, t + (-t) % 8
+        wq = torch.zeros((kp, n), dtype=torch.int8, device="cuda")
+        wq[:ke] = pa.unpack_int4(w4.T).T
+        w8p = torch.zeros((tp, n), dtype=torch.int8, device="cuda")
+        w8p[:t] = w8
+        lib_copies = cycled(wq)
+        for m in (1, 8, 256):
+            x = (torch.randn((m, k), generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
+            for out_dtype in (torch.float32, torch.bfloat16):
+                got, want = kern(x, (w4, w8), out_dtype), plain(x, out_dtype)
+                torch.cuda.synchronize()
+                if not same_bits(got, want):
+                    d = (got.float() - want.float()).abs().max().item()
+                    raise AssertionError(f"w4a8_qmatmul {names} M={m} {out_dtype}: not "
+                                         f"bitwise (max |d| {d})")
+            ms = time_cycled(lambda ws: kern(x, ws, torch.bfloat16), copies, iters)
+            plain_ms = time_ms(lambda: plain(x, torch.bfloat16), max(2, iters // 5), warmup=1)
+            q, sc = pa.quant_rows(x, 127.0)
+            qe = torch.cat([q, q[:, src.long()]], 1) if s else q
+            mp = max(m, 32)
+            qp = torch.zeros((mp, kp), dtype=torch.int8, device="cuda")
+            qp[:m, :ke] = qe
+            q8 = torch.zeros((mp, tp), dtype=torch.int8, device="cuda")
+            q8[:m, :t] = qe[:, oidx.long()]
+            scp = torch.zeros((mp,), dtype=torch.float32, device="cuda")
+            scp[:m] = sc
+
+            def lib(wqc):
+                y = torch._int_mm(qp, wqc).float() * (scp[:, None] * lin.s4[None, :])
+                if t:
+                    y = y + torch._int_mm(q8, w8p).float() * (scp[:, None] * lin.s8[None, :])
+                return y.to(torch.bfloat16)
+
+            lib_ms = time_cycled(lib, lib_copies, iters)
+            del qp, q8
+            bound, by = w4a8_bound_ms(m, k, s, t, n)
+            rows.append(dict(names=names, M=m, K=k, S=s, T=t, N=n, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                             max_abs_err=0.0))
+            log(f"B6 w4a8_qmatmul {'/'.join(names)} M={m} K={k}+{s} T={t} N={n}: "
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                f"bound_ms={bound:.4f} ({by}) bitwise=yes (f32 and bf16 out)")
+        del copies, lib_copies, wq, w8p, lin
+    return rows
+
+
 def counters():
     from repro_torch.kernels import dynamic_quant, fused_qmatmul, ocs_matmul
-    from repro_torch.kernels import paged_attention, quant_matmul
+    from repro_torch.kernels import paged_attention, quant_matmul, w4a8_qmatmul
 
     return {"fused_qmatmul": fused_qmatmul, "paged_attention": paged_attention,
             "ocs_matmul": ocs_matmul, "quant_matmul": quant_matmul,
-            "dynamic_quant": dynamic_quant}
+            "dynamic_quant": dynamic_quant, "w4a8_qmatmul": w4a8_qmatmul}
 
 
 def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel):
@@ -572,10 +683,14 @@ def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel):
     import numpy as np
     import torch
     from repro_torch.core.apply import map_with_path
-    from repro_torch.core.ocs import OCSQuantLinear
+    from repro_torch.core.ocs import OCSQuantLinear, W4A8Linear
     from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving import kv_cache as kvc
 
+    t0 = time.perf_counter()
     eng = ServingEngine(cfg, qparams, ecfg, device="cuda")
+    torch.cuda.synchronize()
+    t_construct = time.perf_counter() - t0
     rng = np.random.default_rng(seed)
     reqs = [
         Request(uid=i, prompt=rng.integers(0, cfg.vocab, int(rng.integers(16, 257))).tolist(),
@@ -599,27 +714,46 @@ def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel):
     if any(len(r.output) != 32 for r in done):
         raise AssertionError(f"{label}: a request did not produce 32 tokens")
 
+    weight_bytes = {"int8": 0, "w4a8": 0}
+
     def on_card(_p, leaf):
         ts = [leaf] if isinstance(leaf, torch.Tensor) else (
             [leaf.weight.values, leaf.weight.scale, leaf.spec.src, leaf.spec.mult,
-             leaf.spec.bias] if isinstance(leaf, OCSQuantLinear) else [])
+             leaf.spec.bias] if isinstance(leaf, OCSQuantLinear) else
+            [leaf.w4, leaf.s4, leaf.w8, leaf.s8, leaf.outlier_idx, leaf.spec.src,
+             leaf.spec.mult, leaf.spec.bias] if isinstance(leaf, W4A8Linear) else [])
+        if isinstance(leaf, OCSQuantLinear):
+            weight_bytes["int8"] += leaf.weight.values.numel()
+        if isinstance(leaf, W4A8Linear):
+            weight_bytes["w4a8"] += leaf.w4.numel() + leaf.w8.numel()
+            if ecfg.matmul_mode != "w4a8":
+                raise AssertionError("a W4A8Linear leaf outside the w4a8 tier")
+        elif isinstance(leaf, OCSQuantLinear) and ecfg.matmul_mode == "w4a8":
+            raise AssertionError(f"{'/'.join(map(str, _p))} not converted to W4A8Linear")
         for t in ts:
             if not t.is_cuda:
                 raise AssertionError(f"parameter {'/'.join(map(str, _p))} not on the card")
         return leaf
 
     map_with_path(on_card, eng.params)
+    pool_kind = {None: "float32", 8: "int8", 4: "int4"}[ecfg.kv_bits]
+    want_dtype = {"float32": torch.float32, "int8": torch.int8, "int4": torch.uint8}[pool_kind]
     for layer in eng.caches["layers"]:
         for t in layer["attn"].values():
             if not t.is_cuda:
                 raise AssertionError("a pool tensor is not on the card")
+        if layer["attn"]["k"].dtype != want_dtype:
+            raise AssertionError(f"{label}: pool values are {layer['attn']['k'].dtype}")
     steps, calls = stats["decode_steps"], stats["prefill_calls"]
     want = {name: 0 for name in counts}
     want[matmul_kernel] = (7 * L + 1) * (steps + calls)
     want["paged_attention"] = L * steps
     if counts != want:
         raise AssertionError(f"{label}: launch counts {counts}, want {want}")
-    pool_kind = "int8" if ecfg.kv_bits == 8 else "float32"
+    tree = "w4a8" if ecfg.matmul_mode == "w4a8" else "int8"
+    log(f"serve {label}: engine built in {t_construct:.2f} s; quantized weight bytes "
+        f"{weight_bytes[tree] / 1e9:.3f} GB ({tree} leaves); KV bytes per token "
+        f"{kvc.kv_bytes_per_token(eng.cfg)} ({pool_kind} pages)")
     log(f"serve {label}: {len(done)} requests, {stats['prefill_tokens']} prompt tokens over "
         f"{calls} prefill calls, {steps} decode steps, {stats['decoded_tokens']} decoded "
         f"tokens, {pool_kind} pages, wall {wall:.2f} s")
@@ -629,7 +763,9 @@ def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel):
     log(f"serve {label}: {matmul_kernel} wrapper calls {counts[matmul_kernel]} = (7*{L}+1) x "
         f"({steps} decode steps + {calls} prefill calls); paged_attention "
         f"{counts['paged_attention']} = {L} x {steps}; others 0")
-    return dict(stats=stats, wall_s=wall, launches=counts, n_layers=L, pool=pool_kind)
+    return dict(stats=stats, wall_s=wall, launches=counts, n_layers=L, pool=pool_kind,
+                construct_s=t_construct, weight_bytes=weight_bytes[tree],
+                kv_bytes_per_token=kvc.kv_bytes_per_token(eng.cfg))
 
 
 def smoke_logits(qp, cfg, seed, dev, mode="w8a8"):
@@ -665,12 +801,14 @@ def smoke_logits(qp, cfg, seed, dev, mode="w8a8"):
     return torch.cat(out).float().cpu()
 
 
-def smoke_model(seed, *, kv_bits=8, ocs_ratio=0.02):
-    """The smoke glm4-9b (``kv_bits`` KV pages: 8 = int8, None = float32)
-    and its tree quantized on the CPU with the serving recipe (``ocs_ratio``
-    0 is the clip-only tree)."""
+def smoke_model(seed, *, kv_bits=8, ocs_ratio=0.02, w4a8=False):
+    """The smoke glm4-9b (``kv_bits`` KV pages: 8 = int8, 4 = int4, None =
+    float32) and its tree quantized on the CPU with the serving recipe
+    (``ocs_ratio`` 0 is the clip-only tree; ``w4a8`` converts it to the
+    W4A8 tier with ``to_w4a8(., W4A8_RATIO)``, as the engine does)."""
     from repro_torch.configs import smoke_config
-    from repro_torch.core.apply import quantize_params
+    from repro_torch.core.apply import map_with_path, quantize_params
+    from repro_torch.core.ocs import OCSQuantLinear, to_w4a8
     from repro_torch.core.recipe import QuantRecipe
     from repro_torch.models import transformer as T
 
@@ -678,7 +816,11 @@ def smoke_model(seed, *, kv_bits=8, ocs_ratio=0.02):
     params = T.init_params(cfg, seed=seed, device="cpu")
     recipe = QuantRecipe(w_bits=8, w_clip="mse", ocs_ratio=ocs_ratio, per_channel=True,
                          pad_to=1)
-    return cfg, quantize_params(params, recipe, device="cpu")
+    qp = quantize_params(params, recipe, device="cpu")
+    if w4a8:
+        qp = map_with_path(lambda _p, leaf: to_w4a8(leaf, W4A8_RATIO)
+                           if isinstance(leaf, OCSQuantLinear) else leaf, qp)
+    return cfg, qp
 
 
 # Reference-check cases: (label, matmul mode, KV bits, OCS ratio).
@@ -686,6 +828,7 @@ REFERENCE_CASES = (
     ("w8a8, int8 pages", "w8a8", 8, 0.02),
     ("dequant, float32 pages", "dequant", None, 0.02),
     ("dequant, clip-only tree", "dequant", None, 0.0),
+    ("w4a8 + int4 pages", "w4a8", 4, 0.02),
 )
 
 
@@ -697,7 +840,7 @@ def reference_check(seed):
 
     out = {}
     for label, mode, kv_bits, ratio in REFERENCE_CASES:
-        cfg, qp = smoke_model(seed, kv_bits=kv_bits, ocs_ratio=ratio)
+        cfg, qp = smoke_model(seed, kv_bits=kv_bits, ocs_ratio=ratio, w4a8=mode == "w4a8")
         cpu = smoke_logits(qp, cfg, seed, "cpu", mode)
         card = smoke_logits(tree_to(qp, torch.device("cuda")), cfg, seed, "cuda", mode)
         scale = cpu.abs().max().item()
@@ -812,13 +955,23 @@ def main(argv=None) -> int:
     b2 = kernel_phase_b2(gen_k, args.iters)
     b4 = kernel_phase_wo("B4", qparams, gen_k, args.iters)
     b3, b3_launches = kernel_phase_b3(gen_k, args.iters)
+    b6 = kernel_phase_b6(qparams, gen_k, args.iters)
     serves = {
         "w8a8": serve_phase("w8a8", cfg, qparams, args.seed, card,
                             serve_cfg.replace(matmul_mode="w8a8", kv_bits=8),
                             "fused_qmatmul"),
         "dequant": serve_phase("dequant", cfg, qparams, args.seed, card, serve_cfg,
                                "ocs_matmul"),
+        # The engine converts the int8 tree to the W4A8 tier (to_w4a8 with
+        # EngineConfig's default ratio, W4A8_RATIO) on the card.
+        "w4a8": serve_phase("w4a8", cfg, qparams, args.seed, card,
+                            serve_cfg.replace(matmul_mode="w4a8", kv_bits=4),
+                            "w4a8_qmatmul"),
     }
+    log(f"w4a8 tier: weight bytes {serves['w4a8']['weight_bytes'] / 1e9:.3f} GB vs int8 "
+        f"{serves['w8a8']['weight_bytes'] / 1e9:.3f} GB; KV bytes per token "
+        f"{serves['w4a8']['kv_bytes_per_token']} (int4) vs "
+        f"{serves['w8a8']['kv_bytes_per_token']} (int8)")
     del qparams
 
     cfg_clip = model(args.clip_layers or args.layers)
@@ -832,16 +985,19 @@ def main(argv=None) -> int:
     L = cfg.n_layers
     # Kernel line: the matmul kernels at one decode step's work (M = 8: 7
     # layer matmuls x L + lm_head; B4/B5 weight-only, as dense calls them),
-    # B2 at its decode shape on the int8 pool and B3 at M = 8, K = 4096
-    # (per call).
+    # B2 at its decode shape on the int8 and the int4 pool and B3 at M = 8,
+    # K = 4096 (per call).
     b1_step = step_sum(b1, L)
     b4_step = step_sum(b4, L, "weight-only")
     b5_step = step_sum(b5, cfg_clip.n_layers, "weight-only")
+    b6_step = step_sum(b6, L)
     b2_main = next(r for r in b2 if r["pool"] == "int8")
+    b2_int4 = next(r for r in b2 if r["pool"] == "int4")
     b3_main = next(r for r in b3 if r["M"] == 8 and r["K"] == 4096)
 
-    def entry(name, replaces, launches, err, t):
-        return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
+    def entry(name, replaces, launches, err, t, source=None):
+        source = source or f"src/repro_torch/csrc/{name}.cu"
+        return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches, "max_abs_err": err,
                 "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
@@ -858,12 +1014,19 @@ def main(argv=None) -> int:
               serves["clip-only"]["launches"]["quant_matmul"], wo_err(b5), b5_step),
         entry("dynamic_quant", "src/repro/kernels/dynamic_quant.py:37", b3_launches, 0.0,
               b3_main),
+        entry("w4a8_qmatmul", "src/repro/kernels/fused_qmatmul.py:220",
+              serves["w4a8"]["launches"]["w4a8_qmatmul"], 0.0, b6_step),
+        entry("paged_attention_int4", "src/repro/kernels/paged_attention.py:554",
+              serves["w4a8"]["launches"]["paged_attention"], b2_int4["max_abs_err"], b2_int4,
+              source="src/repro_torch/csrc/paged_attention.cu"),
     ]
     what = {"fused_qmatmul": "one decode step's calls, M=8",
             "paged_attention": "one call, int8 pool, 8 lanes",
             "ocs_matmul": "one decode step's calls, M=8, weight-only",
             "quant_matmul": "one decode step's calls, M=8, weight-only, clip-only tree",
-            "dynamic_quant": "one call, M=8, K=4096; launches from the kernel phase"}
+            "dynamic_quant": "one call, M=8, K=4096; launches from the kernel phase",
+            "w4a8_qmatmul": "one decode step's calls, M=8",
+            "paged_attention_int4": "one call, int4 pool, 8 lanes; B2's int4 branch"}
     for k in kernels:
         lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
         log(f"kernel {k['name']} ({what[k['name']]}): kernel_ms={k['ms']:.4f} plain_ms="
@@ -874,7 +1037,8 @@ def main(argv=None) -> int:
     detail = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                   n_layers=L, clip_layers=cfg_clip.n_layers, build_s=t_build,
                   quantize_s=t_quant, quantize_clip_s=t_quant_clip, total_s=total,
-                  peak_mem_gib=peak_gb, b1=b1, b2=b2, b3=b3, b4=b4, b5=b5, serve=serves,
+                  peak_mem_gib=peak_gb, b1=b1, b2=b2, b3=b3, b4=b4, b5=b5, b6=b6,
+                  serve=serves,
                   reference_check=refc, kernels=kernels)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)

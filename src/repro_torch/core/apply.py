@@ -15,7 +15,7 @@ from typing import Callable
 import torch
 
 from ..device import resolve_device
-from .ocs import OCSQuantLinear, OCSSpec, make_ocs_quant_linear
+from .ocs import OCSQuantLinear, OCSSpec, W4A8Linear, make_ocs_quant_linear
 from .quantizer import QuantParams
 from .recipe import QuantRecipe
 
@@ -44,8 +44,8 @@ def map_with_path(fn: Callable, tree, path=(), *, is_leaf=None):
 
 
 def tree_to(tree, device):
-    """Copy of a parameter tree (tensors and OCSQuantLinear leaves) on
-    ``device``; tensors already there are shared, not copied."""
+    """Copy of a parameter tree (tensors, OCSQuantLinear and W4A8Linear
+    leaves) on ``device``; tensors already there are shared, not copied."""
     dev = torch.device(device)
 
     def move(_path, leaf):
@@ -60,6 +60,14 @@ def tree_to(tree, device):
                 n_orig=leaf.n_orig,
                 a_bits=leaf.a_bits,
                 a_scale=None if leaf.a_scale is None else leaf.a_scale.to(dev),
+            )
+        if isinstance(leaf, W4A8Linear):
+            sp = leaf.spec
+            return W4A8Linear(
+                w4=leaf.w4.to(dev), s4=leaf.s4.to(dev), w8=leaf.w8.to(dev),
+                s8=leaf.s8.to(dev), outlier_idx=leaf.outlier_idx.to(dev),
+                spec=OCSSpec(sp.src.to(dev), sp.mult.to(dev), sp.bias.to(dev)),
+                n_orig=leaf.n_orig, a_bits=leaf.a_bits,
             )
         return leaf
 

@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels.paged_attention import pack_int4
 from .clipping import find_clip
 from .quantizer import QuantParams, qmax, quantize_tensor
 
@@ -40,6 +41,8 @@ __all__ = [
     "expand_activations",
     "OCSQuantLinear",
     "make_ocs_quant_linear",
+    "W4A8Linear",
+    "to_w4a8",
 ]
 
 
@@ -255,3 +258,133 @@ def make_ocs_quant_linear(
         w_exp, bits, channel_axis=1 if per_channel else None, clip=clip
     )
     return OCSQuantLinear(weight=qp, spec=spec, n_orig=int(w.shape[0]))
+
+
+# ---------------------------------------------------------------------------
+# The sub-8-bit tier: packed int4 weights + OCS-ranked int8 outlier rows
+
+
+@dataclasses.dataclass
+class W4A8Linear:
+    """Sub-8-bit serving tier: packed int4 weights + 8-bit outlier rows.
+
+    The OCS ranking criterion (§3.4, the rows holding the largest |w|)
+    picks ``T`` rows of the expanded contraction axis that stay int8 in
+    ``w8``; every other row drops to int4 in ``w4``, where the outlier rows
+    are zero, so ``y = q_a @ deq4(w4) + q_a[:, outlier_idx] @ deq8(w8)``
+    is an exact partition of the integer sum (``q_a`` the per-row int8,
+    OCS-expanded activations). ``w4`` packs two rows a byte in the
+    split-half layout: byte row ``j`` holds expanded rows ``j`` (low
+    nibble) and ``j + K_exp/2`` (high nibble). Stacked leaves carry a
+    leading ``[L]`` on every tensor and slice with :meth:`layer`.
+    """
+
+    w4: torch.Tensor  # uint8 [K_exp/2, Cout] packed nibbles, outlier rows zero
+    s4: torch.Tensor  # f32 [Cout] per-column int4 grid scale
+    w8: torch.Tensor  # int8 [T, Cout] outlier rows at 8 bits
+    s8: torch.Tensor  # f32 [Cout] per-column int8 grid scale
+    outlier_idx: torch.Tensor  # int32 [T] rows of the expanded K kept at 8 bits
+    spec: OCSSpec
+    n_orig: int = 0
+    a_bits: int = 8
+
+    def layer(self, i: int) -> "W4A8Linear":
+        """Slice one layer of a stacked leaf (views, no copy)."""
+        return W4A8Linear(
+            w4=self.w4[i], s4=self.s4[i], w8=self.w8[i], s8=self.s8[i],
+            outlier_idx=self.outlier_idx[i],
+            spec=OCSSpec(
+                src=self.spec.src[i], mult=self.spec.mult[i], bias=self.spec.bias[i]
+            ),
+            n_orig=self.n_orig,
+            a_bits=self.a_bits,
+        )
+
+
+def _w4a8_split(w: torch.Tensor, ratio: float):
+    """Separate and quantize one ``[K_exp, Cout]`` float32 matrix, on its
+    device. Returns ``(w4 uint8, s4, q8 int8, s8, outlier_idx int32)``,
+    bitwise the reference's numpy ``_w4a8_split``: a stable argsort of
+    ``-max|W[k, :]|``, the sorted top ``ceil(ratio * K_exp)`` rows, float32
+    ``amax / 7`` and ``amax / 127`` scales, ``floor(w / s + 1/2)``."""
+    k_exp, n = w.shape
+    if k_exp % 2:
+        raise ValueError(
+            f"w4a8 split-half packing needs an even contraction dim, got {k_exp}"
+        )
+    dev = w.device
+    s_out = n_splits_for_ratio(k_exp, ratio)
+    if s_out:
+        order = torch.argsort(-w.abs().amax(dim=1), stable=True)
+        outlier_idx = torch.sort(order[:s_out]).values.to(torch.int32)
+    else:
+        outlier_idx = torch.zeros((0,), dtype=torch.int32, device=dev)
+    oi = outlier_idx.long()
+
+    w_lo = w.clone()
+    w_lo[oi] = 0.0
+    s4 = torch.clamp_min(w_lo.abs().amax(dim=0), 1e-30) / 7.0
+    q4 = torch.clamp(torch.floor(w_lo / s4[None, :] + 0.5), -7, 7).to(torch.int8)
+    del w_lo
+    w4 = pack_int4(q4.T).T.contiguous()  # split-half along the contraction axis
+    del q4
+
+    w_out = w[oi]  # [T, N]
+    if s_out:
+        s8 = torch.clamp_min(w_out.abs().amax(dim=0), 1e-30) / 127.0
+    else:
+        s8 = torch.ones((n,), dtype=torch.float32, device=dev)
+    q8 = torch.clamp(torch.floor(w_out / s8[None, :] + 0.5), -127, 127).to(torch.int8)
+    return w4, s4, q8, s8, outlier_idx
+
+
+def to_w4a8(lin: OCSQuantLinear, ratio: float) -> W4A8Linear:
+    """Convert an int8-tier :class:`OCSQuantLinear` to the W4A8 tier, on the
+    leaf's device (the port of ``repro.core.ocs.to_w4a8``).
+
+    ``ratio`` is the outlier fraction: ``ceil(ratio * K_exp)`` expanded
+    input channels, ranked by ``max|W[k, :]|``, keep int8 rows; the rest
+    drop to packed int4. ``ratio == 0`` keeps no outlier rows. An odd
+    ``K_exp`` gets one zero weight row and a dead spec entry (src 0, mult
+    0, bias 0). Stacked leaves keep their leading layer dims (one layer is
+    dequantized at a time, which bounds the float32 copy).
+    """
+    if not 0.0 <= ratio <= 1.0:
+        raise ValueError(f"outlier ratio must be in [0, 1], got {ratio}")
+    qp, spec = lin.weight, lin.spec
+    values = qp.values
+    odd = values.shape[-2] % 2
+    if odd:
+        def pad1(a, v):
+            return torch.cat([a, torch.full(a.shape[:-1] + (1,), v, dtype=a.dtype,
+                                            device=a.device)], dim=-1)
+
+        spec = OCSSpec(src=pad1(spec.src, 0), mult=pad1(spec.mult, 0.0),
+                       bias=pad1(spec.bias, 0.0))
+    lead = tuple(values.shape[:-2])
+    flat_v = values.reshape((-1,) + tuple(values.shape[-2:]))
+    if lead:
+        if qp.channel_axis is not None:
+            raise ValueError("stacked leaves carry broadcast-ready scales (channel_axis None)")
+        flat_s = qp.scale.reshape((flat_v.shape[0],) + tuple(qp.scale.shape[len(lead):]))
+    parts = []
+    for i in range(flat_v.shape[0]):
+        if lead:
+            w = QuantParams(flat_v[i], flat_s[i], qp.bits).dequant(torch.float32)
+        else:
+            w = qp.dequant(torch.float32)
+        if odd:
+            w = torch.cat([w, torch.zeros((1, w.shape[1]), dtype=w.dtype, device=w.device)])
+        parts.append(_w4a8_split(w, ratio))
+        del w
+    if lead:
+        w4, s4, q8, s8, oidx = (
+            torch.stack([p[j] for p in parts]).reshape(lead + tuple(parts[0][j].shape))
+            for j in range(5)
+        )
+    else:
+        w4, s4, q8, s8, oidx = parts[0]
+    return W4A8Linear(
+        w4=w4, s4=s4, w8=q8, s8=s8, outlier_idx=oidx, spec=spec, n_orig=lin.n_orig,
+        a_bits=lin.a_bits if lin.a_bits is not None else 8,
+    )

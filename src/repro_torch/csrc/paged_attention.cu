@@ -2,16 +2,17 @@
 // Hopper (sm_90a).
 //
 // Replaces repro/kernels/paged_attention.py::_paged_attn_kernel (the Pallas
-// TPU kernel behind paged_attention_kernel / paged_attention) for float32
-// and int8 pools: each program (lane b, KV head g) writes the lane's new
-// K/V rows into table[b, lin // ps], slot lin % ps (lin clamped to
-// [0, T*ps-1]; int8 rows quantized with quant_rows' reciprocal form at
-// qmax 127, one f32 scale per row), then runs online-softmax attention for
-// its Q*rep query rows over the first min(T, (pos+Q-1)//ps + 1) pages of
-// its block-table row.
+// TPU kernel behind paged_attention_kernel / paged_attention) for float32,
+// int8 and packed int4 pools: each program (lane b, KV head g) writes the
+// lane's new K/V rows into table[b, lin // ps], slot lin % ps (lin clamped
+// to [0, T*ps-1]; int8 rows quantized with quant_rows' reciprocal form at
+// qmax 127, int4 rows at qmax 7 and packed split-half, two channels a
+// byte, one f32 scale per row), then runs online-softmax attention for its
+// Q*rep query rows over the first min(T, (pos+Q-1)//ps + 1) pages of its
+// block-table row.
 //
 // What bounds it on this card: the bytes of the pages the lanes attend
-// (KV rows at int8 or f32, plus scales); the flops are few.
+// (KV rows at int4, int8 or f32, plus scales); the flops are few.
 //
 // Design. One block per (b, g), 256 threads, all tiles in shared memory:
 // the pre-scaled query rows [QR, hd], one dequantized K page [ps, hd+1]
@@ -22,7 +23,12 @@
 // between lanes, so no other block writes what this block reads). Trash
 // page 0 is never read: its tile is select-zeroed, so a poisoned (NaN)
 // trash page cannot reach an output, and a fully masked row (an inactive
-// lane whose table is all trash) comes out as exact zeros. The pool is
+// lane whose table is all trash) comes out as exact zeros (int4 pools
+// also zero a row whose running max never left NEG_INF, as the
+// reference's _int4_finish does). int4 page bytes are unpacked in
+// registers: byte d of a row holds channel d in its low nibble and
+// channel d + hd/2 in its high nibble, sign-extended by int32 arithmetic
+// shifts, then times the row's scale. The pool is
 // updated in place. With 16 blocks for 8 lanes x 2 KV heads the card is
 // mostly idle at decode batch 8: splitting the page walk over more blocks
 // is later work.
@@ -57,22 +63,48 @@ __device__ float block_max(float v, float* red) {
   return m;
 }
 
-// Write one token's row (hd values of head g) into the pool slot.
-template <bool INT8>
+// Pool kinds (the wrapper's _KIND_CODE).
+constexpr int kFloat = 0;
+constexpr int kInt8 = 1;
+constexpr int kInt4 = 2;
+
+__device__ __forceinline__ int quant_rcp(float x, float rcp, float qmax) {
+  float q = floorf(__fadd_rn(__fmul_rn(x, rcp), 0.5f));
+  q = fminf(fmaxf(q, -qmax), qmax);
+  return static_cast<int>(q);
+}
+
+// Nibble `hi` of a packed int4 byte, sign-extended.
+__device__ __forceinline__ float nibble_f32(uint8_t byte, bool hi) {
+  const uint32_t v = byte;
+  return static_cast<float>(static_cast<int>(v << (hi ? 24 : 28)) >> 28);
+}
+
+// Write one token's row (hd values of head g) into the pool slot
+// (row_off counts the pool's elements: bytes for int8 and int4 pools).
+template <int KIND>
 __device__ void append_row(const __nv_bfloat16* __restrict__ src, void* pool, float* pool_scale,
                            size_t row_off, size_t scale_off, int hd, float qmax,
                            float inv_qmax, float* red) {
-  if (INT8) {
+  if (KIND != kFloat) {
+    // The whole row's abs-max first: every value uses the row's one scale.
     float amax = 0.f;
     for (int d = threadIdx.x; d < hd; d += kThreads) amax = fmaxf(amax, fabsf(load_in(src, d)));
     amax = block_max(amax, red);
     const float sc = __fmul_rn(fmaxf(amax, 1e-30f), inv_qmax);
     const float rcp = __fdiv_rn(1.0f, sc);
-    int8_t* dst = static_cast<int8_t*>(pool) + row_off;
-    for (int d = threadIdx.x; d < hd; d += kThreads) {
-      float q = floorf(__fadd_rn(__fmul_rn(load_in(src, d), rcp), 0.5f));
-      q = fminf(fmaxf(q, -qmax), qmax);
-      dst[d] = static_cast<int8_t>(static_cast<int>(q));
+    if (KIND == kInt8) {
+      int8_t* dst = static_cast<int8_t*>(pool) + row_off;
+      for (int d = threadIdx.x; d < hd; d += kThreads)
+        dst[d] = static_cast<int8_t>(quant_rcp(load_in(src, d), rcp, qmax));
+    } else {
+      const int half = hd / 2;
+      uint8_t* dst = static_cast<uint8_t*>(pool) + row_off;
+      for (int d = threadIdx.x; d < half; d += kThreads) {
+        const int lo = quant_rcp(load_in(src, d), rcp, qmax);
+        const int hi = quant_rcp(load_in(src, d + half), rcp, qmax);
+        dst[d] = static_cast<uint8_t>((lo & 0xF) | ((hi & 0xF) << 4));
+      }
     }
     if (threadIdx.x == 0) pool_scale[scale_off] = sc;
   } else {
@@ -81,13 +113,13 @@ __device__ void append_row(const __nv_bfloat16* __restrict__ src, void* pool, fl
   }
 }
 
-template <bool INT8>
+template <int KIND>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const __nv_bfloat16* __restrict__ q,      // [B, Q, H, hd]
     const __nv_bfloat16* __restrict__ k_new,  // [B, Q, KV, hd]
     const __nv_bfloat16* __restrict__ v_new,
-    void* k_pool, void* v_pool,    // [P, KV, ps, hd] f32 or int8
-    float* k_scale, float* v_scale,  // [P, KV, ps] (int8 pools)
+    void* k_pool, void* v_pool,    // [P, KV, ps, hd] f32 or int8; [P, KV, ps, hd/2] int4
+    float* k_scale, float* v_scale,  // [P, KV, ps] (int8 and int4 pools)
     const int* __restrict__ table,   // [B, T]
     const int* __restrict__ pos,     // [B]
     float* __restrict__ out,         // [B, Q, H, hd]
@@ -100,6 +132,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   const int rep = H / KV;
   const int QR = Q * rep;
   const int kstride = hd + 1;
+  const int hdp = KIND == kInt4 ? hd / 2 : hd;  // pool elements per row
   float* q_s = smem;                    // [QR, hd]
   float* k_s = q_s + QR * hd;           // [ps, hd+1]
   float* v_s = k_s + ps * kstride;      // [ps, hd]
@@ -118,11 +151,11 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const int slot = lin % ps;
     const size_t src_off = (((size_t)b * Q + j) * KV + g) * hd;
     const size_t scale_off = ((size_t)pid * KV + g) * ps + slot;
-    const size_t row_off = scale_off * hd;
-    append_row<INT8>(k_new + src_off, k_pool, k_scale, row_off, scale_off, hd,
-                         qmax, inv_qmax, red);
-    append_row<INT8>(v_new + src_off, v_pool, v_scale, row_off, scale_off, hd,
-                         qmax, inv_qmax, red);
+    const size_t row_off = scale_off * hdp;
+    append_row<KIND>(k_new + src_off, k_pool, k_scale, row_off, scale_off, hd,
+                     qmax, inv_qmax, red);
+    append_row<KIND>(v_new + src_off, v_pool, v_scale, row_off, scale_off, hd,
+                     qmax, inv_qmax, red);
   }
 
   // ---- query rows (row r = query r / rep, head g*rep + r % rep), scaled.
@@ -148,11 +181,18 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       const int s = i / hd, d = i % hd;
       float kf = 0.f, vf = 0.f;
       if (readable) {
-        if (INT8) {
+        if (KIND == kInt8) {
           const int8_t* kp = static_cast<const int8_t*>(k_pool);
           const int8_t* vp = static_cast<const int8_t*>(v_pool);
           kf = __fmul_rn(static_cast<float>(kp[page * hd + i]), k_scale[page + s]);
           vf = __fmul_rn(static_cast<float>(vp[page * hd + i]), v_scale[page + s]);
+        } else if (KIND == kInt4) {
+          const uint8_t* kp = static_cast<const uint8_t*>(k_pool);
+          const uint8_t* vp = static_cast<const uint8_t*>(v_pool);
+          const bool hi = d >= hdp;
+          const size_t byte = (page + s) * hdp + (hi ? d - hdp : d);
+          kf = __fmul_rn(nibble_f32(kp[byte], hi), k_scale[page + s]);
+          vf = __fmul_rn(nibble_f32(vp[byte], hi), v_scale[page + s]);
         } else {
           kf = static_cast<const float*>(k_pool)[page * hd + i];
           vf = static_cast<const float*>(v_pool)[page * hd + i];
@@ -200,11 +240,13 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   for (int i = threadIdx.x; i < QR * hd; i += kThreads) {
     const int r = i / hd, d = i % hd;
     const int j = r / rep, h = g * rep + r % rep;
-    out[(((size_t)b * Q + j) * H + h) * hd + d] = acc[i] / fmaxf(l_s[r], 1e-30f);
+    float o = acc[i] / fmaxf(l_s[r], 1e-30f);
+    if (KIND == kInt4 && !(m_s[r] > 0.5f * kNegInf)) o = 0.f;
+    out[(((size_t)b * Q + j) * H + h) * hd + d] = o;
   }
 }
 
-template <bool INT8>
+template <int KIND>
 int launch(const void* q, const void* k_new, const void* v_new, void* k_pool,
            void* v_pool, float* k_scale, float* v_scale, const int* table,
            const int* pos, float* out, int B, int Q, int H, int KV, int hd, int ps,
@@ -213,7 +255,7 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_pool,
   const size_t smem =
       sizeof(float) * ((size_t)QR * hd + (size_t)ps * (hd + 1) + (size_t)ps * hd +
                        (size_t)QR * ps + (size_t)QR * hd + 3 * (size_t)QR);
-  auto kern = paged_attention_kernel<INT8>;
+  auto kern = paged_attention_kernel<KIND>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -227,17 +269,27 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_pool,
 
 }  // namespace
 
-// q/k_new/v_new are bfloat16 (the model's activations); pool_int8: int8
-// pool with f32 row scales (1) or float32 pool (0, scales unused).
+// q/k_new/v_new are bfloat16 (the model's activations); kind: 0 = float32
+// pool (scales unused), 1 = int8 pool, 2 = packed int4 pool (uint8, hd/2
+// bytes a row), both with f32 row scales. Returns cudaGetLastError() (0 = ok;
+// cudaErrorInvalidValue for an unknown kind).
 extern "C" int paged_attention_launch(
     const void* q, const void* k_new, const void* v_new, void* k_pool, void* v_pool,
-    float* k_scale, float* v_scale, int pool_int8, const int* table, const int* pos,
+    float* k_scale, float* v_scale, int kind, const int* table, const int* pos,
     float* out, int B, int Q, int H, int KV, int hd, int ps, int T, float q_scale,
     float qmax, float inv_qmax, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (pool_int8)
-    return launch<true>(q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, table, pos,
-                        out, B, Q, H, KV, hd, ps, T, q_scale, qmax, inv_qmax, st);
-  return launch<false>(q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, table, pos,
-                       out, B, Q, H, KV, hd, ps, T, q_scale, qmax, inv_qmax, st);
+  switch (kind) {
+    case kFloat:
+      return launch<kFloat>(q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, table, pos,
+                            out, B, Q, H, KV, hd, ps, T, q_scale, qmax, inv_qmax, st);
+    case kInt8:
+      return launch<kInt8>(q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, table, pos,
+                           out, B, Q, H, KV, hd, ps, T, q_scale, qmax, inv_qmax, st);
+    case kInt4:
+      return launch<kInt4>(q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, table, pos,
+                           out, B, Q, H, KV, hd, ps, T, q_scale, qmax, inv_qmax, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

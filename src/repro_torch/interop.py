@@ -5,7 +5,9 @@ reference package's parameters, flattened to numpy by the caller — into the
 port's tree on ``device``, so both packages can compute on identical
 weights. Float leaves become float tensors; a quantized leaf is a dict
 ``{values, scale, src, mult, bias, n_orig, a_bits}`` (optionally ``bits``)
-and becomes an :class:`~repro_torch.core.ocs.OCSQuantLinear`. It takes
+and becomes an :class:`~repro_torch.core.ocs.OCSQuantLinear`; a W4A8 leaf
+is a dict ``{w4, s4, w8, s8, outlier_idx, src, mult, bias, n_orig,
+a_bits}`` and becomes a :class:`~repro_torch.core.ocs.W4A8Linear`. It takes
 numpy, not JAX, so it lives in the package; the JAX -> numpy flattening
 lives with the tests.
 """
@@ -14,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.ocs import OCSQuantLinear, OCSSpec
+from .core.ocs import OCSQuantLinear, OCSSpec, W4A8Linear
 from .core.quantizer import QuantParams
 from .device import resolve_device
 
@@ -23,6 +25,27 @@ __all__ = ["params_from_numpy"]
 
 def _tensor(a, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True, order="C")).to(dev)
+
+
+def _spec(d, dev) -> OCSSpec:
+    return OCSSpec(
+        src=_tensor(np.asarray(d["src"], np.int32), dev),
+        mult=_tensor(np.asarray(d["mult"], np.float32), dev),
+        bias=_tensor(np.asarray(d["bias"], np.float32), dev),
+    )
+
+
+def _w4a8_leaf(d, dev) -> W4A8Linear:
+    return W4A8Linear(
+        w4=_tensor(np.asarray(d["w4"], np.uint8), dev),
+        s4=_tensor(np.asarray(d["s4"], np.float32), dev),
+        w8=_tensor(np.asarray(d["w8"], np.int8), dev),
+        s8=_tensor(np.asarray(d["s8"], np.float32), dev),
+        outlier_idx=_tensor(np.asarray(d["outlier_idx"], np.int32), dev),
+        spec=_spec(d, dev),
+        n_orig=int(d["n_orig"]),
+        a_bits=int(d["a_bits"]),
+    )
 
 
 def _quant_leaf(d, dev) -> OCSQuantLinear:
@@ -36,11 +59,7 @@ def _quant_leaf(d, dev) -> OCSQuantLinear:
             values=values, scale=scale, bits=int(d.get("bits", 8)),
             channel_axis=channel_axis,
         ),
-        spec=OCSSpec(
-            src=_tensor(np.asarray(d["src"], np.int32), dev),
-            mult=_tensor(np.asarray(d["mult"], np.float32), dev),
-            bias=_tensor(np.asarray(d["bias"], np.float32), dev),
-        ),
+        spec=_spec(d, dev),
         n_orig=int(d["n_orig"]),
         a_bits=None if d.get("a_bits") is None else int(d["a_bits"]),
     )
@@ -55,6 +74,8 @@ def params_from_numpy(tree, device=None):
         if isinstance(node, dict):
             if "values" in node and "src" in node:
                 return _quant_leaf(node, dev)
+            if "w4" in node and "src" in node:
+                return _w4a8_leaf(node, dev)
             return {k: visit(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(visit(v) for v in node)

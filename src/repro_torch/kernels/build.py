@@ -30,6 +30,7 @@ SOURCES = {
     "dynamic_quant": "dynamic_quant.cu",
     "quant_matmul": "quant_matmul.cu",
     "ocs_matmul": "ocs_matmul.cu",
+    "w4a8_qmatmul": "w4a8_qmatmul.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

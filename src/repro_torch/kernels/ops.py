@@ -16,12 +16,14 @@ from . import fused_qmatmul as _fq
 from . import ocs_matmul as _om
 from . import paged_attention as _pa
 from . import quant_matmul as _qm
+from . import w4a8_qmatmul as _w4
 
 __all__ = [
     "quant_matmul",
     "dynamic_quant",
     "ocs_quant_matmul",
     "fused_quant_matmul",
+    "w4a8_matmul",
     "paged_attention",
 ]
 
@@ -91,10 +93,30 @@ def fused_quant_matmul(
     raise ValueError(f"fused_quant_matmul: no kernel for device {x.device}")
 
 
+def w4a8_matmul(
+    x, w4, s4, w8, s8, src_tail, outlier_idx, *, bits: int = 8,
+    out_dtype: Optional[torch.dtype] = None,
+):
+    """W4A8 matmul with OCS-separated int8 outlier rows (``[M, K]`` against
+    split-half packed int4 ``[(K+S)/2, N]`` plus ``[T, N]`` int8 rows); see
+    :mod:`repro_torch.kernels.w4a8_qmatmul`."""
+    kind = _device_kind(x)
+    if kind == "cpu":
+        return _w4.w4a8_matmul_plain(
+            x, w4, s4, w8, s8, src_tail, outlier_idx, bits=bits, out_dtype=out_dtype
+        )
+    if kind == "cuda":
+        return _w4.w4a8_matmul_cuda(
+            x, w4, s4, w8, s8, src_tail, outlier_idx, bits=bits, out_dtype=out_dtype
+        )
+    raise ValueError(f"w4a8_matmul: no kernel for device {x.device}")
+
+
 def paged_attention(pool, table, pos, q, k_new, v_new):
-    """Fused append + paged flash-decode attention over the page pool.
-    Returns ``(out [B, Q, H, hd] f32, pool)``: on the card the pool is
-    updated in place; on the CPU a new appended pool is returned."""
+    """Fused append + paged flash-decode attention over the page pool
+    (float32, int8 or packed int4 pages). Returns ``(out [B, Q, H, hd]
+    f32, pool)``: on the card the pool is updated in place; on the CPU a
+    new appended pool is returned."""
     kind = _device_kind(q)
     if kind == "cpu":
         return _pa.paged_attention_plain(pool, table, pos, q, k_new, v_new)

@@ -3,21 +3,28 @@ plain PyTorch version, and the pool helpers every pool writer shares.
 
 Replaces ``repro/kernels/paged_attention.py::_paged_attn_kernel``
 (``paged_attention_kernel`` / ``paged_attention``), the Pallas TPU kernel
-that every decode-attention layer of the paged engine runs, for float32
-and int8 pools with one query row per lane (Q = 1 per step; the kernel
-also takes Q > 1). The CUDA source is ``csrc/paged_attention.cu``: one
-block per (lane, KV head) appends the lane's new K/V rows into its pages
-and runs online-softmax attention over the pages its position reaches. What
-bounds it on the card: the bytes of the attended pages. Unlike the JAX
+that every decode-attention layer of the paged engine runs, for float32,
+int8 and packed int4 pools with one query row per lane (Q = 1 per step;
+the kernel also takes Q > 1). The CUDA source is
+``csrc/paged_attention.cu``: one block per (lane, KV head) appends the
+lane's new K/V rows into its pages and runs online-softmax attention over
+the pages its position reaches. What bounds it on the card: the bytes of
+the attended pages. Unlike the JAX
 kernel, which returned a new pool through input/output aliasing, the CUDA
 kernel **updates the pool in place** and returns the same dict.
 
 The plain version has the kernel's numerics — f32 after dequantization,
 trash pages select-zeroed — computed as the reference's
-``paged_attention_gather_ref`` does (gather, one-shot softmax); it is not
-the reference's ``paged_attention_xla`` int8 branch, which requantizes q
-and the softmax weights. The int4 pages and the packed-nibble helpers
-arrive with the precision tiers (ROADMAP A12).
+``paged_attention_gather_ref`` does: for float32 and int8 pools a gather
+and a one-shot softmax (not the reference's ``paged_attention_xla`` int8
+branch, which requantizes q and the softmax weights); for int4 pools the
+gather and the reference's page-blocked online-softmax recurrence
+(``_int4_flash_step`` / ``_int4_finish``), whose fully masked rows come out
+as exact zeros.
+
+int4 pools (the precision tier, ``kv_bits=4``) hold uint8 ``[P, KV, ps,
+hd/2]`` values in the split-half layout of :func:`pack_int4` and one f32
+scale per row, quantized by :func:`quant_rows` at ``KV4_QMAX``.
 """
 from __future__ import annotations
 
@@ -32,7 +39,10 @@ from .ref import inv_qmax
 __all__ = [
     "NEG_INF",
     "TRASH_PAGE",
+    "KV4_QMAX",
     "quant_rows",
+    "pack_int4",
+    "unpack_int4",
     "pool_kind",
     "append_rows",
     "paged_attention_plain",
@@ -43,6 +53,7 @@ __all__ = [
 
 NEG_INF = -1e30  # finite: exp(NEG_INF - NEG_INF) == 1, never NaN
 TRASH_PAGE = 0  # reserved pool page (serving.kv_cache.TRASH_PAGE): never read
+KV4_QMAX = 7.0  # symmetric int4 grid: quantized values live in [-7, 7]
 
 # The card's per-block shared memory, for the kernel's tiles.
 _MAX_SMEM = 232448
@@ -73,14 +84,36 @@ def quant_rows(x: torch.Tensor, qmax: float = 127.0):
     return q.to(torch.int8), scale[..., 0]
 
 
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """Pack int8 nibble values (in [-8, 7]) two per byte along the last
+    axis: byte ``j`` of a C-channel row holds channel ``j`` in its low
+    nibble and channel ``j + C/2`` in its high nibble (the reference's
+    split-half layout). The bit operations run in int32, so no negative
+    value is ever cast to uint8."""
+    c = q.shape[-1]
+    lo = q[..., : c // 2].to(torch.int32) & 0xF
+    hi = q[..., c // 2 :].to(torch.int32) & 0xF
+    return (lo | (hi << 4)).to(torch.uint8)
+
+
+def unpack_int4(b: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: uint8 ``[..., C/2]`` -> int8 ``[...,
+    C]``, each nibble sign-extended (``(v ^ 8) - 8`` in int32: the value the
+    reference's arithmetic shifts give)."""
+    bi = b.to(torch.int32)
+    lo = ((bi & 0xF) ^ 8) - 8
+    hi = ((bi >> 4) ^ 8) - 8
+    return torch.cat([lo, hi], dim=-1).to(torch.int8)
+
+
 def pool_kind(pool) -> str:
-    """Precision tier of a page pool by value dtype: int8 -> "int8",
-    anything else -> "float" (packed int4 pools arrive later)."""
+    """Precision tier of a page pool by value dtype: int8 -> "int8", packed
+    uint8 nibbles -> "int4", anything else -> "float"."""
     dt = pool["k"].dtype
     if dt == torch.int8:
         return "int8"
     if dt == torch.uint8:
-        raise NotImplementedError("int4 page pools: ROADMAP A12")
+        return "int4"
     return "float"
 
 
@@ -101,9 +134,13 @@ def append_rows(pool: Dict, k_new, v_new, table, pos) -> Dict:
     pidx = torch.gather(table.long(), 1, lin // ps)  # [B, Q]
     slot = lin % ps
     out = {key: val.clone() for key, val in pool.items()}
-    if pool_kind(pool) == "int8":
-        k_q, k_s = quant_rows(k_new)
-        v_q, v_s = quant_rows(v_new)
+    kind = pool_kind(pool)
+    if kind in ("int8", "int4"):
+        qm = 127.0 if kind == "int8" else KV4_QMAX
+        k_q, k_s = quant_rows(k_new, qm)
+        v_q, v_s = quant_rows(v_new, qm)
+        if kind == "int4":
+            k_q, v_q = pack_int4(k_q), pack_int4(v_q)
         out["k"][pidx, :, slot, :] = k_q
         out["v"][pidx, :, slot, :] = v_q
         out["k_scale"][pidx, :, slot] = k_s
@@ -130,9 +167,33 @@ def _rows_out(out: torch.Tensor, qn: int) -> torch.Tensor:
     return out.movedim(2, 1).reshape(b, qn, kvh * (qr // qn), hd)
 
 
+def _int4_flash_step(qv, kf, vf, vis, carry):
+    """One page's online-softmax update (the reference's
+    ``_int4_flash_step``). qv ``[..., QR, hd]`` pre-scaled; kf/vf ``[...,
+    ps, hd]`` dequantized; vis broadcastable to the ``[..., QR, ps]``
+    scores; carry ``(m, l, acc)``."""
+    m, l, acc = carry
+    s = torch.einsum("...rd,...sd->...rs", qv, kf)
+    s = s + torch.where(vis, 0.0, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l_new = l * alpha + p.sum(dim=-1)
+    acc_new = acc * alpha[..., None] + torch.einsum("...rs,...sd->...rd", p, vf)
+    return m_new, l_new, acc_new
+
+
+def _int4_finish(m, l, acc):
+    """Normalize the carry; fully masked rows (retired lanes' all-trash
+    tables) come out as exact zeros."""
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return torch.where(m[..., None] > 0.5 * NEG_INF, out, torch.zeros((), device=out.device))
+
+
 def paged_attention_plain(pool, table, pos, q, k_new, v_new) -> Tuple:
     """Plain version: append, gather ``pool[table]``, dequantize, zero the
-    trash pages (a select: NaN poison dies), one-shot f32 softmax.
+    trash pages (a select: NaN poison dies), then a one-shot f32 softmax
+    (float32 and int8 pools) or the page-blocked online softmax (int4).
 
     q: ``[B, Q, H, hd]`` post-RoPE (unscaled); k_new/v_new ``[B, Q, KV,
     hd]``. Returns ``(out [B, Q, H, hd] f32, appended pool copy)``.
@@ -142,7 +203,7 @@ def paged_attention_plain(pool, table, pos, q, k_new, v_new) -> Tuple:
     t = table.shape[1]
     dev = q.device
     new_pool = append_rows(pool, k_new, v_new, table, pos)
-    int8 = pool_kind(pool) == "int8"
+    kind = pool_kind(pool)
     tl = table.long()
 
     def flat(x):  # [B, T, KV, ps, ...] -> [B, KV, T*ps, ...]
@@ -150,15 +211,32 @@ def paged_attention_plain(pool, table, pos, q, k_new, v_new) -> Tuple:
 
     readable = torch.repeat_interleave(table != TRASH_PAGE, ps, dim=1)  # [B, T*ps]
 
-    def dequant(vals, scale):
+    def dequant(key):
+        vals = new_pool[key][tl]
+        if kind == "int4":
+            vals = unpack_int4(vals)
         x = flat(vals).to(torch.float32)
-        if scale is not None:
-            x = x * flat(scale)[..., None]
+        if kind != "float":
+            x = x * flat(new_pool[key + "_scale"][tl])[..., None]
         return torch.where(readable[:, None, :, None], x, torch.zeros((), device=dev))
 
-    kf = dequant(new_pool["k"][tl], new_pool["k_scale"][tl] if int8 else None)
-    vf = dequant(new_pool["v"][tl], new_pool["v_scale"][tl] if int8 else None)
+    kf, vf = dequant("k"), dequant("v")
     q2 = _q_rows(q, kvh)  # [B, KV, QR, hd]
+    if kind == "int4":
+        rep = h // kvh
+        qr = qn * rep
+        bound = pos.long()[:, None] + (torch.arange(qr, device=dev) // rep)[None, :]
+        k5 = kf.reshape(b, kvh, t, ps, hd)
+        v5 = vf.reshape(b, kvh, t, ps, hd)
+        page_ok = table != TRASH_PAGE  # [B, T]
+        carry = (torch.full((b, kvh, qr), NEG_INF, device=dev),
+                 torch.zeros((b, kvh, qr), device=dev),
+                 torch.zeros((b, kvh, qr, hd), device=dev))
+        for i in range(t):
+            gpos = i * ps + torch.arange(ps, device=dev)
+            vis = (gpos[None, None, :] <= bound[:, :, None]) & page_ok[:, i, None, None]
+            carry = _int4_flash_step(q2, k5[:, :, i], v5[:, :, i], vis[:, None], carry)
+        return _rows_out(_int4_finish(*carry), qn), new_pool
     jrow = torch.arange(q2.shape[2], device=dev) // (h // kvh)
     bound = pos.long()[:, None] + jrow[None, :]  # [B, QR]
     vis = torch.arange(t * ps, device=dev)[None, None, :] <= bound[:, :, None]
@@ -177,7 +255,7 @@ def _bind():
         c_int, c_float, c_void_p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
         fn.argtypes = [
             c_void_p, c_void_p, c_void_p,  # q, k_new, v_new (bf16)
-            c_void_p, c_void_p, c_void_p, c_void_p, c_int,  # pools, scales, int8
+            c_void_p, c_void_p, c_void_p, c_void_p, c_int,  # pools, scales, kind
             c_void_p, c_void_p, c_void_p,  # table, pos, out
             c_int, c_int, c_int, c_int, c_int, c_int, c_int,  # B Q H KV hd ps T
             c_float, c_float, c_float, c_void_p,  # q_scale, qmax, inv_qmax, stream
@@ -187,6 +265,10 @@ def _bind():
     return _lib
 
 
+# The pool kinds as the CUDA source numbers them (``kind`` argument).
+_KIND_CODE = {"float": 0, "int8": 1, "int4": 2}
+
+
 def _smem_bytes(qr: int, hd: int, ps: int) -> int:
     return 4 * (qr * hd + ps * (hd + 1) + ps * hd + qr * ps + qr * hd + 3 * qr)
 
@@ -194,16 +276,18 @@ def _smem_bytes(qr: int, hd: int, ps: int) -> int:
 def paged_attention_cuda(pool, table, pos, q, k_new, v_new) -> Tuple:
     """Launch the CUDA kernel: fused append (in place) + paged flash decode.
 
-    Takes float32 or int8 pools and bfloat16 q/k_new/v_new (the model's
-    activations); raises on anything else. Returns ``(out [B, Q, H, hd] f32, pool)`` with
-    ``pool`` the same dict, its tensors updated in place.
+    Takes float32, int8 or packed int4 (uint8, ``hd/2`` bytes a row) pools
+    and bfloat16 q/k_new/v_new (the model's activations); raises on
+    anything else. Returns ``(out [B, Q, H, hd] f32, pool)`` with ``pool``
+    the same dict, its tensors updated in place.
     """
     global launches
     b, qn, h, hd = q.shape
     kind = pool_kind(pool)
+    scaled = kind != "float"
     tensors = [("q", q), ("k_new", k_new), ("v_new", v_new), ("table", table),
                ("pos", pos), ("pool k", pool["k"]), ("pool v", pool["v"])]
-    if kind == "int8":
+    if scaled:
         tensors += [("k_scale", pool["k_scale"]), ("v_scale", pool["v_scale"])]
     for name, t in tensors:
         if not t.is_cuda or t.device != q.device:
@@ -216,12 +300,18 @@ def paged_attention_cuda(pool, table, pos, q, k_new, v_new) -> Tuple:
     p_pages, kvh, ps, hdp = pool["k"].shape
     if kind == "float" and pool["k"].dtype != torch.float32:
         raise ValueError(f"float pools must be float32, got {pool['k'].dtype}")
-    if kind == "int8" and pool["k_scale"].dtype != torch.float32:
-        raise ValueError("int8 pool scales must be float32")
-    if hdp != hd or k_new.shape != (b, qn, kvh, hd) or v_new.shape != k_new.shape:
+    if pool["v"].dtype != pool["k"].dtype or pool["v"].shape != pool["k"].shape:
+        raise ValueError("pool k and v must have one dtype and shape")
+    if scaled:
+        for key in ("k_scale", "v_scale"):
+            if pool[key].dtype != torch.float32 or pool[key].shape != (p_pages, kvh, ps):
+                raise ValueError(f"{key} must be float32 [P, KV, ps]")
+    want_hdp = hd // 2 if kind == "int4" else hd
+    if (kind == "int4" and hd % 2) or hdp != want_hdp or k_new.shape != (b, qn, kvh, hd) \
+            or v_new.shape != k_new.shape:
         raise ValueError(
             f"shape mismatch: q {tuple(q.shape)}, k_new {tuple(k_new.shape)}, "
-            f"pool {tuple(pool['k'].shape)}"
+            f"{kind} pool {tuple(pool['k'].shape)}"
         )
     if h % kvh:
         raise ValueError(f"heads {h} not a multiple of KV heads {kvh}")
@@ -234,17 +324,17 @@ def paged_attention_cuda(pool, table, pos, q, k_new, v_new) -> Tuple:
         raise ValueError(f"tiles need {smem} bytes of shared memory (> {_MAX_SMEM})")
     t = table.shape[1]
     out = torch.empty((b, qn, h, hd), dtype=torch.float32, device=q.device)
-    int8 = kind == "int8"
+    qmax = KV4_QMAX if kind == "int4" else 127.0
     fn = _bind()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         pool["k"].data_ptr(), pool["v"].data_ptr(),
-        pool["k_scale"].data_ptr() if int8 else None,
-        pool["v_scale"].data_ptr() if int8 else None,
-        int(int8), table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        pool["k_scale"].data_ptr() if scaled else None,
+        pool["v_scale"].data_ptr() if scaled else None,
+        _KIND_CODE[kind], table.data_ptr(), pos.data_ptr(), out.data_ptr(),
         b, qn, h, kvh, hd, ps, t,
-        float(torch.tensor(hd ** -0.5, dtype=torch.float32)), 127.0, inv_qmax(127.0),
+        float(torch.tensor(hd ** -0.5, dtype=torch.float32)), qmax, inv_qmax(qmax),
         stream,
     )
     if err != 0:

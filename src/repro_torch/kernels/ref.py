@@ -24,6 +24,8 @@ order of the sums.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -36,6 +38,8 @@ __all__ = [
     "quant_matmul_ref",
     "weight_only_ref",
     "ocs_quant_matmul_ref",
+    "fma_f32",
+    "w4a8_matmul_ref",
 ]
 
 # Columns per product block of the plain versions: the int8 product is exact
@@ -172,3 +176,66 @@ def ocs_quant_matmul_ref(
             tail = tail * tail_mult.to(torch.float32)
         acc = float_matmul(torch.cat([x.to(torch.float32), tail], dim=1), w8)
     return _epilogue(acc, x_scale, w_scale, out_dtype)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once to float32 (a fused multiply-add), for
+    float32 ``a``, ``b``, ``c`` whose product ``a * b`` is exact in float64
+    (two 24-bit significands). The sum is taken in float64 with its
+    rounding error (TwoSum); the one case where rounding that sum to
+    float32 differs from rounding the exact value, a float64 sum exactly
+    halfway between two float32 values, goes to the side of the error.
+    Exact on any device (no contraction of the caller's ops is relied on)."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    cd = c.to(torch.float64)
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    r = s.to(torch.float32)
+    rd = r.to(torch.float64)
+    other = torch.nextafter(r, torch.where(s > rd, math.inf, -math.inf).to(torch.float32))
+    halfway = (s != rd) & (2.0 * s == rd + other.to(torch.float64))
+    to_other = halfway & (((s > rd) & (err > 0)) | ((s < rd) & (err < 0)))
+    return torch.where(to_other, other, r)
+
+
+def w4a8_matmul_ref(
+    x: torch.Tensor,
+    w4: torch.Tensor,
+    s4: torch.Tensor,
+    w8: torch.Tensor,
+    s8: torch.Tensor,
+    src_tail: torch.Tensor,
+    outlier_idx: torch.Tensor,
+    bits: int = 8,
+    out_dtype=None,
+) -> torch.Tensor:
+    """W4A8 with OCS-separated int8 outlier rows (B6's oracle; the port of
+    the reference's ``w4a8_matmul_ref``).
+
+    x: [M, K] float; w4: [(K+S)/2, N] uint8 split-half packed int4 weights,
+    outlier rows zero; w8: [T, N] int8 outlier rows; s4/s8: [N] f32;
+    src_tail: [S] int32; outlier_idx: [T] int32 rows of the expanded K.
+    The activations are quantized in the **reciprocal** form of
+    ``paged_attention.quant_rows`` at qmax ``2^(bits-1) - 1`` (not
+    :func:`dynamic_quant_ref`'s division form). Two exact integer sums
+    (``acc4`` over all expanded rows, ``acc8`` over the outlier rows), then
+    the float32 epilogue ``acc4 * (a_s * s4) + acc8 * (a_s * s8)`` as the
+    reference computes it compiled: XLA contracts the first product and the
+    add into one fused multiply-add, ``fma(acc4, a_s * s4, acc8 * (a_s *
+    s8))`` (:func:`fma_f32`); with T == 0 it is the product alone. Rounded
+    once to ``out_dtype`` (default f32).
+    """
+    from .paged_attention import quant_rows, unpack_int4
+
+    if out_dtype is None:
+        out_dtype = torch.float32
+    q, a_s = quant_rows(x, float((1 << (bits - 1)) - 1))
+    q_exp = torch.cat([q, q[:, src_tail.long()]], dim=1) if src_tail.shape[0] else q
+    acc4 = int8_matmul(q_exp, unpack_int4(w4.T).T)  # int8 [K+S, N], outlier rows 0
+    c4 = a_s[:, None] * s4.to(torch.float32).reshape(1, -1)
+    if not outlier_idx.shape[0]:
+        return (acc4.to(torch.float32) * c4).to(out_dtype)
+    acc8 = int8_matmul(q_exp[:, outlier_idx.long()], w8)
+    t8 = acc8.to(torch.float32) * (a_s[:, None] * s8.to(torch.float32).reshape(1, -1))
+    return fma_f32(acc4.to(torch.float32), c4, t8).to(out_dtype)

@@ -1,13 +1,14 @@
 """Where a decode step's time goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \
-        [--layers 40] [--matmul-mode dequant|w8a8]
+        [--layers 40] [--matmul-mode dequant|w8a8|w4a8]
 
 Builds glm4-9b at full width (``--layers`` deep; random weights from
 ``--seed``), quantizes it with the serving launcher's recipe and serves 8
 requests (16-256-token prompts) with ``EngineConfig(max_batch=8,
 max_len=512, matmul_mode=--matmul-mode)``: ``dequant`` (the default) on
-float32 KV pages, ``w8a8`` on int8 pages. The first engine step
+float32 KV pages, ``w8a8`` on int8 pages, ``w4a8`` (the engine converts the
+tree to W4A8 leaves) on int4 pages. The first engine step
 (admission, 8 prefills, one decode) runs unprofiled; the next ``--steps``
 decode steps run under ``torch.profiler`` (CPU + CUDA activity). Prints
 the device time per kernel family (the hand-written kernels' launches and
@@ -37,7 +38,9 @@ from ..serving import EngineConfig, Request, ServingEngine
 # Kernel families by (mangled) kernel name substring.
 FAMILIES = (
     ("fused_qmatmul: row_quant", "row_quant_kernel"),
-    ("int8_gemm (fused_qmatmul)", "int8_gemm_kernel"),
+    ("w4a8_qmatmul: prologue", "w4a8_prologue_kernel"),
+    ("int4_gemm (w4a8_qmatmul)", "int4_gemm_kernel"),
+    ("int8_gemm (fused_qmatmul; w4a8_qmatmul's outlier rows)", "int8_gemm_kernel"),
     ("wo_gemm (ocs_matmul / quant_matmul)", "wo_gemm_kernel"),
     ("epilogue", "epilogue_kernel"),
     ("paged_attention", "paged_attention_kernel"),
@@ -58,7 +61,7 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=40)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--matmul-mode", default="dequant", choices=["dequant", "w8a8"])
+    ap.add_argument("--matmul-mode", default="dequant", choices=["dequant", "w8a8", "w4a8"])
     ap.add_argument("--out", default="chiprun_out/profile_decode.json")
     args = ap.parse_args(argv)
     dev = resolve_device(None)
@@ -68,7 +71,7 @@ def main(argv=None):
     q = quantize_params(params, QuantRecipe(w_bits=8, w_clip="mse", ocs_ratio=0.02,
                                             per_channel=True, pad_to=1), device=dev)
     del params
-    kv_bits = 8 if args.matmul_mode == "w8a8" else None
+    kv_bits = {"dequant": None, "w8a8": 8, "w4a8": 4}[args.matmul_mode]
     eng = ServingEngine(cfg, q, EngineConfig(max_batch=8, max_len=512,
                                              matmul_mode=args.matmul_mode,
                                              kv_bits=kv_bits, page_size=16), device=dev)

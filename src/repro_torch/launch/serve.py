@@ -7,13 +7,17 @@ ocs_ratio=--ocs-ratio, per_channel=True, pad_to=1)``), then served through
 :class:`repro_torch.serving.ServingEngine`. Engine flags are generated from
 ``EngineConfig``: with none given it serves the engine defaults,
 weight-only ``dequant`` matmuls on float32 KV pages; ``--matmul-mode w8a8
---kv-bits 8`` serves dynamic W8A8 on int8 pages, and ``--ocs-ratio 0`` the
-clip-only tree (no OCS split). Runs on the card; ``--device cpu`` runs the
-plain PyTorch path at smoke size.
+--kv-bits 8`` serves dynamic W8A8 on int8 pages, ``--matmul-mode w4a8
+--kv-bits 4`` the sub-8-bit tier (packed int4 weights with OCS-ranked int8
+outlier rows, ``--w4a8-outlier-ratio`` of them; int4 KV pages), and
+``--ocs-ratio 0`` the clip-only tree (no OCS split). Runs on the card;
+``--device cpu`` runs the plain PyTorch path at smoke size.
 
     python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu
     python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu \
         --matmul-mode w8a8 --kv-bits 8
+    python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu \
+        --matmul-mode w4a8 --kv-bits 4
 """
 from __future__ import annotations
 

@@ -1,12 +1,12 @@
 """Shared layer primitives with PTQ integration (the port of
 ``repro.models.layers``).
 
-``dense`` is the entry point for every matmul. Its weight is a float tensor
-or an :class:`OCSQuantLinear`; for the latter the ``mode`` argument (the
-engine's ``matmul_mode``, threaded down from the model functions) picks the
-quantized matmul, and every 2-D one goes through a kernel
-(``kernels.ops``: the CUDA kernel on the card, its plain version on the
-CPU):
+``dense`` is the entry point for every matmul. Its weight is a float
+tensor, an :class:`OCSQuantLinear` or a :class:`W4A8Linear`; for the
+quantized ones the ``mode`` argument (the engine's ``matmul_mode``,
+threaded down from the model functions) picks the quantized matmul, and
+every 2-D one goes through a kernel (``kernels.ops``: the CUDA kernel on
+the card, its plain version on the CPU):
 
 * ``dequant`` (the reference's default) -- weight-only int8:
   ``ops.ocs_quant_matmul`` (B4; B5 when the weight has no OCS split) on the
@@ -18,7 +18,10 @@ CPU):
   weights to bf16 (``expand_activations(x) @ w.dequant(bf16)``).
 * ``w8a8`` -- dynamic per-row int8 activations: the fused W8A8 kernel
   ``ops.fused_quant_matmul`` (B1).
-* ``w4a8`` raises (ROADMAP A12).
+* ``w4a8`` -- the sub-8-bit tier: a :class:`W4A8Linear` (made by
+  ``core.ocs.to_w4a8``; the engine converts its tree at construction)
+  through the W4A8 kernel ``ops.w4a8_matmul`` (B6). An ``OCSQuantLinear``
+  in this mode, or a ``W4A8Linear`` in another, raises ``ValueError``.
 
 The mode is an argument, never a module global. Calibrated activation grids
 (``a_scale``) have no producer on the serving path and are not ported.
@@ -29,12 +32,12 @@ from __future__ import annotations
 
 import torch
 
-from ..core.ocs import OCSQuantLinear
+from ..core.ocs import OCSQuantLinear, W4A8Linear
 from ..kernels import ops as kops
 
 __all__ = ["MODES", "dense", "rms_norm", "embed", "swiglu"]
 
-MODES = ("dequant", "w8a8")
+MODES = ("dequant", "w8a8", "w4a8")
 
 
 def _check_packed(w: OCSQuantLinear) -> None:
@@ -79,14 +82,38 @@ def _ocs_dequant(w: OCSQuantLinear, x: torch.Tensor) -> torch.Tensor:
     return y.reshape(lead + (y.shape[-1],))
 
 
+def _w4a8(w: W4A8Linear, x: torch.Tensor) -> torch.Tensor:
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    y = kops.w4a8_matmul(
+        x2, w.w4, w.s4, w.w8, w.s8, w.spec.src[w.n_orig:], w.outlier_idx,
+        bits=w.a_bits, out_dtype=x.dtype,
+    )
+    return y.reshape(lead + (y.shape[-1],))
+
+
 def dense(w, x: torch.Tensor, *, mode: str, name: str = "") -> torch.Tensor:
     """y = x @ w with quantization-aware dispatch. x: [..., Cin]; ``mode``
-    is ``"dequant"`` or ``"w8a8"`` (ignored for float weights); ``name``
-    labels errors."""
+    is one of :data:`MODES` (ignored for float weights); ``name`` labels
+    errors."""
+    what = name or "dense"
+    if isinstance(w, W4A8Linear):
+        if mode != "w4a8":
+            raise ValueError(
+                f"{what}: W4A8Linear weights serve in matmul mode 'w4a8', got {mode!r}"
+            )
+        if w.w4.ndim != 2:
+            raise ValueError(
+                f"{what}: slice stacked quantized weights per layer before the matmul"
+            )
+        return _w4a8(w, x)
     if isinstance(w, OCSQuantLinear):
-        what = name or "dense"
         if mode == "w4a8":
-            raise NotImplementedError(f"{what}: matmul mode 'w4a8' is ROADMAP A12")
+            raise ValueError(
+                f"{what}: matmul mode 'w4a8' needs W4A8Linear weights; convert the "
+                "tree with repro_torch.core.ocs.to_w4a8 (the serving engine does "
+                "this when matmul_mode='w4a8')"
+            )
         if mode not in MODES:
             raise ValueError(f"{what}: matmul mode must be one of {MODES}, got {mode!r}")
         if w.a_bits is not None and w.a_scale is not None:

@@ -2,7 +2,8 @@
 
 Parameters are a nested dict of tensors laid out like the reference's
 ``init_params``: per-layer leaves are stacked ``[L, ...]`` under
-``params["layers"]``, quantized leaves are ``OCSQuantLinear``. Serving
+``params["layers"]``, quantized leaves are ``OCSQuantLinear`` (or
+``W4A8Linear`` in the ``w4a8`` tier). Serving
 runs two functions:
 
 * :func:`prefill_into_pages` — one request's prompt suffix through the
@@ -10,8 +11,8 @@ runs two functions:
 * :func:`decode_step` — one token per lane against the paged caches.
 
 Both take ``mode``, the quantized-matmul mode every ``layers.dense`` call
-of the model runs (``"dequant"``, the reference's default, or
-``"w8a8"``).
+of the model runs (``"dequant"``, the reference's default, ``"w8a8"`` or
+``"w4a8"``).
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.apply import map_with_path, path_str
-from ..core.ocs import OCSQuantLinear
+from ..core.ocs import OCSQuantLinear, W4A8Linear
 from ..device import resolve_device
 from .attention import attention, attention_decode, attention_params_shape
 from .layers import dense, embed, rms_norm
@@ -112,7 +113,7 @@ def layer_params(params, i: int):
     """Layer ``i``'s slice of the stacked ``params["layers"]`` (views)."""
 
     def take(_path, leaf):
-        if isinstance(leaf, OCSQuantLinear):
+        if isinstance(leaf, (OCSQuantLinear, W4A8Linear)):
             return leaf.layer(i)
         return leaf[i]
 

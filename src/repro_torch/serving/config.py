@@ -31,16 +31,25 @@ class EngineConfig:
         default="dequant",
         metadata={
             "help": "dequant = weight-only int8 (fused OCS matmul); w8a8 = "
-            "dynamic per-row int8 activations; w4a8 is not ported yet (A12)",
+            "dynamic per-row int8 activations; w4a8 = packed int4 weights "
+            "with an OCS-selected outlier-channel set kept at int8",
             "choices": ["dequant", "w8a8", "w4a8"],
         },
     )
     kv_bits: Optional[int] = dataclasses.field(
         default=None,
         metadata={
-            "help": "KV-cache precision: 8 = int8 rows, 0/unset = the model "
-            "config's default (float32 pages); 4 is not ported yet (A12)",
+            "help": "KV-cache precision: 8 = int8 rows, 4 = packed nibble "
+            "pages (half the KV bytes per token of int8), 0/unset = the "
+            "model config's default (float32 pages)",
             "optional_int": True,
+        },
+    )
+    w4a8_outlier_ratio: float = dataclasses.field(
+        default=0.05,
+        metadata={
+            "help": "w4a8: fraction of input channels kept at int8 "
+            "(OCS absmax ranking; 0 = naive all-int4 weights)",
         },
     )
     page_size: int = dataclasses.field(
@@ -82,6 +91,10 @@ class EngineConfig:
             )
         if self.kv_bits is not None and self.kv_bits not in (4, 8):
             raise ValueError(f"kv_bits must be 4 or 8 (or unset), got {self.kv_bits}")
+        if not 0.0 <= self.w4a8_outlier_ratio <= 1.0:
+            raise ValueError(
+                f"w4a8_outlier_ratio must be in [0, 1], got {self.w4a8_outlier_ratio}"
+            )
         if self.page_size < 1 or self.page_size & (self.page_size - 1):
             raise ValueError(f"page_size must be a power of two, got {self.page_size}")
         if self.n_pages is not None and self.n_pages < 2:

@@ -18,10 +18,17 @@ Every linear layer of prefill and decode runs in ``EngineConfig.matmul_mode``
   matmul (kernel B4; B5 for weights with no OCS split, as a clip-only
   ``ocs_ratio=0`` tree has);
 * ``"w8a8"`` -- dynamic per-row int8 activations through the fused W8A8
-  kernel (B1).
+  kernel (B1);
+* ``"w4a8"`` -- the sub-8-bit tier: at construction every
+  ``OCSQuantLinear`` leaf is converted once, on the engine's device, to a
+  ``W4A8Linear`` (``core.ocs.to_w4a8`` with
+  ``EngineConfig.w4a8_outlier_ratio``: the OCS-ranked outlier rows stay
+  int8, the rest drop to packed int4), served through the W4A8 kernel
+  (B6).
 
-``"w4a8"`` is refused at construction (ROADMAP A12). The engine runs on the
-card unless built with ``device="cpu"``.
+``EngineConfig.kv_bits`` picks the page pools: float32 (unset), int8 (8)
+or packed int4 (4; B2's int4 branch). The engine runs on the card unless
+built with ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -35,7 +42,8 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from ..core.apply import tree_to
+from ..core.apply import map_with_path, tree_to
+from ..core.ocs import OCSQuantLinear, to_w4a8
 from ..device import resolve_device
 from ..models import transformer as T
 from . import kv_cache as kvc
@@ -88,13 +96,6 @@ class ServingEngine:
     ):
         self.device = resolve_device(device)
         config = config if config is not None else EngineConfig()
-        if config.matmul_mode == "w4a8":
-            raise NotImplementedError(
-                "matmul_mode='w4a8' is not ported yet (ROADMAP A12); the port "
-                "serves 'dequant' and 'w8a8'"
-            )
-        if config.kv_bits == 4:
-            raise NotImplementedError("kv_bits=4 page pools: ROADMAP A12")
         if config.admission != "reserve":
             raise NotImplementedError("optimistic admission: ROADMAP A9")
         if config.prefill_budget:
@@ -109,6 +110,15 @@ class ServingEngine:
         self.config = config
         self.kv_bits = cfg.kv_bits
         self.params = tree_to(params, self.device)
+        if config.matmul_mode == "w4a8":
+            # The sub-8-bit weight tier, converted once, on the engine's
+            # device.
+            def to_tier(_path, leaf):
+                if isinstance(leaf, OCSQuantLinear):
+                    return to_w4a8(leaf, config.w4a8_outlier_ratio)
+                return leaf
+
+            self.params = map_with_path(to_tier, self.params)
         self.max_batch = config.max_batch
         self.max_len = config.max_len
         self.matmul_mode = config.matmul_mode

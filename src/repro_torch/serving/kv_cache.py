@@ -3,8 +3,10 @@
 
 * **page pool** — one ``[n_pages, KV, page_size, hd]`` tensor pair per layer
   (int8 values + one f32 scale per token per KV head when ``cfg.kv_bits ==
-  8``, or float32). Page 0 is the reserved *trash* page: inactive decode
-  lanes and bucket padding write there, and nothing ever reads it.
+  8``; packed uint8 nibbles ``[..., hd/2]`` + the same scales when
+  ``cfg.kv_bits == 4``; or float32). Page 0 is the reserved *trash* page:
+  inactive decode lanes and bucket padding write there, and nothing ever
+  reads it.
 * **block tables** — ``[max_batch, max_pages_per_seq]`` int32 mapping lane
   position ``p`` to page ``table[lane, p // page_size]``, slot ``p %
   page_size``; retired lanes point every entry at the trash page.
@@ -24,7 +26,8 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from ..kernels.paged_attention import quant_rows
+from ..kernels.paged_attention import (
+    KV4_QMAX, pack_int4, pool_kind, quant_rows, unpack_int4)
 
 __all__ = [
     "TRASH_PAGE",
@@ -61,14 +64,22 @@ def kv_bytes_per_token(cfg: ModelConfig) -> int:
 
 
 def init_page_pool(cfg: ModelConfig, n_pages: int, page_size: int, *, device) -> Dict:
-    """One layer's pool: ``[n_pages, KV, page_size, hd]`` (+ scales if int8)."""
+    """One layer's pool: ``[n_pages, KV, page_size, hd]`` (+ scales if int8;
+    ``[..., hd/2]`` uint8 nibbles + scales if int4)."""
     shape = (n_pages, cfg.n_kv_heads, page_size, cfg.hd)
     if cfg.kv_bits is not None:
-        if cfg.kv_bits != 8:
-            raise NotImplementedError("kv_bits=4 page pools: ROADMAP A12")
+        if cfg.kv_bits not in (4, 8):
+            raise ValueError(f"kv_bits must be 4 or 8 (or None), got {cfg.kv_bits}")
+        dtype = torch.int8
+        if cfg.kv_bits == 4:
+            # Split-half packing (pack_int4): byte j holds channels j and
+            # j + hd/2. The uint8 dtype is the tier discriminator.
+            if cfg.hd % 2:
+                raise ValueError(f"kv_bits=4 needs an even head dim, got {cfg.hd}")
+            shape, dtype = shape[:3] + (cfg.hd // 2,), torch.uint8
         return {
-            "k": torch.zeros(shape, dtype=torch.int8, device=device),
-            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
             "k_scale": torch.zeros(shape[:3], dtype=torch.float32, device=device),
             "v_scale": torch.zeros(shape[:3], dtype=torch.float32, device=device),
         }
@@ -112,9 +123,15 @@ def write_prompt_pages(pool: Dict, k, v, page_ids) -> Dict:
         return x[0].reshape(nb, ps, n_kv, hd).movedim(2, 1)
 
     k_p, v_p = paged(k), paged(v)
-    if pool["k"].dtype == torch.int8:
-        k_q, k_s = quant_rows(k_p)
-        v_q, v_s = quant_rows(v_p)
+    kind = pool_kind(pool)
+    if kind != "float":
+        # The decode append's grid: quant_rows at qmax 127 (int8) or 7
+        # (int4, nibble-packed).
+        qm = 127.0 if kind == "int8" else KV4_QMAX
+        k_q, k_s = quant_rows(k_p, qm)
+        v_q, v_s = quant_rows(v_p, qm)
+        if kind == "int4":
+            k_q, v_q = pack_int4(k_q), pack_int4(v_q)
         pool["k"][ids] = k_q
         pool["v"][ids] = v_q
         pool["k_scale"][ids] = k_s
@@ -131,8 +148,13 @@ def gather_prefix(pool: Dict, prefix_ids) -> Tuple:
     n_kv, ps, hd = pool["k"].shape[1:]
     n_hit = prefix_ids.shape[0]
     ids = prefix_ids.long()
+    packed = pool["k"].dtype == torch.uint8
+    if packed:
+        hd *= 2  # two nibbles a byte
 
     def flat(vals, scale):  # [H, KV, ps, hd] -> [1, H*ps, KV, hd]
+        if packed:
+            vals = unpack_int4(vals)
         x = vals.to(torch.float32)
         if scale is not None:
             x = x * scale[..., None]

@@ -12,10 +12,25 @@ import torch
 
 
 def jax_tree_to_numpy(tree):
-    """repro params (dicts of jax arrays / OCSQuantLinear) -> nested dicts of
-    numpy arrays, quantized leaves as ``{values, scale, src, mult, bias,
-    n_orig, a_bits, bits}``."""
-    from repro.core.ocs import OCSQuantLinear
+    """repro params (dicts of jax arrays / OCSQuantLinear / W4A8Linear) ->
+    nested dicts of numpy arrays, quantized leaves as ``{values, scale, src,
+    mult, bias, n_orig, a_bits, bits}``, W4A8 leaves as ``{w4, s4, w8, s8,
+    outlier_idx, src, mult, bias, n_orig, a_bits}``."""
+    from repro.core.ocs import OCSQuantLinear, W4A8Linear
+
+    if isinstance(tree, W4A8Linear):
+        return {
+            "w4": np.asarray(tree.w4),
+            "s4": np.asarray(tree.s4, np.float32),
+            "w8": np.asarray(tree.w8),
+            "s8": np.asarray(tree.s8, np.float32),
+            "outlier_idx": np.asarray(tree.outlier_idx, np.int32),
+            "src": np.asarray(tree.spec.src, np.int32),
+            "mult": np.asarray(tree.spec.mult, np.float32),
+            "bias": np.asarray(tree.spec.bias, np.float32),
+            "n_orig": tree.n_orig,
+            "a_bits": tree.a_bits,
+        }
 
     if isinstance(tree, OCSQuantLinear):
         return {

@@ -8,9 +8,10 @@ machine with an NVIDIA GPU and ``nvcc``:
 
 This module imports torch and ``repro_torch`` only (no JAX), so it runs
 where the JAX package is not installed. Tolerances: ``fused_qmatmul``,
-``dynamic_quant`` and the int8 paths of ``ocs_matmul`` / ``quant_matmul``
-are bitwise; ``paged_attention`` pools are bitwise and outputs within
-``B2_ATOL`` (float32 summation order and ``expf`` vs torch's softmax); the
+``w4a8_qmatmul``, ``dynamic_quant`` and the int8 paths of ``ocs_matmul`` /
+``quant_matmul`` are bitwise; ``paged_attention`` pools (float32, int8 and
+int4) are bitwise and outputs within ``B2_ATOL`` (float32 summation order
+and ``expf`` vs torch's softmax); the
 weight-only paths within the float32 summation-order bound
 (``WO_TOL_FACTOR``, as in ``tests/test_torch_ocs_matmul.py``) for f32
 outputs and within it plus one bf16 ulp for bf16 outputs (outputs near zero
@@ -28,6 +29,7 @@ from repro_torch.kernels import ocs_matmul as tom
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import quant_matmul as tqm
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import w4a8_qmatmul as tw4
 
 B2_ATOL = 2e-5
 WO_TOL_FACTOR = 2.0
@@ -233,3 +235,99 @@ def test_ocs_matmul_cuda_refuses_before_launch():
         tqm.quant_matmul_cuda(x, torch.zeros((8, 8), dtype=torch.int8, device=dev),
                               torch.ones(8, device=dev), out_dtype=torch.float16)
     assert (tom.launches, tqm.launches) == n0
+
+
+# (M, K, N, S, T, x dtype): ragged shapes (N % 4 == 0), T == 0 and S == 0,
+# and glm4-9b's K+S = 4178 (T = 209) and 13970 (T = 699).
+W4A8_CASES = [
+    (5, 300, 72, 8, 0, torch.float32),
+    (33, 250, 52, 6, 13, torch.bfloat16),
+    (3, 130, 36, 0, 7, torch.float32),
+    (1, 4096, 4096, 82, 209, torch.bfloat16),
+    (8, 13696, 256, 274, 699, torch.bfloat16),
+    (256, 4096, 512, 82, 209, torch.bfloat16),
+]
+
+
+def _w4a8_case(m, k, n, s, t, dt, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn((m, k), generator=g, device="cuda") * 2.0).to(dt)
+    w4 = torch.randint(0, 256, ((k + s) // 2, n), generator=g, device="cuda",
+                       dtype=torch.int32).to(torch.uint8)
+    s4 = torch.rand((n,), generator=g, device="cuda") * 0.01 + 1e-4
+    w8 = torch.randint(-127, 128, (t, n), generator=g, device="cuda", dtype=torch.int8)
+    s8 = torch.rand((n,), generator=g, device="cuda") * 0.001 + 1e-5
+    src = torch.randint(0, k, (s,), generator=g, device="cuda", dtype=torch.int32)
+    oidx = torch.sort(torch.randperm(k + s, generator=g, device="cuda")[:t]).values
+    return x, w4, s4, w8, s8, src, oidx.to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,s,t,dt", W4A8_CASES)
+def test_w4a8_qmatmul_cuda_bitwise(m, k, n, s, t, dt):
+    """B6 against its plain version, f32 and bf16 outputs: bitwise; one
+    launch counted per call; the same call gives the same bits."""
+    cuda_or_skip()
+    args = _w4a8_case(m, k, n, s, t, dt, m * 7 + k + t)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        n0 = tw4.launches
+        got = tw4.w4a8_matmul_cuda(*args, out_dtype=out_dtype)
+        want = tw4.w4a8_matmul_plain(*args, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert tw4.launches == n0 + 1
+        assert _same_bits(got, want), out_dtype
+        assert _same_bits(tw4.w4a8_matmul_cuda(*args, out_dtype=out_dtype), got)
+
+
+@pytest.mark.cuda
+def test_w4a8_qmatmul_cuda_refuses_before_launch():
+    cuda_or_skip()
+    x, w4, s4, w8, s8, src, oidx = _w4a8_case(2, 40, 12, 0, 3, torch.float32, 1)
+    n0 = tw4.launches
+    with pytest.raises(ValueError, match="rows"):  # w4 holds K+S rows
+        tw4.w4a8_matmul_cuda(x[:, :38].contiguous(), w4, s4, w8, s8, src, oidx)
+    with pytest.raises(ValueError, match="N % 4"):
+        tw4.w4a8_matmul_cuda(x, w4[:, :6].contiguous(), s4[:6], w8[:, :6].contiguous(),
+                             s8[:6], src, oidx)
+    with pytest.raises(ValueError, match="w8"):
+        tw4.w4a8_matmul_cuda(x, w4, s4, w8[:2], s8, src, oidx)
+    with pytest.raises(ValueError, match="uint8"):
+        tw4.w4a8_matmul_cuda(x, w4.to(torch.int8), s4, w8, s8, src, oidx)
+    assert tw4.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps", [8, 16])
+def test_paged_attention_cuda_int4_vs_plain(ps):
+    """B2's int4 branch: packed pools bitwise after the append, outputs
+    within ``B2_ATOL``, a NaN-poisoned trash page never read, the retired
+    lane exact zeros."""
+    cuda_or_skip()
+    rng = np.random.RandomState(ps + 4)
+    B, T, KV, H, hd = 3, 4, 2, 8, 32
+    P = B * T + 1
+    pool = {"k": rng.randint(0, 256, (P, KV, ps, hd // 2)).astype(np.uint8),
+            "v": rng.randint(0, 256, (P, KV, ps, hd // 2)).astype(np.uint8),
+            "k_scale": (rng.rand(P, KV, ps) * 0.2 + 0.02).astype(np.float32),
+            "v_scale": (rng.rand(P, KV, ps) * 0.2 + 0.02).astype(np.float32)}
+    pool["k_scale"][0] = np.nan  # poisoned trash page
+    pool["v_scale"][0] = np.nan
+    table = np.zeros((B, T), np.int32)
+    table[0, :2] = [1, 2]
+    table[1, :4] = [3, 4, 5, 6]
+    pos = np.array([ps + 3, 4 * ps - 1, 0], np.int32)  # lane 2 retired
+    dev = torch.device("cuda")
+    tpool = {k: torch.from_numpy(v).to(dev) for k, v in pool.items()}
+    args = [torch.from_numpy(a).to(dev) for a in (table, pos)]
+    args += [torch.from_numpy(rng.randn(*sh).astype(np.float32)).to(dev).to(torch.bfloat16)
+             for sh in ((B, 1, H, hd), (B, 1, KV, hd), (B, 1, KV, hd))]
+    want_o, want_p = tpa.paged_attention_plain(tpool, *args)
+    n0 = tpa.launches
+    got_o, got_p = tpa.paged_attention_cuda({k: v.clone() for k, v in tpool.items()}, *args)
+    torch.cuda.synchronize()
+    assert tpa.launches == n0 + 1
+    assert torch.isfinite(got_o).all()
+    assert (got_o[2] == 0).all()
+    torch.testing.assert_close(got_o, want_o, atol=B2_ATOL, rtol=0)
+    for key in want_p:
+        assert _same_bits(got_p[key], want_p[key]), key

@@ -2,7 +2,8 @@
 against ``repro``'s, configured alike (reserve admission, monolithic
 prefill) in each matmul mode. The reference runs ``KernelConfig(attn="xla")``
 (f32-after-dequant paged attention) and ``matmul="xla"`` for ``w8a8`` (the
-XLA W8A8 composition, bitwise the fused kernel) or ``matmul="pallas"`` for
+XLA W8A8 composition, bitwise the fused kernel) and ``w4a8`` (its compiled
+``w4a8_matmul_ref``, bitwise the W4A8 kernel), or ``matmul="pallas"`` for
 ``dequant`` (the kernel route, whose numerics the port follows).
 
 * Allocator state (free list, refcounts, prefix-cache keys, LRU) is
@@ -17,9 +18,13 @@ XLA W8A8 composition, bitwise the fused kernel) or ``matmul="pallas"`` for
   both sides' error. With the pinned seed, w8a8 on float pools parts at
   two near-ties and on int8 pools at four (margins <= 0.031, one an exact
   tie); the other requests match token for token.
-* On int8 pools, the bytes prefill wrote into layer 0's pages are
-  bitwise equal (deeper layers inherit the ulp flips).
+* On int8 and int4 pools, the bytes prefill wrote into layer 0's pages
+  are bitwise equal (deeper layers inherit the ulp flips).
+* The ``w4a8`` tier on int4 pages (each engine converts its own int8 tree
+  with its ``to_w4a8``) reports ``kv_bits`` 4 and fewer KV bytes per token
+  than the int8 tier.
 """
+import dataclasses
 import functools
 
 import numpy as np
@@ -96,16 +101,25 @@ def _top2_margin(cfg, params, tokens, mode, pad=64):
     pytest.param(8, "w8a8", id="8"),
     pytest.param(None, "dequant", id="dequant-None"),
     pytest.param(8, "dequant", id="dequant-8"),
+    pytest.param(4, "w4a8", id="w4a8-4"),
 ])
 def test_engine_matches_reference(kv_bits, matmul_mode, quantized):
     cfg, qj, qt = quantized
-    _serve_both(cfg, qj, qt, dict(max_batch=3, max_len=64, matmul_mode=matmul_mode,
-                                  kv_bits=kv_bits))
+    te = _serve_both(cfg, qj, qt, dict(max_batch=3, max_len=64, matmul_mode=matmul_mode,
+                                       kv_bits=kv_bits))
+    st = te.stats()
+    assert st["kv_bits"] == float(kv_bits or 0) and st["matmul_mode"] == matmul_mode
+    if kv_bits == 4:
+        from repro_torch.serving import kv_cache as tkvc
+
+        int8_bytes = tkvc.kv_bytes_per_token(dataclasses.replace(cfg, kv_bits=8))
+        assert st["kv_bytes_per_token"] < int8_bytes
 
 
 def _serve_both(cfg, qj, qt, common, prompts=None):
     """Serve the same requests on both engines; allocator state identical
-    after every step, tokens equal up to near-ties."""
+    after every step, tokens equal up to near-ties. Returns the port's
+    engine."""
     mode = common["matmul_mode"]
     kv_bits = common["kv_bits"]
     kernels = KernelConfig(matmul=_matmul_kernel(mode), attn="xla")
@@ -121,7 +135,7 @@ def _serve_both(cfg, qj, qt, common, prompts=None):
         steps += 1
         assert a == b
         assert _alloc_state(je.allocator) == _alloc_state(te.allocator), steps
-        if steps == 1 and kv_bits == 8:
+        if steps == 1 and kv_bits in (4, 8):
             # Layer 0's prompt rows, written by the first three prefills.
             for slot, tslot in zip(je.slots, te.slots):
                 assert slot.pages == tslot.pages
@@ -145,8 +159,10 @@ def _serve_both(cfg, qj, qt, common, prompts=None):
         assert len(got) == len(want)
         diverge = next((j for j, (x, y) in enumerate(zip(got, want)) if x != y), None)
         if diverge is not None:  # a near-tie: both candidates nearly equal
-            margin = _top2_margin(cfg, qj, prompts[uid] + want[:diverge], mode)
+            # The reference engine's own tree (W4A8Linear leaves in w4a8).
+            margin = _top2_margin(cfg, je.params, prompts[uid] + want[:diverge], mode)
             assert margin <= TIE_TOL, (uid, diverge, margin)
+    return te
 
 
 def test_clip_only_tree_serves_dequant(glm_smoke):

@@ -22,6 +22,7 @@ from repro_torch.kernels import ocs_matmul as tom
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import quant_matmul as tqm
+from repro_torch.kernels import w4a8_qmatmul as tw4
 from repro_torch.models import layers
 from repro_torch.models import transformer as T
 from repro_torch.serving import EngineConfig, ServingEngine
@@ -111,6 +112,8 @@ def test_ops_refuse_devices_without_a_kernel():
         ops.quant_matmul(x, x, x)
     with pytest.raises(ValueError, match="no kernel"):
         ops.dynamic_quant(x)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.w4a8_matmul(x, x, x, x, x, x, x)
 
 
 def test_cuda_request_never_gets_the_plain_result(monkeypatch):
@@ -151,36 +154,83 @@ def test_cuda_request_never_gets_the_plain_result(monkeypatch):
     assert [m.launches for m in mods] == launches0  # refusals launch nothing
 
 
+def test_cuda_w4a8_request_never_gets_the_plain_result(monkeypatch):
+    """The W4A8 tier's two kernels: tensors that claim to be CUDA reach
+    B6's CUDA wrapper and B2's on an int4 pool, which raise here; neither
+    plain version runs and nothing launches."""
+    monkeypatch.setattr(ops, "_device_kind", lambda t: "cuda")
+    plain_calls = []
+    monkeypatch.setattr(tw4, "w4a8_matmul_plain", lambda *a, **k: plain_calls.append(1))
+    monkeypatch.setattr(tpa, "paged_attention_plain", lambda *a, **k: plain_calls.append(1))
+    launches0 = (tw4.launches, tpa.launches)
+    x = torch.zeros((2, 8))
+    w4 = torch.zeros((4, 4), dtype=torch.uint8)
+    i32 = torch.zeros(0, dtype=torch.int32)
+    for t in (0, 2):
+        with pytest.raises((ValueError, RuntimeError)):
+            ops.w4a8_matmul(x, w4, torch.ones(4), torch.zeros((t, 4), dtype=torch.int8),
+                            torch.ones(4), i32, torch.arange(t, dtype=torch.int32))
+    pool = {"k": torch.zeros((2, 1, 4, 4), dtype=torch.uint8),
+            "v": torch.zeros((2, 1, 4, 4), dtype=torch.uint8),
+            "k_scale": torch.zeros((2, 1, 4)), "v_scale": torch.zeros((2, 1, 4))}
+    kn = torch.zeros((1, 1, 1, 8), dtype=torch.bfloat16)
+    with pytest.raises((ValueError, RuntimeError)):
+        ops.paged_attention(pool, torch.ones((1, 1), dtype=torch.int32),
+                            torch.zeros(1, dtype=torch.int32),
+                            torch.zeros((1, 1, 2, 8), dtype=torch.bfloat16), kn, kn)
+    assert not plain_calls
+    assert (tw4.launches, tpa.launches) == launches0
+
+
 def test_dense_refuses_unported_modes():
-    """``dense`` takes the mode as an argument: ``w4a8`` names its ROADMAP
-    item; a mode it does not know raises; float weights ignore the mode."""
+    """``dense`` takes the mode as an argument: ``w4a8`` on an int8 leaf
+    raises ``ValueError`` naming ``to_w4a8`` (the W4A8 leaf it converts to
+    serves there, and only there); a mode it does not know raises; float
+    weights ignore the mode."""
+    from repro_torch.core.ocs import to_w4a8
+
     cfg = smoke_config("glm4-9b")
     params = T.init_params(cfg, seed=0, device="cpu")
     q = quantize_params(params, QuantRecipe(w_bits=8, ocs_ratio=0.02, per_channel=True),
                         device="cpu")
     w = q["lm_head"]
     x = torch.zeros((1, cfg.d_model), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="to_w4a8"):
         layers.dense(w, x, mode="w4a8")
     with pytest.raises(ValueError, match="matmul mode"):
         layers.dense(w, x, mode="int4")
+    w4 = to_w4a8(w, 0.05)
     for mode in layers.MODES:
-        assert layers.dense(w, x, mode=mode).shape == (1, cfg.vocab)
+        leaf = w4 if mode == "w4a8" else w
+        assert layers.dense(leaf, x, mode=mode).shape == (1, cfg.vocab)
+    with pytest.raises(ValueError, match="'w4a8'"):
+        layers.dense(w4, x, mode="w8a8")
     assert torch.equal(layers.dense(params["lm_head"], x, mode="w4a8"),
                        x @ params["lm_head"].to(x.dtype))
 
 
 def test_unported_modes_raise_at_engine_construction():
+    """The A9 policies still raise; the A12 tier (``matmul_mode="w4a8"``,
+    ``kv_bits=4``) constructs, converting the int8 leaves once."""
+    from repro_torch.core.ocs import W4A8Linear
+
     cfg = smoke_config("glm4-9b")
     params = T.init_params(cfg, seed=0, device="cpu")
     for kw, item in (
-        (dict(matmul_mode="w4a8"), "A12"),
         (dict(matmul_mode="w8a8", admission="optimistic"), "A9"),
         (dict(matmul_mode="w8a8", prefill_budget=64), "A9"),
-        (dict(matmul_mode="w8a8", kv_bits=4), "A12"),
     ):
         with pytest.raises(NotImplementedError, match=item):
             ServingEngine(cfg, params, EngineConfig(max_len=64, **kw), device="cpu")
+    q = quantize_params(params, QuantRecipe(w_bits=8, ocs_ratio=0.02, per_channel=True),
+                        device="cpu")
+    for kw in (dict(matmul_mode="w4a8"), dict(matmul_mode="w8a8", kv_bits=4),
+               dict(matmul_mode="w4a8", kv_bits=4)):
+        eng = ServingEngine(cfg, q, EngineConfig(max_len=64, **kw), device="cpu")
+        assert isinstance(eng.params["lm_head"], W4A8Linear) == (kw["matmul_mode"] == "w4a8")
+        assert (eng.caches["layers"][0]["attn"]["k"].dtype == torch.uint8) == ("kv_bits" in kw)
+    with pytest.raises(ValueError, match="w4a8_outlier_ratio"):
+        EngineConfig(w4a8_outlier_ratio=1.5)
 
 
 def test_launch_serve_smoke_on_cpu(capsys):
@@ -206,3 +256,16 @@ def test_launch_serve_defaults_on_cpu(extra):
                         "--n-requests", "3", "--max-new", "4", "--max-len", "64", *extra])
     assert stats["completed"] == 3 and stats["errors"] == 0
     assert stats["matmul_mode"] == "dequant" and stats["kv_bits"] == 0.0
+
+
+def test_launch_serve_w4a8_int4_on_cpu():
+    """``launch.serve`` serves the sub-8-bit tier (W4A8 weights, int4 KV
+    pages) end to end at smoke size on the plain path."""
+    from repro_torch.launch import serve
+
+    stats = serve.main(["--arch", "glm4-9b", "--smoke", "--device", "cpu",
+                        "--matmul-mode", "w4a8", "--kv-bits", "4",
+                        "--w4a8-outlier-ratio", "0.1",
+                        "--n-requests", "3", "--max-new", "4", "--max-len", "64"])
+    assert stats["completed"] == 3 and stats["errors"] == 0
+    assert stats["matmul_mode"] == "w4a8" and stats["kv_bits"] == 4.0

@@ -15,6 +15,11 @@ of the largest logit:
   sums, rounded once: what a card kernel's different f32 order stands for)
   reads 0 (no bf16 activation flips at this size); B4 dropping the OCS
   tail rows 0.62; B4 ignoring ``w_scale`` 389.
+* w4a8, int4 pages: sound 0; B6 with an unfused epilogue (a product and
+  an add, each rounded, in place of the fused multiply-add: one-ulp
+  faults, which the kernel phase's bitwise checks catch) 0; B6 dropping
+  the int8 outlier rows 0.96; B6 dropping the OCS tail 0.64; B2's int4
+  branch masking the newest token 0.30.
 """
 import importlib.util
 from pathlib import Path
@@ -28,6 +33,7 @@ from repro_torch.kernels import fused_qmatmul as tfq
 from repro_torch.kernels import ocs_matmul as tom
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import quant_matmul as tqm
+from repro_torch.kernels import w4a8_qmatmul as tw4
 from repro_torch.kernels.ref import int8_matmul, inv_qmax
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -136,4 +142,71 @@ def test_reference_check_sees_dequant_fault(smoke_dequant, monkeypatch, fault):
     cs, cfg, qp, base = smoke_dequant
     share = _reading(cs, cfg, qp, base, monkeypatch, fault)
     print(f"{fault.__name__}: {share:.4g} of the largest logit")
+    assert share > cs.MODEL_RTOL
+
+
+@pytest.fixture(scope="module")
+def smoke_w4a8():
+    cs = _chip_smoke()
+    cfg, qp = cs.smoke_model(0, kv_bits=4, w4a8=True)
+    return cs, cfg, qp, cs.smoke_logits(qp, cfg, 0, "cpu", "w4a8")
+
+
+_sound_b6 = tw4.w4a8_matmul_plain
+
+
+def _b6_unfused_epilogue(x, w4, s4, w8, s8, src_tail, outlier_idx, *, bits=8,
+                         out_dtype=None):
+    """B6 whose epilogue rounds the product and the add apart."""
+    q, a_s = tpa.quant_rows(x, 127.0)
+    q_exp = torch.cat([q, q[:, src_tail.long()]], 1)
+    acc4 = int8_matmul(q_exp, tpa.unpack_int4(w4.T).T).float()
+    acc8 = int8_matmul(q_exp[:, outlier_idx.long()], w8).float()
+    y = acc4 * (a_s[:, None] * s4[None, :]) + acc8 * (a_s[:, None] * s8[None, :])
+    return y.to(out_dtype)
+
+
+def _b6_outliers_dropped(x, w4, s4, w8, s8, src_tail, outlier_idx, **kw):
+    return _sound_b6(x, w4, s4, w8[:0], s8, src_tail, outlier_idx[:0], **kw)
+
+
+def _b6_tail_dropped(x, w4, s4, w8, s8, src_tail, outlier_idx, **kw):
+    """B6 that leaves out the OCS duplicate rows (their int4 and int8
+    weight rows zeroed)."""
+    k = x.shape[1]
+    wq = tpa.unpack_int4(w4.T).T.clone()
+    wq[k:] = 0
+    w8 = torch.where((outlier_idx >= k)[:, None], torch.zeros_like(w8), w8)
+    return _sound_b6(x, tpa.pack_int4(wq.T).T.contiguous(), s4, w8, s8, src_tail,
+                     outlier_idx, **kw)
+
+
+def _w4a8_reading(cs, cfg, qp, base, monkeypatch, module, name, fault):
+    monkeypatch.setattr(module, name, fault)
+    got = cs.smoke_logits(qp, cfg, 0, "cpu", "w4a8")
+    return float((got - base).abs().max() / base.abs().max())
+
+
+def test_w4a8_sound_runs_agree_and_an_unfused_epilogue_is_within_limit(smoke_w4a8,
+                                                                        monkeypatch):
+    cs, cfg, qp, base = smoke_w4a8
+    assert torch.equal(cs.smoke_logits(qp, cfg, 0, "cpu", "w4a8"), base)
+    assert torch.isfinite(base).all()
+    share = _w4a8_reading(cs, cfg, qp, base, monkeypatch, tw4, "w4a8_matmul_plain",
+                          _b6_unfused_epilogue)
+    print(f"w4a8, unfused B6 epilogue: {share:.4g} of the largest logit")
+    assert share < cs.MODEL_RTOL
+
+
+@pytest.mark.parametrize(
+    "module,name,fault",
+    [(tw4, "w4a8_matmul_plain", _b6_outliers_dropped),
+     (tw4, "w4a8_matmul_plain", _b6_tail_dropped),
+     (tpa, "paged_attention_plain", _b2_newest_masked)],
+    ids=["b6-outliers-dropped", "b6-tail-dropped", "b2-int4-newest-token-masked"],
+)
+def test_reference_check_sees_w4a8_fault(smoke_w4a8, monkeypatch, module, name, fault):
+    cs, cfg, qp, base = smoke_w4a8
+    share = _w4a8_reading(cs, cfg, qp, base, monkeypatch, module, name, fault)
+    print(f"w4a8, {fault.__name__}: {share:.4g} of the largest logit")
     assert share > cs.MODEL_RTOL
