@@ -28,8 +28,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
    outputs within one bf16 ulp; int8 mode at M in {8, 256}: bitwise.
    ``dynamic_quant`` (B3) at K in {4096, 13696}, M in {1, 8, 256}:
    bitwise. ``w4a8_qmatmul`` (B6) at every shape (the layer-0 and lm_head
-   leaves converted with ``to_w4a8(., 0.05)`` on the card) with M in {1, 8,
-   256}: bitwise, f32 and bf16 outputs.
+   leaves converted with ``to_w4a8(., 0.05)`` on the card, each conversion,
+   and that of a stacked two-layer leaf, bitwise the same conversion on the
+   CPU) with M in {1, 8, 256}: bitwise, f32 and bf16 outputs.
 4. Serve phases: every launch count set to 0 just before each and read just
    after. ``ServingEngine`` serves 8 seeded requests (prompts of 16-256
    tokens, 32 new tokens each, greedy) with ``EngineConfig(max_batch=8,
@@ -584,23 +585,66 @@ def w4a8_bound_ms(m, k, s, t, n):
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
+def to_w4a8_checked(name, leaf):
+    """``to_w4a8(leaf, W4A8_RATIO)`` on the card, as the engine converts
+    its tree, held bitwise against the same conversion of ``leaf`` on the
+    CPU (which tests/test_torch_w4a8.py holds bitwise against the
+    reference's numpy conversion): all five arrays and the padded spec."""
+    from repro_torch.core.apply import tree_to
+    from repro_torch.core.ocs import to_w4a8
+
+    def arrays(lin):
+        return {"w4": lin.w4, "s4": lin.s4, "w8": lin.w8, "s8": lin.s8,
+                "outlier_idx": lin.outlier_idx, "spec.src": lin.spec.src,
+                "spec.mult": lin.spec.mult, "spec.bias": lin.spec.bias}
+
+    card = to_w4a8(leaf, W4A8_RATIO)
+    cpu = to_w4a8(tree_to(leaf, "cpu"), W4A8_RATIO)
+    got, want = arrays(card), arrays(cpu)
+    bad = [k for k in got if got[k].shape != want[k].shape
+           or not same_bits(got[k].cpu(), want[k])]
+    if bad or (card.n_orig, card.a_bits) != (cpu.n_orig, cpu.a_bits):
+        raise AssertionError(f"to_w4a8 {name}: the card's conversion differs from the "
+                             f"CPU's in {bad or ['n_orig/a_bits']}")
+    return card
+
+
+def stacked_head(lin, n):
+    """The first ``n`` layers of a stacked ``OCSQuantLinear`` leaf (views)."""
+    from repro_torch.core.ocs import OCSQuantLinear, OCSSpec
+    from repro_torch.core.quantizer import QuantParams
+
+    w, sp = lin.weight, lin.spec
+    return OCSQuantLinear(
+        weight=QuantParams(w.values[:n], w.scale[:n], w.bits, w.channel_axis),
+        spec=OCSSpec(sp.src[:n], sp.mult[:n], sp.bias[:n]), n_orig=lin.n_orig,
+        a_bits=lin.a_bits, a_scale=None if lin.a_scale is None else lin.a_scale[:n])
+
+
 def kernel_phase_b6(qparams, gen, iters):
     """w4a8_qmatmul at every glm4-9b linear shape x M in {1, 8, 256}: the
-    layer-0 and lm_head leaves converted with ``to_w4a8`` on the card;
+    layer-0 and lm_head leaves converted with ``to_w4a8`` on the card (every
+    one, and a stacked two-layer ``w_down``, bitwise the CPU's conversion);
     bitwise against the plain version with f32 and bf16 outputs; timed with
     bf16 outputs, as ``dense`` calls it."""
     import torch
-    from repro_torch.core.ocs import to_w4a8
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import w4a8_qmatmul as w4k
 
     weights = layer_weights(qparams)
+    t0 = time.perf_counter()
+    converted = {name: to_w4a8_checked(name, w) for name, w in weights.items()}
+    to_w4a8_checked("w_down layers 0-1 (stacked)",
+                    stacked_head(qparams["layers"]["mlp"]["w_down"], 2))
+    log(f"to_w4a8 on the card: bitwise the CPU's conversion (w4, s4, w8, s8, outlier_idx, "
+        f"spec) for {', '.join(weights)} and a stacked two-layer w_down "
+        f"({time.perf_counter() - t0:.1f} s with the CPU side)")
     groups = {}
     for name, w in weights.items():
         groups.setdefault((w.n_orig, w.weight.values.shape[1]), []).append(name)
     rows = []
     for (k, n), names in groups.items():
-        lin = to_w4a8(weights[names[0]], W4A8_RATIO)
+        lin = converted[names[0]]
         w4, w8 = lin.w4, lin.w8
         src = lin.spec.src[lin.n_orig:].contiguous()
         oidx = lin.outlier_idx
@@ -664,6 +708,7 @@ def kernel_phase_b6(qparams, gen, iters):
                 f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
                 f"bound_ms={bound:.4f} ({by}) bitwise=yes (f32 and bf16 out)")
         del copies, lib_copies, wq, w8p, lin
+    del converted
     return rows
 
 

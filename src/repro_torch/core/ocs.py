@@ -32,7 +32,7 @@ import torch
 
 from ..kernels.paged_attention import pack_int4
 from .clipping import find_clip
-from .quantizer import QuantParams, qmax, quantize_tensor
+from .quantizer import QuantParams, div_exact, qmax, quantize_tensor
 
 __all__ = [
     "OCSSpec",
@@ -306,7 +306,8 @@ def _w4a8_split(w: torch.Tensor, ratio: float):
     device. Returns ``(w4 uint8, s4, q8 int8, s8, outlier_idx int32)``,
     bitwise the reference's numpy ``_w4a8_split``: a stable argsort of
     ``-max|W[k, :]|``, the sorted top ``ceil(ratio * K_exp)`` rows, float32
-    ``amax / 7`` and ``amax / 127`` scales, ``floor(w / s + 1/2)``."""
+    ``amax / 7`` and ``amax / 127`` scales (true division on the card too:
+    ``div_exact``), ``floor(w / s + 1/2)``."""
     k_exp, n = w.shape
     if k_exp % 2:
         raise ValueError(
@@ -323,7 +324,7 @@ def _w4a8_split(w: torch.Tensor, ratio: float):
 
     w_lo = w.clone()
     w_lo[oi] = 0.0
-    s4 = torch.clamp_min(w_lo.abs().amax(dim=0), 1e-30) / 7.0
+    s4 = div_exact(torch.clamp_min(w_lo.abs().amax(dim=0), 1e-30), 7.0)
     q4 = torch.clamp(torch.floor(w_lo / s4[None, :] + 0.5), -7, 7).to(torch.int8)
     del w_lo
     w4 = pack_int4(q4.T).T.contiguous()  # split-half along the contraction axis
@@ -331,7 +332,7 @@ def _w4a8_split(w: torch.Tensor, ratio: float):
 
     w_out = w[oi]  # [T, N]
     if s_out:
-        s8 = torch.clamp_min(w_out.abs().amax(dim=0), 1e-30) / 127.0
+        s8 = div_exact(torch.clamp_min(w_out.abs().amax(dim=0), 1e-30), 127.0)
     else:
         s8 = torch.ones((n,), dtype=torch.float32, device=dev)
     q8 = torch.clamp(torch.floor(w_out / s8[None, :] + 0.5), -127, 127).to(torch.int8)

@@ -20,6 +20,7 @@ import torch
 
 __all__ = [
     "qmax",
+    "div_exact",
     "compute_scale",
     "quantize_int",
     "dequantize",
@@ -27,6 +28,14 @@ __all__ = [
     "quantize_tensor",
     "storage_dtype",
 ]
+
+
+def div_exact(a: torch.Tensor, d: float) -> torch.Tensor:
+    """``a / d``, correctly rounded on every device: PyTorch's CUDA
+    division by a Python scalar multiplies by the scalar's reciprocal,
+    which can be an ulp off the quotient; a device-tensor divisor takes
+    the true division, as the CPU does."""
+    return a / torch.tensor(d, dtype=a.dtype, device=a.device)
 
 
 def qmax(bits: int) -> int:
@@ -70,7 +79,7 @@ def compute_scale(
         rng = _reduce_absmax(x.to(torch.float32), channel_axis)
     # tiny * qmax is exact in float32 (tiny is a power of two, qmax < 2^24).
     rng = torch.clamp_min(rng, torch.finfo(torch.float32).tiny * qmax(bits))
-    return rng / qmax(bits)
+    return div_exact(rng, qmax(bits))
 
 
 def _broadcast_scale(scale: torch.Tensor, ndim: int, channel_axis: Optional[int]):

@@ -39,40 +39,21 @@
 // dequant with expf, so outputs match the plain version to float
 // tolerance (summation order, exp implementation).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "qmatmul_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using rtq::load_f32;
+using rtq::quant_rcp;
+using rtq::row_absmax_scale;
+
+constexpr int kThreads = rtq::kQuantThreads;  // row_absmax_scale's block size
 constexpr float kNegInf = -1e30f;  // finite: exp(NEG_INF - NEG_INF) == 1
-
-__device__ __forceinline__ float load_in(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-
-// Block-wide max of one value per thread (all threads get the result).
-__device__ float block_max(float v, float* red) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  __syncthreads();  // red may still be read from a previous call
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float m = red[0];
-  for (int w = 1; w < kThreads / 32; ++w) m = fmaxf(m, red[w]);
-  return m;
-}
 
 // Pool kinds (the wrapper's _KIND_CODE).
 constexpr int kFloat = 0;
 constexpr int kInt8 = 1;
 constexpr int kInt4 = 2;
-
-__device__ __forceinline__ int quant_rcp(float x, float rcp, float qmax) {
-  float q = floorf(__fadd_rn(__fmul_rn(x, rcp), 0.5f));
-  q = fminf(fmaxf(q, -qmax), qmax);
-  return static_cast<int>(q);
-}
 
 // Nibble `hi` of a packed int4 byte, sign-extended.
 __device__ __forceinline__ float nibble_f32(uint8_t byte, bool hi) {
@@ -88,28 +69,25 @@ __device__ void append_row(const __nv_bfloat16* __restrict__ src, void* pool, fl
                            float inv_qmax, float* red) {
   if (KIND != kFloat) {
     // The whole row's abs-max first: every value uses the row's one scale.
-    float amax = 0.f;
-    for (int d = threadIdx.x; d < hd; d += kThreads) amax = fmaxf(amax, fabsf(load_in(src, d)));
-    amax = block_max(amax, red);
-    const float sc = __fmul_rn(fmaxf(amax, 1e-30f), inv_qmax);
+    const float sc = row_absmax_scale(src, hd, inv_qmax, red);
     const float rcp = __fdiv_rn(1.0f, sc);
     if (KIND == kInt8) {
       int8_t* dst = static_cast<int8_t*>(pool) + row_off;
       for (int d = threadIdx.x; d < hd; d += kThreads)
-        dst[d] = static_cast<int8_t>(quant_rcp(load_in(src, d), rcp, qmax));
+        dst[d] = quant_rcp(load_f32(src, d), rcp, qmax);
     } else {
       const int half = hd / 2;
       uint8_t* dst = static_cast<uint8_t*>(pool) + row_off;
       for (int d = threadIdx.x; d < half; d += kThreads) {
-        const int lo = quant_rcp(load_in(src, d), rcp, qmax);
-        const int hi = quant_rcp(load_in(src, d + half), rcp, qmax);
+        const int lo = quant_rcp(load_f32(src, d), rcp, qmax);
+        const int hi = quant_rcp(load_f32(src, d + half), rcp, qmax);
         dst[d] = static_cast<uint8_t>((lo & 0xF) | ((hi & 0xF) << 4));
       }
     }
     if (threadIdx.x == 0) pool_scale[scale_off] = sc;
   } else {
     float* dst = static_cast<float*>(pool) + row_off;
-    for (int d = threadIdx.x; d < hd; d += kThreads) dst[d] = load_in(src, d);
+    for (int d = threadIdx.x; d < hd; d += kThreads) dst[d] = load_f32(src, d);
   }
 }
 
@@ -162,7 +140,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   for (int i = threadIdx.x; i < QR * hd; i += kThreads) {
     const int r = i / hd, d = i % hd;
     const int j = r / rep, h = g * rep + r % rep;
-    q_s[i] = __fmul_rn(load_in(q, (((size_t)b * Q + j) * H + h) * hd + d), q_scale);
+    q_s[i] = __fmul_rn(load_f32(q, (((size_t)b * Q + j) * H + h) * hd + d), q_scale);
     acc[i] = 0.f;
   }
   for (int r = threadIdx.x; r < QR; r += kThreads) {

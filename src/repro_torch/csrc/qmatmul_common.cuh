@@ -1,13 +1,19 @@
-// Device code shared by the quantized-matmul kernels (fused_qmatmul.cu,
-// dynamic_quant.cu, quant_matmul.cu, ocs_matmul.cu): each source has its
-// own C entry points and is compiled into its own library; this header only
-// keeps one copy of the arithmetic they have in common.
+// Device code shared by the quantized kernels (fused_qmatmul.cu,
+// dynamic_quant.cu, quant_matmul.cu, ocs_matmul.cu, w4a8_qmatmul.cu,
+// paged_attention.cu): each source has its own C entry points and is
+// compiled into its own library; this header only keeps one copy of the
+// arithmetic they have in common.
 //
+//   row_absmax_scale     a block's row abs-max and quantization scale.
+//   quant_one/quant_rcp  one value quantized in the division form (B1, B3)
+//                        or the reciprocal form of quant_rows (B2's
+//                        append, B6's prologue).
 //   row_quant_kernel     per-row dynamic int8 quantization (+ OCS tail
 //                        duplication): B1's prologue and the whole of B3.
 //   int8_gemm_kernel     __dp4a int8 x int8 -> int32 GEMM over [K+S, N]
 //                        int8 weights, split K meeting in an int32
-//                        workspace through atomicAdd (exact, so order-free).
+//                        workspace through atomicAdd (exact, so order-free);
+//                        split_k_grid picks the split (B6's int4 GEMM too).
 //   wo_gemm_kernel       weight-only GEMM: float x (staged in shared memory
 //                        as f32, OCS tail gathered there), int8 weights
 //                        converted in registers, f32 accumulation; split K
@@ -17,8 +23,10 @@
 //                        type.
 //
 // Numerics. Quantization: scale = max(amax, 1e-30) * float32(1/qmax),
-// q = clamp(floor(x / scale + 0.5)); the _rn intrinsics keep nvcc from
-// contracting or approximating the division and the add (no fast-math).
+// q = clamp(floor(x / scale + 0.5)), or q = clamp(floor(x * (1/scale) +
+// 0.5)) in the reciprocal form; the _rn intrinsics keep nvcc from
+// contracting or approximating the division, the multiply and the add (no
+// fast-math).
 // Weight-only sums are f32 in a fixed order, so a call's result is the same
 // from run to run; it differs from another summation order (the plain
 // version's) by f32 rounding only.
@@ -57,6 +65,31 @@ __device__ __forceinline__ int8_t quant_one(float x, float scale, float qmax) {
   return static_cast<int8_t>(static_cast<int>(q));
 }
 
+// The reciprocal form, rcp = __fdiv_rn(1, scale).
+__device__ __forceinline__ int8_t quant_rcp(float x, float rcp, float qmax) {
+  float q = floorf(__fadd_rn(__fmul_rn(x, rcp), 0.5f));
+  q = fminf(fmaxf(q, -qmax), qmax);
+  return static_cast<int8_t>(static_cast<int>(q));
+}
+
+// The scale of row xr[0, n) for a block of kQuantThreads threads:
+// max(amax, 1e-30) * inv_qmax, returned to every thread. ``red`` is
+// kQuantThreads / 32 floats of shared memory; the first barrier lets a
+// block call this again with the same ``red``.
+template <typename T>
+__device__ float row_absmax_scale(const T* xr, int n, float inv_qmax, float* red) {
+  float amax = 0.f;
+  for (int k = threadIdx.x; k < n; k += kQuantThreads) amax = fmaxf(amax, fabsf(load_f32(xr, k)));
+  for (int off = 16; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
+  __syncthreads();
+  float m = red[0];
+  for (int w = 1; w < kQuantThreads / 32; ++w) m = fmaxf(m, red[w]);
+  return __fmul_rn(fmaxf(m, 1e-30f), inv_qmax);
+}
+
 // Byte j of a 32-bit word of int8 weights, sign-extended, as a float (exact).
 __device__ __forceinline__ float byte_f32(uint32_t word, int j) {
   return __int2float_rn(static_cast<int>(word << (24 - 8 * j)) >> 24);
@@ -72,27 +105,10 @@ __global__ void __launch_bounds__(kQuantThreads) row_quant_kernel(
     const int* __restrict__ src_tail, float qmax, float inv_qmax,
     int8_t* __restrict__ q, float* __restrict__ scale_out) {
   __shared__ float red[kQuantThreads / 32];
-  __shared__ float s_scale;
   const size_t row = blockIdx.x;
   const T* xr = x + row * (size_t)K;
-  float amax = 0.f;
-  for (int k = threadIdx.x; k < K; k += kQuantThreads) {
-    amax = fmaxf(amax, fabsf(load_f32(xr, k)));
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  }
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float m = red[0];
-    for (int w = 1; w < kQuantThreads / 32; ++w) m = fmaxf(m, red[w]);
-    const float sc = __fmul_rn(fmaxf(m, 1e-30f), inv_qmax);
-    s_scale = sc;
-    scale_out[row] = sc;
-  }
-  __syncthreads();
-  const float sc = s_scale;
+  const float sc = row_absmax_scale(xr, K, inv_qmax, red);
+  if (threadIdx.x == 0) scale_out[row] = sc;
   int8_t* qr = q + row * (size_t)Kp;
   for (int k = threadIdx.x; k < K; k += kQuantThreads) {
     qr[k] = quant_one(load_f32(xr, k), sc, qmax);
@@ -191,22 +207,29 @@ __global__ void __launch_bounds__(kGemmTx * kGemmTy) int8_gemm_kernel(
   }
 }
 
-template <int TM>
-void launch_int8_gemm_tm(const int8_t* a, const int8_t* w, int M, int Ke, int Kp,
-                         int N, int* acc, cudaStream_t st) {
+// The grid of a dp4a GEMM over Kp rows of K (Kp % 16 == 0) with TM rows of
+// M a block: split K over blockIdx.z until ~2 blocks per SM are in flight,
+// keeping at least 64 rows of K per split; *k_chunk (a multiple of 16) is
+// each split's share.
+inline dim3 split_k_grid(int M, int Kp, int N, int TM, int* k_chunk) {
   const int gx = (N + kGemmCols - 1) / kGemmCols;
   const int gy = (M + TM - 1) / TM;
-  // Split K over the grid until ~2 blocks per SM are in flight, keeping at
-  // least 64 rows of K per split.
   const int want = 264;
   int nsplit = (want + gx * gy - 1) / (gx * gy);
   const int max_split = Kp / 64 > 0 ? Kp / 64 : 1;
   if (nsplit > max_split) nsplit = max_split;
   if (nsplit < 1) nsplit = 1;
-  int k_chunk = (Kp + nsplit - 1) / nsplit;
-  k_chunk = (k_chunk + 15) / 16 * 16;
-  nsplit = (Kp + k_chunk - 1) / k_chunk;
-  dim3 grid(gx, gy, nsplit);
+  int chunk = (Kp + nsplit - 1) / nsplit;
+  chunk = (chunk + 15) / 16 * 16;
+  *k_chunk = chunk;
+  return dim3(gx, gy, (Kp + chunk - 1) / chunk);
+}
+
+template <int TM>
+void launch_int8_gemm_tm(const int8_t* a, const int8_t* w, int M, int Ke, int Kp,
+                         int N, int* acc, cudaStream_t st) {
+  int k_chunk;
+  const dim3 grid = split_k_grid(M, Kp, N, TM, &k_chunk);
   dim3 block(kGemmTx, kGemmTy);
   int8_gemm_kernel<TM><<<grid, block, 0, st>>>(a, w, M, Ke, Kp, N, k_chunk, acc);
 }

@@ -59,12 +59,6 @@ namespace {
 
 using namespace rtq;
 
-__device__ __forceinline__ int8_t quant_rcp(float x, float rcp, float qmax) {
-  float q = floorf(__fadd_rn(__fmul_rn(x, rcp), 0.5f));
-  q = fminf(fmaxf(q, -qmax), qmax);
-  return static_cast<int8_t>(static_cast<int>(q));
-}
-
 // One block per row of x [M, K].
 template <typename T>
 __global__ void __launch_bounds__(kQuantThreads) w4a8_prologue_kernel(
@@ -73,24 +67,11 @@ __global__ void __launch_bounds__(kQuantThreads) w4a8_prologue_kernel(
     int8_t* __restrict__ q2, int Hp, int8_t* __restrict__ q8, int Tp,
     float* __restrict__ scale_out) {
   __shared__ float red[kQuantThreads / 32];
-  __shared__ float s_rcp;
   const size_t row = blockIdx.x;
   const T* xr = x + row * (size_t)K;
-  float amax = 0.f;
-  for (int k = threadIdx.x; k < K; k += kQuantThreads) amax = fmaxf(amax, fabsf(load_f32(xr, k)));
-  for (int off = 16; off > 0; off >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float m = red[0];
-    for (int w = 1; w < kQuantThreads / 32; ++w) m = fmaxf(m, red[w]);
-    const float sc = __fmul_rn(fmaxf(m, 1e-30f), inv_qmax);
-    s_rcp = __fdiv_rn(1.0f, sc);
-    scale_out[row] = sc;
-  }
-  __syncthreads();
-  const float rcp = s_rcp;
+  const float sc = row_absmax_scale(xr, K, inv_qmax, red);
+  if (threadIdx.x == 0) scale_out[row] = sc;
+  const float rcp = __fdiv_rn(1.0f, sc);
   const int Ke = K + S;
   const int H = Ke / 2;
   int8_t* qr = q2 + row * (size_t)(2 * Hp);
@@ -209,19 +190,8 @@ __global__ void __launch_bounds__(kGemmTx * kGemmTy) int4_gemm_kernel(
 template <int TM>
 void launch_int4_gemm_tm(const int8_t* q2, const uint8_t* w4, int M, int H, int Hp, int N,
                          int* acc, cudaStream_t st) {
-  const int gx = (N + kGemmCols - 1) / kGemmCols;
-  const int gy = (M + TM - 1) / TM;
-  // B1's split rule over the Hp byte rows: ~2 blocks per SM, >= 64 rows
-  // of K per split.
-  const int want = 264;
-  int nsplit = (want + gx * gy - 1) / (gx * gy);
-  const int max_split = Hp / 64 > 0 ? Hp / 64 : 1;
-  if (nsplit > max_split) nsplit = max_split;
-  if (nsplit < 1) nsplit = 1;
-  int k_chunk = (Hp + nsplit - 1) / nsplit;
-  k_chunk = (k_chunk + 15) / 16 * 16;
-  nsplit = (Hp + k_chunk - 1) / k_chunk;
-  dim3 grid(gx, gy, nsplit);
+  int k_chunk;  // B1's split rule over the Hp byte rows
+  const dim3 grid = split_k_grid(M, Hp, N, TM, &k_chunk);
   dim3 block(kGemmTx, kGemmTy);
   int4_gemm_kernel<TM><<<grid, block, 0, st>>>(q2, w4, M, H, Hp, N, k_chunk, acc);
 }

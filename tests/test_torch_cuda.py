@@ -8,8 +8,8 @@ machine with an NVIDIA GPU and ``nvcc``:
 
 This module imports torch and ``repro_torch`` only (no JAX), so it runs
 where the JAX package is not installed. Tolerances: ``fused_qmatmul``,
-``w4a8_qmatmul``, ``dynamic_quant`` and the int8 paths of ``ocs_matmul`` /
-``quant_matmul`` are bitwise; ``paged_attention`` pools (float32, int8 and
+``w4a8_qmatmul``, ``dynamic_quant``, the int8 paths of ``ocs_matmul`` /
+``quant_matmul`` and ``to_w4a8`` on the card (against the CPU) are bitwise; ``paged_attention`` pools (float32, int8 and
 int4) are bitwise and outputs within ``B2_ATOL`` (float32 summation order
 and ``expf`` vs torch's softmax); the
 weight-only paths within the float32 summation-order bound
@@ -23,6 +23,9 @@ import torch
 
 from _torch_interop import cuda_or_skip, torch_threads  # noqa: F401
 
+from repro_torch.core.apply import quantize_params, tree_to
+from repro_torch.core.ocs import to_w4a8
+from repro_torch.core.recipe import QuantRecipe
 from repro_torch.kernels import dynamic_quant as tdq
 from repro_torch.kernels import fused_qmatmul as tfq
 from repro_torch.kernels import ocs_matmul as tom
@@ -277,6 +280,52 @@ def test_w4a8_qmatmul_cuda_bitwise(m, k, n, s, t, dt):
         assert tw4.launches == n0 + 1
         assert _same_bits(got, want), out_dtype
         assert _same_bits(tw4.w4a8_matmul_cuda(*args, out_dtype=out_dtype), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ratio", [0.0, 0.05, 0.25])
+@pytest.mark.parametrize("layers,cin", [(None, 37), (3, 48)], ids=["odd-Kexp", "stacked"])
+def test_to_w4a8_cuda_bitwise_cpu(layers, cin, ratio):
+    """``to_w4a8`` on the card, as the engine converts its tree, is bitwise
+    the same conversion on the CPU (which ``tests/test_torch_w4a8.py``
+    holds bitwise against the reference) in all five arrays and the padded
+    spec; the leaves' clipped rows give ties in the outlier ranking, which
+    the stable argsort must break alike."""
+    cuda_or_skip()
+    rng = np.random.RandomState(cin + int(100 * ratio))
+    w = rng.randn(*(() if layers is None else (layers,)), cin, 24).astype(np.float32)
+    w[..., rng.randint(0, cin), :] *= 6.0  # an outlier row
+    recipe = QuantRecipe(w_bits=8, w_clip="mse", ocs_ratio=0.05, per_channel=True, pad_to=1)
+    lin = quantize_params({"w": torch.from_numpy(w)}, recipe, device="cpu")["w"]
+    assert lin.weight.values.shape[-2] % 2 == 1  # the dead-row padding path
+    want = to_w4a8(lin, ratio)
+    got = to_w4a8(tree_to(lin, "cuda"), ratio)
+    for name in ("w4", "s4", "w8", "s8", "outlier_idx"):
+        assert getattr(got, name).is_cuda
+        assert _same_bits(getattr(got, name), getattr(want, name)), name
+    for name in ("src", "mult", "bias"):
+        assert _same_bits(getattr(got.spec, name), getattr(want.spec, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ocs_ratio", [0.0, 0.05])
+def test_quantize_params_cuda_bitwise_cpu(ocs_ratio):
+    """``quantize_params`` on the card (as ``chip_smoke.py`` quantizes
+    glm4-9b) is bitwise the same recipe on the CPU: values, scales and
+    spec of a stacked leaf."""
+    cuda_or_skip()
+    rng = np.random.RandomState(7 + int(100 * ocs_ratio))
+    w = rng.randn(2, 96, 40).astype(np.float32)
+    w[:, 5] *= 8.0  # an outlier channel
+    recipe = QuantRecipe(w_bits=8, w_clip="mse", ocs_ratio=ocs_ratio, per_channel=True,
+                         pad_to=1)
+    want = quantize_params({"w": torch.from_numpy(w)}, recipe, device="cpu")["w"]
+    got = quantize_params({"w": torch.from_numpy(w)}, recipe, device="cuda")["w"]
+    assert got.weight.values.is_cuda
+    assert _same_bits(got.weight.values, want.weight.values)
+    assert _same_bits(got.weight.scale, want.weight.scale)
+    for name in ("src", "mult", "bias"):
+        assert _same_bits(getattr(got.spec, name), getattr(want.spec, name)), name
 
 
 @pytest.mark.cuda
