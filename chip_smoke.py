@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py [--layers N] [--clip-layers N] [--out DIR]
+    python3 chip_smoke.py [--layers N] [--short-layers N] [--out DIR]
 
 Phases (any failure raises, and the script exits non-zero with no result):
 
@@ -10,7 +10,7 @@ Phases (any failure raises, and the script exits non-zero with no result):
    started together).
 2. Quantize glm4-9b at its full published width (d_model 4096, 32/2 heads,
    hd 128, d_ff 13696, vocab 151552) and ``--layers`` deep (default 40,
-   the published depth; a smaller value is the one cut): random weights
+   the published depth; a smaller value is a cut): random weights
    from a seeded ``torch.Generator`` on the card, quantized on the card by
    ``quantize_params`` with the serving launcher's recipe (w8, MSE clip,
    OCS r=0.02, per-channel, pad_to=1).
@@ -25,12 +25,22 @@ Phases (any failure raises, and the script exits non-zero with no result):
    Q = 1): appended pools bitwise, outputs within ``B2_ATOL``.
    ``ocs_matmul`` (B4) weight-only at every shape with M in {1, 8, 256}:
    f32 outputs within the summation-order bound (``WO_TOL_FACTOR``), bf16
-   outputs within one bf16 ulp; int8 mode at M in {8, 256}: bitwise.
+   outputs within one bf16 ulp; int8 mode at M in {8, 256}: bitwise. A
+   ``w_down`` prefill long enough to run in two row chunks (the bound on
+   the split-K workspace): rows bitwise an 8-row call's, within the bound.
+   ``paged_attention`` with Q > 1 query tokens per lane (B2', the
+   speculative verify; Q in {2, 5, 17}) on the three pool kinds: pools
+   bitwise, outputs within ``B2_ATOL``, every row bitwise the sequential
+   Q = 1 launches at its position.
    ``dynamic_quant`` (B3) at K in {4096, 13696}, M in {1, 8, 256}:
    bitwise. ``w4a8_qmatmul`` (B6) at every shape (the layer-0 and lm_head
    leaves converted with ``to_w4a8(., 0.05)`` on the card, each conversion,
    and that of a stacked two-layer leaf, bitwise the same conversion on the
    CPU) with M in {1, 8, 256}: bitwise, f32 and bf16 outputs.
+   Verify check, in dequant (float32 pages), w8a8 (int8) and w4a8 (int4):
+   ``verify_step`` over 5 tokens of 8 lanes is bitwise 5 sequential
+   ``decode_step`` calls at the full model (logits, every layer's pools,
+   positions).
 4. Serve phases: every launch count set to 0 just before each and read just
    after. ``ServingEngine`` serves 8 seeded requests (prompts of 16-256
    tokens, 32 new tokens each, greedy) with ``EngineConfig(max_batch=8,
@@ -41,20 +51,32 @@ Phases (any failure raises, and the script exits non-zero with no result):
    and pools lie on the card (pools of the phase's dtype), that the phase's
    matmul kernel (B1 for w8a8, B4 for dequant, B6 for w4a8) ran 7*L+1
    times per decode step and per prefill call and the others not at all,
-   and ``paged_attention`` L times per decode step.
+   and ``paged_attention`` L times per decode step. Then self-speculative
+   decoding (``EngineConfig.spec``) on the same requests: (d) dequant on
+   float32 pages with the default drafter (w8a8, k <= 4), (e) w8a8 on int8
+   pages drafting with the first 10 layers, (f) w4a8 on int4 pages drafting
+   in w4a8. Each is held token for token against the plain phase of its
+   mode, its allocator state at retire against that phase's, and its
+   launches against the count its rounds and draft steps give. Then, on
+   the first ``--short-layers`` layers of the same tree (default 10; the
+   second cut), a plain w8a8 phase and (g) ``SpecConfig(k=16,
+   adaptive=False)`` in w8a8 on int8 pages (verify Q = 17; the draft is
+   the target: every draft accepted), held against it likewise.
 5. Clip-only tree: the OCS tree is freed, the same seeded weights are made
    again and quantized with ``ocs_ratio=0`` (the paper's baseline, no
-   split), ``--clip-layers`` deep (default: ``--layers``). ``quant_matmul``
+   split), ``--short-layers`` deep (default 10). ``quant_matmul``
    (B5) is checked and timed as B4 at its shapes (weight-only and int8),
    and the tree is served in ``dequant`` mode as in 4(b): B5 7*L+1 times
    per step and call, B4 and B1 not at all.
 6. Reference check: a smoke-size glm4-9b run through prefill and
    teacher-forced decode on the card (kernels) and on the CPU (plain
    versions) from the same weights, in w8a8 (int8 pages), dequant (float
-   pages), dequant on a clip-only tree and w4a8 (int4 pages); logits agree
+   pages), dequant on a clip-only tree and w4a8 (int4 pages), the decode
+   followed by a teacher-forced ``verify_step`` of 5 tokens; logits agree
    within ``MODEL_RTOL`` of the largest logit.
 
-Output: a ``kernels`` JSON line (every kernel's launches on its path,
+Output: a ``time:`` line at the end of each phase (seconds since the
+start), a ``kernels`` JSON line (every kernel's launches on its path,
 error, times and bound), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Per-shape detail goes to
 ``<out>/chip_smoke.json``.
@@ -226,9 +248,10 @@ def kernel_phase_b1(qparams, cfg, gen, iters):
     return rows
 
 
-def make_b2_case(gen, kind, B=8, H=32, KV=2, hd=128, ps=16, max_len=512):
+def make_b2_case(gen, kind, Q=1, B=8, H=32, KV=2, hd=128, ps=16, max_len=512):
     """``kind`` ("int8", "float32" or "int4") pools, ragged tables (lane 7
-    all trash), positions up to max_len-1."""
+    all trash), ``Q`` query tokens per lane at positions up to max_len-1
+    (first positions lowered so a window never runs past the table)."""
     import torch
 
     T = max_len // ps
@@ -256,15 +279,16 @@ def make_b2_case(gen, kind, B=8, H=32, KV=2, hd=128, ps=16, max_len=512):
     for key in ("k", "v") if kind == "float32" else ("k_scale", "v_scale"):
         pool[key][0] = float("nan")
     pos = torch.tensor([17, 511, 256, 40, 130, 300, 5, 0], dtype=torch.int32)[:B]
+    pos = pos.clamp_max(max_len - Q)
     table = torch.zeros((B, T), dtype=torch.int32)
     nxt = 1
     for b in range(B - 1):
-        for t in range(int(pos[b]) // ps + 1):
+        for t in range((int(pos[b]) + Q - 1) // ps + 1):
             table[b, t] = nxt
             nxt += 1
-    q = (torch.randn((B, 1, H, hd), generator=gen, device="cuda")).to(torch.bfloat16)
-    kn = (torch.randn((B, 1, KV, hd), generator=gen, device="cuda")).to(torch.bfloat16)
-    vn = (torch.randn((B, 1, KV, hd), generator=gen, device="cuda")).to(torch.bfloat16)
+    q = (torch.randn((B, Q, H, hd), generator=gen, device="cuda")).to(torch.bfloat16)
+    kn = (torch.randn((B, Q, KV, hd), generator=gen, device="cuda")).to(torch.bfloat16)
+    vn = (torch.randn((B, Q, KV, hd), generator=gen, device="cuda")).to(torch.bfloat16)
     return pool, table.to("cuda"), pos.to("cuda"), q, kn, vn
 
 
@@ -282,7 +306,7 @@ def b2_bound_ms(pool, table, pos, q):
     for i, p in enumerate(pos.cpu().tolist()):
         n_act = min(t, (p + qn - 1) // ps + 1)
         pages += sum(1 for j in range(n_act) if int(tab[i, j]) != 0)
-        attended += p + qn
+        attended += qn * p + qn * (qn + 1) // 2  # query j attends p + j + 1 positions
     byts = (pages * ps * row + b * qn * h * hd * 2 + 2 * b * qn * kvh * hd * 2
             + b * qn * row + table.numel() * 4 + b * 4 + b * qn * h * hd * 4)
     flops = 4.0 * h * hd * attended
@@ -290,9 +314,39 @@ def b2_bound_ms(pool, table, pos, q):
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
-def kernel_phase_b2(gen, iters):
+def sdpa_ms(pool, table, pos, q, kind, iters):
+    """Library yardstick: SDPA over the dequantized, gathered pages
+    (gathered outside the timing; KV heads expanded to the query heads),
+    query j of a lane seeing positions <= pos + j."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pa
+
+    b, qn, h, hd = q.shape
+    kvh, ps = pool["k"].shape[1:3]
+    tl = table.long()
+    kg, vg = pool["k"][tl], pool["v"][tl]
+    if kind == "int4":
+        kg, vg = pa.unpack_int4(kg), pa.unpack_int4(vg)
+    kg, vg = kg.float(), vg.float()
+    if kind != "float32":
+        kg = kg * pool["k_scale"][tl][..., None]
+        vg = vg * pool["v_scale"][tl][..., None]
+    L = tl.shape[1] * ps
+    kg = kg.movedim(2, 1).reshape(b, kvh, L, hd).nan_to_num(0.0)
+    vg = vg.movedim(2, 1).reshape(b, kvh, L, hd).nan_to_num(0.0)
+    kg = kg.repeat_interleave(h // kvh, dim=1)
+    vg = vg.repeat_interleave(h // kvh, dim=1)
+    bound = pos[:, None].long() + torch.arange(qn, device="cuda")[None, :]  # [B, Q]
+    mask = (torch.arange(L, device="cuda")[None, None, :] <= bound[:, :, None]) & \
+        torch.repeat_interleave(table != 0, ps, dim=1)[:, None, :]
+    mask = mask[:, None]  # [B, 1, Q, L]
+    qf = q.float().movedim(1, 2)
+    return time_ms(lambda: F.scaled_dot_product_attention(qf, kg, vg, attn_mask=mask), iters)
+
+
+def kernel_phase_b2(gen, iters):
+    import torch
     from repro_torch.kernels import paged_attention as pa
 
     rows = []
@@ -315,29 +369,9 @@ def kernel_phase_b2(gen, iters):
         ms = time_ms(lambda: pa.paged_attention_cuda(work, table, pos, q, kn, vn), iters)
         plain_ms = time_ms(lambda: pa.paged_attention_plain(pool, table, pos, q, kn, vn),
                            max(2, iters // 5), warmup=1)
-        # Library yardstick: SDPA over the dequantized, gathered pages
-        # (gathered outside the timing; KV heads expanded to the 32 heads).
+        lib_ms = sdpa_ms(want_pool, table, pos, q, kind, iters)
         b, _, h, hd = q.shape
         kvh, ps = pool["k"].shape[1:3]
-        tl = table.long()
-        kg, vg = want_pool["k"][tl], want_pool["v"][tl]
-        if kind == "int4":
-            kg, vg = pa.unpack_int4(kg), pa.unpack_int4(vg)
-        kg, vg = kg.float(), vg.float()
-        if kind != "float32":
-            kg = kg * want_pool["k_scale"][tl][..., None]
-            vg = vg * want_pool["v_scale"][tl][..., None]
-        L = tl.shape[1] * ps
-        kg = kg.movedim(2, 1).reshape(b, kvh, L, hd).nan_to_num(0.0)
-        vg = vg.movedim(2, 1).reshape(b, kvh, L, hd).nan_to_num(0.0)
-        kg = kg.repeat_interleave(h // kvh, dim=1)
-        vg = vg.repeat_interleave(h // kvh, dim=1)
-        mask = (torch.arange(L, device="cuda")[None, :] <= pos[:, None].long()) & \
-            torch.repeat_interleave(table != 0, ps, dim=1)
-        mask = mask[:, None, None, :]
-        qf = q.float().movedim(1, 2)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qf, kg, vg, attn_mask=mask),
-                         iters)
         bound, by = b2_bound_ms(pool, table, pos, q)
         rows.append(dict(pool=kind, B=b, H=h, KV=kvh, hd=hd,
                          ps=ps, T=int(table.shape[1]), ms=ms, plain_ms=plain_ms,
@@ -346,6 +380,68 @@ def kernel_phase_b2(gen, iters):
         log(f"B2 paged_attention pool={kind} B={b} H={h}/{kvh} "
             f"hd={hd} ps={ps}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
             f"bound_ms={bound:.5f} ({by}) max_abs_err={err:.3g} pools bitwise=yes")
+    return rows
+
+
+# B2's multi-row path: the verify windows of the spec phases (Q = k + 1 for
+# the default k = 4) and of SpecConfig(k=16), and a short one.
+B2V_QS = (2, 5, 17)
+
+
+def kernel_phase_b2v(gen, iters):
+    """B2's Q > 1 rows (the speculative verify) on int8, float32 and int4
+    pools at Q in ``B2V_QS``: pools bitwise the plain version's (the trash
+    page, which several rows write and nothing reads, aside), outputs within
+    ``B2_ATOL``, and every row bitwise the sequential Q = 1 launches at its
+    position."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+
+    rows = []
+    for kind in ("int8", "float32", "int4"):
+        for qn in B2V_QS:
+            pool, table, pos, q, kn, vn = make_b2_case(gen, kind, Q=qn)
+            want_out, want_pool = pa.paged_attention_plain(pool, table, pos, q, kn, vn)
+            work = {k: v.clone() for k, v in pool.items()}
+            got_out, got_pool = pa.paged_attention_cuda(work, table, pos, q, kn, vn)
+            seq = {k: v.clone() for k, v in pool.items()}
+            outs = []
+            for j in range(qn):
+                o, seq = pa.paged_attention_cuda(seq, table, pos + j, q[:, j:j + 1].contiguous(),
+                                                 kn[:, j:j + 1].contiguous(),
+                                                 vn[:, j:j + 1].contiguous())
+                outs.append(o)
+            torch.cuda.synchronize()
+            for key in want_pool:
+                if not same_bits(got_pool[key][1:], want_pool[key][1:]):
+                    raise AssertionError(f"paged_attention Q={qn} {kind}: pool {key} differs")
+                if not same_bits(seq[key][1:], got_pool[key][1:]):
+                    raise AssertionError(f"paged_attention Q={qn} {kind}: pool {key} differs "
+                                         "from the sequential Q=1 launches'")
+            if not torch.isfinite(got_out).all() or got_out[7].abs().max().item() != 0.0:
+                raise AssertionError(f"paged_attention Q={qn} {kind}: nonfinite output or "
+                                     "the all-trash lane not zeros")
+            err = (got_out - want_out).abs().max().item()
+            if err > B2_ATOL:
+                raise AssertionError(f"paged_attention Q={qn} {kind}: max |d| {err} > {B2_ATOL}")
+            if not same_bits(torch.cat(outs, 1), got_out):
+                raise AssertionError(f"paged_attention Q={qn} {kind}: rows differ from the "
+                                     "sequential Q=1 launches")
+            ms = time_ms(lambda: pa.paged_attention_cuda(work, table, pos, q, kn, vn), iters)
+            plain_ms = time_ms(lambda: pa.paged_attention_plain(pool, table, pos, q, kn, vn),
+                               max(2, iters // 5), warmup=1)
+            lib_ms = sdpa_ms(want_pool, table, pos, q, kind, iters)
+            bound, by = b2_bound_ms(pool, table, pos, q)
+            b, _, h, hd = q.shape
+            rows.append(dict(pool=kind, Q=qn, B=b, H=h, KV=pool["k"].shape[1], hd=hd,
+                             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                             bound_by=by, max_abs_err=err,
+                             tile_rows=pa.tile_rows(qn, h // pool["k"].shape[1], hd, 16)))
+            log(f"B2' paged_attention pool={kind} Q={qn} B={b} H={h}/{pool['k'].shape[1]} "
+                f"hd={hd}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                f"bound_ms={bound:.5f} ({by}) max_abs_err={err:.3g} pools bitwise=yes, rows "
+                f"bitwise the sequential Q=1 launches")
+            del pool, work, seq, want_pool
     return rows
 
 
@@ -492,6 +588,9 @@ def kernel_phase_wo(label, qparams, gen, iters):
                 f"{bound:.4f} ({by}) f32 max|d|={err_max:.3g} ({ratio:.3g} of bound), "
                 f"bf16 within bound + 1 ulp")
         del wb_copies
+        if names == ["w_down"]:
+            rows.append(wo_chunk_case(label, kern, plain, k, s, n, w8, ws, src, mult, gen,
+                                      iters))
         for m in (8, 256):
             x8 = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
                                dtype=torch.int8)
@@ -542,6 +641,50 @@ def kernel_phase_wo(label, qparams, gen, iters):
                 f"bitwise=yes")
         del copies
     return rows
+
+
+def wo_chunk_case(label, kern, plain, k, s, n, w8, ws, src, mult, gen, iters):
+    """A prefill long enough that the weight-only GEMM runs in two row
+    chunks (``quant_matmul.wo_row_chunk``, which bounds its split-K
+    workspace): rows at the start, across the chunk boundary and at the end
+    bitwise the same rows in an 8-row call; every output within the
+    summation-order bound of the plain version; timed."""
+    import torch
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels import ref
+
+    nsplit = qm.wo_split_plan(k + s, n)[1]
+    chunk = qm.wo_row_chunk(1 << 30, n, nsplit)
+    m = chunk + 64
+    x = (torch.randn((m, k), generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
+    got = kern(x, w8, torch.float32)
+    for lo in (0, chunk - 4, m - 8):
+        if not same_bits(kern(x[lo:lo + 8].contiguous(), w8, torch.float32), got[lo:lo + 8]):
+            raise AssertionError(f"{label} weight-only w_down M={m}: rows {lo}..{lo + 7} "
+                                 "differ from the same rows in an 8-row call")
+    want = plain(x, torch.float32)
+    xe = torch.cat([x.float(), x[:, src.long()].float() * mult], 1) if s else x.float()
+    tol = (WO_TOL_FACTOR * (k + s + 2) * 2.0 ** -24
+           * ref.float_matmul(xe.abs(), w8.abs()) * ws.abs())
+    err = (got - want).abs()
+    ratio = (err / tol.clamp_min(1e-30)).max().item()
+    if not torch.isfinite(got).all() or ratio > 1.0:
+        raise AssertionError(f"{label} weight-only w_down M={m}: |kernel - plain| is "
+                             f"{ratio:.3g} of the summation-order bound")
+    del want, tol, xe
+    ms = time_ms(lambda: kern(x, w8, torch.bfloat16), iters)
+    plain_ms = time_ms(lambda: plain(x, torch.bfloat16), max(2, iters // 5), warmup=1)
+    bound, by = matmul_bound_ms(m, k, s, n, x_bytes=2, out_bytes=2, peak_ops=BF16_FLOPS)
+    part_mib = 4 * nsplit * chunk * n / 2**20
+    log(f"{label} weight-only w_down M={m} K={k}+{s} N={n} in 2 row chunks of <= {chunk} "
+        f"(split-K workspace {part_mib:.1f} MiB; {4 * nsplit * m * n / 2**20:.1f} MiB in one "
+        f"launch): kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.4f} ({by}) "
+        f"f32 max|d|={err.max().item():.3g} ({ratio:.3g} of bound); rows bitwise an 8-row "
+        "call's")
+    return dict(mode="weight-only", names=["w_down"], M=m, K=k, S=s, N=n, ms=ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by=by,
+                max_abs_err=err.max().item(), tol_share=ratio, row_chunk=chunk,
+                workspace_mib=part_mib)
 
 
 def kernel_phase_b3(gen, iters):
@@ -607,6 +750,17 @@ def to_w4a8_checked(name, leaf):
         raise AssertionError(f"to_w4a8 {name}: the card's conversion differs from the "
                              f"CPU's in {bad or ['n_orig/a_bits']}")
     return card
+
+
+def head_layers(qparams, n):
+    """The first ``n`` layers of a quantized tree (views, no copy)."""
+    from repro_torch.core.apply import map_with_path
+    from repro_torch.core.ocs import OCSQuantLinear
+
+    layers = map_with_path(lambda _p, leaf: stacked_head(leaf, n)
+                           if isinstance(leaf, OCSQuantLinear) else leaf[:n],
+                           qparams["layers"])
+    return dict(qparams, layers=layers)
 
 
 def stacked_head(lin, n):
@@ -713,18 +867,44 @@ def kernel_phase_b6(qparams, gen, iters):
 
 
 def counters():
+    """Every launch count: name -> (wrapper module, count attribute).
+    ``paged_attention_verify`` is B2's count of Q > 1 calls."""
     from repro_torch.kernels import dynamic_quant, fused_qmatmul, ocs_matmul
     from repro_torch.kernels import paged_attention, quant_matmul, w4a8_qmatmul
 
-    return {"fused_qmatmul": fused_qmatmul, "paged_attention": paged_attention,
-            "ocs_matmul": ocs_matmul, "quant_matmul": quant_matmul,
-            "dynamic_quant": dynamic_quant, "w4a8_qmatmul": w4a8_qmatmul}
+    return {"fused_qmatmul": (fused_qmatmul, "launches"),
+            "paged_attention": (paged_attention, "launches"),
+            "paged_attention_verify": (paged_attention, "launches_verify"),
+            "ocs_matmul": (ocs_matmul, "launches"), "quant_matmul": (quant_matmul, "launches"),
+            "dynamic_quant": (dynamic_quant, "launches"),
+            "w4a8_qmatmul": (w4a8_qmatmul, "launches")}
 
 
-def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel):
+# The matmul kernel each mode runs on an OCS tree.
+MODE_KERNEL = {"dequant": "ocs_matmul", "w8a8": "fused_qmatmul", "w4a8": "w4a8_qmatmul"}
+
+
+def alloc_state(a):
+    """The allocator's state once every request has retired: pages in use,
+    free and cached, refcounts, the prefix cache's chain keys, its counters
+    and the peak (which page ids sit where on the free list follows the
+    order lanes retire in)."""
+    return (a.in_use(), a.available(), a.cached_pages(), dict(a._ref), sorted(a._page_of),
+            a.prefix_hit_pages, a.prefix_lookup_pages, a.peak_in_use)
+
+
+def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel, plain=None):
     """Serve 8 seeded requests; every launch count is set to 0 just before
     and read just after. ``matmul_kernel`` must run 7*L+1 times per decode
-    step and per prefill call, the other matmul kernels not at all."""
+    step and per prefill call, the other matmul kernels not at all.
+
+    With ``ecfg.spec`` set, each step is a speculation round: the target's
+    kernel runs 7*L+1 times per round and per prefill call, the drafter's
+    (``MODE_KERNEL[spec.draft_mode]``) 7*n+1 times per draft step over its
+    n layers, B2 n times per draft step and L times per one-token round,
+    B2's Q > 1 path L times per other round; the outputs must equal
+    ``plain``'s (the plain phase of the same mode on the same prompts) token
+    for token, and the allocator must end in its state."""
     import numpy as np
     import torch
     from repro_torch.core.apply import map_with_path
@@ -745,13 +925,13 @@ def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel):
     for r in reqs:
         eng.submit(r)
     mods = counters()
-    for mod in mods.values():
+    for mod, _ in mods.values():
         mod.reset_launches()
     t0 = time.perf_counter()
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {name: mod.launches for name, mod in mods.items()}
+    counts = {name: getattr(mod, attr) for name, (mod, attr) in mods.items()}
     stats = eng.stats()
     L = cfg.n_layers
     if len(done) != 8 or any(r.finish_reason != "length" for r in done):
@@ -792,9 +972,28 @@ def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel):
     steps, calls = stats["decode_steps"], stats["prefill_calls"]
     want = {name: 0 for name in counts}
     want[matmul_kernel] = (7 * L + 1) * (steps + calls)
-    want["paged_attention"] = L * steps
+    spec = ecfg.spec
+    if spec is None:
+        want["paged_attention"] = L * steps
+    else:
+        dec = eng._spec
+        n = min(spec.draft_layers or L, L)
+        want[MODE_KERNEL[spec.draft_mode]] += (7 * n + 1) * dec.draft_steps
+        want["paged_attention"] = n * dec.draft_steps + L * dec.plain_rounds
+        want["paged_attention_verify"] = L * (dec.rounds - dec.plain_rounds)
+        if not want["paged_attention_verify"]:
+            raise AssertionError(f"{label}: no round verified more than one token")
     if counts != want:
         raise AssertionError(f"{label}: launch counts {counts}, want {want}")
+    outputs = {r.uid: list(r.output) for r in done}
+    alloc = alloc_state(eng.allocator)
+    if plain is not None:
+        bad = sorted(uid for uid in outputs if outputs[uid] != plain["outputs"][uid])
+        if bad:
+            raise AssertionError(f"{label}: requests {bad} differ from the plain phase's tokens")
+        if alloc != plain["alloc"]:
+            raise AssertionError(f"{label}: allocator state {alloc} at retire differs from the "
+                                 f"plain phase's {plain['alloc']}")
     tree = "w4a8" if ecfg.matmul_mode == "w4a8" else "int8"
     log(f"serve {label}: engine built in {t_construct:.2f} s; quantized weight bytes "
         f"{weight_bytes[tree] / 1e9:.3f} GB ({tree} leaves); KV bytes per token "
@@ -804,19 +1003,85 @@ def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel):
         f"tokens, {pool_kind} pages, wall {wall:.2f} s")
     log(f"serve {label} on {card}: prefill {stats['prefill_tok_per_s']:.1f} tok/s | decode "
         f"{stats['decode_tok_per_s']:.1f} tok/s | ttft p50 {stats['ttft_p50_s'] * 1e3:.1f} ms "
-        f"p95 {stats['ttft_p95_s'] * 1e3:.1f} ms | itl p50 {stats['itl_p50_s'] * 1e3:.2f} ms")
-    log(f"serve {label}: {matmul_kernel} wrapper calls {counts[matmul_kernel]} = (7*{L}+1) x "
-        f"({steps} decode steps + {calls} prefill calls); paged_attention "
-        f"{counts['paged_attention']} = {L} x {steps}; others 0")
+        f"p95 {stats['ttft_p95_s'] * 1e3:.1f} ms | itl p50 {stats['itl_p50_s'] * 1e3:.2f} ms "
+        f"p95 {stats['itl_p95_s'] * 1e3:.2f} ms")
+    if spec is None:
+        log(f"serve {label}: {matmul_kernel} wrapper calls {counts[matmul_kernel]} = "
+            f"(7*{L}+1) x ({steps} decode steps + {calls} prefill calls); paged_attention "
+            f"{counts['paged_attention']} = {L} x {steps}; others 0")
+    else:
+        log(f"serve {label}: {spec}: {stats['spec_rounds']:.0f} rounds ({dec.plain_rounds} "
+            f"of one token), {dec.draft_steps} draft steps; acceptance "
+            f"{stats['spec_acceptance_rate']:.4f}, {stats['spec_tokens_per_target_step']:.4f} "
+            f"tokens per target step; draft {stats['spec_draft_time_s']:.3f} s, verify "
+            f"{stats['spec_verify_time_s']:.3f} s; launch counts "
+            f"{ {k: v for k, v in counts.items() if v} } as reckoned; tokens identical to the "
+            f"plain phase's, allocator state at retire equal")
     return dict(stats=stats, wall_s=wall, launches=counts, n_layers=L, pool=pool_kind,
                 construct_s=t_construct, weight_bytes=weight_bytes[tree],
-                kv_bytes_per_token=kvc.kv_bytes_per_token(eng.cfg))
+                kv_bytes_per_token=kvc.kv_bytes_per_token(eng.cfg), outputs=outputs,
+                alloc=alloc, spec=None if spec is None else dataclasses.asdict(spec),
+                draft_steps=None if spec is None else dec.draft_steps)
+
+
+def verify_check(label, cfg, params, mode, kv_bits, seed):
+    """``verify_step`` over 5 tokens is bitwise 5 sequential ``decode_step``
+    calls on the card at the full model: 8 lanes at ragged positions, after
+    4 teacher-forced decode steps of context; logits, every layer's pools
+    and the positions compared."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import kv_cache as kvc
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, kv_bits=kv_bits)
+    B, T_, ps, qn = 8, 4, 16, 5
+    caches = kvc.init_paged_cache(cfg, B, B * T_ + 1, ps, T_, device="cuda")
+    caches["table"] = torch.arange(1, B * T_ + 1, dtype=torch.int32,
+                                   device="cuda").reshape(B, T_)
+    caches["pos"] = torch.tensor([0, 3, 17, 30, 8, 44, 21, 12], dtype=torch.int32,
+                                 device="cuda")
+    rng = np.random.default_rng(seed)
+
+    def toks(shape):
+        return torch.as_tensor(rng.integers(0, cfg.vocab, shape), dtype=torch.int32,
+                               device="cuda")
+
+    with torch.no_grad():
+        for _ in range(4):
+            _, caches = T.decode_step(params, toks((B, 1)), caches, cfg, mode=mode)
+        window = toks((B, qn))
+        seq, outs = copy.deepcopy(caches), []
+        for j in range(qn):
+            lg, seq = T.decode_step(params, window[:, j:j + 1].contiguous(), seq, cfg,
+                                    mode=mode)
+            outs.append(lg)
+        lg_v, ver = T.verify_step(params, window, caches, cfg, mode=mode)
+    torch.cuda.synchronize()
+    if not torch.equal(torch.stack(outs, 1), lg_v):
+        d = (torch.stack(outs, 1).float() - lg_v.float()).abs().max().item()
+        raise AssertionError(f"verify check ({label}): logits differ from {qn} decode steps "
+                             f"(max |d| {d})")
+    if not torch.equal(ver["pos"], seq["pos"]):
+        raise AssertionError(f"verify check ({label}): positions differ")
+    for i in range(cfg.n_layers):
+        for key, val in ver["layers"][i]["attn"].items():
+            if not same_bits(val, seq["layers"][i]["attn"][key]):
+                raise AssertionError(f"verify check ({label}): layer {i} pool {key} differs")
+    dt = time.perf_counter() - t0
+    log(f"verify check ({label}; {cfg.n_layers} layers, {B} lanes, Q={qn}): verify_step "
+        f"bitwise {qn} sequential decode_steps (logits, {cfg.n_layers} layers' pools, "
+        f"positions); {dt:.2f} s")
+    return dict(n_layers=cfg.n_layers, lanes=B, Q=qn, bitwise=True, seconds=dt)
 
 
 def smoke_logits(qp, cfg, seed, dev, mode="w8a8"):
-    """Logits of prefill + 4 teacher-forced decode steps of the smoke model
-    on ``dev`` (the kernels on ``cuda``, the plain versions on ``cpu``), in
-    matmul ``mode``."""
+    """Logits of prefill + 4 teacher-forced decode steps + a teacher-forced
+    verify of 5 tokens of the smoke model on ``dev`` (the kernels on
+    ``cuda``, the plain versions on ``cpu``), in matmul ``mode``."""
     import numpy as np
     import torch
     from repro_torch.models import transformer as T
@@ -827,6 +1092,7 @@ def smoke_logits(qp, cfg, seed, dev, mode="w8a8"):
     toks = np.zeros((1, 32), np.int64)
     toks[0, :n] = rng.integers(0, cfg.vocab, n)
     follow = rng.integers(0, cfg.vocab, 4)
+    window = rng.integers(0, cfg.vocab, (1, 5))
     pools = [kvc.init_page_pool(cfg, 8, 16, device=dev) for _ in range(cfg.n_layers)]
     ids = torch.tensor([1, 2], dtype=torch.int32, device=dev)
     with torch.no_grad():
@@ -843,6 +1109,9 @@ def smoke_logits(qp, cfg, seed, dev, mode="w8a8"):
                 qp, torch.tensor([[int(t)]], dtype=torch.int32, device=dev), caches, cfg,
                 mode=mode)
             out.append(lg)
+        lg, caches = T.verify_step(qp, torch.as_tensor(window, dtype=torch.int32, device=dev),
+                                   caches, cfg, mode=mode)
+        out.append(lg[0])
     return torch.cat(out).float().cpu()
 
 
@@ -894,7 +1163,8 @@ def reference_check(seed):
             raise AssertionError(f"reference check ({label}): max |d logits| {err} > "
                                  f"{MODEL_RTOL} x {scale}")
         log(f"reference check ({label}; smoke glm4-9b, prefill + 4 teacher-forced decode "
-            f"steps, card kernels vs CPU plain): max |d logits| {err:.6g} of max |logit| "
+            f"steps + a teacher-forced verify of 5, card kernels vs CPU plain): max |d logits| "
+            f"{err:.6g} of max |logit| "
             f"{scale:.6g} ({err / scale:.3g}; limit {MODEL_RTOL})")
         out[label] = dict(max_abs_err=err, logit_scale=scale)
     return out
@@ -925,8 +1195,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=40,
                     help="glm4-9b depth (40 = the published depth, no cut)")
-    ap.add_argument("--clip-layers", type=int, default=None,
-                    help="depth of the clip-only tree (default: --layers)")
+    ap.add_argument("--short-layers", type=int, default=10,
+                    help="depth of the clip-only tree and of the k=16 spec phase and "
+                         "its plain reference (paths that need no full-depth check)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out"))
@@ -949,7 +1220,10 @@ def main(argv=None) -> int:
     from repro_torch.core.recipe import QuantRecipe
     from repro_torch.kernels import build
     from repro_torch.models import transformer as T
+    from repro_torch.core.apply import map_with_path
+    from repro_torch.core.ocs import OCSQuantLinear, to_w4a8
     from repro_torch.serving import EngineConfig
+    from repro_torch.serving.spec_decode import SpecConfig
 
     t_start = time.perf_counter()
     card = gpu_line()
@@ -970,7 +1244,7 @@ def main(argv=None) -> int:
     def model(layers):
         cfg = dataclasses.replace(get_config("glm4-9b"), n_layers=layers)
         cut = ("no cut" if layers == depth
-               else f"the one cut: n_layers {layers} of {depth}")
+               else f"cut: n_layers {layers} of {depth}")
         log(f"model: glm4-9b at full width (d_model {cfg.d_model}, heads {cfg.n_heads}/"
             f"{cfg.n_kv_heads}, hd {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), "
             f"{cfg.n_layers} layers ({cut})")
@@ -991,16 +1265,41 @@ def main(argv=None) -> int:
         log(f"quantize: {dt:.1f} s on the card (w8, mse clip, ocs r={ratio}, per-channel)")
         return q, dt
 
+    marks = {}
+
+    def mark(what):
+        """Log and keep the seconds since the start at the end of a phase."""
+        marks[what] = time.perf_counter() - t_start
+        log(f"time: {what} done at {marks[what]:.1f} s")
+
     cfg = model(args.layers)
     qparams, t_quant = quantized(cfg, 0.02)
     serve_cfg = EngineConfig(max_batch=8, max_len=512, page_size=16)
+    mark("quantize")
 
     gen_k = torch.Generator(device="cuda").manual_seed(args.seed + 1)
     b1 = kernel_phase_b1(qparams, cfg, gen_k, args.iters)
+    mark("B1")
     b2 = kernel_phase_b2(gen_k, args.iters)
+    b2v = kernel_phase_b2v(gen_k, args.iters)
+    mark("B2, B2'")
     b4 = kernel_phase_wo("B4", qparams, gen_k, args.iters)
     b3, b3_launches = kernel_phase_b3(gen_k, args.iters)
+    mark("B4, B3")
     b6 = kernel_phase_b6(qparams, gen_k, args.iters)
+    mark("B6")
+    # The verify contract at the full model, in each tier (the w4a8 tree
+    # converted as the engine converts it).
+    q_w4a8 = map_with_path(lambda _p, leaf: to_w4a8(leaf, W4A8_RATIO)
+                           if isinstance(leaf, OCSQuantLinear) else leaf, qparams)
+    verify = {
+        "dequant": verify_check("dequant, float32 pages", cfg, qparams, "dequant", None,
+                                args.seed),
+        "w8a8": verify_check("w8a8, int8 pages", cfg, qparams, "w8a8", 8, args.seed),
+        "w4a8": verify_check("w4a8, int4 pages", cfg, q_w4a8, "w4a8", 4, args.seed),
+    }
+    del q_w4a8
+    mark("verify checks")
     serves = {
         "w8a8": serve_phase("w8a8", cfg, qparams, args.seed, card,
                             serve_cfg.replace(matmul_mode="w8a8", kv_bits=8),
@@ -1017,15 +1316,47 @@ def main(argv=None) -> int:
         f"{serves['w8a8']['weight_bytes'] / 1e9:.3f} GB; KV bytes per token "
         f"{serves['w4a8']['kv_bytes_per_token']} (int4) vs "
         f"{serves['w8a8']['kv_bytes_per_token']} (int8)")
-    del qparams
+    # Self-speculative decoding, each held token for token against the plain
+    # phase of its mode: (label, engine config, plain phase, target kernel).
+    spec_phases = (
+        ("spec dequant", serve_cfg.replace(spec=SpecConfig()), "dequant"),
+        ("spec w8a8", serve_cfg.replace(matmul_mode="w8a8", kv_bits=8,
+                                        spec=SpecConfig(draft_layers=10)), "w8a8"),
+        ("spec w4a8", serve_cfg.replace(matmul_mode="w4a8", kv_bits=4,
+                                        spec=SpecConfig(draft_mode="w4a8")), "w4a8"),
+    )
+    mark("plain serves")
+    for label, ecfg, plain in spec_phases:
+        serves[label] = serve_phase(label, cfg, qparams, args.seed, card, ecfg,
+                                    MODE_KERNEL[ecfg.matmul_mode], plain=serves[plain])
+    mark("spec serves")
+    # A window of 16 (verify Q = 17) drafting in the target's own mode (the
+    # draft is the target, so every draft must be accepted), on the first
+    # --short-layers layers of the same tree against a plain w8a8 phase of
+    # that depth.
+    cfg_short = model(min(args.short_layers, cfg.n_layers))
+    q_short = head_layers(qparams, cfg_short.n_layers)
+    w8a8_cfg = serve_cfg.replace(matmul_mode="w8a8", kv_bits=8)
+    serves["w8a8 short"] = serve_phase(f"w8a8 ({cfg_short.n_layers} layers)", cfg_short,
+                                       q_short, args.seed, card, w8a8_cfg, "fused_qmatmul")
+    serves["spec k=16"] = serve_phase(
+        f"spec k=16 ({cfg_short.n_layers} layers)", cfg_short, q_short, args.seed, card,
+        w8a8_cfg.replace(spec=SpecConfig(k=16, adaptive=False)), "fused_qmatmul",
+        plain=serves["w8a8 short"])
+    if serves["spec k=16"]["stats"]["spec_acceptance_rate"] != 1.0:
+        raise AssertionError("spec k=16: a draft in the target's own mode was rejected")
+    mark("k=16 serves")
+    del qparams, q_short
 
-    cfg_clip = model(args.clip_layers or args.layers)
+    cfg_clip = cfg_short
     qclip, t_quant_clip = quantized(cfg_clip, 0.0)
     b5 = kernel_phase_wo("B5", qclip, gen_k, args.iters)
     serves["clip-only"] = serve_phase("clip-only dequant", cfg_clip, qclip, args.seed, card,
                                       serve_cfg, "quant_matmul")
     del qclip
+    mark("clip-only tree")
     refc = reference_check(args.seed)
+    mark("reference check")
 
     L = cfg.n_layers
     # Kernel line: the matmul kernels at one decode step's work (M = 8: 7
@@ -1034,11 +1365,14 @@ def main(argv=None) -> int:
     # K = 4096 (per call).
     b1_step = step_sum(b1, L)
     b4_step = step_sum(b4, L, "weight-only")
-    b5_step = step_sum(b5, cfg_clip.n_layers, "weight-only")
+    b5_step = step_sum(b5, L, "weight-only")
     b6_step = step_sum(b6, L)
     b2_main = next(r for r in b2 if r["pool"] == "int8")
     b2_int4 = next(r for r in b2 if r["pool"] == "int4")
     b3_main = next(r for r in b3 if r["M"] == 8 and r["K"] == 4096)
+    # B2's Q > 1 path at the default window (k = 4: Q = 5) on the default
+    # float32 pages; launches from the default spec phase.
+    b2v_main = next(r for r in b2v if r["pool"] == "float32" and r["Q"] == 5)
 
     def entry(name, replaces, launches, err, t, source=None):
         source = source or f"src/repro_torch/csrc/{name}.cu"
@@ -1064,14 +1398,21 @@ def main(argv=None) -> int:
         entry("paged_attention_int4", "src/repro/kernels/paged_attention.py:554",
               serves["w4a8"]["launches"]["paged_attention"], b2_int4["max_abs_err"], b2_int4,
               source="src/repro_torch/csrc/paged_attention.cu"),
+        entry("paged_attention_verify", "src/repro/kernels/paged_attention.py:534",
+              serves["spec dequant"]["launches"]["paged_attention_verify"],
+              max(r["max_abs_err"] for r in b2v), b2v_main,
+              source="src/repro_torch/csrc/paged_attention.cu"),
     ]
     what = {"fused_qmatmul": "one decode step's calls, M=8",
             "paged_attention": "one call, int8 pool, 8 lanes",
             "ocs_matmul": "one decode step's calls, M=8, weight-only",
-            "quant_matmul": "one decode step's calls, M=8, weight-only, clip-only tree",
+            "quant_matmul": f"one {L}-layer decode step's calls, M=8, weight-only, "
+                            f"clip-only tree; launches from the {cfg_clip.n_layers}-layer serve",
             "dynamic_quant": "one call, M=8, K=4096; launches from the kernel phase",
             "w4a8_qmatmul": "one decode step's calls, M=8",
-            "paged_attention_int4": "one call, int4 pool, 8 lanes; B2's int4 branch"}
+            "paged_attention_int4": "one call, int4 pool, 8 lanes; B2's int4 branch",
+            "paged_attention_verify": "one call, float32 pool, 8 lanes, Q=5; B2's Q>1 rows; "
+                                      "launches from the default spec phase"}
     for k in kernels:
         lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
         log(f"kernel {k['name']} ({what[k['name']]}): kernel_ms={k['ms']:.4f} plain_ms="
@@ -1080,10 +1421,10 @@ def main(argv=None) -> int:
     total = time.perf_counter() - t_start
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     detail = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
-                  n_layers=L, clip_layers=cfg_clip.n_layers, build_s=t_build,
+                  n_layers=L, short_layers=cfg_clip.n_layers, build_s=t_build,
                   quantize_s=t_quant, quantize_clip_s=t_quant_clip, total_s=total,
-                  peak_mem_gib=peak_gb, b1=b1, b2=b2, b3=b3, b4=b4, b5=b5, b6=b6,
-                  serve=serves,
+                  peak_mem_gib=peak_gb, b1=b1, b2=b2, b2v=b2v, b3=b3, b4=b4, b5=b5, b6=b6,
+                  verify_check=verify, serve=serves, phase_end_s=marks,
                   reference_check=refc, kernels=kernels)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)

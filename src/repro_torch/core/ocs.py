@@ -301,6 +301,12 @@ class W4A8Linear:
         )
 
 
+def _abs_max(w: torch.Tensor, dim: int) -> torch.Tensor:
+    """``w.abs().amax(dim)`` without the ``|w|`` copy: max(max w, -min w),
+    the same value (for a zero maximum, perhaps its other sign)."""
+    return torch.maximum(w.amax(dim=dim), -w.amin(dim=dim))
+
+
 def _w4a8_split(w: torch.Tensor, ratio: float):
     """Separate and quantize one ``[K_exp, Cout]`` float32 matrix, on its
     device. Returns ``(w4 uint8, s4, q8 int8, s8, outlier_idx int32)``,
@@ -316,23 +322,23 @@ def _w4a8_split(w: torch.Tensor, ratio: float):
     dev = w.device
     s_out = n_splits_for_ratio(k_exp, ratio)
     if s_out:
-        order = torch.argsort(-w.abs().amax(dim=1), stable=True)
+        order = torch.argsort(-_abs_max(w, 1), stable=True)
         outlier_idx = torch.sort(order[:s_out]).values.to(torch.int32)
     else:
         outlier_idx = torch.zeros((0,), dtype=torch.int32, device=dev)
     oi = outlier_idx.long()
 
-    w_lo = w.clone()
-    w_lo[oi] = 0.0
-    s4 = div_exact(torch.clamp_min(w_lo.abs().amax(dim=0), 1e-30), 7.0)
-    q4 = torch.clamp(torch.floor(w_lo / s4[None, :] + 0.5), -7, 7).to(torch.int8)
+    w_lo = w.index_fill(0, oi, 0.0)
+    s4 = div_exact(torch.clamp_min(_abs_max(w_lo, 0), 1e-30), 7.0)
+    # floor(w / s4 + 1/2), clamped, in place on the copy.
+    q4 = w_lo.div_(s4[None, :]).add_(0.5).floor_().clamp_(-7, 7).to(torch.int8)
     del w_lo
-    w4 = pack_int4(q4.T).T.contiguous()  # split-half along the contraction axis
+    w4 = pack_int4(q4, dim=0)  # split-half along the contraction axis
     del q4
 
     w_out = w[oi]  # [T, N]
     if s_out:
-        s8 = div_exact(torch.clamp_min(w_out.abs().amax(dim=0), 1e-30), 127.0)
+        s8 = div_exact(torch.clamp_min(_abs_max(w_out, 0), 1e-30), 127.0)
     else:
         s8 = torch.ones((n,), dtype=torch.float32, device=dev)
     q8 = torch.clamp(torch.floor(w_out / s8[None, :] + 0.5), -127, 127).to(torch.int8)

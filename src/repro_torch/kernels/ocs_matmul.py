@@ -175,13 +175,8 @@ def ocs_quant_matmul_cuda(
             q.data_ptr(), kp, acc.data_ptr(), out.data_ptr(), out_bf16, stream,
         )
     else:
-        k_chunk, nsplit = _qm.wo_split_plan(m, k + s, n)
-        part = torch.empty((nsplit, m, n), dtype=torch.float32, device=dev)
-        err = fns["wo"](
-            x.data_ptr(), int(x.dtype == torch.bfloat16), m, k, s,
-            src_tail.data_ptr(), mult_ptr, w8.data_ptr(), xs.data_ptr(), ws.data_ptr(),
-            n, k_chunk, nsplit, part.data_ptr(), out.data_ptr(), out_bf16, stream,
-        )
+        err = _qm.launch_wo(fns["wo"], x, out, xs, ws, k + s, s, src_tail.data_ptr(),
+                            mult_ptr, w8.data_ptr())
     if err != 0:
         raise RuntimeError(f"ocs_matmul launch failed: cudaError {err}")
     launches += 1

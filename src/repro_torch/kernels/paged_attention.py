@@ -4,12 +4,13 @@ plain PyTorch version, and the pool helpers every pool writer shares.
 Replaces ``repro/kernels/paged_attention.py::_paged_attn_kernel``
 (``paged_attention_kernel`` / ``paged_attention``), the Pallas TPU kernel
 that every decode-attention layer of the paged engine runs, for float32,
-int8 and packed int4 pools with one query row per lane (Q = 1 per step;
-the kernel also takes Q > 1). The CUDA source is
-``csrc/paged_attention.cu``: one block per (lane, KV head) appends the
-lane's new K/V rows into its pages and runs online-softmax attention over
-the pages its position reaches. What bounds it on the card: the bytes of
-the attended pages. Unlike the JAX
+int8 and packed int4 pools, with one query row per lane at decode (Q = 1)
+and the Q = k + 1 rows of a speculative verify. The CUDA source is
+``csrc/paged_attention.cu``: the lane's new K/V rows are appended into
+its pages and each (lane, KV head, tile of query rows) runs online-softmax
+attention over the pages its rows reach; a row's result is bitwise that of
+the Q = 1 call at its position, whatever Q and its tile. What bounds it on
+the card: the bytes of the attended pages. Unlike the JAX
 kernel, which returned a new pool through input/output aliasing, the CUDA
 kernel **updates the pool in place** and returns the same dict.
 
@@ -34,7 +35,7 @@ from typing import Dict, Tuple
 import torch
 
 from .build import load
-from .ref import inv_qmax
+from .ref import inv_qmax, rows_matmul
 
 __all__ = [
     "NEG_INF",
@@ -47,7 +48,9 @@ __all__ = [
     "append_rows",
     "paged_attention_plain",
     "paged_attention_cuda",
+    "tile_rows",
     "launches",
+    "launches_verify",
     "reset_launches",
 ]
 
@@ -57,22 +60,28 @@ KV4_QMAX = 7.0  # symmetric int4 grid: quantized values live in [-7, 7]
 
 # The card's per-block shared memory, for the kernel's tiles.
 _MAX_SMEM = 232448
+# Query rows a tile aims at: one query token at glm4-9b's 16 heads per KV
+# head, so a verify of Q tokens runs Q times a decode step's blocks.
+_TILE_ROWS = 16
 
-# Wrapper calls that launched the CUDA kernel.
+# Wrapper calls that launched the CUDA kernel: Q = 1 calls (decode) and
+# Q > 1 calls (speculative verify, the multi-row path).
 launches = 0
+launches_verify = 0
 
 _lib = None
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, launches_verify
     launches = 0
+    launches_verify = 0
 
 
 def quant_rows(x: torch.Tensor, qmax: float = 127.0):
     """Symmetric absmax quantization over the last axis -> (int8, f32 scale).
 
-    The one grid of every KV-row writer (prefill pages, the fused append,
+    The one grid of every KV-row writer (prefill pages, the plain append,
     the CUDA kernel): reciprocal-multiply form, ``scale = max(amax, 1e-30)
     * float32(1/qmax)``, ``q = floor(x * (1/scale) + 0.5)``, bitwise the
     reference's ``quant_rows``.
@@ -84,16 +93,18 @@ def quant_rows(x: torch.Tensor, qmax: float = 127.0):
     return q.to(torch.int8), scale[..., 0]
 
 
-def pack_int4(q: torch.Tensor) -> torch.Tensor:
-    """Pack int8 nibble values (in [-8, 7]) two per byte along the last
-    axis: byte ``j`` of a C-channel row holds channel ``j`` in its low
-    nibble and channel ``j + C/2`` in its high nibble (the reference's
-    split-half layout). The bit operations run in int32, so no negative
-    value is ever cast to uint8."""
-    c = q.shape[-1]
-    lo = q[..., : c // 2].to(torch.int32) & 0xF
-    hi = q[..., c // 2 :].to(torch.int32) & 0xF
-    return (lo | (hi << 4)).to(torch.uint8)
+def pack_int4(q: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Pack int8 nibble values (in [-8, 7]) two per byte along ``dim`` (the
+    last axis by default): byte ``j`` of a C-channel row holds channel
+    ``j`` in its low nibble and channel ``j + C/2`` in its high nibble (the
+    reference's split-half layout). A nibble is the low four bits of the
+    value's two's complement, read through a uint8 view of ``q``, so no
+    negative value is ever cast to uint8."""
+    c = q.shape[dim]
+    u = q.view(torch.uint8)
+    lo = u.narrow(dim, 0, c // 2) & 0xF
+    hi = u.narrow(dim, c // 2, c // 2) & 0xF
+    return lo | (hi << 4)
 
 
 def unpack_int4(b: torch.Tensor) -> torch.Tensor:
@@ -173,13 +184,13 @@ def _int4_flash_step(qv, kf, vf, vis, carry):
     ps, hd]`` dequantized; vis broadcastable to the ``[..., QR, ps]``
     scores; carry ``(m, l, acc)``."""
     m, l, acc = carry
-    s = torch.einsum("...rd,...sd->...rs", qv, kf)
+    s = rows_matmul(qv, kf.transpose(-1, -2))
     s = s + torch.where(vis, 0.0, NEG_INF)
     m_new = torch.maximum(m, s.amax(dim=-1))
     p = torch.exp(s - m_new[..., None])
     alpha = torch.exp(m - m_new)
     l_new = l * alpha + p.sum(dim=-1)
-    acc_new = acc * alpha[..., None] + torch.einsum("...rs,...sd->...rd", p, vf)
+    acc_new = acc * alpha[..., None] + rows_matmul(p, vf)
     return m_new, l_new, acc_new
 
 
@@ -222,10 +233,10 @@ def paged_attention_plain(pool, table, pos, q, k_new, v_new) -> Tuple:
 
     kf, vf = dequant("k"), dequant("v")
     q2 = _q_rows(q, kvh)  # [B, KV, QR, hd]
+    qr = q2.shape[2]
+    row_tok = torch.arange(qr, device=dev) // (h // kvh)  # row -> query token
+    bound = pos.long()[:, None] + row_tok[None, :]  # [B, rows]
     if kind == "int4":
-        rep = h // kvh
-        qr = qn * rep
-        bound = pos.long()[:, None] + (torch.arange(qr, device=dev) // rep)[None, :]
         k5 = kf.reshape(b, kvh, t, ps, hd)
         v5 = vf.reshape(b, kvh, t, ps, hd)
         page_ok = table != TRASH_PAGE  # [B, T]
@@ -237,14 +248,12 @@ def paged_attention_plain(pool, table, pos, q, k_new, v_new) -> Tuple:
             vis = (gpos[None, None, :] <= bound[:, :, None]) & page_ok[:, i, None, None]
             carry = _int4_flash_step(q2, k5[:, :, i], v5[:, :, i], vis[:, None], carry)
         return _rows_out(_int4_finish(*carry), qn), new_pool
-    jrow = torch.arange(q2.shape[2], device=dev) // (h // kvh)
-    bound = pos.long()[:, None] + jrow[None, :]  # [B, QR]
     vis = torch.arange(t * ps, device=dev)[None, None, :] <= bound[:, :, None]
     vis = vis & readable[:, None, :]
-    s = torch.einsum("bgrd,bgsd->bgrs", q2, kf)
+    s = rows_matmul(q2, kf.transpose(-1, -2))
     s = s + torch.where(vis[:, None], 0.0, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bgrs,bgsd->bgrd", p, vf)
+    out = rows_matmul(p, vf)
     return _rows_out(out, qn), new_pool
 
 
@@ -257,7 +266,7 @@ def _bind():
             c_void_p, c_void_p, c_void_p,  # q, k_new, v_new (bf16)
             c_void_p, c_void_p, c_void_p, c_void_p, c_int,  # pools, scales, kind
             c_void_p, c_void_p, c_void_p,  # table, pos, out
-            c_int, c_int, c_int, c_int, c_int, c_int, c_int,  # B Q H KV hd ps T
+            c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_int,  # B Q H KV hd ps T R
             c_float, c_float, c_float, c_void_p,  # q_scale, qmax, inv_qmax, stream
         ]
         fn.restype = c_int
@@ -269,19 +278,34 @@ def _bind():
 _KIND_CODE = {"float": 0, "int8": 1, "int4": 2}
 
 
-def _smem_bytes(qr: int, hd: int, ps: int) -> int:
-    return 4 * (qr * hd + ps * (hd + 1) + ps * hd + qr * ps + qr * hd + 3 * qr)
+def _smem_bytes(rows: int, hd: int, ps: int) -> int:
+    return 4 * (rows * hd + ps * (hd + 1) + ps * hd + rows * ps + rows * hd + 3 * rows)
+
+
+def tile_rows(qn: int, rep: int, hd: int, ps: int) -> int:
+    """Query rows per tile of the CUDA kernel for ``qn`` query tokens with
+    ``rep`` heads per KV head: whole query tokens, as many as ``_TILE_ROWS``
+    rows hold (at least one) and shared memory takes; a one-token call is
+    one tile. Raises when one token's ``rep`` rows do not fit."""
+    fit = (_MAX_SMEM // 4 - ps * (2 * hd + 1)) // (2 * hd + ps + 3)
+    if rep > fit:
+        raise ValueError(
+            f"one query token's {rep} rows need {_smem_bytes(rep, hd, ps)} bytes of shared "
+            f"memory (> {_MAX_SMEM})"
+        )
+    tokens = max(1, min(qn, _TILE_ROWS // rep, fit // rep))
+    return tokens * rep
 
 
 def paged_attention_cuda(pool, table, pos, q, k_new, v_new) -> Tuple:
-    """Launch the CUDA kernel: fused append (in place) + paged flash decode.
+    """Launch the CUDA kernels: the append (in place), then paged flash decode.
 
     Takes float32, int8 or packed int4 (uint8, ``hd/2`` bytes a row) pools
     and bfloat16 q/k_new/v_new (the model's activations); raises on
     anything else. Returns ``(out [B, Q, H, hd] f32, pool)`` with ``pool``
     the same dict, its tensors updated in place.
     """
-    global launches
+    global launches, launches_verify
     b, qn, h, hd = q.shape
     kind = pool_kind(pool)
     scaled = kind != "float"
@@ -319,9 +343,7 @@ def paged_attention_cuda(pool, table, pos, q, k_new, v_new) -> Tuple:
         raise ValueError("table must be int32 [B, T]")
     if pos.dtype != torch.int32 or tuple(pos.shape) != (b,):
         raise ValueError("pos must be int32 [B]")
-    smem = _smem_bytes(qn * (h // kvh), hd, ps)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"tiles need {smem} bytes of shared memory (> {_MAX_SMEM})")
+    rows = tile_rows(qn, h // kvh, hd, ps)
     t = table.shape[1]
     out = torch.empty((b, qn, h, hd), dtype=torch.float32, device=q.device)
     qmax = KV4_QMAX if kind == "int4" else 127.0
@@ -333,11 +355,14 @@ def paged_attention_cuda(pool, table, pos, q, k_new, v_new) -> Tuple:
         pool["k_scale"].data_ptr() if scaled else None,
         pool["v_scale"].data_ptr() if scaled else None,
         _KIND_CODE[kind], table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        b, qn, h, kvh, hd, ps, t,
+        b, qn, h, kvh, hd, ps, t, rows,
         float(torch.tensor(hd ** -0.5, dtype=torch.float32)), qmax, inv_qmax(qmax),
         stream,
     )
     if err != 0:
         raise RuntimeError(f"paged_attention launch failed: cudaError {err}")
-    launches += 1
+    if qn == 1:
+        launches += 1
+    else:
+        launches_verify += 1
     return out, pool

@@ -43,11 +43,19 @@ launches = 0
 _lib = {}
 
 # The weight-only GEMM's grid (qmatmul_common.cuh): 256 columns per block,
-# up to 8 rows; K is split over the grid until ~2 blocks per SM of the
-# H100's 132 are in flight, with at least 64 rows of K per split.
+# up to 8 rows; K is split over the grid until the column blocks alone
+# would put ~2 blocks on each of the H100's 132 SMs, with at least 64 rows
+# of K per split. The split follows from K and N only: every row is then
+# summed in one order whatever M is, so a verify step over B*(k+1) rows
+# gives each row bitwise what B-row decode steps give it.
 _COLS = 256
 _WANT_BLOCKS = 264
 _MIN_SPLIT_ROWS = 64
+# The split-K workspace is [n_splits, rows, N] float32. A call whose
+# workspace would pass this size (a long prefill) runs in row chunks that
+# stay within it (240 rows at glm4-9b's w_down); a row's sums are the same
+# in any chunk.
+_MAX_PART_BYTES = 64 << 20
 
 
 def reset_launches() -> None:
@@ -105,15 +113,45 @@ def out_dtype_for(x: torch.Tensor, out_dtype) -> torch.dtype:
     return torch.float32 if x.dtype == torch.int8 else x.dtype
 
 
-def wo_split_plan(m: int, ke: int, n: int) -> Tuple[int, int]:
-    """``(k_chunk, n_splits)`` of the weight-only GEMM's split K."""
-    tm = 1 if m <= 1 else 2 if m <= 2 else 4 if m <= 4 else 8
-    blocks = math.ceil(n / _COLS) * math.ceil(m / tm)
+def wo_split_plan(ke: int, n: int) -> Tuple[int, int]:
+    """``(k_chunk, n_splits)`` of the weight-only GEMM's split K over ``ke``
+    rows of K for ``n`` columns (independent of M)."""
+    blocks = math.ceil(n / _COLS)
     nsplit = min(math.ceil(_WANT_BLOCKS / blocks), max(1, ke // _MIN_SPLIT_ROWS))
     nsplit = max(nsplit, 1)
     k_chunk = math.ceil(ke / nsplit)
     k_chunk += (-k_chunk) % 16
     return k_chunk, math.ceil(ke / k_chunk)
+
+
+def wo_row_chunk(m: int, n: int, nsplit: int) -> int:
+    """Rows per launch of the weight-only GEMM: all ``m`` unless its
+    split-K workspace ``[nsplit, rows, n]`` f32 would pass
+    ``_MAX_PART_BYTES``."""
+    return min(m, max(1, _MAX_PART_BYTES // (4 * nsplit * n)))
+
+
+def launch_wo(fn, x, out, xs, ws, ke: int, *args) -> int:
+    """Run the weight-only entry point ``fn`` (B4's or B5's) over ``x``'s
+    rows in chunks of :func:`wo_row_chunk` rows that share one workspace,
+    with :func:`wo_split_plan`'s split of ``ke`` rows of K. ``args`` are
+    the entry point's arguments between ``K`` and ``xs``. Returns the
+    first nonzero cudaError, else 0."""
+    m, k = x.shape
+    n = out.shape[1]
+    k_chunk, nsplit = wo_split_plan(ke, n)
+    rows = wo_row_chunk(m, n, nsplit)
+    part = torch.empty((nsplit, rows, n), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    x_bf16, out_bf16 = int(x.dtype == torch.bfloat16), int(out.dtype == torch.bfloat16)
+    for r in range(0, m, rows):
+        xr, xsr, outr = (x, xs, out) if rows == m else (x[r:r + rows], xs[r:r + rows],
+                                                        out[r:r + rows])
+        err = fn(xr.data_ptr(), x_bf16, xr.shape[0], k, *args, xsr.data_ptr(), ws.data_ptr(),
+                 n, k_chunk, nsplit, part.data_ptr(), outr.data_ptr(), out_bf16, stream)
+        if err != 0:
+            return err
+    return 0
 
 
 def check_cuda_operands(what: str, x, w8, s: int, out_dtype) -> None:
@@ -190,13 +228,7 @@ def quant_matmul_cuda(
             out.data_ptr(), out_bf16, stream,
         )
     else:
-        k_chunk, nsplit = wo_split_plan(m, k, n)
-        part = torch.empty((nsplit, m, n), dtype=torch.float32, device=dev)
-        err = fns["wo"](
-            x.data_ptr(), int(x.dtype == torch.bfloat16), m, k, w8.data_ptr(),
-            xs.data_ptr(), ws.data_ptr(), n, k_chunk, nsplit, part.data_ptr(),
-            out.data_ptr(), out_bf16, stream,
-        )
+        err = launch_wo(fns["wo"], x, out, xs, ws, k, w8.data_ptr())
     if err != 0:
         raise RuntimeError(f"quant_matmul launch failed: cudaError {err}")
     launches += 1

@@ -106,17 +106,29 @@ def fused_quant_matmul_ref(
     return (acc.to(torch.float32) * (scale[:, None] * ws)).to(out_dtype)
 
 
+def rows_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (``[..., R, K] @ [..., K, N]``) with each row summed in the
+    order a call of many rows gives it. The CPU's GEMM sums a lone row in
+    another order (its one-row path), so a lone row goes through as two:
+    a decode step's row then equals the same row inside a verify step.
+    Every plain version whose rows must not depend on the row count
+    multiplies through here."""
+    if a.shape[-2] == 1:
+        return torch.matmul(torch.cat([a, a], dim=-2), b)[..., :1, :]
+    return torch.matmul(a, b)
+
+
 def float_matmul(a: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     """float32 product ``[M, K] @ [K, N]`` of float activations and int8
     weights, widened exactly to float32 (in column blocks, which bounds the
-    float32 copy of ``w8``)."""
+    float32 copy of ``w8``; rows through :func:`rows_matmul`)."""
     a = a.to(torch.float32)
     if w8.shape[1] <= _F64_BLOCK_N:
-        return a @ w8.to(torch.float32)
+        return rows_matmul(a, w8.to(torch.float32))
     out = torch.empty((a.shape[0], w8.shape[1]), dtype=torch.float32, device=a.device)
     for n0 in range(0, w8.shape[1], _F64_BLOCK_N):
         blk = w8[:, n0 : n0 + _F64_BLOCK_N].to(torch.float32)
-        out[:, n0 : n0 + blk.shape[1]] = a @ blk
+        out[:, n0 : n0 + blk.shape[1]] = rows_matmul(a, blk)
     return out
 
 

@@ -10,7 +10,10 @@ weight-only ``dequant`` matmuls on float32 KV pages; ``--matmul-mode w8a8
 --kv-bits 8`` serves dynamic W8A8 on int8 pages, ``--matmul-mode w4a8
 --kv-bits 4`` the sub-8-bit tier (packed int4 weights with OCS-ranked int8
 outlier rows, ``--w4a8-outlier-ratio`` of them; int4 KV pages), and
-``--ocs-ratio 0`` the clip-only tree (no OCS split). Runs on the card;
+``--ocs-ratio 0`` the clip-only tree (no OCS split). ``--spec-k K``
+serves with self-speculative decoding (K draft tokens per round, drafted
+in ``w8a8``; ``--draft-layers L`` cuts the drafter to the first L layers);
+its output is token-identical to plain greedy. Runs on the card;
 ``--device cpu`` runs the plain PyTorch path at smoke size.
 
     python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu
@@ -18,6 +21,8 @@ outlier rows, ``--w4a8-outlier-ratio`` of them; int4 KV pages), and
         --matmul-mode w8a8 --kv-bits 8
     python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu \
         --matmul-mode w4a8 --kv-bits 4
+    python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu \
+        --spec-k 4 --draft-layers 1
 """
 from __future__ import annotations
 
@@ -117,6 +122,12 @@ def main(argv=None):
         "throughput: prefill %.1f tok/s | decode %.1f tok/s | errors %d",
         stats["prefill_tok_per_s"], stats["decode_tok_per_s"], stats["errors"],
     )
+    if stats["spec_enabled"]:
+        log.info(
+            "speculation: %d rounds, acceptance %.3f, %.2f tokens per target step, "
+            "window k=%d", stats["spec_rounds"], stats["spec_acceptance_rate"],
+            stats["spec_tokens_per_target_step"], stats["spec_k"],
+        )
     return stats
 
 

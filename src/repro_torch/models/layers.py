@@ -132,10 +132,22 @@ def dense(w, x: torch.Tensor, *, mode: str, name: str = "") -> torch.Tensor:
     return x @ w.to(x.dtype)
 
 
+def _row_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in a fixed two-level order: zero-padded to a
+    multiple of 32, groups of 32, then the group sums. A row's result does
+    not depend on how many rows the call holds (``torch.mean`` over a long
+    row on the card splits it across blocks when the rows are few, and
+    sums 8 rows in another order than 40)."""
+    d = v.shape[-1]
+    if d % 32:
+        v = torch.nn.functional.pad(v, (0, -d % 32))
+    return v.reshape(v.shape[:-1] + (-1, 32)).sum(-1).sum(-1, keepdim=True)
+
+
 def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dtype = x.dtype
     x = x.to(torch.float32)
-    var = torch.mean(x * x, dim=-1, keepdim=True)
+    var = _row_sum(x * x) / x.shape[-1]
     return (x * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(dtype)
 
 

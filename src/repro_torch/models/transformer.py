@@ -8,9 +8,14 @@ runs two functions:
 
 * :func:`prefill_into_pages` — one request's prompt suffix through the
   full-sequence block, its K/V written straight into the page pools;
-* :func:`decode_step` — one token per lane against the paged caches.
+* :func:`decode_step` — one token per lane against the paged caches
+  (``layers_limit`` runs only the first layers: the early-exit drafter of
+  self-speculative decoding);
+* :func:`verify_step` — the k + 1 tokens of a speculative window per lane
+  in one call, each token's logits bitwise those of sequential
+  :func:`decode_step` calls.
 
-Both take ``mode``, the quantized-matmul mode every ``layers.dense`` call
+All take ``mode``, the quantized-matmul mode every ``layers.dense`` call
 of the model runs (``"dequant"``, the reference's default, ``"w8a8"`` or
 ``"w4a8"``).
 """
@@ -35,6 +40,7 @@ __all__ = [
     "layer_params",
     "decode_tokens",
     "decode_step",
+    "verify_step",
     "prefill_into_pages",
 ]
 
@@ -137,18 +143,30 @@ def _block(cfg: ModelConfig, p, x, positions, *, mode: str, kv_prefix=None):
 
 
 def decode_tokens(params, tokens: torch.Tensor, caches, cfg: ModelConfig, *,
-                  mode: str = "dequant"):
+                  mode: str = "dequant", layers_limit: Optional[int] = None):
     """Q tokens per lane ``[B, Q]`` against the paged caches -> (logits
     ``[B, Q, V]``, caches with ``pos`` advanced by Q). ``caches`` holds
     ``layers[i]["attn"]`` (page pools), ``table`` ``[B, T]`` and ``pos``
-    ``[B]``; on the card the pools are updated in place."""
+    ``[B]``; on the card the pools are updated in place. The Q tokens take
+    positions ``pos .. pos + Q - 1``; query ``j`` attends over positions
+    ``<= pos + j``, so the logits equal Q sequential one-token calls.
+
+    ``layers_limit`` runs only the first L layers and projects their output
+    through the final norm and the lm_head (the speculative drafter); the
+    skipped layers' pools pass through untouched."""
     _check_block(cfg)
     pos = caches["pos"]
     table = caches["table"]
     qn = tokens.shape[1]
+    n_run = cfg.n_layers
+    if layers_limit is not None:
+        n_run = max(1, min(layers_limit, cfg.n_layers))
     x = embed(params["embed"], tokens)
     new_layers = []
     for i in range(cfg.n_layers):
+        if i >= n_run:
+            new_layers.append(caches["layers"][i])  # the drafter skips the tail
+            continue
         p = layer_params(params, i)
         h = rms_norm(p["norm1"]["scale"], x, cfg.norm_eps)
         a, pool = attention_decode(
@@ -164,10 +182,31 @@ def decode_tokens(params, tokens: torch.Tensor, caches, cfg: ModelConfig, *,
 
 
 def decode_step(params, token: torch.Tensor, caches, cfg: ModelConfig, *,
-                mode: str = "dequant"):
-    """serve_step: one new token ``[B, 1]`` -> (logits ``[B, V]``, caches)."""
-    logits, new_caches = decode_tokens(params, token, caches, cfg, mode=mode)
+                mode: str = "dequant", layers_limit: Optional[int] = None):
+    """serve_step: one new token ``[B, 1]`` -> (logits ``[B, V]``, caches);
+    ``layers_limit`` truncates to the first L layers (see
+    :func:`decode_tokens`)."""
+    logits, new_caches = decode_tokens(params, token, caches, cfg, mode=mode,
+                                       layers_limit=layers_limit)
     return logits[:, 0, :], new_caches
+
+
+def verify_step(params, tokens: torch.Tensor, caches, cfg: ModelConfig, *,
+                mode: str = "dequant"):
+    """Speculative verify: score Q proposed tokens in one call.
+
+    tokens: ``[B, Q]``, each lane's current token followed by its Q - 1
+    draft proposals. Returns (logits ``[B, Q, V]``, caches with ``pos``
+    advanced by Q): ``logits[:, j]`` is bitwise what a plain decode loop
+    gives after consuming ``tokens[:, :j+1]`` (every kernel sums a row in
+    one order whatever the row count, and B2 gives a query row what its
+    one-token call gives it), so greedy acceptance commits exactly the
+    tokens plain greedy decode emits. The caller rolls a rejected tail back
+    by rewinding ``pos`` (``serving.kv_cache.rewind_positions``): K/V
+    written past the committed position is invisible to the causal mask and
+    overwritten later.
+    """
+    return decode_tokens(params, tokens, caches, cfg, mode=mode)
 
 
 def prefill_into_pages(

@@ -1,6 +1,7 @@
 """Typed serving configuration (the port of ``repro.serving.config``):
-``EngineConfig`` with the fields the greedy paged path uses, the same
-defaults as the reference, and the argparse flags generated from it.
+``EngineConfig`` with the fields the greedy paged path uses (speculation
+included), the same defaults as the reference, and the argparse flags
+generated from it (``spec`` becomes ``--spec-k`` / ``--draft-layers``).
 
 There is no ``kernels`` field: the port dispatches by device (the CUDA
 kernels on the card, their plain versions on the CPU), not by a per-engine
@@ -13,6 +14,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 from typing import Optional
+
+from .spec_decode import SpecConfig
 
 __all__ = ["EngineConfig", "add_engine_config_args", "engine_config_from_args"]
 
@@ -78,6 +81,11 @@ class EngineConfig:
         },
     )
 
+    spec: Optional[SpecConfig] = dataclasses.field(
+        default=None,
+        metadata={"help": "self-speculative decoding", "spec": True},
+    )
+
     def __post_init__(self):
         if self.max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {self.max_batch}")
@@ -107,6 +115,16 @@ class EngineConfig:
             )
         if self.prefill_budget < 0:
             raise ValueError(f"prefill_budget must be >= 0, got {self.prefill_budget}")
+        if self.spec is not None and not isinstance(self.spec, SpecConfig):
+            raise TypeError(f"spec must be a SpecConfig, got {type(self.spec)}")
+        if (self.matmul_mode == "w4a8" and self.spec is not None
+                and self.spec.draft_mode != "w4a8"):
+            raise ValueError(
+                "matmul_mode='w4a8' serves a W4A8Linear parameter tree; a "
+                f"draft_mode={self.spec.draft_mode!r} drafter cannot run it (the "
+                "int8 matmul modes need the OCSQuantLinear tree): set "
+                "spec.draft_mode='w4a8'"
+            )
 
     def replace(self, **kw) -> "EngineConfig":
         return dataclasses.replace(self, **kw)
@@ -125,7 +143,14 @@ def add_engine_config_args(
     for f in dataclasses.fields(EngineConfig):
         meta = f.metadata
         default = getattr(d, f.name)
-        if meta.get("optional_int"):
+        if meta.get("spec"):
+            sd = default if default is not None else SpecConfig()
+            g.add_argument(_flag("spec_k"), type=int,
+                           default=sd.k if default is not None else 0,
+                           help="self-speculative draft window (0 = off)")
+            g.add_argument(_flag("draft_layers"), type=int, default=sd.draft_layers or 0,
+                           help="truncate the drafter to the first L layers (0 = all)")
+        elif meta.get("optional_int"):
             g.add_argument(_flag(f.name), type=int, default=default or 0,
                            help=meta.get("help"))
         else:
@@ -137,6 +162,10 @@ def engine_config_from_args(args: argparse.Namespace, **overrides) -> EngineConf
     """Invert :func:`add_engine_config_args`: parsed flags -> EngineConfig."""
     kw = {}
     for f in dataclasses.fields(EngineConfig):
+        if f.metadata.get("spec"):
+            kw[f.name] = (SpecConfig(k=args.spec_k, draft_layers=args.draft_layers or None)
+                          if args.spec_k else None)
+            continue
         val = getattr(args, f.name)
         kw[f.name] = (val or None) if f.metadata.get("optional_int") else val
     kw.update(overrides)

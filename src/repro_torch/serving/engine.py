@@ -8,8 +8,13 @@ call (:func:`models.transformer.prefill_into_pages`) and books the first
 token; every engine step then decodes one greedy token for all active lanes
 (:func:`models.transformer.decode_step`) and retires lanes whose budget or
 eos is reached. A lane whose logits go nonfinite is retired with
-``finish_reason="error"``. Preemption, chunked prefill, speculation,
-sampling, tracing and drift monitoring are later slices (ROADMAP A7-A10).
+``finish_reason="error"``. With ``EngineConfig.spec`` set, each step is
+instead one self-speculative round (``serving.spec_decode``): k draft
+tokens per lane, one verify step over all k + 1 positions, each lane's
+accepted prefix plus the target's token committed and the rest rolled back
+by rewinding its position; the committed stream is token-identical to
+plain greedy decode. Preemption, chunked prefill, sampling, tracing and
+drift monitoring are later slices (ROADMAP A7, A9, A10).
 
 Every linear layer of prefill and decode runs in ``EngineConfig.matmul_mode``
 (passed to the model functions, which pass it to every ``layers.dense``):
@@ -47,6 +52,7 @@ from ..core.ocs import OCSQuantLinear, to_w4a8
 from ..device import resolve_device
 from ..models import transformer as T
 from . import kv_cache as kvc
+from . import spec_decode as spec_mod
 from .config import EngineConfig
 
 __all__ = ["Request", "ServingEngine", "FINISH_REASONS"]
@@ -154,6 +160,10 @@ class ServingEngine:
         self._ttft: List[float] = []
         self._itl: List[float] = []
         self._latency: List[float] = []
+        # Self-speculative decoding: the quantized model drafts k tokens per
+        # lane under spec.draft_mode, the target verifies them in one step.
+        self._spec = (spec_mod.SpecDecoder(cfg, config.spec, self.matmul_mode)
+                      if config.spec is not None else None)
 
     # ------------------------------------------------------------- internals
 
@@ -305,6 +315,15 @@ class ServingEngine:
         # Reject here, not at admission: a request larger than the whole
         # pool would deadlock the queue.
         self._validate_prompt_len(len(req.prompt))
+        if self._spec is not None and len(req.prompt) + req.max_new_tokens > self.max_len:
+            # A speculative window writes up to k positions past the
+            # committed point; exactness needs every committed position in a
+            # real cache slot, so the whole budget must fit (plain decode
+            # merely overwrites the last slot past max_len).
+            raise ValueError(
+                f"speculative engine: prompt ({len(req.prompt)}) + max_new_tokens "
+                f"({req.max_new_tokens}) must fit max_len ({self.max_len})"
+            )
         need = min(
             kvc.pages_needed(len(req.prompt) + req.max_new_tokens, self.page_size),
             self.max_pages_per_seq,
@@ -330,12 +349,93 @@ class ServingEngine:
             self.queue.popleft()
             req.t_admit = req.t_admit or time.perf_counter()
 
+    def _spec_step(self) -> bool:
+        """One speculative iteration: draft k tokens per lane, verify all k+1
+        positions in one target step, commit each lane's accepted prefix
+        (plus the target's correction or bonus token), roll back the rest.
+
+        Every committed token is the target's greedy argmax, so the stream
+        is token-identical to plain greedy decode; the draft only decides
+        how many of those tokens one target step yields.
+        """
+        dec = self._spec
+        pos0 = self.caches["pos"].cpu().numpy()
+        tok0 = self.tokens[:, 0].cpu().numpy()
+        warm0 = dec.draft_time_s + dec.verify_time_s
+        # Clamp the window to the largest remaining lane budget: drafts past
+        # every budget can never commit (k == 0 is a plain decode step
+        # through the verify path when every lane needs exactly 1 token).
+        k_want = min(dec.controller.k,
+                     max(0, max(s.remaining for s in self.slots if s.req) - 1))
+        greedy, drafts, finite, self.caches, k = dec.propose_and_verify(
+            self.params, self.caches, self.tokens, k_want)
+        self.steps += 1
+        now = time.perf_counter()
+        new_pos = pos0.copy()
+        next_tok = tok0.copy()
+        round_committed = round_acc = round_prop = 0
+        to_retire = []
+        for i, slot in enumerate(self.slots):
+            if slot.req is None:
+                continue  # idle lanes drafted/verified into the trash page
+            if not bool(finite[i]):
+                # Nonfinite verify logits: commit nothing (the whole window
+                # is suspect), leave the position at the round start; other
+                # lanes are unaffected (the flag is per lane).
+                slot.req.finish_reason = "error"
+                to_retire.append(i)
+                continue
+            usable = min(k, slot.remaining - 1)  # drafts that could commit
+            commit, n_acc = spec_mod.committed_tokens(drafts[i], greedy[i], k)
+            used = 0
+            done = False
+            for t in commit:
+                self._itl.append(now - slot.req.t_tokens[-1])  # in-round gaps: 0.0
+                slot.req.output.append(int(t))
+                slot.req.t_tokens.append(now)
+                self.decoded_tokens += 1
+                slot.remaining -= 1
+                used += 1
+                if slot.req.eos_id is not None and int(t) == slot.req.eos_id:
+                    slot.req.finish_reason = "eos"
+                    done = True  # eos mid-window: drop the tail
+                    break
+                if slot.remaining <= 0:
+                    slot.req.finish_reason = "length"
+                    done = True  # budget mid-window: drop the tail
+                    break
+            # Acceptance counts the drafts that could commit: window tails
+            # past a lane's budget measure nothing.
+            dec.book_lane(min(n_acc, usable), used, usable)
+            round_committed += used
+            round_acc += min(n_acc, usable)
+            round_prop += usable
+            # Rollback: rewind the lane to its committed position (its pages
+            # all stay owned; only retirement releases them).
+            new_pos[i] = pos0[i] + used
+            next_tok[i] = commit[used - 1]
+            if done:
+                to_retire.append(i)
+        dec.end_round(round_acc, round_prop)
+        self.caches["pos"] = kvc.rewind_positions(self.caches["pos"], new_pos)
+        self.tokens = torch.as_tensor(next_tok, dtype=torch.int32,
+                                      device=self.device)[:, None]
+        for i in to_retire:
+            self._retire(i)
+        # The engine's decode time mirrors the draft + verify time, so
+        # decode_tok_per_s stays the generation throughput under speculation.
+        self.decode_time_s += (dec.draft_time_s + dec.verify_time_s) - warm0
+        return True
+
     def step(self) -> bool:
         """One engine iteration: admit from the queue, decode one token for
-        every active lane, retire finished lanes. False when idle."""
+        every active lane (or run one speculation round), retire finished
+        lanes. False when idle."""
         self._admit()
         if not any(s.req is not None for s in self.slots):
             return False
+        if self._spec is not None:
+            return self._spec_step()
         t0 = time.perf_counter()
         with torch.no_grad():
             logits, self.caches = T.decode_step(
@@ -419,4 +519,7 @@ class ServingEngine:
             "kv_bits": float(self.kv_bits or 0),
             "kv_bytes_per_token": float(kvc.kv_bytes_per_token(self.cfg)),
             "device": str(self.device),
+            "spec_enabled": 1.0 if self._spec is not None else 0.0,
+            **(self._spec.stats() if self._spec is not None else {
+                key: 0.0 for key in spec_mod.SPEC_STATS}),
         }

@@ -37,6 +37,7 @@ __all__ = [
     "init_paged_cache",
     "write_prompt_pages",
     "gather_prefix",
+    "rewind_positions",
     "PageAllocator",
 ]
 
@@ -164,6 +165,21 @@ def gather_prefix(pool: Dict, prefix_ids) -> Tuple:
     k = flat(pool["k"][ids], pool["k_scale"][ids] if quant else None)
     v = flat(pool["v"][ids], pool["v_scale"][ids] if quant else None)
     return k, v
+
+
+def rewind_positions(pos_vec: torch.Tensor, new_pos) -> torch.Tensor:
+    """Roll the per-lane position vector back to the committed positions
+    (``new_pos``, host ints), as int32 on ``pos_vec``'s device.
+
+    The paged rollback invariant: a speculative verify writes K/V for every
+    proposed position, but only positions ``< pos`` are visible to the
+    causal mask, so rolling back a rejected tail is just this rewind. The
+    stale rows past the committed position are overwritten in place when
+    decode reaches those positions again; prompt pages (below the committed
+    prefix) are never touched, so the prefix cache stays consistent.
+    """
+    out = torch.as_tensor(np.asarray(new_pos, np.int32), device=pos_vec.device)
+    return out.reshape(pos_vec.shape)
 
 
 # ---------------------------------------------------------------------------

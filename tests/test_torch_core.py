@@ -81,7 +81,7 @@ def test_split_weights_bitwise(ratio, qa):
     assert t_t == t_j
 
 
-@settings(max_examples=12, deadline=None)
+@settings(max_examples=12, deadline=None, database=None)
 @given(
     cin=st.integers(2, 40),
     cout=st.integers(1, 12),

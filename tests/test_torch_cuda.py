@@ -380,3 +380,185 @@ def test_paged_attention_cuda_int4_vs_plain(ps):
     torch.testing.assert_close(got_o, want_o, atol=B2_ATOL, rtol=0)
     for key in want_p:
         assert _same_bits(got_p[key], want_p[key]), key
+
+
+def _multirow_case(kind, qn, H, KV, seed, hd=128, ps=16, B=4, T=8):
+    """``qn`` query tokens per lane: lane 0's window runs past its two
+    pages into trash table entries, lane 1 ends near the table's end, lane 2
+    starts at position 0, lane 3 is retired (all trash). Page 0 is
+    NaN-poisoned."""
+    rng = np.random.RandomState(seed)
+    P = B * T + 1
+    if kind == "float32":
+        pool = {"k": rng.randn(P, KV, ps, hd).astype(np.float32),
+                "v": rng.randn(P, KV, ps, hd).astype(np.float32)}
+        pool["k"][0] = pool["v"][0] = np.nan
+    else:
+        lo, hi, dt, row = ((-127, 128, np.int8, hd) if kind == "int8"
+                           else (0, 256, np.uint8, hd // 2))
+        pool = {"k": rng.randint(lo, hi, (P, KV, ps, row)).astype(dt),
+                "v": rng.randint(lo, hi, (P, KV, ps, row)).astype(dt),
+                "k_scale": (rng.rand(P, KV, ps) * 0.1 + 0.01).astype(np.float32),
+                "v_scale": (rng.rand(P, KV, ps) * 0.1 + 0.01).astype(np.float32)}
+        pool["k_scale"][0] = pool["v_scale"][0] = np.nan
+    table = np.zeros((B, T), np.int32)
+    table[0, :2] = [1, 2]
+    pos1 = T * ps - qn - 1
+    n1 = (pos1 + qn - 1) // ps + 1
+    table[1, :n1] = np.arange(3, 3 + n1)
+    n2 = (qn - 1) // ps + 1
+    table[2, :n2] = np.arange(3 + n1, 3 + n1 + n2)
+    pos = np.array([ps + 3, pos1, 0, 0], np.int32)
+    dev = torch.device("cuda")
+    tpool = {k: torch.from_numpy(v).to(dev) for k, v in pool.items()}
+    args = [torch.from_numpy(a).to(dev) for a in (table, pos)]
+    args += [torch.from_numpy(rng.randn(*sh).astype(np.float32)).to(dev).to(torch.bfloat16)
+             for sh in ((B, qn, H, hd), (B, qn, KV, hd), (B, qn, KV, hd))]
+    return tpool, args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(32, 2), (4, 2)], ids=["rep16", "rep2"])
+@pytest.mark.parametrize("qn", [2, 5, 17])
+@pytest.mark.parametrize("kind", ["float32", "int8", "int4"])
+def test_paged_attention_cuda_multirow(kind, qn, heads):
+    """B2's Q > 1 rows (speculative verify), tiled over query rows: pools
+    bitwise the plain version's (the trash page, written by several rows
+    and never read, aside), outputs within ``B2_ATOL``, the retired lane
+    exact zeros; every row bitwise the sequential Q = 1 launches at its
+    position, which leave the pools bitwise alike. A Q > 1 call counts on
+    ``launches_verify``, a Q = 1 call on ``launches``."""
+    cuda_or_skip()
+    H, KV = heads
+    pool, (table, pos, q, kn, vn) = _multirow_case(kind, qn, H, KV, qn * 3 + H)
+    want_o, want_p = tpa.paged_attention_plain(pool, table, pos, q, kn, vn)
+    n0 = (tpa.launches, tpa.launches_verify)
+    got_o, got_p = tpa.paged_attention_cuda({k: v.clone() for k, v in pool.items()},
+                                            table, pos, q, kn, vn)
+    seq_p, outs = {k: v.clone() for k, v in pool.items()}, []
+    for j in range(qn):
+        o, seq_p = tpa.paged_attention_cuda(seq_p, table, pos + j, q[:, j:j + 1].contiguous(),
+                                            kn[:, j:j + 1].contiguous(),
+                                            vn[:, j:j + 1].contiguous())
+        outs.append(o)
+    torch.cuda.synchronize()
+    assert (tpa.launches, tpa.launches_verify) == (n0[0] + qn, n0[1] + 1)
+    assert torch.isfinite(got_o).all() and (got_o[3] == 0).all()
+    torch.testing.assert_close(got_o, want_o, atol=B2_ATOL, rtol=0)
+    assert _same_bits(torch.cat(outs, 1), got_o)
+    for key in want_p:
+        assert _same_bits(got_p[key][1:], want_p[key][1:]), key
+        assert _same_bits(seq_p[key][1:], got_p[key][1:]), key
+
+
+def _row_independence_cases():
+    """(name, fn of x [M, 4096] bf16): ``dense`` on glm4-9b-sized leaves
+    quantized on the card in each mode (dequant through B4 and, for the
+    clip-only leaf, B5; w8a8 through B1; w4a8 through B6), and ``rms_norm``."""
+    from repro_torch.models import layers
+
+    rng = np.random.RandomState(3)
+    w = rng.randn(4096, 4096).astype(np.float32) / 64.0
+    w[17] *= 8.0  # an outlier channel
+    recipe = QuantRecipe(w_bits=8, w_clip="mse", ocs_ratio=0.02, per_channel=True, pad_to=1)
+    ocs = quantize_params({"w": torch.from_numpy(w)}, recipe, device="cuda")["w"]
+    clip = quantize_params({"w": torch.from_numpy(w)},
+                           QuantRecipe(w_bits=8, w_clip="mse", ocs_ratio=0.0,
+                                       per_channel=True, pad_to=1), device="cuda")["w"]
+    w4 = to_w4a8(ocs, 0.05)
+    scale = torch.rand(4096, device="cuda") + 0.5
+    return [
+        ("dequant", lambda x: layers.dense(ocs, x, mode="dequant")),
+        ("dequant-clip-only", lambda x: layers.dense(clip, x, mode="dequant")),
+        ("w8a8", lambda x: layers.dense(ocs, x, mode="w8a8")),
+        ("w4a8", lambda x: layers.dense(w4, x, mode="w4a8")),
+        ("rms_norm", lambda x: layers.rms_norm(scale, x)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [40, 256])
+def test_rows_independent_of_row_count_cuda(m):
+    """The verify contract's base: a row's bits do not depend on how many
+    rows the call holds. Rows of calls of 8 (a decode step's lanes), 1 and
+    17 rows are bitwise the same rows of a call of ``m`` rows (40: a verify
+    of 8 lanes x 5 tokens; 256: a prefill, which B4/B5 run in two row
+    chunks), for ``dense`` in every mode and ``rms_norm``."""
+    cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = (torch.randn((m, 4096), generator=g, device="cuda") * 2.0).to(torch.bfloat16)
+    for name, fn in _row_independence_cases():
+        full = fn(x)
+        for lo, n in ((0, 8), (16, 8), (5, 1), (3, 17), (m - 8, 8)):
+            assert _same_bits(fn(x[lo:lo + n]), full[lo:lo + n]), (name, m, lo, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [82, 0], ids=["B4", "B5"])
+def test_weight_only_row_chunks_cuda(monkeypatch, s):
+    """A weight-only call whose split-K workspace passes its bound runs in
+    row chunks: with the bound cut so 40 rows take chunks of 12, 12, 12, 4,
+    the output is bitwise that of one launch, and one wrapper call counts
+    one launch."""
+    cuda_or_skip()
+    x, w8, ws, src, mult = _ocs_case(40, 4096, 256, s, torch.bfloat16, "ones" if s else None, 7)
+    want = tom.ocs_quant_matmul_cuda(x, w8, ws, src, tail_mult=mult)
+    nsplit = tqm.wo_split_plan(4096 + s, 256)[1]
+    monkeypatch.setattr(tqm, "_MAX_PART_BYTES", 4 * nsplit * 12 * 256)
+    assert tqm.wo_row_chunk(40, 256, nsplit) == 12
+    n0 = tom.launches + tqm.launches
+    got = tom.ocs_quant_matmul_cuda(x, w8, ws, src, tail_mult=mult)
+    assert tom.launches + tqm.launches - n0 == 1
+    assert _same_bits(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,kv_bits", [("dequant", None), ("w8a8", 8), ("w4a8", 4)])
+def test_verify_step_cuda_bitwise_sequential(mode, kv_bits):
+    """On the card, ``verify_step`` over 5 tokens is bitwise 5 sequential
+    ``decode_step`` calls (logits, every layer's pools, positions), on a
+    two-layer glm4-9b-shaped model (32/2 heads of 128, d_model 4096) at
+    ragged lane positions."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.apply import map_with_path
+    from repro_torch.core.ocs import OCSQuantLinear
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import kv_cache as kvc
+
+    cuda_or_skip()
+    cfg = dataclasses.replace(smoke_config("glm4-9b"), d_model=4096, n_heads=32,
+                              n_kv_heads=2, head_dim=128, d_ff=1024, vocab=2048,
+                              kv_bits=kv_bits)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = quantize_params(T.init_params(cfg, gen, device="cuda"),
+                        QuantRecipe(w_bits=8, w_clip="mse", ocs_ratio=0.02,
+                                    per_channel=True, pad_to=1), device="cuda")
+    if mode == "w4a8":
+        q = map_with_path(lambda _p, leaf: to_w4a8(leaf, 0.05)
+                          if isinstance(leaf, OCSQuantLinear) else leaf, q)
+    B, T_, ps = 3, 4, 16
+    caches = kvc.init_paged_cache(cfg, B, B * T_ + 1, ps, T_, device="cuda")
+    caches["table"] = torch.arange(1, B * T_ + 1, dtype=torch.int32,
+                                   device="cuda").reshape(B, T_)
+    caches["pos"] = torch.tensor([0, 9, 30], dtype=torch.int32, device="cuda")
+    rng = np.random.default_rng(5)
+    with torch.no_grad():
+        for t in rng.integers(0, cfg.vocab, (6, B)):
+            _, caches = T.decode_step(q, torch.as_tensor(t[:, None], dtype=torch.int32,
+                                                         device="cuda"), caches, cfg, mode=mode)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (B, 5)), dtype=torch.int32,
+                               device="cuda")
+        seq, outs = copy.deepcopy(caches), []
+        for j in range(5):
+            lg, seq = T.decode_step(q, toks[:, j:j + 1].contiguous(), seq, cfg, mode=mode)
+            outs.append(lg)
+        lg_v, ver = T.verify_step(q, toks, copy.deepcopy(caches), cfg, mode=mode)
+    torch.cuda.synchronize()
+    assert _same_bits(torch.stack(outs, 1).float(), lg_v.float())
+    assert torch.equal(ver["pos"], seq["pos"])
+    for i in range(cfg.n_layers):
+        for key, val in ver["layers"][i]["attn"].items():
+            assert _same_bits(val, seq["layers"][i]["attn"][key]), (i, key)

@@ -61,7 +61,7 @@ def test_pack_unpack_whole_nibble_range():
     assert torch.equal(tpa.unpack_int4(packed_t), torch.from_numpy(q))
 
 
-@settings(deadline=None, max_examples=60)
+@settings(deadline=None, database=None, max_examples=60)
 @given(hnp.arrays(np.int8, st.tuples(st.integers(1, 4), st.integers(1, 8).map(lambda c: 2 * c)),
                   elements=st.integers(-8, 7)))
 def test_pack_int4_property(q):

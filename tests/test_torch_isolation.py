@@ -48,6 +48,7 @@ def test_imports_without_jax_or_repro():
     module of the JAX package gets loaded."""
     mods = _all_modules()
     assert "repro_torch.kernels.ops" in mods and len(mods) > 20
+    assert "repro_torch.serving.spec_decode" in mods
     code = (
         "import sys, importlib, importlib.util\n"
         "sys.modules['jax'] = None\n"
@@ -94,6 +95,11 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     q = quantize_params(params, recipe, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(cfg, q, EngineConfig(max_len=64))
+    from repro_torch.serving.spec_decode import SpecConfig
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(cfg, q, EngineConfig(max_len=64, spec=SpecConfig(k=3)))
+    ServingEngine(cfg, q, EngineConfig(max_len=64, spec=SpecConfig(k=3)), device="cpu")
     from repro_torch.launch import serve
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
