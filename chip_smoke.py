@@ -16,8 +16,11 @@ Phases (any failure raises, and the script exits non-zero with no result):
    OCS r=0.02, per-channel, pad_to=1).
 3. Kernel phase: each kernel's wrapper on card tensors at the shapes the
    main paths give it, held against its plain PyTorch version on the same
-   inputs, and timed (CUDA events) beside its plain version, a library
-   yardstick the port never calls, and its bound.
+   inputs, and timed (CUDA events over back-to-back calls) beside its plain
+   version, a library yardstick the port never calls, and its bound. B2,
+   B2' and B5, and their yardsticks, are also timed as device time per call:
+   the same calls captured in a CUDA graph and replayed (no host work
+   between the kernels).
    ``fused_qmatmul`` (B1) at every glm4-9b linear shape (the layer-0 and
    ``lm_head`` weights just quantized) with M in {1, 8, 256}: bitwise.
    ``paged_attention`` (B2) on int8, float32 and packed int4 pools (8
@@ -164,6 +167,32 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return e0.elapsed_time(e1) / iters
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Device time per call: ``iters`` calls captured in one CUDA graph
+    (after one call outside it, which sizes the wrappers' kept workspaces)
+    and replayed, timed with CUDA events: the kernels back to back with no
+    host work between them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    graph.replay()
+    e1.record()
+    e1.synchronize()
+    ms = e0.elapsed_time(e1) / iters
+    del graph
+    return ms
+
+
 def b1_bound_ms(m, k, s, n):
     byts = m * k * 2 + (k + s) * n + s * 4 + n * 4 + m * n * 2
     ops = 2.0 * m * (k + s) * n
@@ -248,10 +277,11 @@ def kernel_phase_b1(qparams, cfg, gen, iters):
     return rows
 
 
-def make_b2_case(gen, kind, Q=1, B=8, H=32, KV=2, hd=128, ps=16, max_len=512):
+def b2_case(gen, kind, Q=1, B=8, H=32, KV=2, hd=128, ps=16, max_len=512, poison=False):
     """``kind`` ("int8", "float32" or "int4") pools, ragged tables (lane 7
     all trash), ``Q`` query tokens per lane at positions up to max_len-1
-    (first positions lowered so a window never runs past the table)."""
+    (first positions lowered so a window never runs past the table); with
+    ``poison`` the trash page holds NaN (it must never reach an output)."""
     import torch
 
     T = max_len // ps
@@ -275,9 +305,9 @@ def make_b2_case(gen, kind, Q=1, B=8, H=32, KV=2, hd=128, ps=16, max_len=512):
         if kind == "int4":  # packed nibbles
             pool["k"] = pool["k"].to(torch.uint8)
             pool["v"] = pool["v"].to(torch.uint8)
-    # Trash page poisoned: it must never reach an output.
-    for key in ("k", "v") if kind == "float32" else ("k_scale", "v_scale"):
-        pool[key][0] = float("nan")
+    if poison:
+        for key in ("k", "v") if kind == "float32" else ("k_scale", "v_scale"):
+            pool[key][0] = float("nan")
     pos = torch.tensor([17, 511, 256, 40, 130, 300, 5, 0], dtype=torch.int32)[:B]
     pos = pos.clamp_max(max_len - Q)
     table = torch.zeros((B, T), dtype=torch.int32)
@@ -290,6 +320,37 @@ def make_b2_case(gen, kind, Q=1, B=8, H=32, KV=2, hd=128, ps=16, max_len=512):
     kn = (torch.randn((B, Q, KV, hd), generator=gen, device="cuda")).to(torch.bfloat16)
     vn = (torch.randn((B, Q, KV, hd), generator=gen, device="cuda")).to(torch.bfloat16)
     return pool, table.to("cuda"), pos.to("cuda"), q, kn, vn
+
+
+def sdpa(pool, table, pos, q, kind):
+    """Library yardstick: SDPA over the dequantized, gathered pages
+    (gathered here, outside any timing; KV heads expanded to the query
+    heads; a poisoned trash page read as zeros), query j of a lane seeing
+    positions <= pos + j of readable pages. Returns the call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import unpack_int4
+
+    b, qn, h, hd = q.shape
+    kvh, ps = pool["k"].shape[1:3]
+    tl = table.long()
+    kg, vg = pool["k"][tl], pool["v"][tl]
+    if kind == "int4":
+        kg, vg = unpack_int4(kg), unpack_int4(vg)
+    kg, vg = kg.float(), vg.float()
+    if kind != "float32":
+        kg = kg * pool["k_scale"][tl][..., None]
+        vg = vg * pool["v_scale"][tl][..., None]
+    L = tl.shape[1] * ps
+    kg = kg.movedim(2, 1).reshape(b, kvh, L, hd).nan_to_num(0.0)
+    vg = vg.movedim(2, 1).reshape(b, kvh, L, hd).nan_to_num(0.0)
+    kg = kg.repeat_interleave(h // kvh, dim=1)
+    vg = vg.repeat_interleave(h // kvh, dim=1)
+    bound = pos[:, None].long() + torch.arange(qn, device="cuda")[None, :]  # [B, Q]
+    mask = (torch.arange(L, device="cuda")[None, None, :] <= bound[:, :, None]) & \
+        torch.repeat_interleave(table != 0, ps, dim=1)[:, None, :]
+    qf = q.float().movedim(1, 2)
+    return lambda: F.scaled_dot_product_attention(qf, kg, vg, attn_mask=mask[:, None])
 
 
 def b2_bound_ms(pool, table, pos, q):
@@ -314,35 +375,19 @@ def b2_bound_ms(pool, table, pos, q):
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
-def sdpa_ms(pool, table, pos, q, kind, iters):
-    """Library yardstick: SDPA over the dequantized, gathered pages
-    (gathered outside the timing; KV heads expanded to the query heads),
-    query j of a lane seeing positions <= pos + j."""
-    import torch
-    import torch.nn.functional as F
+def b2_times(work, pool, want_pool, table, pos, q, kn, vn, kind, iters):
+    """B2's wall and device ms per call (back-to-back calls; a CUDA graph of
+    them), its plain version's wall ms, SDPA's wall and device ms."""
     from repro_torch.kernels import paged_attention as pa
 
-    b, qn, h, hd = q.shape
-    kvh, ps = pool["k"].shape[1:3]
-    tl = table.long()
-    kg, vg = pool["k"][tl], pool["v"][tl]
-    if kind == "int4":
-        kg, vg = pa.unpack_int4(kg), pa.unpack_int4(vg)
-    kg, vg = kg.float(), vg.float()
-    if kind != "float32":
-        kg = kg * pool["k_scale"][tl][..., None]
-        vg = vg * pool["v_scale"][tl][..., None]
-    L = tl.shape[1] * ps
-    kg = kg.movedim(2, 1).reshape(b, kvh, L, hd).nan_to_num(0.0)
-    vg = vg.movedim(2, 1).reshape(b, kvh, L, hd).nan_to_num(0.0)
-    kg = kg.repeat_interleave(h // kvh, dim=1)
-    vg = vg.repeat_interleave(h // kvh, dim=1)
-    bound = pos[:, None].long() + torch.arange(qn, device="cuda")[None, :]  # [B, Q]
-    mask = (torch.arange(L, device="cuda")[None, None, :] <= bound[:, :, None]) & \
-        torch.repeat_interleave(table != 0, ps, dim=1)[:, None, :]
-    mask = mask[:, None]  # [B, 1, Q, L]
-    qf = q.float().movedim(1, 2)
-    return time_ms(lambda: F.scaled_dot_product_attention(qf, kg, vg, attn_mask=mask), iters)
+    def kern():
+        pa.paged_attention_cuda(work, table, pos, q, kn, vn)
+
+    lib = sdpa(want_pool, table, pos, q, kind)
+    return dict(ms=time_ms(kern, iters), device_ms=graph_ms(kern, iters),
+                plain_ms=time_ms(lambda: pa.paged_attention_plain(pool, table, pos, q, kn, vn),
+                                 max(2, iters // 5), warmup=1),
+                library_ms=time_ms(lib, iters), library_device_ms=graph_ms(lib, iters))
 
 
 def kernel_phase_b2(gen, iters):
@@ -351,7 +396,7 @@ def kernel_phase_b2(gen, iters):
 
     rows = []
     for kind in ("int8", "float32", "int4"):
-        pool, table, pos, q, kn, vn = make_b2_case(gen, kind)
+        pool, table, pos, q, kn, vn = b2_case(gen, kind, poison=True)
         want_out, want_pool = pa.paged_attention_plain(pool, table, pos, q, kn, vn)
         work = {k: v.clone() for k, v in pool.items()}
         got_out, got_pool = pa.paged_attention_cuda(work, table, pos, q, kn, vn)
@@ -366,19 +411,18 @@ def kernel_phase_b2(gen, iters):
             raise AssertionError(f"paged_attention {kind}: max |d| {err} > {B2_ATOL}")
         if got_out[7].abs().max().item() != 0.0:
             raise AssertionError("paged_attention: the all-trash lane is not exact zeros")
-        ms = time_ms(lambda: pa.paged_attention_cuda(work, table, pos, q, kn, vn), iters)
-        plain_ms = time_ms(lambda: pa.paged_attention_plain(pool, table, pos, q, kn, vn),
-                           max(2, iters // 5), warmup=1)
-        lib_ms = sdpa_ms(want_pool, table, pos, q, kind, iters)
+        tm = b2_times(work, pool, want_pool, table, pos, q, kn, vn, kind, iters)
         b, _, h, hd = q.shape
         kvh, ps = pool["k"].shape[1:3]
         bound, by = b2_bound_ms(pool, table, pos, q)
+        pages, chunks = pa.chunk_plan(int(table.shape[1]), ps, hd)
         rows.append(dict(pool=kind, B=b, H=h, KV=kvh, hd=hd,
-                         ps=ps, T=int(table.shape[1]), ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=bound, bound_by=by,
-                         max_abs_err=err))
-        log(f"B2 paged_attention pool={kind} B={b} H={h}/{kvh} "
-            f"hd={hd} ps={ps}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                         ps=ps, T=int(table.shape[1]), chunk_pages=pages, chunks=chunks,
+                         bound_ms=bound, bound_by=by, max_abs_err=err, **tm))
+        log(f"B2 paged_attention pool={kind} B={b} H={h}/{kvh} hd={hd} ps={ps} "
+            f"({chunks} chunks of {pages} pages): kernel_ms={tm['ms']:.4f} device_ms="
+            f"{tm['device_ms']:.4f} plain_ms={tm['plain_ms']:.4f} library_ms="
+            f"{tm['library_ms']:.4f} library_device_ms={tm['library_device_ms']:.4f} "
             f"bound_ms={bound:.5f} ({by}) max_abs_err={err:.3g} pools bitwise=yes")
     return rows
 
@@ -400,7 +444,7 @@ def kernel_phase_b2v(gen, iters):
     rows = []
     for kind in ("int8", "float32", "int4"):
         for qn in B2V_QS:
-            pool, table, pos, q, kn, vn = make_b2_case(gen, kind, Q=qn)
+            pool, table, pos, q, kn, vn = b2_case(gen, kind, Q=qn, poison=True)
             want_out, want_pool = pa.paged_attention_plain(pool, table, pos, q, kn, vn)
             work = {k: v.clone() for k, v in pool.items()}
             got_out, got_pool = pa.paged_attention_cuda(work, table, pos, q, kn, vn)
@@ -427,20 +471,17 @@ def kernel_phase_b2v(gen, iters):
             if not same_bits(torch.cat(outs, 1), got_out):
                 raise AssertionError(f"paged_attention Q={qn} {kind}: rows differ from the "
                                      "sequential Q=1 launches")
-            ms = time_ms(lambda: pa.paged_attention_cuda(work, table, pos, q, kn, vn), iters)
-            plain_ms = time_ms(lambda: pa.paged_attention_plain(pool, table, pos, q, kn, vn),
-                               max(2, iters // 5), warmup=1)
-            lib_ms = sdpa_ms(want_pool, table, pos, q, kind, iters)
+            tm = b2_times(work, pool, want_pool, table, pos, q, kn, vn, kind, iters)
             bound, by = b2_bound_ms(pool, table, pos, q)
             b, _, h, hd = q.shape
             rows.append(dict(pool=kind, Q=qn, B=b, H=h, KV=pool["k"].shape[1], hd=hd,
-                             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                             bound_by=by, max_abs_err=err,
-                             tile_rows=pa.tile_rows(qn, h // pool["k"].shape[1], hd, 16)))
+                             bound_ms=bound, bound_by=by, max_abs_err=err,
+                             tile_rows=pa.tile_rows(qn, h // pool["k"].shape[1], hd, 16), **tm))
             log(f"B2' paged_attention pool={kind} Q={qn} B={b} H={h}/{pool['k'].shape[1]} "
-                f"hd={hd}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-                f"bound_ms={bound:.5f} ({by}) max_abs_err={err:.3g} pools bitwise=yes, rows "
-                f"bitwise the sequential Q=1 launches")
+                f"hd={hd}: kernel_ms={tm['ms']:.4f} device_ms={tm['device_ms']:.4f} plain_ms="
+                f"{tm['plain_ms']:.4f} library_ms={tm['library_ms']:.4f} library_device_ms="
+                f"{tm['library_device_ms']:.4f} bound_ms={bound:.5f} ({by}) max_abs_err="
+                f"{err:.3g} pools bitwise=yes, rows bitwise the sequential Q=1 launches")
             del pool, work, seq, want_pool
     return rows
 
@@ -466,14 +507,19 @@ def cycled(t):
     return [t] + [t.clone() for _ in range(n - 1)]
 
 
-def time_cycled(fn, copies, iters, warmup=2):
+def cycling(fn, copies):
+    """A call of ``fn`` on the next of ``copies`` each time."""
     state = {"i": 0}
 
     def run():
         state["i"] = (state["i"] + 1) % len(copies)
         fn(copies[state["i"]])
 
-    return time_ms(run, iters, warmup)
+    return run
+
+
+def time_cycled(fn, copies, iters, warmup=2):
+    return time_ms(cycling(fn, copies), iters, warmup)
 
 
 def bf16_ulp(t):
@@ -569,22 +615,31 @@ def kernel_phase_wo(label, qparams, gen, iters):
             if not ((g16 - p16).abs() <= lim16).all():
                 raise AssertionError(f"{label} {names} M={m}: bf16 outputs beyond the bound "
                                      f"plus one bf16 ulp ({ulps} steps apart)")
-            ms = time_cycled(lambda wt: kern(x, wt, torch.bfloat16), copies, iters)
+            run_kern = cycling(lambda wt: kern(x, wt, torch.bfloat16), copies)
+            ms = time_ms(run_kern, iters)
             plain_ms = time_ms(lambda: plain(x, torch.bfloat16), max(2, iters // 5), warmup=1)
             # Library yardstick: bf16 torch.matmul of the materialized
             # expanded activations and the weights converted to bf16 before
             # the timing, then the column scales.
             xeb = xe.to(torch.bfloat16)
-            lib_ms = time_cycled(lambda wb: torch.matmul(xeb, wb) * ws, wb_copies, iters)
+            run_lib = cycling(lambda wb: torch.matmul(xeb, wb) * ws, wb_copies)
+            lib_ms = time_ms(run_lib, iters)
+            # B5's device times (CUDA graphs of the same calls).
+            dev = {}
+            if label == "B5":
+                dev = dict(device_ms=graph_ms(run_kern, iters),
+                           library_device_ms=graph_ms(run_lib, iters))
             bound, by = matmul_bound_ms(m, k, s, n, x_bytes=2, out_bytes=2,
                                         peak_ops=BF16_FLOPS)
             err_max = err.max().item()
             rows.append(dict(mode="weight-only", names=names, M=m, K=k, S=s, N=n, ms=ms,
                              plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                              bound_by=by, max_abs_err=err_max, tol_share=ratio,
-                             bf16_steps=ulps))
+                             bf16_steps=ulps, **dev))
+            dev_txt = (f" device_ms={dev['device_ms']:.4f} library_device_ms="
+                       f"{dev['library_device_ms']:.4f}" if dev else "")
             log(f"{label} weight-only {'/'.join(names)} M={m} K={k}+{s} N={n}: kernel_ms="
-                f"{ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms="
+                f"{ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}{dev_txt} bound_ms="
                 f"{bound:.4f} ({by}) f32 max|d|={err_max:.3g} ({ratio:.3g} of bound), "
                 f"bf16 within bound + 1 ulp")
         del wb_copies
@@ -653,7 +708,8 @@ def wo_chunk_case(label, kern, plain, k, s, n, w8, ws, src, mult, gen, iters):
     from repro_torch.kernels import quant_matmul as qm
     from repro_torch.kernels import ref
 
-    nsplit = qm.wo_split_plan(k + s, n)[1]
+    # B4's CUDA-core split plan, or B5's tensor-core one (bf16 x, S == 0).
+    nsplit = (qm.tc_split_plan(k, n) if label == "B5" else qm.wo_split_plan(k + s, n))[1]
     chunk = qm.wo_row_chunk(1 << 30, n, nsplit)
     m = chunk + 64
     x = (torch.randn((m, k), generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
@@ -1177,16 +1233,20 @@ def step_sum(rows, L, mode=None):
     share."""
     per_step = {"wq": L, "wk": L, "wv": L, "wo": L, "w_gate": L, "w_up": L,
                 "w_down": L, "lm_head": 1}
-    tot = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms", "library_device_ms")
+    tot = {k: 0.0 for k in keys}
     by_ops = 0.0
     for r in rows:
         if r["M"] != 8 or (mode is not None and r.get("mode") != mode):
             continue
         mult = sum(per_step[nm] for nm in r["names"])
         for key in tot:
-            tot[key] += mult * (r[key] or 0.0)
+            tot[key] += mult * (r.get(key) or 0.0)
         if r["bound_by"] == "operations":
             by_ops += mult * r["bound_ms"]
+    for key in ("device_ms", "library_device_ms"):  # measured for B2 and B5 only
+        if not tot[key]:
+            del tot[key]
     tot["bound_by"] = "operations" if by_ops > tot["bound_ms"] / 2 else "bytes"
     return tot
 
@@ -1376,10 +1436,16 @@ def main(argv=None) -> int:
 
     def entry(name, replaces, launches, err, t, source=None):
         source = source or f"src/repro_torch/csrc/{name}.cu"
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches, "max_abs_err": err,
-                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        e = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches, "max_abs_err": err,
+             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+             "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        # Device time (a CUDA graph of the timed calls) beside the wall time,
+        # where measured (B2, B2', B5) and the library call's likewise.
+        for key in ("device_ms", "library_device_ms"):
+            if key in t:
+                e[key] = t[key]
+        return e
 
     wo_err = lambda rows: max(r["max_abs_err"] for r in rows if r["mode"] == "weight-only")
     kernels = [
@@ -1415,8 +1481,10 @@ def main(argv=None) -> int:
                                       "launches from the default spec phase"}
     for k in kernels:
         lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
+        dev = (f" device_ms={k['device_ms']:.4f} library_device_ms="
+               f"{k['library_device_ms']:.4f}" if "device_ms" in k else "")
         log(f"kernel {k['name']} ({what[k['name']]}): kernel_ms={k['ms']:.4f} plain_ms="
-            f"{k['plain_ms']:.4f} library_ms={lib} bound_ms={k['bound_ms']:.4f} "
+            f"{k['plain_ms']:.4f} library_ms={lib}{dev} bound_ms={k['bound_ms']:.4f} "
             f"({k['bound_by']}) launches={k['launches']} max_abs_err={k['max_abs_err']:.3g}")
     total = time.perf_counter() - t_start
     peak_gb = torch.cuda.max_memory_allocated() / 2**30

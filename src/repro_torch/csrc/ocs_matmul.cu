@@ -42,8 +42,9 @@
 #include "qmatmul_common.cuh"
 
 // Weight-only. x_bf16: 1 if x is bfloat16, 0 if float32. tail_mult may be
-// null (= 1). xs [M] and ws [N] f32; part [nsplit, M, N] f32 scratch with
-// k_chunk * nsplit >= K + S. Returns cudaGetLastError() (0 = ok).
+// null (= 1). xs [M] f32 or null (= 1), ws [N] f32; part [nsplit, M, N]
+// f32 scratch with k_chunk * nsplit >= K + S. Returns cudaGetLastError()
+// (0 = ok).
 extern "C" int ocs_matmul_wo_launch(
     const void* x, int x_bf16, int M, int K, int S, const int* src_tail,
     const float* tail_mult, const int8_t* w8, const float* xs, const float* ws,

@@ -20,7 +20,12 @@
 //                        writes per-split partial sums to an f32 workspace.
 //   epilogue_kernel      out = sum_s acc[s] * (xs[m] * ws[n]), the splits
 //                        added in a fixed order, rounded once to the output
-//                        type.
+//                        type; a null xs reads as 1 (1 * ws == ws: bitwise).
+//   cp_async_*           16-byte asynchronous global -> shared copies and
+//                        their commit/wait (B2's page tiles).
+//   ensure_dynamic_smem  cudaFuncSetAttribute for a kernel's dynamic shared
+//                        memory, called once per device, kernel and larger
+//                        size, not on every launch.
 //
 // Numerics. Quantization: scale = max(amax, 1e-30) * float32(1/qmax),
 // q = clamp(floor(x / scale + 0.5)), or q = clamp(floor(x * (1/scale) +
@@ -36,6 +41,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace rtq {
 
@@ -58,6 +65,61 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, size_t i, float v) {
 
 __device__ __forceinline__ float acc_f32(int v) { return __int2float_rn(v); }
 __device__ __forceinline__ float acc_f32(float v) { return v; }
+
+// The epilogue's scale of output (m, n): xs[m] * ws[n], or ws[n] when xs is
+// null (x_scale = 1; __fmul_rn(1, ws) == ws, so the bits are the same).
+__device__ __forceinline__ float out_scale(const float* xs, const float* ws, int m, int n) {
+  return xs != nullptr ? __fmul_rn(xs[m], ws[n]) : ws[n];
+}
+
+// Asynchronous copies global -> shared (Ampere's cp.async, on Hopper too).
+// src_bytes < size zero-fills the rest (0: nothing is read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes = 16) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+// Wait until at most n of this thread's groups are pending; n past 7 waits
+// for 7 (waiting for more than asked is always safe).
+__device__ __forceinline__ void cp_async_wait_dyn(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
+}
+
+// Allow `kernel` `bytes` of dynamic shared memory. The attribute is set once
+// per device and larger size (`slot` names the kernel in the caller's
+// table), not on every launch: the size a launch asks for is checked
+// against the largest size set so far on the current device.
+constexpr int kMaxDevices = 16;
+template <typename K>
+inline cudaError_t ensure_dynamic_smem(K* kernel, std::atomic<int>* slots, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::atomic<int>* slot = dev < kMaxDevices ? &slots[dev] : nullptr;
+  if (slot != nullptr && slot->load() >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && slot != nullptr) {
+    int cur = slot->load();
+    while (cur < bytes && !slot->compare_exchange_weak(cur, bytes)) {
+    }
+  }
+  return err;
+}
 
 __device__ __forceinline__ int8_t quant_one(float x, float scale, float qmax) {
   float q = floorf(__fadd_rn(__fdiv_rn(x, scale), 0.5f));
@@ -377,7 +439,7 @@ void launch_wo_gemm(const TX* x, int M, int K, int S, const int* src_tail,
 
 template <typename TA, typename TO>
 __global__ void epilogue_kernel(const TA* __restrict__ acc, int nsplit,
-                                const float* __restrict__ xs,
+                                const float* __restrict__ xs,  // [M] or null (= 1)
                                 const float* __restrict__ ws, int M, int N,
                                 TO* __restrict__ out) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -387,7 +449,7 @@ __global__ void epilogue_kernel(const TA* __restrict__ acc, int nsplit,
   const int n = static_cast<int>(i % N);
   float a = acc_f32(acc[i]);
   for (int s = 1; s < nsplit; ++s) a = __fadd_rn(a, acc_f32(acc[(size_t)s * mn + i]));
-  store_out(out, i, __fmul_rn(a, __fmul_rn(xs[m], ws[n])));
+  store_out(out, i, __fmul_rn(a, out_scale(xs, ws, m, n)));
 }
 
 template <typename TA>

@@ -171,7 +171,7 @@ def ocs_quant_matmul_cuda(
         acc = torch.empty((m, n), dtype=torch.int32, device=dev)
         err = fns["int8"](
             x.data_ptr(), m, k, s, src_tail.data_ptr(), mult_ptr,
-            w8.data_ptr(), xs.data_ptr(), ws.data_ptr(), n,
+            w8.data_ptr(), _qm._ptr(xs), ws.data_ptr(), n,
             q.data_ptr(), kp, acc.data_ptr(), out.data_ptr(), out_bf16, stream,
         )
     else:

@@ -6,13 +6,16 @@ Replaces ``repro/kernels/paged_attention.py::_paged_attn_kernel``
 that every decode-attention layer of the paged engine runs, for float32,
 int8 and packed int4 pools, with one query row per lane at decode (Q = 1)
 and the Q = k + 1 rows of a speculative verify. The CUDA source is
-``csrc/paged_attention.cu``: the lane's new K/V rows are appended into
-its pages and each (lane, KV head, tile of query rows) runs online-softmax
-attention over the pages its rows reach; a row's result is bitwise that of
-the Q = 1 call at its position, whatever Q and its tile. What bounds it on
-the card: the bytes of the attended pages. Unlike the JAX
-kernel, which returned a new pool through input/output aliasing, the CUDA
-kernel **updates the pool in place** and returns the same dict.
+``csrc/paged_attention.cu``, three launches: the lane's new K/V rows are
+appended into its pages; the block table is cut into chunks of
+:func:`chunk_plan` pages and one block per (chunk, KV head, lane, tile of
+query rows) writes each row's partial softmax (max, sum, accumulator) to a
+workspace; a merge combines a row's chunks in order. A row's result is
+bitwise that of the Q = 1 call at its position, whatever Q and its tile.
+What bounds it on the card at decode is latency (how many blocks a call
+runs and how long each walks), not its bytes. Unlike the JAX kernel, which
+returned a new pool through input/output aliasing, the CUDA kernel
+**updates the pool in place** and returns the same dict.
 
 The plain version has the kernel's numerics — f32 after dequantization,
 trash pages select-zeroed — computed as the reference's
@@ -30,10 +33,13 @@ scale per row, quantized by :func:`quant_rows` at ``KV4_QMAX``.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from typing import Dict, Tuple
 
 import torch
 
+from . import scratch
 from .build import load
 from .ref import inv_qmax, rows_matmul
 
@@ -48,7 +54,10 @@ __all__ = [
     "append_rows",
     "paged_attention_plain",
     "paged_attention_cuda",
+    "check_layout",
     "tile_rows",
+    "chunk_plan",
+    "merge_bytes_per_row",
     "launches",
     "launches_verify",
     "reset_launches",
@@ -63,6 +72,10 @@ _MAX_SMEM = 232448
 # Query rows a tile aims at: one query token at glm4-9b's 16 heads per KV
 # head, so a verify of Q tokens runs Q times a decode step's blocks.
 _TILE_ROWS = 16
+# Positions a chunk aims at: 64 KB of f32 K and V rows (64 positions at hd
+# 128: 4 pages of 16), at most 128 positions.
+_CHUNK_BYTES = 64 << 10
+_CHUNK_MAX_POSITIONS = 128
 
 # Wrapper calls that launched the CUDA kernel: Q = 1 calls (decode) and
 # Q > 1 calls (speculative verify, the multi-row path).
@@ -265,8 +278,8 @@ def _bind():
         fn.argtypes = [
             c_void_p, c_void_p, c_void_p,  # q, k_new, v_new (bf16)
             c_void_p, c_void_p, c_void_p, c_void_p, c_int,  # pools, scales, kind
-            c_void_p, c_void_p, c_void_p,  # table, pos, out
-            c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_int,  # B Q H KV hd ps T R
+            c_void_p, c_void_p, c_void_p, c_void_p,  # table, pos, out, part
+            c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_int,  # B Q H KV hd ps T R C
             c_float, c_float, c_float, c_void_p,  # q_scale, qmax, inv_qmax, stream
         ]
         fn.restype = c_int
@@ -278,8 +291,42 @@ def _bind():
 _KIND_CODE = {"float": 0, "int8": 1, "int4": 2}
 
 
+def check_layout(hd: int, ps: int) -> None:
+    """Raise unless the CUDA kernel takes pages of ``ps`` rows of width
+    ``hd``: it copies page rows in 16-byte pieces (4 f32 scales of a page,
+    16 channels of an int8 row), so ``hd % 16`` and ``ps % 4`` must be 0."""
+    if hd % 16 or ps % 4:
+        raise ValueError(f"the CUDA paged attention copies 16-byte pieces of page rows: "
+                         f"head width % 16 and page size % 4 must be 0, got {hd} and {ps}")
+
+
+def chunk_plan(t: int, ps: int, hd: int) -> Tuple[int, int]:
+    """``(pages a chunk, chunks)`` of the CUDA kernel's split of a ``t``-page
+    block table: a constant of the page size and head width (about
+    ``_CHUNK_BYTES`` of f32 K and V rows a chunk, at least one page), never
+    of Q or of the lanes' positions, so a row is split the same way in a
+    decode and in a verify call."""
+    positions = min(_CHUNK_MAX_POSITIONS, _CHUNK_BYTES // (8 * hd))
+    c = max(1, positions // ps)
+    return c, math.ceil(t / c)
+
+
+def merge_bytes_per_row(t: int, ps: int, hd: int) -> int:
+    """Workspace bytes per output row (one per lane, query token and head):
+    every chunk's f32 accumulator ``[hd]`` and its ``(max, sum)`` pair."""
+    return 4 * chunk_plan(t, ps, hd)[1] * (hd + 2)
+
+
 def _smem_bytes(rows: int, hd: int, ps: int) -> int:
-    return 4 * (rows * hd + ps * (hd + 1) + ps * hd + rows * ps + rows * hd + 3 * rows)
+    """Dynamic shared memory of a tile of ``rows`` query rows, for the pool
+    kind that needs the most (int8: its raw rows are staged beside the f32
+    tiles); ``chunk_layout`` in the CUDA source."""
+    c = chunk_plan(1, ps, hd)[0]
+    npos = c * ps
+    rp = -(-rows // 4) * 4
+    kst = hd + 4 * ((9 - (hd // 4) % 8) % 8)
+    return (4 * (rp * hd + npos * kst + npos * hd + rp * npos) + 2 * npos * hd + 2 * npos * 4
+            + -(-4 * c // 16) * 16)
 
 
 def tile_rows(qn: int, rep: int, hd: int, ps: int) -> int:
@@ -287,7 +334,7 @@ def tile_rows(qn: int, rep: int, hd: int, ps: int) -> int:
     ``rep`` heads per KV head: whole query tokens, as many as ``_TILE_ROWS``
     rows hold (at least one) and shared memory takes; a one-token call is
     one tile. Raises when one token's ``rep`` rows do not fit."""
-    fit = (_MAX_SMEM // 4 - ps * (2 * hd + 1)) // (2 * hd + ps + 3)
+    fit = 4 * ((_MAX_SMEM - _smem_bytes(0, hd, ps)) // (16 * (hd + chunk_plan(1, ps, hd)[0] * ps)))
     if rep > fit:
         raise ValueError(
             f"one query token's {rep} rows need {_smem_bytes(rep, hd, ps)} bytes of shared "
@@ -297,13 +344,22 @@ def tile_rows(qn: int, rep: int, hd: int, ps: int) -> int:
     return tokens * rep
 
 
+@functools.lru_cache(maxsize=None)
+def _q_scale(hd: int) -> float:
+    """``float32(hd ** -0.5)``, the scale the plain version applies to q."""
+    return float(torch.tensor(hd ** -0.5, dtype=torch.float32))
+
+
 def paged_attention_cuda(pool, table, pos, q, k_new, v_new) -> Tuple:
-    """Launch the CUDA kernels: the append (in place), then paged flash decode.
+    """Launch the CUDA kernels: the append (in place), the chunked
+    attention, the merge.
 
     Takes float32, int8 or packed int4 (uint8, ``hd/2`` bytes a row) pools
-    and bfloat16 q/k_new/v_new (the model's activations); raises on
-    anything else. Returns ``(out [B, Q, H, hd] f32, pool)`` with ``pool``
-    the same dict, its tensors updated in place.
+    with ``hd % 16 == 0`` and ``ps % 4 == 0`` (the kernel copies page rows
+    16 bytes at a time) and bfloat16 q/k_new/v_new (the model's
+    activations); raises on anything else. Returns ``(out [B, Q, H, hd]
+    f32, pool)`` with ``pool`` the same dict, its tensors updated in place.
+    The merge workspace is kept per device between calls (``scratch``).
     """
     global launches, launches_verify
     b, qn, h, hd = q.shape
@@ -339,13 +395,19 @@ def paged_attention_cuda(pool, table, pos, q, k_new, v_new) -> Tuple:
         )
     if h % kvh:
         raise ValueError(f"heads {h} not a multiple of KV heads {kvh}")
+    check_layout(hd, ps)
     if table.dtype != torch.int32 or table.ndim != 2 or table.shape[0] != b:
         raise ValueError("table must be int32 [B, T]")
     if pos.dtype != torch.int32 or tuple(pos.shape) != (b,):
         raise ValueError("pos must be int32 [B]")
     rows = tile_rows(qn, h // kvh, hd, ps)
     t = table.shape[1]
+    pages = chunk_plan(t, ps, hd)[0]
     out = torch.empty((b, qn, h, hd), dtype=torch.float32, device=q.device)
+    # The merge workspace is kept per device and reused call after call: the
+    # reuse relies on stream order (this call's merge reads it before the
+    # next call's chunks, queued behind it, write it).
+    part = scratch.buffer("paged_attention", q.device, b * qn * h * merge_bytes_per_row(t, ps, hd))
     qmax = KV4_QMAX if kind == "int4" else 127.0
     fn = _bind()
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -354,10 +416,9 @@ def paged_attention_cuda(pool, table, pos, q, k_new, v_new) -> Tuple:
         pool["k"].data_ptr(), pool["v"].data_ptr(),
         pool["k_scale"].data_ptr() if scaled else None,
         pool["v_scale"].data_ptr() if scaled else None,
-        _KIND_CODE[kind], table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        b, qn, h, kvh, hd, ps, t, rows,
-        float(torch.tensor(hd ** -0.5, dtype=torch.float32)), qmax, inv_qmax(qmax),
-        stream,
+        _KIND_CODE[kind], table.data_ptr(), pos.data_ptr(), out.data_ptr(), part.data_ptr(),
+        b, qn, h, kvh, hd, ps, t, rows, pages,
+        _q_scale(hd), qmax, inv_qmax(qmax), stream,
     )
     if err != 0:
         raise RuntimeError(f"paged_attention launch failed: cudaError {err}")

@@ -22,17 +22,19 @@ so its output does not change from run to run).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 
-from . import ref
+from . import ref, scratch
 from .build import load
 
 __all__ = [
     "quant_matmul_plain",
     "quant_matmul_cuda",
+    "tc_split_plan",
     "launches",
     "reset_launches",
 ]
@@ -56,6 +58,14 @@ _MIN_SPLIT_ROWS = 64
 # stay within it (240 rows at glm4-9b's w_down); a row's sums are the same
 # in any chunk.
 _MAX_PART_BYTES = 64 << 20
+# The bf16 tensor-core GEMM's grid (csrc/quant_matmul.cu): 128 columns per
+# block of 4 warps, K in stages of 32 rows, split over the grid until the
+# column blocks alone would put ~2 blocks on each SM, with at least 256 rows
+# of K (2 stages a warp) per split; from K and N only, as above.
+_TC_COLS = 128
+_TC_STAGE_K = 32
+_TC_WANT_BLOCKS = 264
+_TC_MIN_SPLIT_ROWS = 256
 
 
 def reset_launches() -> None:
@@ -75,6 +85,14 @@ def _bind():
             c_void_p, c_int, c_void_p,  # out, out_bf16, stream
         ]
         wo.restype = c_int
+        tc = lib.quant_matmul_tc_launch
+        tc.argtypes = [
+            c_void_p, c_int, c_int,  # x, M, K
+            c_void_p, c_void_p, c_void_p, c_int,  # w8, xs, ws, N
+            c_int, c_int, c_void_p, c_void_p,  # k_chunk, nsplit, part, counters
+            c_void_p, c_int, c_void_p,  # out, out_bf16, stream
+        ]
+        tc.restype = c_int
         i8 = lib.quant_matmul_int8_launch
         i8.argtypes = [
             c_void_p, c_int, c_int,  # x, M, K
@@ -83,27 +101,37 @@ def _bind():
             c_void_p, c_int, c_void_p,  # out, out_bf16, stream
         ]
         i8.restype = c_int
-        _lib.update(wo=wo, int8=i8)
+        _lib.update(wo=wo, tc=tc, int8=i8)
     return _lib
 
 
-def scales(x: torch.Tensor, w_scale, x_scale, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(x_scale [M], w_scale [N])`` as contiguous float32 on ``x``'s
-    device: scalars broadcast, ``x_scale=None`` is all ones."""
+def scales(x: torch.Tensor, w_scale, x_scale,
+           n: int) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """``(x_scale [M] or None, w_scale [N])`` as contiguous float32 on
+    ``x``'s device: scalars broadcast; ``x_scale=None`` stays None, which
+    the epilogues read as 1 (``1 * w_scale == w_scale``, so no ones tensor
+    is made and the bits are the same)."""
     m, dev = x.shape[0], x.device
-    xs = (torch.ones((m,), dtype=torch.float32, device=dev) if x_scale is None
-          else torch.as_tensor(x_scale, dtype=torch.float32, device=dev).reshape(-1))
-    ws = torch.as_tensor(w_scale, dtype=torch.float32, device=dev).reshape(-1)
-    if xs.numel() == 1:
-        xs = xs.expand(m)
-    if ws.numel() == 1:
-        ws = ws.expand(n)
-    if xs.numel() != m or ws.numel() != n:
-        raise ValueError(
-            f"scales: x_scale has {xs.numel()} entries (want M = {m} or 1), "
-            f"w_scale {ws.numel()} (want N = {n} or 1)"
-        )
-    return xs.contiguous(), ws.contiguous()
+    xs = None if x_scale is None else _vector(x_scale, m, dev, "x_scale", "M")
+    return xs, _vector(w_scale, n, dev, "w_scale", "N")
+
+
+def _vector(v, size: int, dev, name: str, dim: str) -> torch.Tensor:
+    """``v`` (a scalar or ``size`` entries) as a contiguous float32 [size]
+    on ``dev``; a tensor that already is one comes back as it is."""
+    if (isinstance(v, torch.Tensor) and v.dtype == torch.float32 and v.device == dev
+            and v.dim() == 1 and v.shape[0] == size and v.is_contiguous()):
+        return v
+    t = torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(-1)
+    if t.numel() == 1:
+        t = t.expand(size)
+    if t.numel() != size:
+        raise ValueError(f"scales: {name} has {t.numel()} entries (want {dim} = {size} or 1)")
+    return t.contiguous()
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def out_dtype_for(x: torch.Tensor, out_dtype) -> torch.dtype:
@@ -124,6 +152,18 @@ def wo_split_plan(ke: int, n: int) -> Tuple[int, int]:
     return k_chunk, math.ceil(ke / k_chunk)
 
 
+@functools.lru_cache(maxsize=None)
+def tc_split_plan(k: int, n: int) -> Tuple[int, int]:
+    """``(k_chunk, n_splits)`` of the bf16 tensor-core GEMM's split of ``k``
+    rows of K for ``n`` columns (independent of M; ``k_chunk`` a multiple of
+    the 32-row stage)."""
+    blocks = math.ceil(n / _TC_COLS)
+    nsplit = max(1, min(math.ceil(_TC_WANT_BLOCKS / blocks), k // _TC_MIN_SPLIT_ROWS))
+    k_chunk = math.ceil(k / nsplit)
+    k_chunk += (-k_chunk) % _TC_STAGE_K
+    return k_chunk, math.ceil(k / k_chunk)
+
+
 def wo_row_chunk(m: int, n: int, nsplit: int) -> int:
     """Rows per launch of the weight-only GEMM: all ``m`` unless its
     split-K workspace ``[nsplit, rows, n]`` f32 would pass
@@ -131,24 +171,70 @@ def wo_row_chunk(m: int, n: int, nsplit: int) -> int:
     return min(m, max(1, _MAX_PART_BYTES // (4 * nsplit * n)))
 
 
+def _part(dev, nsplit: int, rows: int, n: int) -> torch.Tensor:
+    """The split-K workspace ``[nsplit, rows, n]`` f32, kept per device
+    (``scratch``; reuse relies on stream order)."""
+    nbytes = 4 * nsplit * rows * n
+    return scratch.buffer("split_k", dev, nbytes)[:nbytes].view(torch.float32)
+
+
 def launch_wo(fn, x, out, xs, ws, ke: int, *args) -> int:
-    """Run the weight-only entry point ``fn`` (B4's or B5's) over ``x``'s
-    rows in chunks of :func:`wo_row_chunk` rows that share one workspace,
-    with :func:`wo_split_plan`'s split of ``ke`` rows of K. ``args`` are
-    the entry point's arguments between ``K`` and ``xs``. Returns the
-    first nonzero cudaError, else 0."""
+    """Run the CUDA-core weight-only entry point ``fn`` (B4's, or B5's f32-x
+    one) over ``x``'s rows in chunks of :func:`wo_row_chunk` rows that share
+    one workspace, with :func:`wo_split_plan`'s split of ``ke`` rows of K.
+    ``args`` are the entry point's arguments between ``K`` and ``xs``; ``xs``
+    may be None (= 1). Returns the first nonzero cudaError, else 0."""
     m, k = x.shape
     n = out.shape[1]
     k_chunk, nsplit = wo_split_plan(ke, n)
     rows = wo_row_chunk(m, n, nsplit)
-    part = torch.empty((nsplit, rows, n), dtype=torch.float32, device=x.device)
+    part = _part(x.device, nsplit, rows, n)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     x_bf16, out_bf16 = int(x.dtype == torch.bfloat16), int(out.dtype == torch.bfloat16)
     for r in range(0, m, rows):
-        xr, xsr, outr = (x, xs, out) if rows == m else (x[r:r + rows], xs[r:r + rows],
-                                                        out[r:r + rows])
-        err = fn(xr.data_ptr(), x_bf16, xr.shape[0], k, *args, xsr.data_ptr(), ws.data_ptr(),
+        xr, outr = (x, out) if rows == m else (x[r:r + rows], out[r:r + rows])
+        xsr = xs if xs is None or rows == m else xs[r:r + rows]
+        err = fn(xr.data_ptr(), x_bf16, xr.shape[0], k, *args, _ptr(xsr), ws.data_ptr(),
                  n, k_chunk, nsplit, part.data_ptr(), outr.data_ptr(), out_bf16, stream)
+        if err != 0:
+            return err
+    return 0
+
+
+@functools.lru_cache(maxsize=1024)
+def _tc_launch_plan(m: int, k: int, n: int, max_part: int) -> Tuple[int, int, int, int, int]:
+    """``(k_chunk, nsplit, rows, workspace bytes, counter bytes)`` of an
+    ``m``-row call of the tensor-core GEMM: :func:`tc_split_plan`'s split,
+    row chunks of :func:`wo_row_chunk` rows when the split needs a
+    workspace (none with one split; ``max_part`` is ``_MAX_PART_BYTES``,
+    part of the key so a changed bound takes effect), and one counter per
+    token tile and column tile of any chunk."""
+    k_chunk, nsplit = tc_split_plan(k, n)
+    if nsplit == 1:
+        return k_chunk, 1, m, 0, 0
+    rows = min(m, max(1, max_part // (4 * nsplit * n)))  # wo_row_chunk's rows
+    return k_chunk, nsplit, rows, 4 * nsplit * rows * n, 4 * math.ceil(rows / 8) * math.ceil(
+        n / _TC_COLS)
+
+
+def launch_tc(fn, x, w8, out, xs, ws, stream) -> int:
+    """Run the bf16 tensor-core entry point over ``x``'s rows (in row
+    chunks when its split K needs a workspace, which is kept per device,
+    as are the counters). Returns the first nonzero cudaError."""
+    m, k = x.shape
+    n = out.shape[1]
+    k_chunk, nsplit, rows, part_bytes, count_bytes = _tc_launch_plan(m, k, n, _MAX_PART_BYTES)
+    part = counters = None
+    if nsplit > 1:
+        part = scratch.buffer("split_k", x.device, part_bytes).data_ptr()
+        counters = scratch.buffer("split_k_counters", x.device, count_bytes,
+                                  zeroed=True).data_ptr()
+    out_bf16 = int(out.dtype == torch.bfloat16)
+    for r in range(0, m, rows):
+        xr, outr = (x, out) if rows == m else (x[r:r + rows], out[r:r + rows])
+        xsr = xs if xs is None or rows == m else xs[r:r + rows]
+        err = fn(xr.data_ptr(), xr.shape[0], k, w8.data_ptr(), _ptr(xsr), ws.data_ptr(), n,
+                 k_chunk, nsplit, part, counters, outr.data_ptr(), out_bf16, stream)
         if err != 0:
             return err
     return 0
@@ -204,9 +290,10 @@ def quant_matmul_cuda(
     *,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel. x: [M, K] f32/bf16 (weight-only) or int8;
-    w8: [K, N] int8 -> [M, N] ``out_dtype`` (f32 or bf16). Raises on
-    anything the kernel does not take."""
+    """Launch the CUDA kernel. x: [M, K] bf16 (weight-only, tensor cores),
+    f32 (weight-only, CUDA cores) or int8; w8: [K, N] int8 -> [M, N]
+    ``out_dtype`` (f32 or bf16). Raises on anything the kernel does not
+    take."""
     global launches
     out_dtype = out_dtype_for(x, out_dtype)
     check_cuda_operands("quant_matmul_cuda", x, w8, 0, out_dtype)
@@ -223,11 +310,12 @@ def quant_matmul_cuda(
         q = None if kp == k else torch.empty((m, kp), dtype=torch.int8, device=dev)
         acc = torch.empty((m, n), dtype=torch.int32, device=dev)
         err = fns["int8"](
-            x.data_ptr(), m, k, w8.data_ptr(), xs.data_ptr(), ws.data_ptr(), n,
-            None if q is None else q.data_ptr(), kp, acc.data_ptr(),
-            out.data_ptr(), out_bf16, stream,
+            x.data_ptr(), m, k, w8.data_ptr(), _ptr(xs), ws.data_ptr(), n,
+            _ptr(q), kp, acc.data_ptr(), out.data_ptr(), out_bf16, stream,
         )
-    else:
+    elif x.dtype == torch.bfloat16:
+        err = launch_tc(fns["tc"], x, w8, out, xs, ws, stream)
+    else:  # float32 x: no serving caller; the CUDA-core GEMM
         err = launch_wo(fns["wo"], x, out, xs, ws, k, w8.data_ptr())
     if err != 0:
         raise RuntimeError(f"quant_matmul launch failed: cudaError {err}")

@@ -25,6 +25,7 @@ order of the sums.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -132,16 +133,18 @@ def float_matmul(a: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _epilogue(acc: torch.Tensor, x_scale: torch.Tensor, w_scale: torch.Tensor, out_dtype):
-    xs = x_scale.to(torch.float32).reshape(-1, 1)
+def _epilogue(acc: torch.Tensor, x_scale, w_scale: torch.Tensor, out_dtype):
+    """``acc * (x_scale * w_scale)``; ``x_scale`` None is 1, and ``1 * ws``
+    is ``ws``, so that is ``acc * w_scale`` bit for bit."""
     ws = w_scale.to(torch.float32).reshape(1, -1)
-    return (acc.to(torch.float32) * (xs * ws)).to(out_dtype)
+    scale = ws if x_scale is None else x_scale.to(torch.float32).reshape(-1, 1) * ws
+    return (acc.to(torch.float32) * scale).to(out_dtype)
 
 
 def quant_matmul_ref(
     x: torch.Tensor,
     w8: torch.Tensor,
-    x_scale: torch.Tensor,
+    x_scale: Optional[torch.Tensor],
     w_scale: torch.Tensor,
     out_dtype=torch.float32,
 ) -> torch.Tensor:
@@ -168,7 +171,7 @@ def ocs_quant_matmul_ref(
     w8: torch.Tensor,
     w_scale: torch.Tensor,
     src_tail: torch.Tensor,
-    x_scale: torch.Tensor,
+    x_scale: Optional[torch.Tensor],
     tail_mult=None,
     out_dtype=torch.float32,
 ) -> torch.Tensor:

@@ -35,16 +35,18 @@ from ..device import resolve_device
 from ..models import transformer as T
 from ..serving import EngineConfig, Request, ServingEngine
 
-# Kernel families by (mangled) kernel name substring.
+# Kernel families by (mangled) kernel name substrings, the first match wins.
 FAMILIES = (
-    ("fused_qmatmul: row_quant", "row_quant_kernel"),
-    ("w4a8_qmatmul: prologue", "w4a8_prologue_kernel"),
-    ("int4_gemm (w4a8_qmatmul)", "int4_gemm_kernel"),
-    ("int8_gemm (fused_qmatmul; w4a8_qmatmul's outlier rows)", "int8_gemm_kernel"),
-    ("wo_gemm (ocs_matmul / quant_matmul)", "wo_gemm_kernel"),
-    ("epilogue", "epilogue_kernel"),
-    ("paged_attention", "paged_attention_kernel"),
-    ("memset (int8 workspace)", "Memset"),
+    ("fused_qmatmul: row_quant", ("row_quant_kernel",)),
+    ("w4a8_qmatmul: prologue", ("w4a8_prologue_kernel",)),
+    ("int4_gemm (w4a8_qmatmul)", ("int4_gemm_kernel",)),
+    ("int8_gemm (fused_qmatmul; w4a8_qmatmul's outlier rows)", ("int8_gemm_kernel",)),
+    ("wo_tc_gemm (quant_matmul, bf16 tensor cores)", ("wo_tc_gemm_kernel",)),
+    ("wo_gemm (ocs_matmul; quant_matmul's f32 x)", ("wo_gemm_kernel",)),
+    ("epilogue", ("epilogue_kernel",)),
+    ("paged_attention (append, chunks, merge)",
+     ("append_kernel", "chunk_attention_kernel", "merge_kernel")),
+    ("memset (int8 workspace)", ("Memset",)),
 )
 
 
@@ -99,8 +101,8 @@ def main(argv=None):
     other_top = []
     for e in events:
         us = _self_device_us(e)
-        for name, key in FAMILIES:
-            if key in e.key:
+        for name, keys in FAMILIES:
+            if any(key in e.key for key in keys):
                 fam[name] += us
                 break
         else:

@@ -56,7 +56,8 @@ class EngineConfig:
         },
     )
     page_size: int = dataclasses.field(
-        default=16, metadata={"help": "KV page size in tokens (power of two)"}
+        default=16,
+        metadata={"help": "KV page size in tokens (power of two; at least 4 on a CUDA device)"},
     )
     n_pages: Optional[int] = dataclasses.field(
         default=None,

@@ -50,6 +50,7 @@ from ..configs.base import ModelConfig
 from ..core.apply import map_with_path, tree_to
 from ..core.ocs import OCSQuantLinear, to_w4a8
 from ..device import resolve_device
+from ..kernels.paged_attention import check_layout
 from ..models import transformer as T
 from . import kv_cache as kvc
 from . import spec_decode as spec_mod
@@ -110,6 +111,8 @@ class ServingEngine:
             raise NotImplementedError(
                 f"{cfg.name}: the port serves dense decoders (ROADMAP A13)"
             )
+        if self.device.type == "cuda":  # refuse up front, not at the first decode
+            check_layout(cfg.hd, config.page_size)
         if config.kv_bits is not None and config.kv_bits != cfg.kv_bits:
             cfg = dataclasses.replace(cfg, kv_bits=config.kv_bits)
         self.cfg = cfg

@@ -503,7 +503,8 @@ def test_weight_only_row_chunks_cuda(monkeypatch, s):
     cuda_or_skip()
     x, w8, ws, src, mult = _ocs_case(40, 4096, 256, s, torch.bfloat16, "ones" if s else None, 7)
     want = tom.ocs_quant_matmul_cuda(x, w8, ws, src, tail_mult=mult)
-    nsplit = tqm.wo_split_plan(4096 + s, 256)[1]
+    # B4's CUDA-core plan, or B5's tensor-core plan (bf16 x, S == 0).
+    nsplit = (tqm.wo_split_plan(4096 + s, 256) if s else tqm.tc_split_plan(4096, 256))[1]
     monkeypatch.setattr(tqm, "_MAX_PART_BYTES", 4 * nsplit * 12 * 256)
     assert tqm.wo_row_chunk(40, 256, nsplit) == 12
     n0 = tom.launches + tqm.launches
@@ -562,3 +563,194 @@ def test_verify_step_cuda_bitwise_sequential(mode, kv_bits):
     for i in range(cfg.n_layers):
         for key, val in ver["layers"][i]["attn"].items():
             assert _same_bits(val, seq["layers"][i]["attn"][key]), (i, key)
+
+
+def _chunk_edge_case(kind, ps, seed, B=4, H=32, KV=2, hd=128, qn=17):
+    """Lanes around B2's chunk edges (E = pages a chunk x ps): Q = 1 lanes at
+    E - 1, E and E + 1 and a retired lane; a ``qn``-token window from E - 8
+    (crossing the edge), one from 2E - 4, one from 0 and a retired lane.
+    Page 0 is NaN-poisoned; every lane owns the pages its positions reach;
+    the table has room past the third chunk."""
+    rng = np.random.RandomState(seed)
+    edge = tpa.chunk_plan(1, ps, hd)[0] * ps
+    T = (2 * edge + qn) // ps + 2
+    P = B * T + 1
+    if kind == "float32":
+        pool = {"k": rng.randn(P, KV, ps, hd).astype(np.float32),
+                "v": rng.randn(P, KV, ps, hd).astype(np.float32)}
+        pool["k"][0] = pool["v"][0] = np.nan
+    else:
+        lo, hi, dt, row = ((-127, 128, np.int8, hd) if kind == "int8"
+                           else (0, 256, np.uint8, hd // 2))
+        pool = {"k": rng.randint(lo, hi, (P, KV, ps, row)).astype(dt),
+                "v": rng.randint(lo, hi, (P, KV, ps, row)).astype(dt),
+                "k_scale": (rng.rand(P, KV, ps) * 0.02 + 0.002).astype(np.float32),
+                "v_scale": (rng.rand(P, KV, ps) * 0.02 + 0.002).astype(np.float32)}
+        pool["k_scale"][0] = pool["v_scale"][0] = np.nan
+    dev = torch.device("cuda")
+
+    def lanes(first):
+        table = np.zeros((B, T), np.int32)
+        nxt = 1
+        for b, p in enumerate(first):
+            if p is None:
+                continue
+            n = (p + qn - 1) // ps + 1
+            table[b, :n] = np.arange(nxt, nxt + n)
+            nxt += n
+        pos = np.array([0 if p is None else p for p in first], np.int32)
+        return torch.from_numpy(table).to(dev), torch.from_numpy(pos).to(dev)
+
+    def inputs(q_tokens):
+        return [torch.from_numpy(rng.randn(*sh).astype(np.float32)).to(dev).to(torch.bfloat16)
+                for sh in ((B, q_tokens, H, hd), (B, q_tokens, KV, hd), (B, q_tokens, KV, hd))]
+
+    tpool = {k: torch.from_numpy(v).to(dev) for k, v in pool.items()}
+    return tpool, edge, lanes, inputs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("kind", ["float32", "int8", "int4"])
+def test_paged_attention_cuda_chunk_edges(kind, ps):
+    """B2 split over chunks of pages, at the chunk edges: decode rows at
+    positions E - 1, E and E + 1 (E = a chunk's positions) within
+    ``B2_ATOL`` of the plain version with pools bitwise; a Q = 17 window
+    crossing an edge bitwise 17 sequential Q = 1 calls (outputs and pools),
+    within ``B2_ATOL`` of the plain version; the retired (all-trash) lane
+    exact zeros and the NaN-poisoned trash page never read."""
+    cuda_or_skip()
+    pool, edge, lanes, inputs = _chunk_edge_case(kind, ps, 11 + ps)
+    table, pos = lanes([edge - 1, edge, edge + 1, None])
+    args = [table, pos] + inputs(1)
+    want_o, want_p = tpa.paged_attention_plain(pool, *args)
+    got_o, got_p = tpa.paged_attention_cuda({k: v.clone() for k, v in pool.items()}, *args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got_o).all() and (got_o[3] == 0).all()
+    torch.testing.assert_close(got_o, want_o, atol=B2_ATOL, rtol=0)
+    for key in want_p:
+        assert _same_bits(got_p[key], want_p[key]), key
+
+    qn = 17
+    table, pos = lanes([edge - 8, 2 * edge - 4, 0, None])
+    q, kn, vn = inputs(qn)
+    want_o, want_p = tpa.paged_attention_plain(pool, table, pos, q, kn, vn)
+    got_o, got_p = tpa.paged_attention_cuda({k: v.clone() for k, v in pool.items()},
+                                            table, pos, q, kn, vn)
+    seq_p, outs = {k: v.clone() for k, v in pool.items()}, []
+    for j in range(qn):
+        o, seq_p = tpa.paged_attention_cuda(seq_p, table, pos + j, q[:, j:j + 1].contiguous(),
+                                            kn[:, j:j + 1].contiguous(),
+                                            vn[:, j:j + 1].contiguous())
+        outs.append(o)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got_o).all() and (got_o[3] == 0).all()
+    torch.testing.assert_close(got_o, want_o, atol=B2_ATOL, rtol=0)
+    assert _same_bits(torch.cat(outs, 1), got_o)
+    for key in want_p:
+        assert _same_bits(got_p[key][1:], want_p[key][1:]), key
+        assert _same_bits(seq_p[key][1:], got_p[key][1:]), key
+
+
+# B5's bf16 tensor-core GEMM at (K, N) with a ragged K tail (K % 32 != 0)
+# and N not a multiple of the 128-column tile. The TMA path (N % 16 == 0
+# and K % 8 == 0; every serving shape takes it): (1000, 208), three splits
+# of K, the last ragged, and 80 columns in the last tile; (4104, 400), 15
+# splits, 16 columns in the last tile. The TMA zero-fills what lies past K,
+# N and M. The path that reads global memory directly (no serving shape):
+# (1000, 200) with N % 16 != 0, and (130, 336) with K % 8 != 0.
+TC_SHAPES = [(1000, 208), (4104, 400), (1000, 200), (130, 336)]
+
+
+def _tc_case(m, k, n, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn((m, k), generator=g, device="cuda") * 2.0).to(torch.bfloat16)
+    w8 = torch.randint(-128, 128, (k, n), generator=g, device="cuda", dtype=torch.int8)
+    ws = torch.rand((n,), generator=g, device="cuda") * 0.01 + 1e-4
+    return x, w8, ws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", TC_SHAPES)
+@pytest.mark.parametrize("m", [1, 3, 8, 13, 40, 256])
+def test_quant_matmul_tc_cuda(m, k, n):
+    """B5's bf16 tensor-core GEMM (bf16 x): f32 outputs within the
+    summation-order bound of the plain version, bf16 outputs within it plus
+    one bf16 ulp, with and without x_scale; one launch counted a call; the
+    same call gives the same bits."""
+    cuda_or_skip()
+    x, w8, ws = _tc_case(m, k, n, m * 17 + k + n)
+    xsc = torch.rand((m,), device="cuda") + 0.5
+    bound = WO_TOL_FACTOR * (k + 2) * 2.0 ** -24 * tref.float_matmul(x.abs(), w8.abs()) * ws
+    for x_scale in (None, xsc):
+        lim = bound if x_scale is None else bound * x_scale[:, None]
+        n0 = tqm.launches
+        got = tqm.quant_matmul_cuda(x, w8, ws, x_scale, out_dtype=torch.float32)
+        want = tqm.quant_matmul_plain(x, w8, ws, x_scale, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert tqm.launches == n0 + 1
+        assert torch.isfinite(got).all()
+        assert ((got - want).abs() <= lim).all()
+        g16 = tqm.quant_matmul_cuda(x, w8, ws, x_scale, out_dtype=torch.bfloat16).float()
+        p16 = tqm.quant_matmul_plain(x, w8, ws, x_scale, out_dtype=torch.bfloat16).float()
+        assert ((g16 - p16).abs() <= lim + _bf16_ulp(torch.maximum(g16.abs(), p16.abs()))).all()
+        again = tqm.quant_matmul_cuda(x, w8, ws, x_scale, out_dtype=torch.float32)
+        assert _same_bits(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", TC_SHAPES + [(4096, 256)])
+def test_quant_matmul_tc_rows_independent_cuda(k, n):
+    """The tensor-core GEMM's rows do not depend on the call's row count: 8
+    rows (a decode step) bitwise the same rows inside 40- and 256-row calls
+    (other token tiles, a ragged last tile, a split K meeting through the
+    workspace), and a lone row bitwise its row in the 8-row call."""
+    cuda_or_skip()
+    x, w8, ws = _tc_case(256, k, n, k + n)
+    for m in (40, 256):
+        full = tqm.quant_matmul_cuda(x[:m], w8, ws, out_dtype=torch.float32)
+        for lo in (0, 16, m - 8):
+            eight = tqm.quant_matmul_cuda(x[lo:lo + 8].contiguous(), w8, ws,
+                                          out_dtype=torch.float32)
+            assert _same_bits(eight, full[lo:lo + 8]), (m, lo)
+    one = tqm.quant_matmul_cuda(x[5:6].contiguous(), w8, ws, out_dtype=torch.float32)
+    assert _same_bits(one, tqm.quant_matmul_cuda(x[:8], w8, ws, out_dtype=torch.float32)[5:6])
+
+
+@pytest.mark.cuda
+def test_quant_matmul_f32_x_takes_the_cuda_core_path(monkeypatch):
+    """f32 x (no serving caller: its products are not exact in bf16) runs
+    the CUDA-core weight-only entry point, bf16 x the tensor-core one."""
+    cuda_or_skip()
+    fns = tqm._bind()
+    calls = []
+    for name in ("wo", "tc"):
+        monkeypatch.setitem(fns, name, lambda *a, _f=fns[name], _n=name: (calls.append(_n),
+                                                                          _f(*a))[1])
+    x, w8, ws = _tc_case(8, 1000, 200, 3)
+    got = tqm.quant_matmul_cuda(x.float(), w8, ws, out_dtype=torch.float32)
+    want = tqm.quant_matmul_plain(x.float(), w8, ws, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert calls == ["wo"]
+    bound = WO_TOL_FACTOR * (1000 + 2) * 2.0 ** -24 * tref.float_matmul(x.abs(), w8.abs()) * ws
+    assert ((got - want).abs() <= bound).all()
+    tqm.quant_matmul_cuda(x, w8, ws)
+    assert calls == ["wo", "tc"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_size", [1, 2])
+def test_engine_refuses_pages_the_kernel_cannot_copy_cuda(page_size):
+    """A card engine refuses pages shorter than B2's 16-byte copies take
+    when it is built, not at its first decode."""
+    cuda_or_skip()
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = smoke_config("glm4-9b")
+    params = init_params(cfg, seed=0, device="cpu")
+    ecfg = EngineConfig(max_batch=2, max_len=32, page_size=page_size)
+    with pytest.raises(ValueError, match="page size % 4"):
+        ServingEngine(cfg, params, ecfg, device="cuda")
