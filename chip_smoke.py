@@ -18,17 +18,22 @@ Phases (any failure raises, and the script exits non-zero with no result):
    main paths give it, held against its plain PyTorch version on the same
    inputs, and timed (CUDA events over back-to-back calls) beside its plain
    version, a library yardstick the port never calls, and its bound. B2,
-   B2' and B5, and their yardsticks, are also timed as device time per call:
+   B2', B4 and B5, and their yardsticks, are also timed as device time per call:
    the same calls captured in a CUDA graph and replayed (no host work
    between the kernels).
    ``fused_qmatmul`` (B1) at every glm4-9b linear shape (the layer-0 and
    ``lm_head`` weights just quantized) with M in {1, 8, 256}: bitwise.
    ``paged_attention`` (B2) on int8, float32 and packed int4 pools (8
    lanes, ragged positions, one all-trash lane, a NaN-poisoned trash page,
-   Q = 1): appended pools bitwise, outputs within ``B2_ATOL``.
-   ``ocs_matmul`` (B4) weight-only at every shape with M in {1, 8, 256}:
-   f32 outputs within the summation-order bound (``WO_TOL_FACTOR``), bf16
-   outputs within one bf16 ulp; int8 mode at M in {8, 256}: bitwise. A
+   Q = 1): appended pools bitwise, outputs within ``B2_ATOL``; the same
+   at pages of 1 and 2 rows (untimed).
+   ``ocs_matmul`` (B4) weight-only at every shape with M in {1, 8, 256},
+   on the bf16 tensor cores with the OCS tail gathered in the kernel (the
+   route ``dense`` takes; checked by the wrapper's count of CUDA-core
+   calls): f32 outputs within the summation-order bound
+   (``WO_TOL_FACTOR``), bf16 outputs within it plus one bf16 ulp; its
+   CUDA-core route (f32 x) once a shape at M = 8, within the same bound;
+   int8 mode at M in {8, 256}: bitwise. A
    ``w_down`` prefill long enough to run in two row chunks (the bound on
    the split-K workspace): rows bitwise an 8-row call's, within the bound.
    ``paged_attention`` with Q > 1 query tokens per lane (B2', the
@@ -53,7 +58,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
    card. Asserts that every request finishes by length, that parameters
    and pools lie on the card (pools of the phase's dtype), that the phase's
    matmul kernel (B1 for w8a8, B4 for dequant, B6 for w4a8) ran 7*L+1
-   times per decode step and per prefill call and the others not at all,
+   times per decode step and per prefill call and the others not at all
+   (B4 never on its CUDA-core route),
    and ``paged_attention`` L times per decode step. Then self-speculative
    decoding (``EngineConfig.spec``) on the same requests: (d) dequant on
    float32 pages with the default drafter (w8a8, k <= 4), (e) w8a8 on int8
@@ -390,27 +396,39 @@ def b2_times(work, pool, want_pool, table, pos, q, kn, vn, kind, iters):
                 library_ms=time_ms(lib, iters), library_device_ms=graph_ms(lib, iters))
 
 
-def kernel_phase_b2(gen, iters):
+def b2_checked(label, pool, table, pos, q, kn, vn):
+    """One B2 call on a copy of ``pool`` against the plain version: pools
+    bitwise, outputs finite and within ``B2_ATOL``, the all-trash lane 7
+    exact zeros. Returns (the appended copy, the plain version's pool, max
+    |d|)."""
     import torch
+    from repro_torch.kernels import paged_attention as pa
+
+    want_out, want_pool = pa.paged_attention_plain(pool, table, pos, q, kn, vn)
+    work = {k: v.clone() for k, v in pool.items()}
+    got_out, got_pool = pa.paged_attention_cuda(work, table, pos, q, kn, vn)
+    torch.cuda.synchronize()
+    for key in want_pool:
+        if not same_bits(got_pool[key], want_pool[key]):
+            raise AssertionError(f"{label}: pool {key} differs")
+    if not torch.isfinite(got_out).all():
+        raise AssertionError(f"{label}: nonfinite output (trash page leaked)")
+    err = (got_out - want_out).abs().max().item()
+    if err > B2_ATOL:
+        raise AssertionError(f"{label}: max |d| {err} > {B2_ATOL}")
+    if got_out[7].abs().max().item() != 0.0:
+        raise AssertionError(f"{label}: the all-trash lane is not exact zeros")
+    return work, want_pool, err
+
+
+def kernel_phase_b2(gen, iters):
     from repro_torch.kernels import paged_attention as pa
 
     rows = []
     for kind in ("int8", "float32", "int4"):
         pool, table, pos, q, kn, vn = b2_case(gen, kind, poison=True)
-        want_out, want_pool = pa.paged_attention_plain(pool, table, pos, q, kn, vn)
-        work = {k: v.clone() for k, v in pool.items()}
-        got_out, got_pool = pa.paged_attention_cuda(work, table, pos, q, kn, vn)
-        torch.cuda.synchronize()
-        for key in want_pool:
-            if not same_bits(got_pool[key], want_pool[key]):
-                raise AssertionError(f"paged_attention {kind}: pool {key} differs")
-        if not torch.isfinite(got_out).all():
-            raise AssertionError("paged_attention: nonfinite output (trash page leaked)")
-        err = (got_out - want_out).abs().max().item()
-        if err > B2_ATOL:
-            raise AssertionError(f"paged_attention {kind}: max |d| {err} > {B2_ATOL}")
-        if got_out[7].abs().max().item() != 0.0:
-            raise AssertionError("paged_attention: the all-trash lane is not exact zeros")
+        work, want_pool, err = b2_checked(f"paged_attention {kind}", pool, table, pos, q, kn,
+                                          vn)
         tm = b2_times(work, pool, want_pool, table, pos, q, kn, vn, kind, iters)
         b, _, h, hd = q.shape
         kvh, ps = pool["k"].shape[1:3]
@@ -424,6 +442,18 @@ def kernel_phase_b2(gen, iters):
             f"{tm['device_ms']:.4f} plain_ms={tm['plain_ms']:.4f} library_ms="
             f"{tm['library_ms']:.4f} library_device_ms={tm['library_device_ms']:.4f} "
             f"bound_ms={bound:.5f} ({by}) max_abs_err={err:.3g} pools bitwise=yes")
+    # Pages of 1 and 2 rows, which the engine takes too: checked, not timed.
+    for ps in (1, 2):
+        for kind in ("int8", "float32", "int4"):
+            pool, table, pos, q, kn, vn = b2_case(gen, kind, ps=ps, poison=True)
+            _, _, err = b2_checked(f"paged_attention {kind} ps={ps}", pool, table, pos, q, kn,
+                                   vn)
+            pages, chunks = pa.chunk_plan(int(table.shape[1]), ps, q.shape[-1])
+            rows.append(dict(pool=kind, ps=ps, T=int(table.shape[1]), chunk_pages=pages,
+                             chunks=chunks, max_abs_err=err, timed=False))
+            log(f"B2 paged_attention pool={kind} ps={ps} ({chunks} chunks of {pages} pages): "
+                f"max_abs_err={err:.3g} pools bitwise=yes (untimed)")
+            del pool
     return rows
 
 
@@ -522,6 +552,30 @@ def time_cycled(fn, copies, iters, warmup=2):
     return time_ms(cycling(fn, copies), iters, warmup)
 
 
+def wo_times(run_kern, xeb, ws, wb_copies, iters):
+    """Wall and device ms of ``run_kern`` (a weight-only call cycling its
+    weight copies) and of its library yardstick: bf16 ``torch.matmul`` of
+    the materialized expanded activations ``xeb`` and the weights converted
+    to bf16 before the timing (``wb_copies``), then the column scales
+    ``ws``. Device times are CUDA graphs of the same calls."""
+    import torch
+
+    run_lib = cycling(lambda wb: torch.matmul(xeb, wb) * ws, wb_copies)
+    return dict(ms=time_ms(run_kern, iters), library_ms=time_ms(run_lib, iters),
+                device_ms=graph_ms(run_kern, iters),
+                library_device_ms=graph_ms(run_lib, iters))
+
+
+def wo_tol(xe, w8, ws, k, s):
+    """The summation-order bound of a weight-only output against its plain
+    version, elementwise: ``WO_TOL_FACTOR * (K + S + 2) * 2**-24 *
+    (|x_exp| @ |w8|) * |ws|`` (``xe``: the expanded activations, f32)."""
+    from repro_torch.kernels import ref
+
+    return (WO_TOL_FACTOR * (k + s + 2) * 2.0 ** -24
+            * ref.float_matmul(xe.abs(), w8.abs()) * ws.abs())
+
+
 def bf16_ulp(t):
     """One bf16 step at each value of the float32 tensor ``t``."""
     import torch
@@ -557,11 +611,12 @@ def kernel_phase_wo(label, qparams, gen, iters):
     clip-only tree) at every glm4-9b linear shape: weight-only at M in {1,
     8, 256} (f32 outputs within the summation-order bound, bf16 outputs
     within it plus one bf16 ulp; timed with bf16 outputs, as ``dense`` calls
-    it), int8 at M in {8, 256} (bitwise)."""
+    it, wall and device), int8 at M in {8, 256} (bitwise). B4's bf16 calls
+    must all take the tensor cores; its CUDA-core route (f32 x) is checked
+    once a shape at M = 8, within the same bound."""
     import torch
     from repro_torch.kernels import ocs_matmul as om
     from repro_torch.kernels import quant_matmul as qm
-    from repro_torch.kernels import ref
 
     weights = layer_weights(qparams)
     groups = {}
@@ -579,10 +634,11 @@ def kernel_phase_wo(label, qparams, gen, iters):
             raise AssertionError(f"{label} {names}: S = {s}")
 
         if s:
+            packed = w.is_packed()  # as dense declares a packed leaf's mask
+
             def kern(x, wt, out_dtype):
                 return om.ocs_quant_matmul_cuda(x, wt, ws, src, tail_mult=mult,
-                                                tail_is_mask=x.dtype == torch.int8,
-                                                out_dtype=out_dtype)
+                                                tail_is_mask=packed, out_dtype=out_dtype)
 
             def plain(x, out_dtype):
                 return om.ocs_quant_matmul_plain(x, w8, ws, src, tail_mult=mult,
@@ -596,13 +652,13 @@ def kernel_phase_wo(label, qparams, gen, iters):
 
         copies = cycled(w8)
         wb_copies = cycled(w8.to(torch.bfloat16))
+        n_cuda_cores = om.launches_cuda_cores
         for m in (1, 8, 256):
             x = (torch.randn((m, k), generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
             xe = torch.cat([x.float(), x[:, src.long()].float() * mult], 1) if s else x.float()
             got, want = kern(x, w8, torch.float32), plain(x, torch.float32)
             torch.cuda.synchronize()
-            tol = (WO_TOL_FACTOR * (k + s + 2) * 2.0 ** -24
-                   * ref.float_matmul(xe.abs(), w8.abs()) * ws.abs())
+            tol = wo_tol(xe, w8, ws, k, s)
             err = (got - want).abs()
             ratio = (err / tol.clamp_min(1e-30)).max().item()
             if not torch.isfinite(got).all() or ratio > 1.0:
@@ -615,34 +671,38 @@ def kernel_phase_wo(label, qparams, gen, iters):
             if not ((g16 - p16).abs() <= lim16).all():
                 raise AssertionError(f"{label} {names} M={m}: bf16 outputs beyond the bound "
                                      f"plus one bf16 ulp ({ulps} steps apart)")
-            run_kern = cycling(lambda wt: kern(x, wt, torch.bfloat16), copies)
-            ms = time_ms(run_kern, iters)
+            t = wo_times(cycling(lambda wt: kern(x, wt, torch.bfloat16), copies),
+                         xe.to(torch.bfloat16), ws, wb_copies, iters)
             plain_ms = time_ms(lambda: plain(x, torch.bfloat16), max(2, iters // 5), warmup=1)
-            # Library yardstick: bf16 torch.matmul of the materialized
-            # expanded activations and the weights converted to bf16 before
-            # the timing, then the column scales.
-            xeb = xe.to(torch.bfloat16)
-            run_lib = cycling(lambda wb: torch.matmul(xeb, wb) * ws, wb_copies)
-            lib_ms = time_ms(run_lib, iters)
-            # B5's device times (CUDA graphs of the same calls).
-            dev = {}
-            if label == "B5":
-                dev = dict(device_ms=graph_ms(run_kern, iters),
-                           library_device_ms=graph_ms(run_lib, iters))
             bound, by = matmul_bound_ms(m, k, s, n, x_bytes=2, out_bytes=2,
                                         peak_ops=BF16_FLOPS)
             err_max = err.max().item()
-            rows.append(dict(mode="weight-only", names=names, M=m, K=k, S=s, N=n, ms=ms,
-                             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                             bound_by=by, max_abs_err=err_max, tol_share=ratio,
-                             bf16_steps=ulps, **dev))
-            dev_txt = (f" device_ms={dev['device_ms']:.4f} library_device_ms="
-                       f"{dev['library_device_ms']:.4f}" if dev else "")
+            rows.append(dict(mode="weight-only", names=names, M=m, K=k, S=s, N=n,
+                             plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                             max_abs_err=err_max, tol_share=ratio, bf16_steps=ulps, **t))
             log(f"{label} weight-only {'/'.join(names)} M={m} K={k}+{s} N={n}: kernel_ms="
-                f"{ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}{dev_txt} bound_ms="
-                f"{bound:.4f} ({by}) f32 max|d|={err_max:.3g} ({ratio:.3g} of bound), "
-                f"bf16 within bound + 1 ulp")
+                f"{t['ms']:.4f} device_ms={t['device_ms']:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms={t['library_ms']:.4f} library_device_ms="
+                f"{t['library_device_ms']:.4f} bound_ms={bound:.4f} ({by}) f32 max|d|="
+                f"{err_max:.3g} ({ratio:.3g} of bound), bf16 within bound + 1 ulp")
         del wb_copies
+        if om.launches_cuda_cores != n_cuda_cores:
+            raise AssertionError(f"{label} {names}: bf16 x left the tensor cores")
+        if s:
+            # B4's CUDA-core route, which f32 x takes, at this full-width shape.
+            x = torch.randn((8, k), generator=gen, device="cuda") * 2.0
+            got, want = kern(x, w8, torch.float32), plain(x, torch.float32)
+            torch.cuda.synchronize()
+            if om.launches_cuda_cores != n_cuda_cores + 1:
+                raise AssertionError(f"{label} {names}: f32 x did not take the CUDA cores")
+            err = (got - want).abs()
+            ratio = (err / wo_tol(torch.cat([x, x[:, src.long()] * mult], 1), w8, ws, k, s)
+                     .clamp_min(1e-30)).max().item()
+            if not torch.isfinite(got).all() or ratio > 1.0:
+                raise AssertionError(f"{label} f32 x (CUDA cores) {names} M=8: |kernel - "
+                                     f"plain| is {ratio:.3g} of the summation-order bound")
+            log(f"{label} f32 x (CUDA-core route) {'/'.join(names)} M=8 K={k}+{s} N={n}: "
+                f"f32 max|d|={err.max().item():.3g} ({ratio:.3g} of bound)")
         if names == ["w_down"]:
             rows.append(wo_chunk_case(label, kern, plain, k, s, n, w8, ws, src, mult, gen,
                                       iters))
@@ -706,10 +766,9 @@ def wo_chunk_case(label, kern, plain, k, s, n, w8, ws, src, mult, gen, iters):
     summation-order bound of the plain version; timed."""
     import torch
     from repro_torch.kernels import quant_matmul as qm
-    from repro_torch.kernels import ref
 
-    # B4's CUDA-core split plan, or B5's tensor-core one (bf16 x, S == 0).
-    nsplit = (qm.tc_split_plan(k, n) if label == "B5" else qm.wo_split_plan(k + s, n))[1]
+    # The tensor-core split plan of B5's K rows or B4's Kb + S virtual rows.
+    nsplit = qm.tc_split_plan(qm.tc_rows(k, s), n)[1]
     chunk = qm.wo_row_chunk(1 << 30, n, nsplit)
     m = chunk + 64
     x = (torch.randn((m, k), generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
@@ -720,8 +779,7 @@ def wo_chunk_case(label, kern, plain, k, s, n, w8, ws, src, mult, gen, iters):
                                  "differ from the same rows in an 8-row call")
     want = plain(x, torch.float32)
     xe = torch.cat([x.float(), x[:, src.long()].float() * mult], 1) if s else x.float()
-    tol = (WO_TOL_FACTOR * (k + s + 2) * 2.0 ** -24
-           * ref.float_matmul(xe.abs(), w8.abs()) * ws.abs())
+    tol = wo_tol(xe, w8, ws, k, s)
     err = (got - want).abs()
     ratio = (err / tol.clamp_min(1e-30)).max().item()
     if not torch.isfinite(got).all() or ratio > 1.0:
@@ -924,14 +982,19 @@ def kernel_phase_b6(qparams, gen, iters):
 
 def counters():
     """Every launch count: name -> (wrapper module, count attribute).
-    ``paged_attention_verify`` is B2's count of Q > 1 calls."""
+    ``paged_attention_verify`` is B2's count of Q > 1 calls,
+    ``ocs_matmul_cuda_cores`` B4's of calls on its CUDA-core route (none on
+    a serving path: ``dense`` gives it bf16 x and declares a packed leaf's
+    0/1 mask)."""
     from repro_torch.kernels import dynamic_quant, fused_qmatmul, ocs_matmul
     from repro_torch.kernels import paged_attention, quant_matmul, w4a8_qmatmul
 
     return {"fused_qmatmul": (fused_qmatmul, "launches"),
             "paged_attention": (paged_attention, "launches"),
             "paged_attention_verify": (paged_attention, "launches_verify"),
-            "ocs_matmul": (ocs_matmul, "launches"), "quant_matmul": (quant_matmul, "launches"),
+            "ocs_matmul": (ocs_matmul, "launches"),
+            "ocs_matmul_cuda_cores": (ocs_matmul, "launches_cuda_cores"),
+            "quant_matmul": (quant_matmul, "launches"),
             "dynamic_quant": (dynamic_quant, "launches"),
             "w4a8_qmatmul": (w4a8_qmatmul, "launches")}
 
@@ -1226,25 +1289,25 @@ def reference_check(seed):
     return out
 
 
-def step_sum(rows, L, mode=None):
-    """One decode step's work of a matmul kernel: the M = 8 rows, each
-    shape counted once per layer (the lm_head once); ms, plain_ms,
-    library_ms and bound_ms summed, and the bound's kind by its larger
-    share."""
+def step_sum(rows, L, mode=None, m=8):
+    """One decode step's work of a matmul kernel: the M = 8 rows (``m``:
+    the rows of another call size, 256 for a prefill's), each shape counted
+    once per layer (the lm_head once); ms, plain_ms, library_ms and
+    bound_ms summed, and the bound's kind by its larger share."""
     per_step = {"wq": L, "wk": L, "wv": L, "wo": L, "w_gate": L, "w_up": L,
                 "w_down": L, "lm_head": 1}
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms", "library_device_ms")
     tot = {k: 0.0 for k in keys}
     by_ops = 0.0
     for r in rows:
-        if r["M"] != 8 or (mode is not None and r.get("mode") != mode):
+        if r["M"] != m or (mode is not None and r.get("mode") != mode):
             continue
         mult = sum(per_step[nm] for nm in r["names"])
         for key in tot:
             tot[key] += mult * (r.get(key) or 0.0)
         if r["bound_by"] == "operations":
             by_ops += mult * r["bound_ms"]
-    for key in ("device_ms", "library_device_ms"):  # measured for B2 and B5 only
+    for key in ("device_ms", "library_device_ms"):  # measured for B2, B4 and B5 only
         if not tot[key]:
             del tot[key]
     tot["bound_by"] = "operations" if by_ops > tot["bound_ms"] / 2 else "bytes"
@@ -1426,6 +1489,13 @@ def main(argv=None) -> int:
     b1_step = step_sum(b1, L)
     b4_step = step_sum(b4, L, "weight-only")
     b5_step = step_sum(b5, L, "weight-only")
+    for label, rows in (("B4", b4), ("B5", b5)):
+        for m in (8, 256):
+            t = step_sum(rows, L, "weight-only", m)
+            log(f"{label} weight-only, the M={m} calls of one {L}-layer step (7 x {L} + "
+                f"lm_head): ms={t['ms']:.3f} device_ms={t['device_ms']:.3f} library_ms="
+                f"{t['library_ms']:.3f} library_device_ms={t['library_device_ms']:.3f} "
+                f"bound_ms={t['bound_ms']:.3f} ({t['bound_by']})")
     b6_step = step_sum(b6, L)
     b2_main = next(r for r in b2 if r["pool"] == "int8")
     b2_int4 = next(r for r in b2 if r["pool"] == "int4")
@@ -1441,7 +1511,7 @@ def main(argv=None) -> int:
              "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
              "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
         # Device time (a CUDA graph of the timed calls) beside the wall time,
-        # where measured (B2, B2', B5) and the library call's likewise.
+        # where measured (B2, B2', B4, B5) and the library call's likewise.
         for key in ("device_ms", "library_device_ms"):
             if key in t:
                 e[key] = t[key]

@@ -31,10 +31,13 @@
 //      rep, head g*rep + r % rep) are cut into tiles of R rows. A block
 //      whose chunk lies wholly past its tile's last position writes the
 //      empty partial (m = NEG_INF, l = 0) and exits. Otherwise it issues
-//      cp.async 16-byte copies of every page of its chunk at once, one
-//      commit group per page (K/V page rows of f32 straight into the padded
-//      f32 tiles; int8 and int4 rows and their scales into a byte staging
-//      area), so later pages are in flight while earlier ones are worked
+//      cp.async copies of every page of its chunk at once, one commit
+//      group per page (K/V page rows of f32 straight into the padded f32
+//      tiles; int8 and int4 rows and their scales into a byte staging
+//      area), 16 bytes a piece, narrower only where a page of 1 or 2 rows
+//      leaves its scales (and an int4 page of one row with hd % 32 == 16
+//      its row) off 16-byte alignment: 4-byte scale pieces, 8-byte row
+//      pieces. So later pages are in flight while earlier ones are worked
 //      on; page by page it waits for the page's group, dequantizes it in
 //      registers (int8: 4 bytes a word; int4: 4 bytes = 8 channels, low
 //      nibble channel d, high nibble d + hd/2, sign-extended by int32
@@ -76,6 +79,7 @@
 namespace {
 
 using rtq::cp_async16;
+using rtq::cp_async_narrow;
 using rtq::cp_async_commit;
 using rtq::cp_async_wait_dyn;
 using rtq::load_f32;
@@ -92,8 +96,8 @@ constexpr int kInt8 = 1;
 constexpr int kInt4 = 2;
 
 // cudaFuncSetAttribute bookkeeping: the largest dynamic shared memory set so
-// far for each pool kind's attention kernel, per device.
-std::atomic<int> g_smem_set[3][rtq::kMaxDevices];
+// far for each attention kernel (pool kind x short pages), per device.
+std::atomic<int> g_smem_set[6][rtq::kMaxDevices];
 
 // Nibble `hi` of a packed int4 byte, sign-extended.
 __device__ __forceinline__ float nibble_f32(uint8_t byte, bool hi) {
@@ -275,7 +279,11 @@ __device__ void prepare_page(const ChunkLayout& L, unsigned char* smem, int li, 
   }
 }
 
-template <int KIND>
+// SHORT: pages of fewer than 4 rows (ps % 4 != 0) in an int8 or int4 pool,
+// whose scales (and some int4 rows) need copies narrower than 16 bytes; a
+// separate instantiation, so pages of 4 rows and more run the code they
+// ran before short pages were served.
+template <int KIND, bool SHORT>
 __global__ void __launch_bounds__(kThreads) chunk_attention_kernel(
     const __nv_bfloat16* __restrict__ q,  // [B, Q, H, hd]
     const void* __restrict__ k_pool, const void* __restrict__ v_pool,  // [P, KV, ps, hd(/2)]
@@ -343,15 +351,35 @@ __global__ void __launch_bounds__(kThreads) chunk_attention_kernel(
         const uint8_t* vp = static_cast<const uint8_t*>(v_pool) + page * hdp;
         unsigned char* rk = smem + L.off_rk + li * ps * hdp;
         unsigned char* rv = smem + L.off_rv + li * ps * hdp;
-        for (int e = tid; e < ps * hdp / 16; e += kThreads) {
-          cp_async16(rk + 16 * e, kp + 16 * e);
-          cp_async16(rv + 16 * e, vp + 16 * e);
+        // A page's rows are ps * hdp contiguous bytes at a multiple of
+        // that size, a multiple of 8 (hd % 16 == 0): 16-byte pieces, or 8
+        // where short pages leave them off 16-byte alignment (an int4 page
+        // of one row with hd % 32 == 16).
+        if (SHORT && ps * hdp % 16 != 0) {
+          for (int e = tid; e < ps * hdp / 8; e += kThreads) {
+            cp_async_narrow<8>(rk + 8 * e, kp + 8 * e);
+            cp_async_narrow<8>(rv + 8 * e, vp + 8 * e);
+          }
+        } else {
+          for (int e = tid; e < ps * hdp / 16; e += kThreads) {
+            cp_async16(rk + 16 * e, kp + 16 * e);
+            cp_async16(rv + 16 * e, vp + 16 * e);
+          }
         }
+        // The page's ps f32 row scales: 4 a piece, or one a piece in short
+        // pages (1 or 2 rows: only 4-byte aligned).
         float* sk = reinterpret_cast<float*>(smem + L.off_sk) + li * ps;
         float* sv = reinterpret_cast<float*>(smem + L.off_sv) + li * ps;
-        for (int e = tid; e < ps / 4; e += kThreads) {
-          cp_async16(sk + 4 * e, k_scale + page + 4 * e);
-          cp_async16(sv + 4 * e, v_scale + page + 4 * e);
+        if (SHORT) {
+          for (int e = tid; e < ps; e += kThreads) {
+            cp_async_narrow<4>(sk + e, k_scale + page + e);
+            cp_async_narrow<4>(sv + e, v_scale + page + e);
+          }
+        } else {
+          for (int e = tid; e < ps / 4; e += kThreads) {
+            cp_async16(sk + 4 * e, k_scale + page + 4 * e);
+            cp_async16(sv + 4 * e, v_scale + page + 4 * e);
+          }
         }
       }
     }
@@ -531,8 +559,10 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_pool,
   const int rows = B * Q * H;
   float* part_acc = part;
   float2* part_ml = reinterpret_cast<float2*>(part + (size_t)rows * nc * hd);
-  auto kern = chunk_attention_kernel<KIND>;
-  err = rtq::ensure_dynamic_smem(kern, g_smem_set[KIND], L.bytes);
+  const bool short_pages = KIND != kFloat && ps % 4 != 0;
+  auto kern =
+      short_pages ? chunk_attention_kernel<KIND, true> : chunk_attention_kernel<KIND, false>;
+  err = rtq::ensure_dynamic_smem(kern, g_smem_set[2 * KIND + short_pages], L.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   kern<<<dim3(nc, KV, B * tiles), kThreads, L.bytes, st>>>(
       static_cast<const __nv_bfloat16*>(q), k_pool, v_pool, k_scale, v_scale, table, pos,
@@ -552,8 +582,9 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_pool,
 // bytes a row), both with f32 row scales; R: query rows per tile, a
 // multiple of H / KV; C: pages a chunk; part: f32 workspace of B*Q*H*nc*
 // (hd + 2) floats, nc = ceil(T / C) (the partial accumulators, then (m, l)
-// pairs). hd % 16 == 0 and ps % 4 == 0 (16-byte copies of page rows).
-// Returns cudaGetLastError() (0 = ok; cudaErrorInvalidValue for an unknown
+// pairs). hd % 16 == 0 (copies of 8 or 16 bytes of page rows); ps any
+// power of two, with C * ps % 4 == 0 (the scores' rows are read 4 positions
+// at a time). Returns cudaGetLastError() (0 = ok; cudaErrorInvalidValue for an unknown
 // kind).
 extern "C" int paged_attention_launch(
     const void* q, const void* k_new, const void* v_new, void* k_pool, void* v_pool,

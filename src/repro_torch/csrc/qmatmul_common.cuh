@@ -14,15 +14,18 @@
 //                        int8 weights, split K meeting in an int32
 //                        workspace through atomicAdd (exact, so order-free);
 //                        split_k_grid picks the split (B6's int4 GEMM too).
-//   wo_gemm_kernel       weight-only GEMM: float x (staged in shared memory
-//                        as f32, OCS tail gathered there), int8 weights
-//                        converted in registers, f32 accumulation; split K
-//                        writes per-split partial sums to an f32 workspace.
+//   wo_gemm_kernel       weight-only GEMM on the CUDA cores: float x (staged
+//                        in shared memory as f32, OCS tail gathered there),
+//                        int8 weights converted in registers, f32
+//                        accumulation; split K writes per-split partial sums
+//                        to an f32 workspace. (bf16 x with no tail multiplier
+//                        or a 0/1 mask takes wo_tc_gemm.cuh's tensor cores.)
 //   epilogue_kernel      out = sum_s acc[s] * (xs[m] * ws[n]), the splits
 //                        added in a fixed order, rounded once to the output
 //                        type; a null xs reads as 1 (1 * ws == ws: bitwise).
-//   cp_async_*           16-byte asynchronous global -> shared copies and
-//                        their commit/wait (B2's page tiles).
+//   cp_async_*           asynchronous global -> shared copies of 16 bytes
+//                        (4 or 8 where a page's rows are not 16-byte
+//                        aligned) and their commit/wait (B2's page tiles).
 //   ensure_dynamic_smem  cudaFuncSetAttribute for a kernel's dynamic shared
 //                        memory, called once per device, kernel and larger
 //                        size, not on every launch.
@@ -78,6 +81,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(src_bytes));
+}
+// The narrow forms (N = 4 or 8 bytes, both addresses N-byte aligned; the
+// .cg form takes 16 bytes only).
+template <int N>
+__device__ __forceinline__ void cp_async_narrow(void* dst, const void* src) {
+  static_assert(N == 4 || N == 8, "cp.async.ca copies 4, 8 or 16 bytes");
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(N));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>

@@ -293,21 +293,27 @@ _KIND_CODE = {"float": 0, "int8": 1, "int4": 2}
 
 def check_layout(hd: int, ps: int) -> None:
     """Raise unless the CUDA kernel takes pages of ``ps`` rows of width
-    ``hd``: it copies page rows in 16-byte pieces (4 f32 scales of a page,
-    16 channels of an int8 row), so ``hd % 16`` and ``ps % 4`` must be 0."""
-    if hd % 16 or ps % 4:
-        raise ValueError(f"the CUDA paged attention copies 16-byte pieces of page rows: "
-                         f"head width % 16 and page size % 4 must be 0, got {hd} and {ps}")
+    ``hd``. It copies page rows in pieces of 8 or 16 bytes (16 channels of
+    an int8 row, 8 of a packed int4 row: ``hd % 16`` must be 0); a page's
+    f32 row scales go 4 a piece, or one a piece in pages of 1 and 2 rows,
+    so any page size the engine takes (a power of two) is served."""
+    if hd % 16:
+        raise ValueError(f"the CUDA paged attention copies page rows in 8- and 16-byte "
+                         f"pieces: head width % 16 must be 0, got {hd}")
+    if ps < 1:
+        raise ValueError(f"page size must be positive, got {ps}")
 
 
 def chunk_plan(t: int, ps: int, hd: int) -> Tuple[int, int]:
     """``(pages a chunk, chunks)`` of the CUDA kernel's split of a ``t``-page
     block table: a constant of the page size and head width (about
-    ``_CHUNK_BYTES`` of f32 K and V rows a chunk, at least one page), never
-    of Q or of the lanes' positions, so a row is split the same way in a
-    decode and in a verify call."""
+    ``_CHUNK_BYTES`` of f32 K and V rows a chunk, at least one page, whole
+    pages, and a multiple of 4 positions, which the kernel's score rows are
+    read in), never of Q or of the lanes' positions, so a row is split the
+    same way in a decode and in a verify call."""
     positions = min(_CHUNK_MAX_POSITIONS, _CHUNK_BYTES // (8 * hd))
-    c = max(1, positions // ps)
+    step = max(1, 4 // ps)  # pages of 1 or 2 rows: 4 or 2 pages at a time
+    c = max(step, positions // ps // step * step)
     return c, math.ceil(t / c)
 
 
@@ -355,9 +361,9 @@ def paged_attention_cuda(pool, table, pos, q, k_new, v_new) -> Tuple:
     attention, the merge.
 
     Takes float32, int8 or packed int4 (uint8, ``hd/2`` bytes a row) pools
-    with ``hd % 16 == 0`` and ``ps % 4 == 0`` (the kernel copies page rows
-    16 bytes at a time) and bfloat16 q/k_new/v_new (the model's
-    activations); raises on anything else. Returns ``(out [B, Q, H, hd]
+    with ``hd % 16 == 0`` and any page size (:func:`check_layout`) and
+    bfloat16 q/k_new/v_new (the model's activations); raises on anything
+    else. Returns ``(out [B, Q, H, hd]
     f32, pool)`` with ``pool`` the same dict, its tensors updated in place.
     The merge workspace is kept per device between calls (``scratch``).
     """

@@ -9,8 +9,9 @@ accumulation). It is ``ops.quant_matmul`` and the S == 0 case of
 ``ops.ocs_quant_matmul``, so every linear layer of a clip-only tree
 (``ocs_ratio=0``) served in ``dequant`` mode runs it. The CUDA source is
 ``csrc/quant_matmul.cu`` (the kernels of ``csrc/ocs_matmul.cu`` with no OCS
-tail); what bounds it on the card is the int8 weight bytes at decode and
-the f32 multiply-adds at prefill.
+tail: bf16 x on ``csrc/wo_tc_gemm.cuh``'s tensor cores, f32 x on the CUDA
+cores); what bounds it on the card is the int8 weight bytes at decode and
+the multiply-adds at prefill.
 
 **Contract**: ``x_scale`` ([M], a scalar, or None = 1) and ``w_scale``
 ([N] or a scalar) broadcast; ``out_dtype`` defaults to f32 on the int8 path
@@ -34,6 +35,7 @@ from .build import load
 __all__ = [
     "quant_matmul_plain",
     "quant_matmul_cuda",
+    "tc_rows",
     "tc_split_plan",
     "launches",
     "reset_launches",
@@ -58,10 +60,11 @@ _MIN_SPLIT_ROWS = 64
 # stay within it (240 rows at glm4-9b's w_down); a row's sums are the same
 # in any chunk.
 _MAX_PART_BYTES = 64 << 20
-# The bf16 tensor-core GEMM's grid (csrc/quant_matmul.cu): 128 columns per
-# block of 4 warps, K in stages of 32 rows, split over the grid until the
-# column blocks alone would put ~2 blocks on each SM, with at least 256 rows
-# of K (2 stages a warp) per split; from K and N only, as above.
+# The bf16 tensor-core GEMM's grid (csrc/wo_tc_gemm.cuh, B5's and B4's):
+# 128 columns per block of 4 warps, the contraction in stages of 32 rows,
+# split over the grid until the column blocks alone would put ~2 blocks on
+# each SM, with at least 256 rows (2 stages a warp) per split; from the
+# contraction's rows (tc_rows: K, and B4's OCS tail) and N only, as above.
 _TC_COLS = 128
 _TC_STAGE_K = 32
 _TC_WANT_BLOCKS = 264
@@ -152,11 +155,22 @@ def wo_split_plan(ke: int, n: int) -> Tuple[int, int]:
     return k_chunk, math.ceil(ke / k_chunk)
 
 
+def tc_rows(k: int, s: int) -> int:
+    """Rows of the tensor-core GEMM's contraction for ``k`` columns of x and
+    ``s`` OCS tail rows: ``k`` with no tail (B5); else B4's virtual rows,
+    K rounded up to a 32-row stage (Kb) plus ``s``: the tail's stages start
+    on a stage of their own, and virtual row ``r >= Kb`` reads weight row
+    ``k + r - Kb``."""
+    if s == 0:
+        return k
+    return k + (-k) % _TC_STAGE_K + s
+
+
 @functools.lru_cache(maxsize=None)
 def tc_split_plan(k: int, n: int) -> Tuple[int, int]:
     """``(k_chunk, n_splits)`` of the bf16 tensor-core GEMM's split of ``k``
-    rows of K for ``n`` columns (independent of M; ``k_chunk`` a multiple of
-    the 32-row stage)."""
+    rows of its contraction (:func:`tc_rows`) for ``n`` columns
+    (independent of M; ``k_chunk`` a multiple of the 32-row stage)."""
     blocks = math.ceil(n / _TC_COLS)
     nsplit = max(1, min(math.ceil(_TC_WANT_BLOCKS / blocks), k // _TC_MIN_SPLIT_ROWS))
     k_chunk = math.ceil(k / nsplit)
@@ -204,7 +218,8 @@ def launch_wo(fn, x, out, xs, ws, ke: int, *args) -> int:
 @functools.lru_cache(maxsize=1024)
 def _tc_launch_plan(m: int, k: int, n: int, max_part: int) -> Tuple[int, int, int, int, int]:
     """``(k_chunk, nsplit, rows, workspace bytes, counter bytes)`` of an
-    ``m``-row call of the tensor-core GEMM: :func:`tc_split_plan`'s split,
+    ``m``-row call of the tensor-core GEMM over ``k`` rows of contraction
+    (:func:`tc_rows`): :func:`tc_split_plan`'s split,
     row chunks of :func:`wo_row_chunk` rows when the split needs a
     workspace (none with one split; ``max_part`` is ``_MAX_PART_BYTES``,
     part of the key so a changed bound takes effect), and one counter per
@@ -217,23 +232,27 @@ def _tc_launch_plan(m: int, k: int, n: int, max_part: int) -> Tuple[int, int, in
         n / _TC_COLS)
 
 
-def launch_tc(fn, x, w8, out, xs, ws, stream) -> int:
-    """Run the bf16 tensor-core entry point over ``x``'s rows (in row
-    chunks when its split K needs a workspace, which is kept per device,
-    as are the counters). Returns the first nonzero cudaError."""
+def launch_tc(fn, x, out, xs, ws, kv: int, *args) -> int:
+    """Run a bf16 tensor-core entry point (B5's, or B4's with its OCS tail)
+    over ``x``'s rows with :func:`tc_split_plan`'s split of ``kv`` rows of
+    contraction (:func:`tc_rows`), in row chunks when the split needs a
+    workspace (kept per device, as are the counters). ``args`` are the
+    entry point's arguments between ``K`` and ``xs``; ``xs`` may be None
+    (= 1). Returns the first nonzero cudaError, else 0."""
     m, k = x.shape
     n = out.shape[1]
-    k_chunk, nsplit, rows, part_bytes, count_bytes = _tc_launch_plan(m, k, n, _MAX_PART_BYTES)
+    k_chunk, nsplit, rows, part_bytes, count_bytes = _tc_launch_plan(m, kv, n, _MAX_PART_BYTES)
     part = counters = None
     if nsplit > 1:
         part = scratch.buffer("split_k", x.device, part_bytes).data_ptr()
         counters = scratch.buffer("split_k_counters", x.device, count_bytes,
                                   zeroed=True).data_ptr()
     out_bf16 = int(out.dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     for r in range(0, m, rows):
         xr, outr = (x, out) if rows == m else (x[r:r + rows], out[r:r + rows])
         xsr = xs if xs is None or rows == m else xs[r:r + rows]
-        err = fn(xr.data_ptr(), xr.shape[0], k, w8.data_ptr(), _ptr(xsr), ws.data_ptr(), n,
+        err = fn(xr.data_ptr(), xr.shape[0], k, *args, _ptr(xsr), ws.data_ptr(), n,
                  k_chunk, nsplit, part, counters, outr.data_ptr(), out_bf16, stream)
         if err != 0:
             return err
@@ -303,9 +322,9 @@ def quant_matmul_cuda(
     dev = x.device
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     fns = _bind()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    out_bf16 = int(out_dtype == torch.bfloat16)
     if x.dtype == torch.int8:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        out_bf16 = int(out_dtype == torch.bfloat16)
         kp = k + (-k) % 16
         q = None if kp == k else torch.empty((m, kp), dtype=torch.int8, device=dev)
         acc = torch.empty((m, n), dtype=torch.int32, device=dev)
@@ -314,7 +333,7 @@ def quant_matmul_cuda(
             _ptr(q), kp, acc.data_ptr(), out.data_ptr(), out_bf16, stream,
         )
     elif x.dtype == torch.bfloat16:
-        err = launch_tc(fns["tc"], x, w8, out, xs, ws, stream)
+        err = launch_tc(fns["tc"], x, out, xs, ws, k, w8.data_ptr())
     else:  # float32 x: no serving caller; the CUDA-core GEMM
         err = launch_wo(fns["wo"], x, out, xs, ws, k, w8.data_ptr())
     if err != 0:

@@ -1,7 +1,7 @@
-"""Wall and device time per call of B2 (paged attention) and B5
-(quant_matmul) on the card, beside their library yardsticks, against this
-checkout's ``src`` or another's, so that a parent and a change can be
-timed in one call.
+"""Wall and device time per call of B2 (paged attention), B5
+(quant_matmul) and B4 (ocs_matmul) on the card, beside their library
+yardsticks, against this checkout's ``src`` or another's, so that a parent
+and a change can be timed in one call.
 
     python3 src/repro_torch/launch/kernel_times.py [--src DIR] [--calls N] [--out FILE]
 
@@ -9,8 +9,10 @@ timed in one call.
 imported (say the ``src`` of a parent commit unpacked with ``git
 archive``); without it the ``src`` this file lies in is used. Only the
 wrappers' public calls are used: ``paged_attention_cuda(pool, table, pos,
-q, k_new, v_new)`` and ``quant_matmul_cuda(x, w8, w_scale,
-out_dtype=...)``. The cases, the yardsticks and both timings are
+q, k_new, v_new)``, ``quant_matmul_cuda(x, w8, w_scale, [x_scale],
+out_dtype=...)`` and ``ocs_quant_matmul_cuda(x, w8, w_scale, src_tail,
+[x_scale], tail_mult=..., tail_is_mask=..., out_dtype=...)``. The cases,
+the yardsticks and both timings are
 ``chip_smoke.py``'s (this checkout's, at its root): ``time_ms`` (wall,
 CUDA events around back-to-back calls, host work included) and
 ``graph_ms`` (device, the same calls captured in one CUDA graph and
@@ -26,10 +28,16 @@ Cases, at glm4-9b's shapes (random data from ``--seed``):
   of the weights converted before the timing, times the column scales.
   The M = 8 rows are also summed as one 40-layer decode step (7 x 40 calls
   + the lm_head).
-- B4 (``ocs_quant_matmul_cuda``, whose wrapper shares B5's host code): the
-  sha256 of its f32 outputs on seeded inputs (wq/wo and w_down shapes with
-  their OCS tails, M = 8 and 256, weight-only and int8), so that two
-  checkouts' runs show whether its bits moved.
+- B4 (``ocs_quant_matmul_cuda``): the same shapes with the OCS tails the
+  serving recipe gives glm4-9b (S = 82, 274 at ``w_down``), an all-ones
+  mask declared as ``dense`` declares a packed leaf's, M = 8 (summed as one
+  decode step) and the lm_head at M = 256; weights cycled with
+  ``chip_smoke.cycled``, timed with ``chip_smoke.wo_times``, whose
+  yardstick multiplies the materialized expanded activations.
+- Digests: the sha256 of B4's f32 outputs (wq/wo and w_down shapes with
+  their OCS tails, M = 8 and 256, weight-only as ``dense`` calls it and
+  int8) and of B5's weight-only ones on the same inputs (the first K rows
+  of the weights), so that two checkouts' runs show whose bits moved.
 
 Prints one line a case and writes the lot as JSON to ``--out``.
 """
@@ -49,12 +57,18 @@ B5_SHAPES = {"wq/wo": ((4096, 4096), 2 * LAYERS), "wk/wv": ((4096, 256), 2 * LAY
              "lm_head": ((4096, 151552), 1)}
 
 
+# glm4-9b's OCS tail lengths from the serving recipe (r = 0.02, pad_to=1).
+B4_TAILS = {"wq/wo": 82, "wk/wv": 82, "w_gate/w_up": 82, "w_down": 274, "lm_head": 82}
+
+
 def b4_digests(seed: int):
-    """sha256 of B4's f32 outputs on inputs drawn from a fresh generator."""
+    """sha256 of B4's f32 outputs, and of B5's weight-only ones, on inputs
+    drawn from a fresh generator."""
     import hashlib
 
     import torch
     from repro_torch.kernels import ocs_matmul as om
+    from repro_torch.kernels import quant_matmul as qm
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     out = {}
@@ -68,8 +82,11 @@ def b4_digests(seed: int):
             x8 = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
             xs = torch.rand((m,), generator=gen, device="cuda") * 0.05 + 1e-3
             ys = {"weight-only": om.ocs_quant_matmul_cuda(x, w8, ws, src, tail_mult=mult,
+                                                          tail_is_mask=True,
                                                           out_dtype=torch.float32),
-                  "int8": om.ocs_quant_matmul_cuda(x8, w8, ws, src, xs, mult)}
+                  "int8": om.ocs_quant_matmul_cuda(x8, w8, ws, src, xs, mult),
+                  "B5 weight-only": qm.quant_matmul_cuda(x, w8[:k], ws,
+                                                         out_dtype=torch.float32)}
             for mode, y in ys.items():
                 out[f"{name} M={m} {mode}"] = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()
     return out
@@ -91,6 +108,7 @@ def main(argv=None) -> int:
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke as cs
+    from repro_torch.kernels import ocs_matmul as om
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import quant_matmul as qm
 
@@ -145,13 +163,37 @@ def main(argv=None) -> int:
     print(f"B5 one {LAYERS}-layer decode step (M=8, 7 x {LAYERS} + lm_head calls): "
           f"ms={step['ms']:.3f} device_ms={step['device_ms']:.3f} library_ms="
           f"{step['library_ms']:.3f} library_device_ms={step['library_device_ms']:.3f}")
+    b4_step = dict.fromkeys(step, 0.0)
+    for name, ((k, n), per_step) in B5_SHAPES.items():
+        s = B4_TAILS[name]
+        w8 = torch.randint(-127, 128, (k + s, n), generator=gen, device="cuda", dtype=torch.int8)
+        ws = torch.rand((n,), generator=gen, device="cuda") * 0.01 + 1e-4
+        src = torch.randint(0, k, (s,), generator=gen, device="cuda", dtype=torch.int32)
+        mult = torch.ones((s,), device="cuda")
+        copies, wb_copies = cs.cycled(w8), cs.cycled(w8.to(torch.bfloat16))
+        for m in (8, 256) if name == "lm_head" else (8,):
+            x = (torch.randn((m, k), generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
+            t = cs.wo_times(cs.cycling(lambda wt: om.ocs_quant_matmul_cuda(
+                x, wt, ws, src, tail_mult=mult, tail_is_mask=True, out_dtype=torch.bfloat16),
+                copies), torch.cat([x, x[:, src.long()]], 1), ws, wb_copies, args.calls)
+            rows.append(dict(kernel="B4", names=name, M=m, K=k, S=s, N=n, **t))
+            print(f"B4 {name} M={m} K={k}+{s} N={n}: ms={t['ms']:.4f} device_ms="
+                  f"{t['device_ms']:.4f} library_ms={t['library_ms']:.4f} library_device_ms="
+                  f"{t['library_device_ms']:.4f}", flush=True)
+            if m == 8:
+                for key in b4_step:
+                    b4_step[key] += per_step * t[key]
+        del copies, wb_copies
+    print(f"B4 one {LAYERS}-layer decode step (M=8, 7 x {LAYERS} + lm_head calls): "
+          f"ms={b4_step['ms']:.3f} device_ms={b4_step['device_ms']:.3f} library_ms="
+          f"{b4_step['library_ms']:.3f} library_device_ms={b4_step['library_device_ms']:.3f}")
     digests = b4_digests(args.seed + 1)
     for key, d in digests.items():
         print(f"B4 {key}: sha256 {d}")
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(json.dumps(dict(card=card, rows=rows, b5_step=step, b4_sha256=digests),
-                              indent=1))
+    out.write_text(json.dumps(dict(card=card, rows=rows, b5_step=step, b4_step=b4_step,
+                                   b4_sha256=digests), indent=1))
     return 0
 
 

@@ -11,6 +11,9 @@ the card, its plain version on the CPU):
 * ``dequant`` (the reference's default) -- weight-only int8:
   ``ops.ocs_quant_matmul`` (B4; B5 when the weight has no OCS split) on the
   bf16 activations, whose tail duplicates are gathered inside the kernel.
+  A packed leaf (``is_packed()``, read from the device once per leaf and
+  cached) declares its tail multipliers a 0/1 mask, so on the card the
+  call takes the bf16 tensor cores without reading the mask back.
   The port follows the reference's **kernel route** numerics: float32 sums
   of the exact products of the widened activations and the int8 weights,
   then ``* w_scale``, rounded once to the activation dtype. It does not
@@ -77,7 +80,7 @@ def _ocs_dequant(w: OCSQuantLinear, x: torch.Tensor) -> torch.Tensor:
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     y = kops.ocs_quant_matmul(
         x2, w.weight.values, _flat_w_scale(w), w.spec.src[w.n_orig:],
-        tail_mult=w.spec.mult[w.n_orig:], out_dtype=x.dtype,
+        tail_mult=w.spec.mult[w.n_orig:], tail_is_mask=w.is_packed(), out_dtype=x.dtype,
     )
     return y.reshape(lead + (y.shape[-1],))
 

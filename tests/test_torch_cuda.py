@@ -494,22 +494,32 @@ def test_rows_independent_of_row_count_cuda(m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s", [82, 0], ids=["B4", "B5"])
-def test_weight_only_row_chunks_cuda(monkeypatch, s):
+@pytest.mark.parametrize("s,declared", [(82, False), (0, False), (82, True)],
+                         ids=["B4", "B5", "B4-tensor-cores"])
+def test_weight_only_row_chunks_cuda(monkeypatch, s, declared):
     """A weight-only call whose split-K workspace passes its bound runs in
     row chunks: with the bound cut so 40 rows take chunks of 12, 12, 12, 4,
     the output is bitwise that of one launch, and one wrapper call counts
-    one launch."""
+    one launch; B4's all-ones tail takes the tensor cores when it is
+    declared a mask and the CUDA cores when it is not."""
     cuda_or_skip()
     x, w8, ws, src, mult = _ocs_case(40, 4096, 256, s, torch.bfloat16, "ones" if s else None, 7)
-    want = tom.ocs_quant_matmul_cuda(x, w8, ws, src, tail_mult=mult)
-    # B4's CUDA-core plan, or B5's tensor-core plan (bf16 x, S == 0).
-    nsplit = (tqm.wo_split_plan(4096 + s, 256) if s else tqm.tc_split_plan(4096, 256))[1]
+
+    def call():
+        return tom.ocs_quant_matmul_cuda(x, w8, ws, src, tail_mult=mult, tail_is_mask=declared)
+
+    want = call()
+    # B4's CUDA-core plan over K + S rows, or the tensor-core plan of B5's K
+    # rows or B4's Kb + S virtual rows.
+    cuda_cores = s and not declared
+    nsplit = (tqm.wo_split_plan(4096 + s, 256) if cuda_cores
+              else tqm.tc_split_plan(tqm.tc_rows(4096, s), 256))[1]
     monkeypatch.setattr(tqm, "_MAX_PART_BYTES", 4 * nsplit * 12 * 256)
     assert tqm.wo_row_chunk(40, 256, nsplit) == 12
-    n0 = tom.launches + tqm.launches
-    got = tom.ocs_quant_matmul_cuda(x, w8, ws, src, tail_mult=mult)
-    assert tom.launches + tqm.launches - n0 == 1
+    n0 = (tom.launches + tqm.launches, tom.launches_cuda_cores)
+    got = call()
+    assert tom.launches + tqm.launches - n0[0] == 1
+    assert tom.launches_cuda_cores - n0[1] == int(bool(cuda_cores))
     assert _same_bits(got, want)
 
 
@@ -610,7 +620,7 @@ def _chunk_edge_case(kind, ps, seed, B=4, H=32, KV=2, hd=128, qn=17):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("ps", [1, 2, 8, 16])
 @pytest.mark.parametrize("kind", ["float32", "int8", "int4"])
 def test_paged_attention_cuda_chunk_edges(kind, ps):
     """B2 split over chunks of pages, at the chunk edges: decode rows at
@@ -741,8 +751,12 @@ def test_quant_matmul_f32_x_takes_the_cuda_core_path(monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("page_size", [1, 2])
 def test_engine_refuses_pages_the_kernel_cannot_copy_cuda(page_size):
-    """A card engine refuses pages shorter than B2's 16-byte copies take
-    when it is built, not at its first decode."""
+    """A card engine refuses pages whose rows B2 cannot copy -- a head width
+    not a multiple of 16 -- when it is built, not at its first decode, at
+    any page size (pages of 1 and 2 rows are served: see
+    test_cuda_engine_serves_short_pages_cuda)."""
+    import dataclasses
+
     cuda_or_skip()
     from repro_torch.configs import smoke_config
     from repro_torch.models.transformer import init_params
@@ -750,7 +764,333 @@ def test_engine_refuses_pages_the_kernel_cannot_copy_cuda(page_size):
     from repro_torch.serving.engine import ServingEngine
 
     cfg = smoke_config("glm4-9b")
+    cfg = dataclasses.replace(cfg, head_dim=24)
     params = init_params(cfg, seed=0, device="cpu")
     ecfg = EngineConfig(max_batch=2, max_len=32, page_size=page_size)
-    with pytest.raises(ValueError, match="page size % 4"):
+    with pytest.raises(ValueError, match="head width % 16"):
         ServingEngine(cfg, params, ecfg, device="cuda")
+
+
+def _smoke_tree(matmul_mode):
+    """The smoke glm4-9b quantized on the CPU with the serving recipe (the
+    W4A8 tier converted as the engine converts it)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.apply import map_with_path
+    from repro_torch.core.ocs import OCSQuantLinear
+    from repro_torch.models.transformer import init_params
+
+    cfg = smoke_config("glm4-9b")
+    q = quantize_params(init_params(cfg, seed=0, device="cpu"),
+                        QuantRecipe(w_bits=8, w_clip="mse", ocs_ratio=0.02, per_channel=True,
+                                    pad_to=1), device="cpu")
+    if matmul_mode == "w4a8":
+        q = map_with_path(lambda _p, leaf: to_w4a8(leaf, 0.05)
+                          if isinstance(leaf, OCSQuantLinear) else leaf, q)
+    return cfg, q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matmul_mode,kv_bits", [("dequant", None), ("w8a8", 8), ("w4a8", 4)])
+def test_cuda_engine_serves_short_pages_cuda(matmul_mode, kv_bits):
+    """A card engine with pages of 2 rows serves the smoke glm4-9b token
+    for token as the CPU engine does, in each tier (float32, int8 and int4
+    pages), B2 launched once a layer per decode step, and ends with the
+    same allocator state."""
+    cuda_or_skip()
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+
+    cfg, q = _smoke_tree("w8a8")  # the engine converts a w4a8 tree itself
+    ecfg = EngineConfig(max_batch=3, max_len=64, page_size=2, matmul_mode=matmul_mode,
+                        kv_bits=kv_bits)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(5, 30))).tolist() for _ in range(4)]
+    outs, allocs = [], []
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, q, ecfg, device=dev)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=8))
+        n0 = tpa.launches
+        done = eng.run()
+        if dev == "cuda":
+            assert tpa.launches - n0 == cfg.n_layers * eng.stats()["decode_steps"]
+        outs.append({r.uid: list(r.output) for r in done})
+        a = eng.allocator
+        allocs.append((a.in_use(), a.available(), dict(a._ref), a.peak_in_use))
+    assert all(len(o) == 8 for o in outs[1].values())
+    assert outs[1] == outs[0]
+    assert allocs[1] == allocs[0]
+
+
+# Card vs CPU logits of the smoke model, relative to the largest logit: the
+# limit of chip_smoke.py's reference check (about one bf16 ulp of it).
+MODEL_RTOL = 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matmul_mode,kv_bits", [("dequant", None), ("w8a8", 8), ("w4a8", 4)])
+@pytest.mark.parametrize("page_size", [1, 2])
+def test_short_pages_logits_match_cpu_cuda(page_size, matmul_mode, kv_bits):
+    """Pages of 1 and 2 rows through the whole model: the smoke glm4-9b's
+    prefill into pages, 4 teacher-forced decode steps and a teacher-forced
+    verify of 5 on the card (kernels) are bitwise the card's at pages of 16
+    (a chunk holds the same positions at every page size) and agree with
+    the CPU (plain versions) within ``MODEL_RTOL`` of the largest logit, in
+    each tier. Logits, not greedy tokens: on random weights a near-tie
+    flips a token at float rounding (the CPU's int4 plain version takes its
+    online softmax page by page, so at pages of one row it sums in an order
+    far from the kernel's)."""
+    import dataclasses
+
+    cuda_or_skip()
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import kv_cache as kvc
+
+    cfg, q = _smoke_tree(matmul_mode)
+    cfg = dataclasses.replace(cfg, kv_bits=kv_bits)
+    rng = np.random.default_rng(page_size)
+    n, bucket = 27, 32
+    toks = np.zeros((1, bucket), np.int64)
+    toks[0, :n] = rng.integers(0, cfg.vocab, n)
+    follow = rng.integers(0, cfg.vocab, 4)
+    window = rng.integers(0, cfg.vocab, (1, 5))
+
+    def logits(dev, qp, ps):
+        t = 64 // ps  # table width: 64 positions
+        pools = [kvc.init_page_pool(cfg, t + 1, ps, device=dev) for _ in range(cfg.n_layers)]
+        ids = torch.arange(1, bucket // ps + 1, dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            lg, pools = T.prefill_into_pages(
+                qp, torch.as_tensor(toks, device=dev), cfg, pools, ids,
+                length=torch.tensor([n], device=dev),
+                prefix_ids=torch.zeros(0, dtype=torch.int32, device=dev), mode=matmul_mode)
+            out = [lg]
+            caches = {"layers": [{"attn": p} for p in pools],
+                      "table": torch.arange(1, t + 1, dtype=torch.int32, device=dev)[None],
+                      "pos": torch.tensor([n], dtype=torch.int32, device=dev)}
+            for tok in follow:
+                lg, caches = T.decode_step(
+                    qp, torch.tensor([[int(tok)]], dtype=torch.int32, device=dev), caches, cfg,
+                    mode=matmul_mode)
+                out.append(lg)
+            lg, caches = T.verify_step(qp, torch.as_tensor(window, dtype=torch.int32,
+                                                           device=dev), caches, cfg,
+                                       mode=matmul_mode)
+            out.append(lg[0])
+        return torch.cat(out).float().cpu()
+
+    cpu = logits("cpu", q, page_size)
+    qc = tree_to(q, torch.device("cuda"))
+    n0 = tpa.launches + tpa.launches_verify
+    card = logits("cuda", qc, page_size)
+    assert tpa.launches + tpa.launches_verify - n0 == 5 * cfg.n_layers
+    assert torch.isfinite(card).all()
+    assert _same_bits(card, logits("cuda", qc, 16))
+    assert (card - cpu).abs().max().item() <= MODEL_RTOL * cpu.abs().max().item()
+
+
+# B4 on the tensor cores (bf16 x, tail_mult None or declared a 0/1 mask):
+# (K, S, N) on the TMA path with K % 32 != 0, S % 32 != 0 and N % 128 != 0
+# (1000, 70, 208): a base stage ragged at K, tail stages ragged at S;
+# (4104, 130, 400): 15 splits, one of them across base and tail stages),
+# and two that read global memory directly: N % 16 != 0, and K % 8 != 0.
+B4_TC_SHAPES = [(1000, 70, 208), (4104, 130, 400), (1000, 70, 200), (130, 7, 336)]
+
+
+def _b4_tc_case(m, k, s, n, mult_kind, seed):
+    x, w8, ws, src, mult = _ocs_case(m, k, n, s, torch.bfloat16, mult_kind, seed)
+    if mult_kind == "mask":
+        mult[::3] = 0.0  # zeros for sure, ones beside them
+        mult[1::3] = 1.0
+    return x, w8, ws, src, mult
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mult_kind", ["mask", "ones", None])
+@pytest.mark.parametrize("k,s,n", B4_TC_SHAPES)
+@pytest.mark.parametrize("m", [1, 3, 8, 13, 40, 256])
+def test_ocs_matmul_tc_cuda(m, k, s, n, mult_kind):
+    """B4's tensor-core route with the OCS tail gathered in the kernel: f32
+    outputs within the summation-order bound of the plain version, bf16
+    outputs within it plus one bf16 ulp, with and without x_scale; one
+    launch counted a call, none on the CUDA-core route and none on B5's
+    count; the same call gives the same bits."""
+    cuda_or_skip()
+    x, w8, ws, src, mult = _b4_tc_case(m, k, s, n, mult_kind, m * 19 + k + s + n)
+    xsc = torch.rand((m,), device="cuda") + 0.5
+    tail = x[:, src.long()].float() * (1.0 if mult is None else mult)
+    xe = torch.cat([x.float(), tail], 1)
+    bound = WO_TOL_FACTOR * (k + s + 2) * 2.0 ** -24 * tref.float_matmul(xe.abs(), w8.abs()) * ws
+    for x_scale in (None, xsc):
+        lim = bound if x_scale is None else bound * x_scale[:, None]
+        n0 = (tom.launches, tom.launches_cuda_cores, tqm.launches)
+        got = tom.ocs_quant_matmul_cuda(x, w8, ws, src, x_scale, mult, tail_is_mask=True,
+                                        out_dtype=torch.float32)
+        want = tom.ocs_quant_matmul_plain(x, w8, ws, src, x_scale, mult, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert (tom.launches, tom.launches_cuda_cores, tqm.launches) == (n0[0] + 1, *n0[1:])
+        assert torch.isfinite(got).all()
+        assert ((got - want).abs() <= lim).all()
+        g16 = tom.ocs_quant_matmul_cuda(x, w8, ws, src, x_scale, mult, tail_is_mask=True,
+                                        out_dtype=torch.bfloat16).float()
+        p16 = tom.ocs_quant_matmul_plain(x, w8, ws, src, x_scale, mult,
+                                         out_dtype=torch.bfloat16).float()
+        assert ((g16 - p16).abs() <= lim + _bf16_ulp(torch.maximum(g16.abs(), p16.abs()))).all()
+        again = tom.ocs_quant_matmul_cuda(x, w8, ws, src, x_scale, mult, tail_is_mask=True,
+                                          out_dtype=torch.float32)
+        assert _same_bits(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,s,n", B4_TC_SHAPES + [(4096, 82, 256), (13696, 274, 4096)])
+def test_ocs_matmul_tc_rows_independent_cuda(k, s, n):
+    """B4's tensor-core rows do not depend on the call's row count: 8 rows
+    (a decode step) bitwise the same rows inside 40- and 256-row calls, and
+    a lone row bitwise its row in the 8-row call; none of them on the
+    CUDA-core route."""
+    cuda_or_skip()
+    x, w8, ws, src, mult = _b4_tc_case(256, k, s, n, "mask", k + s + n)
+
+    def call(xx):
+        return tom.ocs_quant_matmul_cuda(xx, w8, ws, src, tail_mult=mult, tail_is_mask=True,
+                                         out_dtype=torch.float32)
+
+    n0 = tom.launches_cuda_cores
+    for m in (40, 256):
+        full = call(x[:m])
+        for lo in (0, 16, m - 8):
+            assert _same_bits(call(x[lo:lo + 8].contiguous()), full[lo:lo + 8]), (m, lo)
+    assert _same_bits(call(x[5:6].contiguous()), call(x[:8])[5:6])
+    assert tom.launches_cuda_cores == n0
+
+
+@pytest.mark.cuda
+def test_ocs_matmul_other_multipliers_take_the_cuda_core_path(monkeypatch):
+    """bf16 x with a fractional multiplier (0.5: the product need not be
+    exact in bf16), with a mask not declared one (the route reads nothing
+    back), or f32 x, runs B4's CUDA-core entry point and is counted there,
+    within the summation-order bound, also at glm4-9b's ``w_down`` shape;
+    bf16 x with a declared mask runs the tensor-core one."""
+    cuda_or_skip()
+    fns = tom._bind()
+    calls = []
+    for name in ("wo", "tc"):
+        monkeypatch.setitem(fns, name, lambda *a, _f=fns[name], _n=name: (calls.append(_n),
+                                                                          _f(*a))[1])
+    n0 = tom.launches_cuda_cores
+    for m, k, n, s in ((8, 1000, 208, 70), (8, 13696, 4096, 274)):
+        x, w8, ws, src, half = _ocs_case(m, k, n, s, torch.bfloat16, "half", 5)
+        got = tom.ocs_quant_matmul_cuda(x, w8, ws, src, tail_mult=half, out_dtype=torch.float32)
+        want = tom.ocs_quant_matmul_plain(x, w8, ws, src, tail_mult=half,
+                                          out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert calls[-1:] == ["wo"]
+        xe = torch.cat([x.float(), x[:, src.long()].float() * half], 1)
+        bound = (WO_TOL_FACTOR * (k + s + 2) * 2.0 ** -24
+                 * tref.float_matmul(xe.abs(), w8.abs()) * ws)
+        assert torch.isfinite(got).all() and ((got - want).abs() <= bound).all()
+    assert calls == ["wo", "wo"] and tom.launches_cuda_cores == n0 + 2
+    mask = (half != 0.5).float()
+    tom.ocs_quant_matmul_cuda(x, w8, ws, src, tail_mult=mask, tail_is_mask=True)
+    tom.ocs_quant_matmul_cuda(x, w8, ws, src, tail_mult=mask)
+    tom.ocs_quant_matmul_cuda(x.float(), w8, ws, src, tail_mult=mask, tail_is_mask=True)
+    assert calls == ["wo", "wo", "tc", "wo", "wo"] and tom.launches_cuda_cores == n0 + 4
+
+
+def _paged(logical, blocks, ps):
+    """Lay per-lane logical rows out in pages of ``ps`` rows: ``logical``
+    maps pool keys to ``[B, KV, L, ...]`` arrays; lane b owns its first
+    ``blocks[b]`` x 16 positions, page by page in order, the rest of its
+    table is the trash page 0 (NaN in float values and in scales, zeros in
+    int values). Returns (pool, table) on the card."""
+    b, kvh, length = logical["k"].shape[:3]
+    t = length // ps
+    table = np.zeros((b, t), np.int32)
+    nxt = 1
+    for lane in range(b):
+        n = blocks[lane] * 16 // ps
+        table[lane, :n] = np.arange(nxt, nxt + n)
+        nxt += n
+    pool = {}
+    for key, arr in logical.items():
+        out = np.zeros((nxt, kvh, ps) + arr.shape[3:], arr.dtype)
+        if arr.dtype == np.float32:
+            out[0] = np.nan
+        for lane in range(b):
+            for i in range(blocks[lane] * 16 // ps):
+                out[table[lane, i]] = arr[lane, :, i * ps:(i + 1) * ps]
+        pool[key] = torch.from_numpy(out).cuda()
+    return pool, torch.from_numpy(table).cuda()
+
+
+def _logical(pool, table, ps, blocks):
+    """The readable rows of each lane back in logical order (``_paged``'s
+    inverse): key -> [B, KV, 16 * max(blocks), ...], zeros past a lane's."""
+    got = {}
+    for key, arr in pool.items():
+        arr, tab = arr.cpu(), table.cpu()
+        rows = torch.zeros((tab.shape[0], arr.shape[1], 16 * max(blocks)) + arr.shape[3:],
+                           dtype=arr.dtype)
+        for lane in range(tab.shape[0]):
+            for i in range(blocks[lane] * 16 // ps):
+                rows[lane, :, i * ps:(i + 1) * ps] = arr[tab[lane, i]]
+        got[key] = rows
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [128, 16])
+@pytest.mark.parametrize("qn", [1, 5])
+@pytest.mark.parametrize("ps", [1, 2])
+@pytest.mark.parametrize("kind", ["float32", "int8", "int4"])
+def test_paged_attention_cuda_short_pages(kind, ps, qn, hd):
+    """B2 on pages of 1 and 2 rows (their f32 scales copied 4 bytes a
+    piece; an int4 page of one 16-channel row, 8 bytes, in 8-byte pieces),
+    over three chunks of positions, with the KV scales of ``chip_smoke``'s
+    cases (at which ``B2_ATOL`` was measured): pools bitwise the plain
+    version's (the trash page, which several rows write, aside), outputs
+    within ``B2_ATOL``, the retired lane exact zeros, every row bitwise the
+    sequential Q = 1 launches; and outputs and appended rows bitwise those
+    of the same rows laid out in pages of 16 (a chunk holds the same
+    positions at every page size, so the page size changes no row's
+    arithmetic)."""
+    cuda_or_skip()
+    rng = np.random.RandomState(ps * 10 + qn + hd)
+    B, KV, H = 4, 2, 32 if hd == 128 else 4
+    length = 3 * tpa.chunk_plan(1, 16, hd)[0] * 16  # three chunks of positions
+    blocks = [2, length // 16, 1, 0]  # lane 3 retired (all trash)
+    if kind == "float32":
+        logical = {"k": rng.randn(B, KV, length, hd).astype(np.float32),
+                   "v": rng.randn(B, KV, length, hd).astype(np.float32)}
+    else:
+        lo, hi, dt, row = ((-127, 128, np.int8, hd) if kind == "int8"
+                           else (0, 256, np.uint8, hd // 2))
+        logical = {"k": rng.randint(lo, hi, (B, KV, length, row)).astype(dt),
+                   "v": rng.randint(lo, hi, (B, KV, length, row)).astype(dt),
+                   "k_scale": (rng.rand(B, KV, length) * 0.02 + 0.002).astype(np.float32),
+                   "v_scale": (rng.rand(B, KV, length) * 0.02 + 0.002).astype(np.float32)}
+    pos = torch.tensor([19, length - qn - 1, 0, 0], dtype=torch.int32, device="cuda")
+    q, kn, vn = [torch.from_numpy(rng.randn(*sh).astype(np.float32)).cuda().to(torch.bfloat16)
+                 for sh in ((B, qn, H, hd), (B, qn, KV, hd), (B, qn, KV, hd))]
+    pool, table = _paged(logical, blocks, ps)
+    want_o, want_p = tpa.paged_attention_plain(pool, table, pos, q, kn, vn)
+    got_o, got_p = tpa.paged_attention_cuda({k: v.clone() for k, v in pool.items()},
+                                            table, pos, q, kn, vn)
+    seq_p, outs = {k: v.clone() for k, v in pool.items()}, []
+    for j in range(qn):
+        o, seq_p = tpa.paged_attention_cuda(seq_p, table, pos + j, q[:, j:j + 1].contiguous(),
+                                            kn[:, j:j + 1].contiguous(),
+                                            vn[:, j:j + 1].contiguous())
+        outs.append(o)
+    pool16, table16 = _paged(logical, blocks, 16)
+    o16, p16 = tpa.paged_attention_cuda(pool16, table16, pos, q, kn, vn)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got_o).all() and (got_o[3] == 0).all()
+    torch.testing.assert_close(got_o, want_o, atol=B2_ATOL, rtol=0)
+    assert _same_bits(torch.cat(outs, 1), got_o)
+    for key in want_p:  # the trash page, which several rows write, aside
+        assert _same_bits(got_p[key][1:], want_p[key][1:]), key
+        assert _same_bits(seq_p[key][1:], got_p[key][1:]), key
+    assert _same_bits(got_o, o16)
+    short, sixteen = _logical(got_p, table, ps, blocks), _logical(p16, table16, 16, blocks)
+    for key in short:
+        assert _same_bits(short[key], sixteen[key]), key

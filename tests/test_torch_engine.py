@@ -116,6 +116,18 @@ def test_engine_matches_reference(kv_bits, matmul_mode, quantized):
         assert st["kv_bytes_per_token"] < int8_bytes
 
 
+@pytest.mark.parametrize("page_size", [1, 2])
+def test_engine_short_pages_match_reference(page_size, quantized):
+    """Pages of 1 and 2 rows, which both engines take (any power of two),
+    in the default ``dequant`` mode on float32 pages: the same allocator
+    state after every step and tokens equal up to near-ties. The card
+    serves them too (``tests/test_torch_cuda.py``)."""
+    cfg, qj, qt = quantized
+    te = _serve_both(cfg, qj, qt, dict(max_batch=3, max_len=64, matmul_mode="dequant",
+                                       kv_bits=None, page_size=page_size))
+    assert te.stats()["kv_page_size"] == float(page_size)
+
+
 def _serve_both(cfg, qj, qt, common, prompts=None):
     """Serve the same requests on both engines; allocator state identical
     after every step, tokens equal up to near-ties. Returns the port's

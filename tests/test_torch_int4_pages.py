@@ -136,11 +136,12 @@ def test_append_rows_int4_bitwise():
 
 
 @pytest.mark.parametrize("poison", [False, True], ids=["clean", "nan-trash"])
-@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("ps", [1, 2, 8, 16])
 def test_paged_attention_int4_plain_vs_reference(ps, poison):
     """The plain int4 branch against the reference's gather oracle and its
     interpret-mode kernel: pools bitwise, outputs within ``B2_ATOL``, finite
-    (the poisoned trash page dies), the retired lane exact zeros."""
+    (the poisoned trash page dies), the retired lane exact zeros; pages of
+    1 and 2 rows too."""
     case = _int4_case(ps + 7 * poison, ps, poison=poison)
     jargs = _jax_args(*case)
     o_g, p_g = jax.jit(jpa.paged_attention_gather_ref)(*jargs)

@@ -135,11 +135,12 @@ def _same_bits(a, b):
     return a.dtype == b.dtype and np.array_equal(a, b)
 
 
-@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("ps", [1, 2, 8, 16])
 @pytest.mark.parametrize("int8", [False, True])
 def test_paged_attention_plain_vs_interpreted_kernel(int8, ps):
     """Ragged lanes, a retired all-trash lane, and page 0 NaN-poisoned
-    (values of float pools, scales of int8 pools)."""
+    (values of float pools, scales of int8 pools); pages of 1 and 2 rows
+    too, which the engine takes and the CUDA kernel serves."""
     pool, table, pos, q, kn, vn = _b2_case(ps + 2 * int8, int8, ps, poison=True)
     jargs = ({k: jnp.asarray(v) for k, v in pool.items()}, jnp.asarray(table),
              jnp.asarray(pos), jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn))
