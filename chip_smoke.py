@@ -17,12 +17,13 @@ Phases (any failure raises, and the script exits non-zero with no result):
 3. Kernel phase: each kernel's wrapper on card tensors at the shapes the
    main paths give it, held against its plain PyTorch version on the same
    inputs, and timed (CUDA events over back-to-back calls) beside its plain
-   version, a library yardstick the port never calls, and its bound. B2,
-   B2', B4 and B5, and their yardsticks, are also timed as device time per call:
+   version, a library yardstick the port never calls, and its bound. Every
+   kernel but B3, and its yardstick, is also timed as device time per call:
    the same calls captured in a CUDA graph and replayed (no host work
    between the kernels).
-   ``fused_qmatmul`` (B1) at every glm4-9b linear shape (the layer-0 and
-   ``lm_head`` weights just quantized) with M in {1, 8, 256}: bitwise.
+   ``fused_qmatmul`` (B1, the int8 tensor-core GEMM) at every glm4-9b
+   linear shape (the layer-0 and ``lm_head`` weights just quantized) with M
+   in {1, 8, 256}: bitwise.
    ``paged_attention`` (B2) on int8, float32 and packed int4 pools (8
    lanes, ragged positions, one all-trash lane, a NaN-poisoned trash page,
    Q = 1): appended pools bitwise, outputs within ``B2_ATOL``; the same
@@ -206,11 +207,42 @@ def b1_bound_ms(m, k, s, n):
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
+def b1_times(run_kern, x, w8, ws, src, iters):
+    """Wall and device ms of ``run_kern`` (a B1 call cycling its weight
+    copies) and of its library yardstick: ``torch._int_mm`` on the already
+    quantized, zero-padded operands (it wants M > 16 and K, N % 8 == 0;
+    the activation quantization is not in it) plus the epilogue, its
+    weights cycled like the kernel's; library times are None where N % 8
+    != 0. Device times are CUDA graphs of the same calls."""
+    import torch
+    from repro_torch.kernels import ref
+
+    (m, k), (ke, n) = x.shape, w8.shape
+    t = dict(ms=time_ms(run_kern, iters), device_ms=graph_ms(run_kern, iters),
+             library_ms=None, library_device_ms=None)
+    if n % 8:
+        return t
+    q, sc = ref.dynamic_quant_ref(x)
+    q = torch.cat([q, q[:, src.long()]], 1) if ke > k else q
+    mp, kp = max(m, 32), ke + (-ke) % 8
+    qp = torch.zeros((mp, kp), dtype=torch.int8, device="cuda")
+    qp[:m, :ke] = q
+    wp = torch.zeros((kp, n), dtype=torch.int8, device="cuda")
+    wp[:ke] = w8
+    scp = torch.zeros((mp,), dtype=torch.float32, device="cuda")
+    scp[:m] = sc
+    run_lib = cycling(lambda wpc: (torch._int_mm(qp, wpc).float()
+                                   * (scp[:, None] * ws[None, :])).to(torch.bfloat16),
+                      cycled(wp))
+    del wp
+    t.update(library_ms=time_ms(run_lib, iters), library_device_ms=graph_ms(run_lib, iters))
+    return t
+
+
 def kernel_phase_b1(qparams, cfg, gen, iters):
     """fused_qmatmul at every glm4-9b linear shape x M in {1, 8, 256}."""
     import torch
     from repro_torch.kernels import fused_qmatmul as fq
-    from repro_torch.kernels import ref
 
     weights = layer_weights(qparams)
     # One timed entry per distinct (K, N); the names share it.
@@ -227,8 +259,7 @@ def kernel_phase_b1(qparams, cfg, gen, iters):
         s = src.shape[0]
         # Weight copies cycled so the timed calls read HBM, not L2, as the
         # serve loop does (each layer's weights are read once per step).
-        n_copies = max(1, math.ceil(2 * L2_BYTES / w8.numel()))
-        copies = [w8] + [w8.clone() for _ in range(n_copies - 1)]
+        copies = cycled(w8)
         for m in (1, 8, 256):
             x = (torch.randn((m, k), generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
             got = fq.fused_quant_matmul_cuda(x, w8, ws, src, out_dtype=torch.bfloat16)
@@ -239,46 +270,24 @@ def kernel_phase_b1(qparams, cfg, gen, iters):
                 raise AssertionError(
                     f"fused_qmatmul {names} M={m}: not bitwise equal (max |d| {diff})"
                 )
-            state = {"i": 0}
-
-            def run_kernel():
-                state["i"] = (state["i"] + 1) % n_copies
-                fq.fused_quant_matmul_cuda(x, copies[state["i"]], ws, src,
-                                           out_dtype=torch.bfloat16)
-
-            ms = time_ms(run_kernel, iters)
+            run_kernel = cycling(lambda wt: fq.fused_quant_matmul_cuda(
+                x, wt, ws, src, out_dtype=torch.bfloat16), copies)
+            t = b1_times(run_kernel, x, w8, ws, src, iters)
+            ms, device_ms, lib_ms, lib_dev = (
+                t["ms"], t["device_ms"], t["library_ms"], t["library_device_ms"])
             plain_ms = time_ms(
                 lambda: fq.fused_quant_matmul_plain(x, w8, ws, src, out_dtype=torch.bfloat16),
                 max(2, iters // 5), warmup=1,
             )
-            # Library yardstick: torch._int_mm on the already quantized,
-            # zero-padded operands (it wants M > 16 and K, N % 8 == 0) plus
-            # the epilogue; the activation quantization is not in it.
-            q, sc = ref.dynamic_quant_ref(x)
-            q = torch.cat([q, q[:, src.long()]], 1) if s else q
-            mp, kp = max(m, 32), (k + s) + (-(k + s)) % 8
-            qp = torch.zeros((mp, kp), dtype=torch.int8, device="cuda")
-            qp[:m, : k + s] = q
-            wp = torch.zeros((kp, n), dtype=torch.int8, device="cuda")
-            wp[: k + s] = w8
-            scp = torch.zeros((mp,), dtype=torch.float32, device="cuda")
-            scp[:m] = sc
-            lib_ms = None
-            if n % 8 == 0:
-                lib_ms = time_ms(
-                    lambda: (torch._int_mm(qp, wp).float() * (scp[:, None] * ws[None, :])
-                             ).to(torch.bfloat16),
-                    iters,
-                )
-            del qp, wp
             bound, by = b1_bound_ms(m, k, s, n)
-            rows.append(dict(names=names, M=m, K=k, S=s, N=n, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bound_ms=bound, bound_by=by,
-                             max_abs_err=0.0))
+            rows.append(dict(names=names, M=m, K=k, S=s, N=n, ms=ms, device_ms=device_ms,
+                             plain_ms=plain_ms, library_ms=lib_ms, library_device_ms=lib_dev,
+                             bound_ms=bound, bound_by=by, max_abs_err=0.0))
             log(f"B1 fused_qmatmul {'/'.join(names)} M={m} K={k}+{s} N={n}: "
-                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-                f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms={bound:.4f} "
-                f"({by}) bitwise=yes")
+                f"kernel_ms={ms:.4f} device_ms={device_ms:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
+                f"library_device_ms={'null' if lib_dev is None else f'{lib_dev:.4f}'} "
+                f"bound_ms={bound:.4f} ({by}) bitwise=yes")
         del copies
     return rows
 
@@ -894,7 +903,8 @@ def kernel_phase_b6(qparams, gen, iters):
     layer-0 and lm_head leaves converted with ``to_w4a8`` on the card (every
     one, and a stacked two-layer ``w_down``, bitwise the CPU's conversion);
     bitwise against the plain version with f32 and bf16 outputs; timed with
-    bf16 outputs, as ``dense`` calls it."""
+    bf16 outputs, as ``dense`` calls it, wall and device (a CUDA graph of the
+    same calls), beside its yardstick."""
     import torch
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import w4a8_qmatmul as w4k
@@ -948,7 +958,8 @@ def kernel_phase_b6(qparams, gen, iters):
                     d = (got.float() - want.float()).abs().max().item()
                     raise AssertionError(f"w4a8_qmatmul {names} M={m} {out_dtype}: not "
                                          f"bitwise (max |d| {d})")
-            ms = time_cycled(lambda ws: kern(x, ws, torch.bfloat16), copies, iters)
+            run_kernel = cycling(lambda ws: kern(x, ws, torch.bfloat16), copies)
+            ms, device_ms = time_ms(run_kernel, iters), graph_ms(run_kernel, iters)
             plain_ms = time_ms(lambda: plain(x, torch.bfloat16), max(2, iters // 5), warmup=1)
             q, sc = pa.quant_rows(x, 127.0)
             qe = torch.cat([q, q[:, src.long()]], 1) if s else q
@@ -966,14 +977,16 @@ def kernel_phase_b6(qparams, gen, iters):
                     y = y + torch._int_mm(q8, w8p).float() * (scp[:, None] * lin.s8[None, :])
                 return y.to(torch.bfloat16)
 
-            lib_ms = time_cycled(lib, lib_copies, iters)
-            del qp, q8
+            run_lib = cycling(lib, lib_copies)
+            lib_ms, lib_dev = time_ms(run_lib, iters), graph_ms(run_lib, iters)
+            del qp, q8, run_lib
             bound, by = w4a8_bound_ms(m, k, s, t, n)
-            rows.append(dict(names=names, M=m, K=k, S=s, T=t, N=n, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bound_ms=bound, bound_by=by,
-                             max_abs_err=0.0))
+            rows.append(dict(names=names, M=m, K=k, S=s, T=t, N=n, ms=ms, device_ms=device_ms,
+                             plain_ms=plain_ms, library_ms=lib_ms, library_device_ms=lib_dev,
+                             bound_ms=bound, bound_by=by, max_abs_err=0.0))
             log(f"B6 w4a8_qmatmul {'/'.join(names)} M={m} K={k}+{s} T={t} N={n}: "
-                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                f"kernel_ms={ms:.4f} device_ms={device_ms:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms={lib_ms:.4f} library_device_ms={lib_dev:.4f} "
                 f"bound_ms={bound:.4f} ({by}) bitwise=yes (f32 and bf16 out)")
         del copies, lib_copies, wq, w8p, lin
     del converted
@@ -1307,7 +1320,7 @@ def step_sum(rows, L, mode=None, m=8):
             tot[key] += mult * (r.get(key) or 0.0)
         if r["bound_by"] == "operations":
             by_ops += mult * r["bound_ms"]
-    for key in ("device_ms", "library_device_ms"):  # measured for B2, B4 and B5 only
+    for key in ("device_ms", "library_device_ms"):  # absent where not measured
         if not tot[key]:
             del tot[key]
     tot["bound_by"] = "operations" if by_ops > tot["bound_ms"] / 2 else "bytes"
@@ -1489,10 +1502,11 @@ def main(argv=None) -> int:
     b1_step = step_sum(b1, L)
     b4_step = step_sum(b4, L, "weight-only")
     b5_step = step_sum(b5, L, "weight-only")
-    for label, rows in (("B4", b4), ("B5", b5)):
+    for label, rows, mode in (("B1", b1, None), ("B4 weight-only", b4, "weight-only"),
+                              ("B5 weight-only", b5, "weight-only"), ("B6", b6, None)):
         for m in (8, 256):
-            t = step_sum(rows, L, "weight-only", m)
-            log(f"{label} weight-only, the M={m} calls of one {L}-layer step (7 x {L} + "
+            t = step_sum(rows, L, mode, m)
+            log(f"{label}, the M={m} calls of one {L}-layer step (7 x {L} + "
                 f"lm_head): ms={t['ms']:.3f} device_ms={t['device_ms']:.3f} library_ms="
                 f"{t['library_ms']:.3f} library_device_ms={t['library_device_ms']:.3f} "
                 f"bound_ms={t['bound_ms']:.3f} ({t['bound_by']})")
@@ -1511,7 +1525,7 @@ def main(argv=None) -> int:
              "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
              "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
         # Device time (a CUDA graph of the timed calls) beside the wall time,
-        # where measured (B2, B2', B4, B5) and the library call's likewise.
+        # where measured (every kernel but B3), and the library call's.
         for key in ("device_ms", "library_device_ms"):
             if key in t:
                 e[key] = t[key]

@@ -12,40 +12,43 @@
 //
 // Design. The TPU kernel keeps a [bm, K] f32 row tile resident in VMEM; at
 // K = 4096 or 13696 that tile does not fit a block's 227 KB of shared
-// memory, so the work is split into three launches with unchanged
-// numerics:
-//   1. row_quant: one block per row computes the row abs-max, the scale and
-//      the int8 row, and gathers the OCS tail, into q_exp [M, Kp] (Kp = K+S
-//      rounded up to 16, zero padded) and scale [M];
-//   2. int8_gemm: __dp4a over 4-deep slices of K. Each thread owns 4
-//      adjacent output columns and TM rows; it reads one 32-bit word of w8
-//      (4 columns) from each of 4 consecutive rows, transposes the 4x4
-//      bytes with __byte_perm and issues TM*4 dp4a. The weights are read in
-//      their [K+S, N] layout with coalesced 128-byte warp loads. K is split
-//      over threadIdx.y (reduced in shared memory) and over blockIdx.z so
-//      that small-M, small-N shapes still fill the 132 SMs; the K slices
-//      meet in an int32 workspace through atomicAdd, which is exact and
-//      order-independent for integers;
-//   3. epilogue: out = (float)acc * (scale[m] * w_scale[n]), rounded once
-//      to the output type.
-// The three kernels are in qmatmul_common.cuh, shared with dynamic_quant.cu
-// (the prologue alone), quant_matmul.cu and ocs_matmul.cu (the GEMM and the
-// epilogue). Tensor-core (mma/wgmma) tiles and TMA are later work.
+// memory, so a call is two launches with unchanged numerics:
+//   1. row_quant (qmatmul_common.cuh): one block per row computes the row
+//      abs-max, the scale and the int8 row, and gathers the OCS tail, into
+//      q_exp [M, Kp] (Kp = K+S rounded up to 16, zero padded: a row stride
+//      the TMA can read) and scale [M];
+//   2. i8_tc_gemm (i8_tc_gemm.cuh): q_exp @ w8 on the int8 tensor cores
+//      (mma.sync m16n8k32 s8.s8.s32), weights and token rows streamed by
+//      the TMA through a ring of shared-memory stages, the block tile and
+//      the split of K chosen from M at the host (a decode tile of 8 tokens
+//      x 256 columns, a tile of 64 tokens x 128 columns above M = 8, each
+//      split over the grid to fill the SMs), the epilogue applied in the
+//      kernel (split K
+//      meets in an int32 accumulator through atomics, read back by the last
+//      block of each tile).
+// No memset and no separate epilogue launch. The TMA reads weight rows of a
+// multiple of 16 bytes: the wrapper zero-pads a ragged N.
 //
 // Numerics (bitwise equal to the plain version and to the reference as it
 // runs compiled): scale = max(amax, 1e-30) * float32(1/qmax);
 // q = clamp(floor(x / scale + 0.5)). The division and the add use the _rn
-// intrinsics so nvcc cannot contract or approximate them.
+// intrinsics so nvcc cannot contract or approximate them. The integer sums
+// are exact in any order, so neither the tile nor the split moves a bit.
 
-#include "qmatmul_common.cuh"
+#include "i8_tc_gemm.cuh"
 
 // x_bf16: 1 if x is bfloat16, 0 if float32; out_bf16 likewise for out.
-// Scratch from the caller: q_exp [M, Kp] int8, scale [M] f32, acc [M, N]
-// int32. Returns cudaGetLastError() of the first failing step (0 = ok).
+// w8 [K+S, N] with N % 16 == 0, 16-byte aligned (else cudaErrorInvalidValue).
+// Scratch from the caller: q_exp [M, Kp] int8 (16-byte aligned), scale [M]
+// f32, and with nsplit > 1 acc_ws [M, N] int32 and counters (one int per
+// token tile and column tile), both zero at rest. tile, stages_per_split and
+// nsplit: the host's plan (i8_tc_launch). Returns cudaGetLastError() of the
+// first failing step (0 = ok).
 extern "C" int fused_qmatmul_launch(
     const void* x, int x_bf16, int M, int K, int S, int Kp,
     const int* src_tail, const int8_t* w8, const float* w_scale, int N,
-    float qmax, float inv_qmax, int8_t* q_exp, float* scale, int* acc,
+    float qmax, float inv_qmax, int8_t* q_exp, float* scale,
+    int tile, int stages_per_split, int nsplit, int* acc_ws, int* counters,
     void* out, int out_bf16, void* stream) {
   using namespace rtq;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -60,13 +63,6 @@ extern "C" int fused_qmatmul_launch(
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  err = cudaMemsetAsync(acc, 0, (size_t)M * N * sizeof(int), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  launch_int8_gemm(q_exp, w8, M, K + S, Kp, N, acc, st);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  launch_epilogue<int>(acc, 1, scale, w_scale, M, N, out, out_bf16, st);
-  return static_cast<int>(cudaGetLastError());
+  return i8_tc_launch(tile, q_exp, M, Kp, w8, K + S, N, stages_per_split, nsplit, scale,
+                      w_scale, acc_ws, counters, out, out_bf16, st);
 }

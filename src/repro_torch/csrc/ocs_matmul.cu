@@ -25,7 +25,7 @@
 //     order.
 //   * int8 (x int8, tail_mult a 0/1 mask): the expanded int8 row is written
 //     once to a small [M, Kp] buffer (copy, tail gather times the mask,
-//     zero padding), then B1's __dp4a GEMM (exact int32, split K through
+//     zero padding), then qmatmul_common.cuh's __dp4a GEMM (exact int32, split K through
 //     atomics) and the epilogue.
 // The epilogue is acc * (x_scale[m] * w_scale[n]), grouped as the TPU
 // kernel groups it, rounded once to the output type (f32 or bf16). Every

@@ -10,7 +10,7 @@
 //   * x f32 (no serving caller; its products are not exact in bf16):
 //     weight-only on the CUDA cores, qmatmul_common.cuh's wo_gemm_kernel,
 //     which ocs_matmul.cu (B4) shares;
-//   * x int8: int8 x int8 -> int32 (B1's __dp4a GEMM, bitwise).
+//   * x int8: int8 x int8 -> int32 (qmatmul_common.cuh's __dp4a GEMM, bitwise).
 //
 // What bounds it on this card, why the tensor cores keep the weight-only
 // contract, and the design of the tensor-core GEMM: wo_tc_gemm.cuh.

@@ -35,10 +35,10 @@
 //      of each column word in registers (per-byte (v ^ 8) - 8 with
 //      __vsub4) and issues two __dp4a per row and column: low nibbles
 //      against q2[m, j..j+3], high nibbles against q2[m, Hp+j..Hp+j+3].
-//      Split K as in B1's int8_gemm: over threadIdx.y (shared memory) and
+//      Split K as in int8_gemm (qmatmul_common.cuh): over threadIdx.y (shared memory) and
 //      blockIdx.z, meeting in the int32 acc4 through atomicAdd (exact, so
 //      order-free).
-//   3. int8_gemm (qmatmul_common.cuh, B1's kernel as it stands): q8 @ w8
+//   3. int8_gemm (qmatmul_common.cuh, the __dp4a GEMM): q8 @ w8
 //      into acc8, when T > 0.
 //   4. w4a8_epilogue: out = fma(f32(acc4), scale[m] * s4[n], f32(acc8) *
 //      (scale[m] * s8[n])) when T > 0, f32(acc4) * (scale[m] * s4[n]) when
@@ -190,7 +190,7 @@ __global__ void __launch_bounds__(kGemmTx * kGemmTy) int4_gemm_kernel(
 template <int TM>
 void launch_int4_gemm_tm(const int8_t* q2, const uint8_t* w4, int M, int H, int Hp, int N,
                          int* acc, cudaStream_t st) {
-  int k_chunk;  // B1's split rule over the Hp byte rows
+  int k_chunk;  // int8_gemm's split rule over the Hp byte rows
   const dim3 grid = split_k_grid(M, Hp, N, TM, &k_chunk);
   dim3 block(kGemmTx, kGemmTy);
   int4_gemm_kernel<TM><<<grid, block, 0, st>>>(q2, w4, M, H, Hp, N, k_chunk, acc);

@@ -4,13 +4,24 @@ its plain PyTorch version.
 Replaces ``repro/kernels/fused_qmatmul.py::_kernel`` (``fused_qmatmul_kernel``
 / ``fused_quant_matmul``), the Pallas TPU kernel that every linear layer of
 the W8A8 serving path runs. The CUDA source is ``csrc/fused_qmatmul.cu``:
-a row prologue (abs-max, scale, int8 row, OCS tail gather), a ``__dp4a``
-int8 GEMM with split K over an int32 workspace, and the f32 epilogue — the
-TPU kernel's resident [bm, K] row tile does not fit a block's shared memory
-at K = 4096 or 13696, so the work is three launches with the same
-numerics. What bounds it on the card: the int8 weight bytes at decode
-(M <= 8), the int8 multiply-adds at prefill. It takes every K (the
-reference's VMEM-budget fallback to XLA has no counterpart here).
+a row prologue (abs-max, scale, int8 row, OCS tail gather) and the int8
+tensor-core GEMM of ``csrc/i8_tc_gemm.cuh`` with the f32 epilogue in it --
+two launches a call; the TPU kernel's resident [bm, K] row tile does not
+fit a block's shared memory at K = 4096 or 13696. What bounds it on the
+card: the int8 weight bytes at decode (M <= 8), the int8 multiply-adds at
+prefill. It takes every K (the reference's VMEM-budget fallback to XLA has
+no counterpart here) and every N: the TMA reads weight rows of a multiple
+of 16 bytes, so a ragged N runs zero-padded to one and is sliced, as the
+reference's wrapper pads N to its tile
+(:func:`repro_torch.kernels.quant_matmul.padded_cols`).
+
+**Plan** (:func:`launch_plan`, from (M, Kp, N) on the host): the block tile
+(8 tokens x 256 columns up to M = 8, else 64 x 128) and the split
+of K over the grid, which fills the SMs at small M; the integer sums are
+exact in any order, so the plan never moves a bit. The row scratch, the
+split-K accumulator and its counters are kept per device
+(:mod:`repro_torch.kernels.scratch`), so a steady loop, or a CUDA-graph
+capture after one sizing call, allocates only the output.
 
 **Contract** (``repro.core.ocs`` layout): ``w8`` is the *packed* expanded
 weight matrix ``[K + S, N]`` (duplicated channels after the K originals,
@@ -21,23 +32,40 @@ covers the K original channels only; outputs are bitwise
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+import math
+from typing import Optional, Tuple
 
 import torch
 
-from . import ref
+from . import ref, scratch
 from .build import load
+from .quant_matmul import pad_cols, padded_cols
 
 __all__ = [
     "fused_quant_matmul_plain",
     "fused_quant_matmul_cuda",
+    "launch",
+    "launch_plan",
     "launches",
     "reset_launches",
 ]
 
-# Wrapper calls that launched the CUDA kernel (one per call: the prologue,
-# GEMM and epilogue launches of one call count once).
+# Wrapper calls that launched the CUDA kernel (one per call: the prologue
+# and the GEMM of one call count once).
 launches = 0
+
+# The int8 tensor-core GEMM's block tiles (csrc/i8_tc_gemm.cuh), as (tokens,
+# columns, blocks wanted): tile 0 for decode (M <= 8) at one block an SM of
+# the H100's 132, tile 1 above M = 8 at two (its occupancy). The
+# contraction goes in stages of 32 rows, split over the grid until the
+# tiles reach the blocks wanted, with at least 4 stages a split; the
+# splits meet in an int32 accumulator [M, N] (zero at rest), so a split
+# needs it within _MAX_ACC_BYTES.
+_TILES = ((8, 256, 132), (64, 128, 264))
+_STAGE_K = 32
+_MIN_SPLIT_STAGES = 4
+_MAX_ACC_BYTES = 64 << 20
 
 _lib = None
 
@@ -57,12 +85,39 @@ def _bind():
             c_void_p, c_int, c_int, c_int, c_int, c_int,  # x, x_bf16, M, K, S, Kp
             c_void_p, c_void_p, c_void_p, c_int,  # src_tail, w8, w_scale, N
             c_float, c_float,  # qmax, inv_qmax
-            c_void_p, c_void_p, c_void_p,  # q_exp, scale, acc scratch
+            c_void_p, c_void_p,  # q_exp, scale scratch
+            c_int, c_int, c_int, c_void_p, c_void_p,  # tile, stages, nsplit, acc, counters
             c_void_p, c_int, c_void_p,  # out, out_bf16, stream
         ]
         fn.restype = c_int
         _lib = fn
     return _lib
+
+
+def tile_for(m: int) -> int:
+    """The GEMM's block tile for an ``m``-row call (an index of ``_TILES``)."""
+    return 0 if m <= 8 else 1
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(m: int, kp: int, n: int) -> Tuple[int, int, int, int, int]:
+    """``(tile, stages_per_split, nsplit, accumulator bytes, counter bytes)``
+    of an ``m``-row call over ``kp`` rows of contraction (K + S rounded up
+    to 16) and ``n`` columns: :func:`tile_for`'s tile, the split of the
+    ``ceil(kp / 32)`` stages, and with a split the int32 accumulator
+    ``[m, n]`` and one counter per token tile and column tile."""
+    tile = tile_for(m)
+    toks, cols, want = _TILES[tile]
+    tiles = math.ceil(m / toks) * math.ceil(n / cols)
+    nst = math.ceil(kp / _STAGE_K)
+    nsplit = max(1, min(math.ceil(want / tiles), nst // _MIN_SPLIT_STAGES))
+    if 4 * m * n > _MAX_ACC_BYTES:
+        nsplit = 1
+    per = math.ceil(nst / nsplit)
+    nsplit = math.ceil(nst / per)
+    if nsplit == 1:
+        return tile, per, 1, 0, 0
+    return tile, per, nsplit, 4 * m * n, 4 * tiles
 
 
 def fused_quant_matmul_plain(
@@ -102,8 +157,6 @@ def _check(x, w8, w_scale, src_tail, bits):
         raise ValueError(f"w8 rows {ke} != K {k} + S {src_tail.shape[0]}")
     if w_scale.numel() != n:
         raise ValueError(f"w_scale has {w_scale.numel()} entries, want N = {n}")
-    if n % 4:
-        raise ValueError(f"the kernel reads w8 in 4-column words: N % 4 must be 0, got {n}")
     if not 2 <= bits <= 8:
         raise ValueError(f"bits must be in [2, 8], got {bits}")
     if m == 0:
@@ -128,26 +181,40 @@ def fused_quant_matmul_cuda(
     out_dtype = out_dtype or torch.float32
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
-    m, k = x.shape
-    ke, n = w8.shape
-    s = ke - k
-    kp = ke + (-ke) % 16
-    qmax = float((1 << (bits - 1)) - 1)
-    dev = x.device
-    q_exp = torch.empty((m, kp), dtype=torch.int8, device=dev)
-    scale = torch.empty((m,), dtype=torch.float32, device=dev)
-    acc = torch.empty((m, n), dtype=torch.int32, device=dev)
-    out = torch.empty((m, n), dtype=out_dtype, device=dev)
-    fn = _bind()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), m, k, s, kp,
-        src_tail.data_ptr(), w8.data_ptr(), w_scale.data_ptr(), n,
-        qmax, ref.inv_qmax(qmax),
-        q_exp.data_ptr(), scale.data_ptr(), acc.data_ptr(),
-        out.data_ptr(), int(out_dtype == torch.bfloat16), stream,
-    )
+    m, n_out = x.shape[0], w8.shape[1]
+    n = padded_cols(n_out, 16)  # a ragged N runs zero columns up to n
+    w8, w_scale = pad_cols(w8, n), pad_cols(w_scale, n)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    err = launch(_bind(), x, w8, w_scale, src_tail, out, float((1 << (bits - 1)) - 1))
     if err != 0:
         raise RuntimeError(f"fused_qmatmul launch failed: cudaError {err}")
     launches += 1
-    return out
+    return out if n == n_out else out[:, :n_out].contiguous()
+
+
+def launch(fn, x, w8, w_scale, src_tail, out, qmax: float) -> int:
+    """Run B1's entry point ``fn`` (the prologue and the GEMM) into ``out``
+    with :func:`launch_plan`'s tile and split, the row scratch (``q_exp``
+    [M, Kp] int8, ``scale`` [M] f32) and, with a split, the int32
+    accumulator and its counters (zero at rest: the kernel leaves them
+    zero), all kept per device (``scratch``; reuse relies on stream order).
+    Returns the entry point's cudaError (0 = ok)."""
+    m, k = x.shape
+    ke, n = w8.shape
+    kp = ke + (-ke) % 16
+    dev = x.device
+    tile, per, nsplit, acc_bytes, count_bytes = launch_plan(m, kp, n)
+    q_exp = scratch.buffer("b1_q_exp", dev, m * kp)
+    scale = scratch.buffer("b1_scale", dev, 4 * m)
+    acc = counters = None
+    if nsplit > 1:
+        acc = scratch.buffer("b1_acc", dev, acc_bytes, zeroed=True).data_ptr()
+        counters = scratch.buffer("split_k_counters", dev, count_bytes, zeroed=True).data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return fn(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), m, k, ke - k, kp,
+        src_tail.data_ptr(), w8.data_ptr(), w_scale.data_ptr(), n,
+        qmax, ref.inv_qmax(qmax),
+        q_exp.data_ptr(), scale.data_ptr(), tile, per, nsplit, acc, counters,
+        out.data_ptr(), int(out.dtype == torch.bfloat16), stream,
+    )

@@ -20,7 +20,8 @@ the CUDA-core weight-only GEMM (counted in ``launches_cuda_cores``); int8 x
 the dp4a GEMM. The split of K follows from (K, S, N) alone on every route.
 
 **Contract** (the reference wrapper's): ``w8`` is ``[K + S, N]`` with the S
-OCS duplicate rows after the K originals; ``x_scale`` ([M], a scalar, or
+OCS duplicate rows after the K originals, any N (a ragged N runs
+zero-padded, as in B5: :func:`repro_torch.kernels.quant_matmul.padded_cols`); ``x_scale`` ([M], a scalar, or
 None = 1) and ``w_scale`` ([N] or a scalar) broadcast; ``out_dtype``
 defaults to f32 on the int8 path and to ``x.dtype`` otherwise. On the int8
 path ``tail_mult`` must be a 0/1 mask (checked, or declared with
@@ -195,8 +196,10 @@ def ocs_quant_matmul_cuda(
         raise ValueError(f"ocs_quant_matmul_cuda: tail_mult has {mult.numel()} entries, want S = {s}")
     src_tail = src_tail.contiguous()
     m, k = x.shape
-    n = w8.shape[1]
-    xs, ws = _qm.scales(x, w_scale, x_scale, n)
+    n_out = w8.shape[1]
+    xs, ws = _qm.scales(x, w_scale, x_scale, n_out)
+    n = _qm.padded_cols(n_out)  # a ragged N runs zero columns up to n
+    w8, ws = _qm.pad_cols(w8, n), _qm.pad_cols(ws, n)
     dev = x.device
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     fns = _bind()
@@ -224,4 +227,4 @@ def ocs_quant_matmul_cuda(
         raise RuntimeError(f"ocs_matmul launch failed: cudaError {err}")
     launches += 1
     launches_cuda_cores += cuda_cores
-    return out
+    return out if n == n_out else out[:, :n_out].contiguous()

@@ -14,7 +14,10 @@ cores); what bounds it on the card is the int8 weight bytes at decode and
 the multiply-adds at prefill.
 
 **Contract**: ``x_scale`` ([M], a scalar, or None = 1) and ``w_scale``
-([N] or a scalar) broadcast; ``out_dtype`` defaults to f32 on the int8 path
+([N] or a scalar) broadcast; any N (the kernels read weights in 4-column
+words, so a ragged N runs zero-padded to a multiple of 16, the TMA's row
+alignment, and the result is sliced, as the reference's wrapper pads N to
+its tile: :func:`padded_cols`); ``out_dtype`` defaults to f32 on the int8 path
 and to ``x.dtype`` otherwise. The int8 path is bitwise
 :func:`repro_torch.kernels.ref.quant_matmul_ref`; the weight-only path
 equals it up to the order of the float32 sums (the kernel's order is fixed,
@@ -35,6 +38,8 @@ from .build import load
 __all__ = [
     "quant_matmul_plain",
     "quant_matmul_cuda",
+    "padded_cols",
+    "pad_cols",
     "tc_rows",
     "tc_split_plan",
     "launches",
@@ -135,6 +140,23 @@ def _vector(v, size: int, dev, name: str, dim: str) -> torch.Tensor:
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def padded_cols(n: int, align: int = 4) -> int:
+    """The columns a card GEMM runs for ``n`` output columns: ``n`` when
+    ``n % align == 0``, else ``n`` rounded up to 16. B4, B5 and B6 read
+    weights in 4-column words, B1's TMA in rows of a multiple of 16 bytes
+    (``align=16``); rows of 16 bytes also keep B4/B5 on their TMA path. The
+    rounding never crosses a 128- or 256-column tile, so the split of K,
+    and every column below ``n``, is what an aligned call of the same
+    columns gives."""
+    return n if n % align == 0 else n + (-n) % 16
+
+
+def pad_cols(t: torch.Tensor, cols: int) -> torch.Tensor:
+    """``t`` with its last dimension zero-padded to ``cols`` (contiguous)."""
+    pad = cols - t.shape[-1]
+    return t if pad == 0 else torch.nn.functional.pad(t, (0, pad)).contiguous()
 
 
 def out_dtype_for(x: torch.Tensor, out_dtype) -> torch.dtype:
@@ -282,8 +304,6 @@ def check_cuda_operands(what: str, x, w8, s: int, out_dtype) -> None:
     n = w8.shape[1]
     if m == 0 or k == 0 or n == 0:
         raise ValueError(f"{what}: empty operand")
-    if n % 4:
-        raise ValueError(f"{what}: the kernel reads w8 in 4-column words: N % 4 must be 0, got {n}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{what}: out_dtype must be float32 or bfloat16, got {out_dtype}")
 
@@ -317,8 +337,10 @@ def quant_matmul_cuda(
     out_dtype = out_dtype_for(x, out_dtype)
     check_cuda_operands("quant_matmul_cuda", x, w8, 0, out_dtype)
     m, k = x.shape
-    n = w8.shape[1]
-    xs, ws = scales(x, w_scale, x_scale, n)
+    n_out = w8.shape[1]
+    xs, ws = scales(x, w_scale, x_scale, n_out)
+    n = padded_cols(n_out)  # a ragged N runs zero columns up to n
+    w8, ws = pad_cols(w8, n), pad_cols(ws, n)
     dev = x.device
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     fns = _bind()
@@ -339,4 +361,4 @@ def quant_matmul_cuda(
     if err != 0:
         raise RuntimeError(f"quant_matmul launch failed: cudaError {err}")
     launches += 1
-    return out
+    return out if n == n_out else out[:, :n_out].contiguous()

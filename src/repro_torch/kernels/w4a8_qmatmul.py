@@ -8,7 +8,7 @@ layer of the ``w4a8`` serving tier runs. The CUDA source is
 ``csrc/w4a8_qmatmul.cu``: a row prologue (abs-max, reciprocal-form scale,
 the int8 row, the OCS tail and the outlier rows gathered by indexed
 loads), a ``__dp4a`` GEMM that reads each packed weight byte once and
-sign-extends its two nibbles in registers, B1's int8 GEMM over the outlier
+sign-extends its two nibbles in registers, the ``__dp4a`` int8 GEMM over the outlier
 rows, and the f32 epilogue. What bounds it on the card: the weight bytes at
 decode (half of B1's, plus the outlier rows), the int8 multiply-adds at
 prefill.
@@ -16,7 +16,9 @@ prefill.
 **Contract** (``repro_torch.core.ocs.W4A8Linear`` layout): ``w4`` is
 ``[(K+S)/2, N]`` uint8, byte row ``j`` holding expanded rows ``j`` (low
 nibble) and ``j + (K+S)/2`` (high nibble), outlier rows zero; ``w8`` is
-``[T, N]`` int8; outputs are bitwise
+``[T, N]`` int8; any N (a ragged N runs zero-padded to a multiple of 16 and
+is sliced: :func:`repro_torch.kernels.quant_matmul.padded_cols`); outputs
+are bitwise
 :func:`repro_torch.kernels.ref.w4a8_matmul_ref`.
 """
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 
 from . import ref
 from .build import load
+from .quant_matmul import pad_cols, padded_cols
 
 __all__ = [
     "w4a8_matmul_plain",
@@ -118,8 +121,6 @@ def _check(x, w4, s4, w8, s8, src_tail, outlier_idx, bits):
         raise ValueError(f"w8 is {tuple(w8.shape)}, want [T = {outlier_idx.shape[0]}, N = {n}]")
     if s4.numel() != n or s8.numel() != n:
         raise ValueError(f"s4/s8 have {s4.numel()}/{s8.numel()} entries, want N = {n}")
-    if n % 4:
-        raise ValueError(f"the kernel reads weights in 4-column words: N % 4 must be 0, got {n}")
     if not 2 <= bits <= 8:
         raise ValueError(f"bits must be in [2, 8], got {bits}")
     if m == 0:
@@ -150,7 +151,11 @@ def w4a8_matmul_cuda(
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     m, k = x.shape
-    kh, n = w4.shape
+    kh, n_out = w4.shape
+    # A ragged N runs zero columns up to n (the kernel reads weights in
+    # 4-column words) and is sliced, as the reference's wrapper pads N.
+    n = padded_cols(n_out)
+    w4, s4, w8, s8 = pad_cols(w4, n), pad_cols(s4, n), pad_cols(w8, n), pad_cols(s8, n)
     s = 2 * kh - k
     t = outlier_idx.shape[0]
     hp = kh + (-kh) % 16  # each half of the expanded row, zero padded
@@ -176,4 +181,4 @@ def w4a8_matmul_cuda(
     if err != 0:
         raise RuntimeError(f"w4a8_qmatmul launch failed: cudaError {err}")
     launches += 1
-    return out
+    return out if n == n_out else out[:, :n_out].contiguous()

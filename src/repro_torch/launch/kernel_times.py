@@ -1,17 +1,19 @@
 """Wall and device time per call of B2 (paged attention), B5
-(quant_matmul) and B4 (ocs_matmul) on the card, beside their library
-yardsticks, against this checkout's ``src`` or another's, so that a parent
-and a change can be timed in one call.
+(quant_matmul), B4 (ocs_matmul) and B1 (fused_qmatmul) on the card, beside
+their library yardsticks, against this checkout's ``src`` or another's, so
+that a parent and a change can be timed in one call.
 
-    python3 src/repro_torch/launch/kernel_times.py [--src DIR] [--calls N] [--out FILE]
+    python3 src/repro_torch/launch/kernel_times.py [--src DIR] [--calls N] [--ragged]
+        [--out FILE]
 
 ``--src DIR`` puts ``DIR`` first on ``sys.path`` before ``repro_torch`` is
 imported (say the ``src`` of a parent commit unpacked with ``git
 archive``); without it the ``src`` this file lies in is used. Only the
 wrappers' public calls are used: ``paged_attention_cuda(pool, table, pos,
 q, k_new, v_new)``, ``quant_matmul_cuda(x, w8, w_scale, [x_scale],
-out_dtype=...)`` and ``ocs_quant_matmul_cuda(x, w8, w_scale, src_tail,
-[x_scale], tail_mult=..., tail_is_mask=..., out_dtype=...)``. The cases,
+out_dtype=...)``, ``ocs_quant_matmul_cuda(x, w8, w_scale, src_tail,
+[x_scale], tail_mult=..., tail_is_mask=..., out_dtype=...)`` and
+``fused_quant_matmul_cuda(x, w8, w_scale, src_tail, out_dtype=...)``. The cases,
 the yardsticks and both timings are
 ``chip_smoke.py``'s (this checkout's, at its root): ``time_ms`` (wall,
 CUDA events around back-to-back calls, host work included) and
@@ -34,10 +36,21 @@ Cases, at glm4-9b's shapes (random data from ``--seed``):
   decode step) and the lm_head at M = 256; weights cycled with
   ``chip_smoke.cycled``, timed with ``chip_smoke.wo_times``, whose
   yardstick multiplies the materialized expanded activations.
+- B1 (``fused_quant_matmul_cuda``): the same shapes with the same OCS
+  tails, bf16 x and out, M = 8 and M = 256, each summed as one 40-layer
+  step; weights cycled as for B4. Yardstick: ``torch._int_mm`` on the
+  quantized, zero-padded operands (M padded to 32; its weights cycled),
+  then the epilogue (``chip_smoke.b1_times``).
+- With ``--ragged`` (wrappers that take a ragged N only): B1, B4, B5 and
+  B6 at hymba-1.5b's lm_head, N = 32001, against the same calls on
+  weights zero-padded to 32016 columns before the timing
+  (:func:`ragged_rows`).
 - Digests: the sha256 of B4's f32 outputs (wq/wo and w_down shapes with
   their OCS tails, M = 8 and 256, weight-only as ``dense`` calls it and
   int8) and of B5's weight-only ones on the same inputs (the first K rows
-  of the weights), so that two checkouts' runs show whose bits moved.
+  of the weights), and of B1's f32 and bf16 outputs (wq/wo, w_down and
+  lm_head, M = 8 and 256), so that two checkouts' runs show whose bits
+  moved.
 
 Prints one line a case and writes the lot as JSON to ``--out``.
 """
@@ -92,12 +105,120 @@ def b4_digests(seed: int):
     return out
 
 
+def b1_digests(seed: int):
+    """sha256 of B1's f32 and bf16 outputs on inputs drawn from a fresh
+    generator."""
+    import hashlib
+
+    import torch
+    from repro_torch.kernels import fused_qmatmul as fq
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for name, (k, s, n) in {"wq/wo": (4096, 82, 4096), "w_down": (13696, 274, 4096),
+                            "lm_head": (4096, 82, 151552)}.items():
+        w8 = torch.randint(-127, 128, (k + s, n), generator=gen, device="cuda", dtype=torch.int8)
+        ws = torch.rand((n,), generator=gen, device="cuda") * 0.01 + 1e-4
+        src = torch.randint(0, k, (s,), generator=gen, device="cuda", dtype=torch.int32)
+        for m in (8, 256):
+            x = (torch.randn((m, k), generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
+            for dt in (torch.float32, torch.bfloat16):
+                y = fq.fused_quant_matmul_cuda(x, w8, ws, src, out_dtype=dt)
+                raw = y.view(torch.int16 if dt == torch.bfloat16 else torch.int32)
+                out[f"{name} M={m} {str(dt)[6:]}"] = hashlib.sha256(
+                    raw.cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def b1_rows(gen, calls: int):
+    """B1's rows at M = 8 and 256 and each M's calls of one step, timed with
+    ``chip_smoke.b1_times`` (the ``_int_mm`` + epilogue yardstick)."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import fused_qmatmul as fq
+
+    rows = []
+    steps = {m: dict(ms=0.0, device_ms=0.0, library_ms=0.0, library_device_ms=0.0)
+             for m in (8, 256)}
+    for name, ((k, n), per_step) in B5_SHAPES.items():
+        s = B4_TAILS[name]
+        w8 = torch.randint(-127, 128, (k + s, n), generator=gen, device="cuda", dtype=torch.int8)
+        ws = torch.rand((n,), generator=gen, device="cuda") * 0.01 + 1e-4
+        src = torch.randint(0, k, (s,), generator=gen, device="cuda", dtype=torch.int32)
+        copies = cs.cycled(w8)
+        for m in (8, 256):
+            x = (torch.randn((m, k), generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
+            t = cs.b1_times(cs.cycling(lambda wt: fq.fused_quant_matmul_cuda(
+                x, wt, ws, src, out_dtype=torch.bfloat16), copies), x, w8, ws, src, calls)
+            rows.append(dict(kernel="B1", names=name, M=m, K=k, S=s, N=n, **t))
+            print(f"B1 {name} M={m} K={k}+{s} N={n}: ms={t['ms']:.4f} device_ms="
+                  f"{t['device_ms']:.4f} library_ms={t['library_ms']:.4f} library_device_ms="
+                  f"{t['library_device_ms']:.4f}", flush=True)
+            for key in steps[m]:
+                steps[m][key] += per_step * t[key]
+        del copies
+    for m, t in steps.items():
+        print(f"B1 one {LAYERS}-layer step's M={m} calls (7 x {LAYERS} + lm_head): "
+              f"ms={t['ms']:.3f} device_ms={t['device_ms']:.3f} library_ms="
+              f"{t['library_ms']:.3f} library_device_ms={t['library_device_ms']:.3f}",
+              flush=True)
+    return rows, steps
+
+
+def ragged_rows(gen, calls: int):
+    """What a ragged N costs: B1, B4, B5 and B6 at hymba-1.5b's lm_head (K
+    1600, an OCS tail of 32 rows for B1, B4 and B6, N 32001), M = 8, bf16
+    x and out, against the same calls on weights zero-padded to 32016
+    columns before the timing; the difference is the wrappers' per-call
+    padding and slicing."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import fused_qmatmul as fq
+    from repro_torch.kernels import ocs_matmul as om
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels import w4a8_qmatmul as w4q
+
+    k, s, t, n, m = 1600, 32, 16, 32001, 8
+    bf16 = torch.bfloat16
+    w8 = torch.randint(-127, 128, (k + s, n), generator=gen, device="cuda", dtype=torch.int8)
+    w4 = torch.randint(0, 256, ((k + s) // 2, n), generator=gen, device="cuda",
+                       dtype=torch.uint8)
+    ws = torch.rand((n,), generator=gen, device="cuda") * 0.01 + 1e-4
+    src = torch.randint(0, k, (s,), generator=gen, device="cuda", dtype=torch.int32)
+    idx = torch.randperm(k + s, generator=gen, device="cuda")[:t].to(torch.int32)
+    mult = torch.ones((s,), device="cuda")
+    x = (torch.randn((m, k), generator=gen, device="cuda") * 2.0).to(bf16)
+    rows = []
+    for cols in (n, qm.padded_cols(n, 16)):
+        w8c, w4c, wsc = (qm.pad_cols(a, cols) for a in (w8, w4, ws))
+        w8s, w4s, w8t = cs.cycled(w8c), cs.cycled(w4c), w8c[:t]  # w8t: B6's outlier rows
+        runs = {
+            "B1": cs.cycling(lambda w: fq.fused_quant_matmul_cuda(
+                x, w, wsc, src, out_dtype=bf16), w8s),
+            "B4": cs.cycling(lambda w: om.ocs_quant_matmul_cuda(
+                x, w, wsc, src, tail_mult=mult, tail_is_mask=True, out_dtype=bf16), w8s),
+            "B5": cs.cycling(lambda w: qm.quant_matmul_cuda(x, w[:k], wsc, out_dtype=bf16), w8s),
+            "B6": cs.cycling(lambda v: w4q.w4a8_matmul_cuda(
+                x, v, wsc, w8t, wsc, src, idx, out_dtype=bf16), w4s),
+        }
+        for kernel, run in runs.items():
+            ms, dev = cs.time_ms(run, calls), cs.graph_ms(run, calls)
+            rows.append(dict(kernel=kernel, M=m, K=k, N=n, weight_cols=cols, ms=ms,
+                             device_ms=dev))
+            print(f"ragged N: {kernel} M={m} K={k} N={n} on weights of {cols} columns: "
+                  f"ms={ms:.4f} device_ms={dev:.4f}", flush=True)
+        del w8s, w4s, runs
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--calls", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="kernel_times.json")
+    ap.add_argument("--ragged", action="store_true",
+                    help="also time the GEMMs at a ragged N (this tree's wrappers only)")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.src).resolve()))
     sys.path.insert(1, str(ROOT))
@@ -187,13 +308,21 @@ def main(argv=None) -> int:
     print(f"B4 one {LAYERS}-layer decode step (M=8, 7 x {LAYERS} + lm_head calls): "
           f"ms={b4_step['ms']:.3f} device_ms={b4_step['device_ms']:.3f} library_ms="
           f"{b4_step['library_ms']:.3f} library_device_ms={b4_step['library_device_ms']:.3f}")
+    more, b1_steps = b1_rows(gen, args.calls)
+    rows += more
     digests = b4_digests(args.seed + 1)
     for key, d in digests.items():
         print(f"B4 {key}: sha256 {d}")
+    b1_sha = b1_digests(args.seed + 2)
+    for key, d in b1_sha.items():
+        print(f"B1 {key}: sha256 {d}")
+    if args.ragged:
+        rows += ragged_rows(gen, args.calls)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(card=card, rows=rows, b5_step=step, b4_step=b4_step,
-                                   b4_sha256=digests), indent=1))
+                                   b1_steps=b1_steps, b4_sha256=digests, b1_sha256=b1_sha),
+                              indent=1))
     return 0
 
 

@@ -11,8 +11,9 @@ float32 KV pages, ``w8a8`` on int8 pages, ``w4a8`` (the engine converts the
 tree to W4A8 leaves) on int4 pages. The first engine step
 (admission, 8 prefills, one decode) runs unprofiled; the next ``--steps``
 decode steps run under ``torch.profiler`` (CPU + CUDA activity). Prints
-the device time per kernel family (the hand-written kernels' launches and
-every other kernel) and the device busy share of the profiled wall time;
+the device time and the device operations (kernel launches, memsets) per
+kernel family (the hand-written kernels' launches and every other kernel)
+and the device busy share of the profiled wall time;
 writes the same as JSON to ``--out``.
 Profiling adds host overhead: its step time is not the serving number
 (``chip_smoke.py`` measures that unprofiled).
@@ -40,7 +41,8 @@ FAMILIES = (
     ("fused_qmatmul: row_quant", ("row_quant_kernel",)),
     ("w4a8_qmatmul: prologue", ("w4a8_prologue_kernel",)),
     ("int4_gemm (w4a8_qmatmul)", ("int4_gemm_kernel",)),
-    ("int8_gemm (fused_qmatmul; w4a8_qmatmul's outlier rows)", ("int8_gemm_kernel",)),
+    ("i8_tc_gemm (fused_qmatmul, int8 tensor cores, epilogue fused)", ("i8_tc_gemm_kernel",)),
+    ("int8_gemm (w4a8_qmatmul's outlier rows; quant_/ocs_matmul int8)", ("int8_gemm_kernel",)),
     ("wo_tc_gemm (quant_matmul, bf16 tensor cores)", ("wo_tc_gemm_kernel",)),
     ("wo_gemm (ocs_matmul; quant_matmul's f32 x)", ("wo_gemm_kernel",)),
     ("epilogue", ("epilogue_kernel",)),
@@ -97,16 +99,19 @@ def main(argv=None):
     events = [e for e in prof.key_averages()
               if "CUDA" in str(getattr(e, "device_type", "")) and _self_device_us(e) > 0]
     fam = {name: 0.0 for name, _ in FAMILIES}
-    other = 0.0
+    ops = {name: 0 for name, _ in FAMILIES}  # device operations (launches, memsets)
+    other, other_ops = 0.0, 0
     other_top = []
     for e in events:
         us = _self_device_us(e)
         for name, keys in FAMILIES:
             if any(key in e.key for key in keys):
                 fam[name] += us
+                ops[name] += e.count
                 break
         else:
             other += us
+            other_ops += e.count
             other_top.append((us, e.key))
     device_us = sum(fam.values()) + other
     steps = args.steps
@@ -116,18 +121,22 @@ def main(argv=None):
     if device_us == 0:
         print("device time: not measured (the profiler recorded no device activity)")
     else:
-        for name, us in list(fam.items()) + [("other kernels", other)]:
+        for name, us, n in ([(k, fam[k], ops[k]) for k in fam]
+                            + [("other kernels", other, other_ops)]):
             print(f"  {name}: {us / steps / 1e3:.3f} ms/step "
-                  f"({100 * us / device_us:.1f}% of device time)")
+                  f"({100 * us / device_us:.1f}% of device time; {n / steps:.0f} ops/step)")
         print(f"device busy {device_us / steps / 1e3:.2f} ms/step = "
               f"{100 * device_us / wall_us:.1f}% of wall; idle "
-              f"{100 * (1 - device_us / wall_us):.1f}%")
+              f"{100 * (1 - device_us / wall_us):.1f}%; "
+              f"{(sum(ops.values()) + other_ops) / steps:.0f} device operations a step")
         for us, key in sorted(other_top, reverse=True)[:8]:
             print(f"    other: {key[:90]}: {us / steps / 1e3:.3f} ms/step")
     out = dict(layers=cfg.n_layers, steps=steps, matmul_mode=args.matmul_mode,
                wall_ms_per_step=wall_us / steps / 1e3,
                device_ms_per_step={k: v / steps / 1e3 for k, v in fam.items()},
                other_ms_per_step=other / steps / 1e3,
+               device_ops_per_step={k: v / steps for k, v in ops.items()},
+               other_ops_per_step=other_ops / steps,
                busy_share=(device_us / wall_us) if wall_us else None,
                other_top=[(k, us / steps / 1e3) for us, k in sorted(other_top, reverse=True)[:20]],
                card=torch.cuda.get_device_name(0))

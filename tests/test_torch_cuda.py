@@ -63,6 +63,146 @@ def test_fused_qmatmul_cuda_bitwise(m, k, n, s, bf16):
     assert torch.equal(got, want)
 
 
+# glm4-9b's linear shape classes (K, S, N) for B1 on the int8 tensor cores,
+# S as the serving recipe leaves it (r = 0.02, pad_to=1); each also runs
+# with S = 0. Row counts across the decode tiles (M <= 8, M <= 32) and the
+# prefill tile, with ragged last token tiles and one split of K or several:
+# a decode row, a decode step, verifies of 8 x 5 and 8 x 17, prefill
+# buckets.
+B1_SHAPES = {"wq/wo": (4096, 82, 4096), "wk/wv": (4096, 82, 256),
+             "w_gate/w_up": (4096, 82, 13696), "w_down": (13696, 274, 4096),
+             "lm_head": (4096, 82, 151552)}
+B1_MS = (1, 8, 40, 64, 136, 200, 256, 512)
+
+
+def _b1_weights(k, s, n, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w8 = torch.randint(-127, 128, (k + s, n), generator=g, device="cuda", dtype=torch.int8)
+    ws = torch.rand((n,), generator=g, device="cuda") * 0.01 + 1e-4
+    src = torch.randint(0, k, (s,), generator=g, device="cuda", dtype=torch.int32)
+    return g, w8, ws, src
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tail", [True, False], ids=["S>0", "S=0"])
+@pytest.mark.parametrize("name", list(B1_SHAPES))
+def test_fused_qmatmul_tc_glm4_9b_cuda(name, tail):
+    """B1 on the int8 tensor cores at a glm4-9b shape class, with and
+    without an OCS tail, at every M of ``B1_MS``: bitwise its plain version
+    with x in bf16 and in f32 and with f32 and bf16 outputs, and rows
+    bitwise the same rows of calls of 8 rows and of one row (a row's bits
+    do not depend on the call's row count, tile or split)."""
+    cuda_or_skip()
+    k, s, n = B1_SHAPES[name]
+    s = s if tail else 0
+    g, w8, ws, src = _b1_weights(k, s, n, k + s + n)
+    x = torch.randn((max(B1_MS), k), generator=g, device="cuda") * 2.0
+    for i, m in enumerate(B1_MS):
+        xm = x[:m].to((torch.bfloat16, torch.float32)[i % 2])
+        for dt in (torch.float32, torch.bfloat16):
+            got = tfq.fused_quant_matmul_cuda(xm, w8, ws, src, out_dtype=dt)
+            want = tfq.fused_quant_matmul_plain(xm, w8, ws, src, out_dtype=dt)
+            assert _same_bits(got, want), (m, xm.dtype, dt)
+        for lo, r in ((0, min(8, m)), (max(0, m - 8), min(8, m)), (m // 2, 1)):
+            part = tfq.fused_quant_matmul_cuda(xm[lo:lo + r].contiguous(), w8, ws, src,
+                                               out_dtype=torch.bfloat16)
+            assert _same_bits(part, got[lo:lo + r]), (m, lo, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 256])
+def test_fused_qmatmul_repeated_calls_reuse_workspace_cuda(m):
+    """Repeated B1 calls with a split K (wq/wo: 9 splits at M = 8, 3 at M =
+    256) give the same bits, reuse the kept row and split-K scratch after
+    the first call, and leave the split-K counters at zero; a call captured
+    in a CUDA graph and replayed gives them too."""
+    from repro_torch.kernels import scratch
+
+    cuda_or_skip()
+    k, s, n = B1_SHAPES["wq/wo"]
+    g, w8, ws, src = _b1_weights(k, s, n, 11)
+    assert tfq.launch_plan(m, k + s + (-(k + s)) % 16, n)[2] > 1
+    x = (torch.randn((m, k), generator=g, device="cuda") * 2.0).to(torch.bfloat16)
+    first = tfq.fused_quant_matmul_cuda(x, w8, ws, src, out_dtype=torch.bfloat16)
+    kept = {key: buf.data_ptr() for key, buf in scratch._bufs.items()}
+    n0 = tfq.launches
+    for _ in range(3):
+        assert _same_bits(tfq.fused_quant_matmul_cuda(x, w8, ws, src,
+                                                      out_dtype=torch.bfloat16), first)
+    assert tfq.launches == n0 + 3
+    assert {key: buf.data_ptr() for key, buf in scratch._bufs.items()} == kept
+    counters = scratch.buffer("split_k_counters", x.device, 0)
+    torch.cuda.synchronize()
+    assert int(counters.count_nonzero()) == 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = tfq.fused_quant_matmul_cuda(x, w8, ws, src, out_dtype=torch.bfloat16)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _same_bits(replayed, first)
+    assert {key: buf.data_ptr() for key, buf in scratch._bufs.items()} == kept
+
+
+# (M, K, S, N) with N % 4 != 0 (ROADMAP C4): hymba-1.5b's lm_head (K 1600,
+# N 32001) at a decode step and a verify, and a small ragged N at a decode
+# row and a prefill; S even so that the W4A8 leaf packs K + S rows.
+RAGGED_CASES = [(8, 1600, 32, 32001), (40, 1600, 32, 32001), (5, 300, 8, 37),
+                (256, 300, 0, 37)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,s,n", RAGGED_CASES)
+def test_gemms_take_a_ragged_n_cuda(m, k, s, n):
+    """Every card GEMM takes an N that is not a multiple of 4, and its
+    columns are, bit for bit, those of the same call on the weights
+    zero-padded to a multiple of 16: B1 and B6 bitwise their plain
+    versions; B4's and B5's int8
+    paths bitwise; their weight-only paths (tensor cores for bf16 x, CUDA
+    cores for f32 x) within the summation-order bound of the plain version,
+    bf16 outputs within it plus one bf16 ulp."""
+    cuda_or_skip()
+    g, w8, ws, src = _b1_weights(k, s, n, m + k + s + n)
+    npad = tqm.padded_cols(n)
+    w8p, wsp = tqm.pad_cols(w8, npad), tqm.pad_cols(ws, npad)
+    xb = (torch.randn((m, k), generator=g, device="cuda") * 2.0).to(torch.bfloat16)
+    for dt in (torch.float32, torch.bfloat16):
+        got = tfq.fused_quant_matmul_cuda(xb, w8, ws, src, out_dtype=dt)
+        assert got.shape == (m, n)
+        assert _same_bits(got, tfq.fused_quant_matmul_plain(xb, w8, ws, src, out_dtype=dt))
+        aligned = tfq.fused_quant_matmul_cuda(xb, w8p, wsp, src, out_dtype=dt)
+        assert _same_bits(got, aligned[:, :n].contiguous())
+    mult = torch.ones((s,), device="cuda")
+    for x in (xb, xb.float()):
+        got = tom.ocs_quant_matmul_cuda(x, w8, ws, src, tail_mult=mult, tail_is_mask=True,
+                                        out_dtype=torch.float32)
+        want = tom.ocs_quant_matmul_plain(x, w8, ws, src, tail_mult=mult,
+                                          out_dtype=torch.float32)
+        xe = torch.cat([x.float(), x[:, src.long()].float()], 1)
+        bound = (WO_TOL_FACTOR * (k + s + 2) * 2.0 ** -24
+                 * tref.float_matmul(xe.abs(), w8.abs()) * ws)
+        assert got.shape == (m, n) and torch.isfinite(got).all()
+        assert ((got - want).abs() <= bound).all(), x.dtype
+        aligned = tom.ocs_quant_matmul_cuda(x, w8p, wsp, src, tail_mult=mult,
+                                            tail_is_mask=True, out_dtype=torch.float32)
+        assert _same_bits(got, aligned[:, :n].contiguous()), x.dtype
+    g16 = tom.ocs_quant_matmul_cuda(xb, w8, ws, src, tail_mult=mult, tail_is_mask=True,
+                                    out_dtype=torch.bfloat16).float()
+    p16 = tom.ocs_quant_matmul_plain(xb, w8, ws, src, tail_mult=mult,
+                                     out_dtype=torch.bfloat16).float()
+    assert ((g16 - p16).abs() <= bound + _bf16_ulp(torch.maximum(g16.abs(), p16.abs()))).all()
+    x8 = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
+    xs = torch.rand((m,), generator=g, device="cuda") * 0.05 + 1e-3
+    for dt in (torch.float32, torch.bfloat16):
+        got = tom.ocs_quant_matmul_cuda(x8, w8, ws, src, xs, mult, out_dtype=dt)
+        assert _same_bits(got, tom.ocs_quant_matmul_plain(x8, w8, ws, src, xs, mult,
+                                                          out_dtype=dt)), dt
+    w4a8 = _w4a8_case(m, k, n, s, 13, torch.bfloat16, m + n)
+    for dt in (torch.float32, torch.bfloat16):
+        got = tw4.w4a8_matmul_cuda(*w4a8, out_dtype=dt)
+        assert got.shape == (m, n)
+        assert _same_bits(got, tw4.w4a8_matmul_plain(*w4a8, out_dtype=dt)), dt
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("ps", [8, 16])
 @pytest.mark.parametrize("int8", [False, True])
@@ -226,8 +366,8 @@ def test_ocs_matmul_cuda_refuses_before_launch():
     x = torch.zeros((2, 8), dtype=torch.bfloat16, device=dev)
     src = torch.zeros((2,), dtype=torch.int32, device=dev)
     n0 = (tom.launches, tqm.launches)
-    with pytest.raises(ValueError, match="N % 4"):  # 4-column weight words
-        tom.ocs_quant_matmul_cuda(x, torch.zeros((10, 6), dtype=torch.int8, device=dev),
+    with pytest.raises(ValueError, match="w8 rows"):  # w8 holds K + S rows
+        tom.ocs_quant_matmul_cuda(x, torch.zeros((11, 6), dtype=torch.int8, device=dev),
                                   torch.ones(6, device=dev), src)
     with pytest.raises(ValueError, match="fractional"):
         tom.ocs_quant_matmul_cuda(x.to(torch.int8), torch.zeros((10, 8), dtype=torch.int8,
@@ -335,9 +475,9 @@ def test_w4a8_qmatmul_cuda_refuses_before_launch():
     n0 = tw4.launches
     with pytest.raises(ValueError, match="rows"):  # w4 holds K+S rows
         tw4.w4a8_matmul_cuda(x[:, :38].contiguous(), w4, s4, w8, s8, src, oidx)
-    with pytest.raises(ValueError, match="N % 4"):
-        tw4.w4a8_matmul_cuda(x, w4[:, :6].contiguous(), s4[:6], w8[:, :6].contiguous(),
-                             s8[:6], src, oidx)
+    with pytest.raises(ValueError, match="s4/s8"):
+        tw4.w4a8_matmul_cuda(x, w4[:, :6].contiguous(), s4, w8[:, :6].contiguous(), s8, src,
+                             oidx)
     with pytest.raises(ValueError, match="w8"):
         tw4.w4a8_matmul_cuda(x, w4, s4, w8[:2], s8, src, oidx)
     with pytest.raises(ValueError, match="uint8"):

@@ -3,7 +3,9 @@
 The kernels run only on the card, but what their wrappers decide before a
 launch is plain Python: B2's split of the block table into chunks and the
 size of its merge workspace, the tensor-core tiles and split of K that B5
-and B4 share (B4's over the virtual rows of its OCS tail), the workspaces
+and B4 share (B4's over the virtual rows of its OCS tail), B1's int8
+tensor-core tile and split (free to follow M: its sums are integers), the
+columns a ragged N runs, the workspaces
 the wrappers keep between calls, and the scales handed to the epilogues. A
 row's bits must not depend on the call's row count or on the lanes'
 positions (the verify contract), so these plans may follow only from the
@@ -18,6 +20,7 @@ from collections import Counter
 import pytest
 import torch
 
+from repro_torch.kernels import fused_qmatmul as tfq
 from repro_torch.kernels import ocs_matmul as tom
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import quant_matmul as tqm
@@ -419,3 +422,133 @@ def test_cpu_engine_serves_short_pages():
     eng = ServingEngine(cfg, init_params(cfg, seed=0, device="cpu"),
                         EngineConfig(max_batch=2, max_len=32, page_size=2), device="cpu")
     assert eng.page_size == 2
+
+
+# glm4-9b's W8A8 linear shapes (K, S, N), S as the serving recipe leaves it,
+# and hymba-1.5b's lm_head (K 1600, no tail) as B1's wrapper runs it (N
+# 32001 zero-padded to 32016): B1's launch plan on the int8 tensor cores at
+# a decode step (M = 8) and a prefill (M = 256), as (tile, stages a split,
+# splits, accumulator bytes, counter bytes).
+B1_PLANS = {
+    "wq/wo": ((4096, 82, 4096), (0, 15, 9, 131072, 64), (1, 44, 3, 4194304, 512)),
+    "wk/wv": ((4096, 82, 256), (0, 5, 27, 8192, 4), (1, 5, 27, 262144, 32)),
+    "w_gate/w_up": ((4096, 82, 13696), (0, 44, 3, 438272, 216), (1, 131, 1, 0, 0)),
+    "w_down": ((13696, 274, 4096), (0, 49, 9, 131072, 64), (1, 146, 3, 4194304, 512)),
+    "lm_head": ((4096, 82, 151552), (0, 131, 1, 0, 0), (1, 131, 1, 0, 0)),
+    "hymba-1.5b lm_head": ((1600, 0, 32016), (0, 25, 2, 1024512, 504), (1, 50, 1, 0, 0)),
+}
+# Row counts: decode, the tile boundary, verifies (8 x 5, 8 x 17), prefill
+# buckets and a long prefill.
+B1_MS = (1, 8, 9, 16, 32, 40, 64, 136, 200, 256, 512, 8192)
+
+
+def _kp(k, s):
+    return k + s + (-(k + s)) % 16
+
+
+@pytest.mark.parametrize("name", list(B1_PLANS))
+def test_b1_launch_plan_at_glm4_9b(name):
+    """B1's plan at a decode step and a prefill: the 8-token decode tile
+    split to ~1 block an SM, the 64 x 128 tile to ~2; the lm_head and the
+    prefill's w_gate/w_up fill the SMs with their tiles alone."""
+    (k, s, n), decode, prefill = B1_PLANS[name]
+    assert tfq.launch_plan(8, _kp(k, s), n) == decode
+    assert tfq.launch_plan(256, _kp(k, s), n) == prefill
+
+
+@pytest.mark.parametrize("m", B1_MS)
+@pytest.mark.parametrize("name", list(B1_PLANS))
+def test_b1_launch_plan_covers_the_contraction(name, m):
+    """At every row count the tile follows M (8 tokens x 256 columns up to 8
+    rows, then 64 x 128), the splits cover the contraction's 32-row stages
+    with at least 4 stages a split, one split only where the tiles reach
+    the blocks wanted (or the stages or the accumulator's bound stop it),
+    and with a split the int32 accumulator [M, N] within its bound and one
+    counter per token tile and column tile; one split needs neither."""
+    (k, s, n), _, _ = B1_PLANS[name]
+    kp = _kp(k, s)
+    tile, per, nsplit, acc_bytes, count_bytes = tfq.launch_plan(m, kp, n)
+    assert tile == tfq.tile_for(m) == (0 if m <= 8 else 1)
+    toks, cols, want = tfq._TILES[tile]
+    nst = math.ceil(kp / 32)
+    assert (nsplit - 1) * per < nst <= nsplit * per
+    assert nsplit <= max(1, nst // 4)
+    tiles = math.ceil(m / toks) * math.ceil(n / cols)
+    if nsplit == 1:
+        assert (acc_bytes, count_bytes) == (0, 0)
+        assert tiles >= want or nst < 8 or 4 * m * n > tfq._MAX_ACC_BYTES
+    else:
+        assert per >= 4
+        assert acc_bytes == 4 * m * n <= tfq._MAX_ACC_BYTES
+        assert count_bytes == 4 * tiles
+
+
+def test_b1_tile_boundaries():
+    """The decode tile of 8 tokens serves a decode step; the 64-token tile
+    everything larger (verifies and prefills)."""
+    assert [tfq.tile_for(m) for m in (1, 8, 9, 16, 32, 33, 40, 256)] == [0, 0, 1, 1, 1, 1, 1, 1]
+    assert tfq._TILES == ((8, 256, 132), (64, 128, 264))
+
+
+def test_b1_launch_hands_the_plan_and_kept_scratch_to_the_kernel(monkeypatch):
+    """``launch`` hands B1's entry point the plan, the kept row scratch and,
+    with a split, the kept accumulator and counters, both zeroed (a
+    stand-in entry point records the calls; nothing launches); equal calls
+    reuse the same buffers, and a call with one split passes neither."""
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: type("Stream", (), {"cuda_stream": 7}))
+    scratch.clear()
+    dev = torch.device("cpu")
+
+    def calls_of(m, n, reps):
+        x = torch.zeros((m, 4096), dtype=torch.bfloat16)
+        w8 = torch.zeros((4096 + 82, n), dtype=torch.int8)
+        ws, src = torch.ones(n), torch.zeros(82, dtype=torch.int32)
+        out = torch.empty((m, n), dtype=torch.bfloat16)
+        calls = []
+        for _ in range(reps):
+            assert tfq.launch(lambda *a: calls.append(a) or 0, x, w8, ws, src, out, 127.0) == 0
+        return calls
+
+    a, b = calls_of(8, 4096, 2)
+    assert a == b
+    assert a[2:6] == (8, 4096, 82, 4192)  # M, K, S, Kp
+    assert a[10:12] == (127.0, tfq.ref.inv_qmax(127.0))
+    assert a[14:17] == (0, 15, 9)  # tile, stages a split, splits
+    assert a[12] == scratch.buffer("b1_q_exp", dev, 0).data_ptr()
+    assert a[13] == scratch.buffer("b1_scale", dev, 0).data_ptr()
+    acc = scratch.buffer("b1_acc", dev, 0)
+    counters = scratch.buffer("split_k_counters", dev, 0)
+    assert (a[17], a[18]) == (acc.data_ptr(), counters.data_ptr())
+    assert acc.numel() >= 4 * 8 * 4096 and counters.numel() >= 4 * 16
+    assert int(acc.count_nonzero()) == 0 and int(counters.count_nonzero()) == 0
+    (c,) = calls_of(256, 151552, 1)
+    assert c[14:19] == (1, 131, 1, None, None) and c[-2:] == (1, 7)
+    assert scratch.buffer("b1_q_exp", dev, 0).numel() >= 256 * 4192
+    scratch.clear()
+
+
+@pytest.mark.parametrize("n,want", [(4096, 4096), (4100, 4100), (36, 36), (37, 48), (6, 16),
+                                    (32001, 32016), (1, 16), (151552, 151552)])
+def test_ragged_n_runs_padded_to_16(n, want):
+    """A ragged N (N % 4 != 0) runs on the card zero-padded to a multiple of
+    16 (B4/B5 on their TMA path, B6's 4-column words), B1 any N % 16 != 0
+    (its TMA's rows), and the padding never crosses a 128- or 256-column
+    tile, so the split of K, and every column below N, is that of an
+    aligned call of the same columns; an N the kernels take as it is runs
+    unpadded."""
+    assert tqm.padded_cols(n) == want
+    b1 = tqm.padded_cols(n, 16)
+    assert b1 % 16 == 0 and b1 - n < 16 and b1 >= want
+    for cols in (want, b1):
+        assert math.ceil(cols / 128) == math.ceil(n / 128)
+        assert math.ceil(cols / 256) == math.ceil(n / 256)
+    assert tqm.tc_split_plan(4096, want) == tqm.tc_split_plan(4096, n)
+    assert tqm.wo_split_plan(4178, want) == tqm.wo_split_plan(4178, n)
+    for m in (8, 256):
+        assert tfq.launch_plan(m, 4192, b1)[:3] == tfq.launch_plan(m, 4192, n)[:3]
+    w8 = torch.ones((3, n), dtype=torch.int8)
+    p = tqm.pad_cols(w8, want)
+    assert p.shape == (3, want) and p.is_contiguous()
+    assert torch.equal(p[:, :n], w8) and int(p[:, n:].count_nonzero()) == 0
+    assert tqm.pad_cols(w8, n) is w8
