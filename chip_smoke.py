@@ -898,15 +898,55 @@ def stacked_head(lin, n):
         a_bits=lin.a_bits, a_scale=None if lin.a_scale is None else lin.a_scale[:n])
 
 
+def b6_times(run_kern, x, w4, s4, w8, s8, src, oidx, iters):
+    """Wall and device ms of ``run_kern`` (a B6 call cycling its weight
+    copies) and of its library yardstick: ``torch._int_mm`` on the
+    materialized expanded activations against the int4 weights unpacked
+    to int8 before the timing (its copies cycled like the kernel's), the
+    outlier product likewise, then the epilogue (M padded to 32, K + S and
+    T to 8, as ``_int_mm`` wants). Device times are CUDA graphs of the same
+    calls."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+
+    (m, k), n = x.shape, w4.shape[1]
+    s, t = src.shape[0], oidx.shape[0]
+    ke = k + s
+    kp, tp = ke + (-ke) % 8, t + (-t) % 8
+    wq = torch.zeros((kp, n), dtype=torch.int8, device="cuda")
+    wq[:ke] = pa.unpack_int4(w4.T).T
+    w8p = torch.zeros((tp, n), dtype=torch.int8, device="cuda")
+    w8p[:t] = w8
+    q, sc = pa.quant_rows(x, 127.0)
+    qe = torch.cat([q, q[:, src.long()]], 1) if s else q
+    mp = max(m, 32)
+    qp = torch.zeros((mp, kp), dtype=torch.int8, device="cuda")
+    qp[:m, :ke] = qe
+    q8 = torch.zeros((mp, tp), dtype=torch.int8, device="cuda")
+    q8[:m, :t] = qe[:, oidx.long()]
+    scp = torch.zeros((mp,), dtype=torch.float32, device="cuda")
+    scp[:m] = sc
+
+    def lib(wqc):
+        y = torch._int_mm(qp, wqc).float() * (scp[:, None] * s4[None, :])
+        if t:
+            y = y + torch._int_mm(q8, w8p).float() * (scp[:, None] * s8[None, :])
+        return y.to(torch.bfloat16)
+
+    run_lib = cycling(lib, cycled(wq))
+    del wq
+    return dict(ms=time_ms(run_kern, iters), device_ms=graph_ms(run_kern, iters),
+                library_ms=time_ms(run_lib, iters), library_device_ms=graph_ms(run_lib, iters))
+
+
 def kernel_phase_b6(qparams, gen, iters):
     """w4a8_qmatmul at every glm4-9b linear shape x M in {1, 8, 256}: the
     layer-0 and lm_head leaves converted with ``to_w4a8`` on the card (every
     one, and a stacked two-layer ``w_down``, bitwise the CPU's conversion);
     bitwise against the plain version with f32 and bf16 outputs; timed with
     bf16 outputs, as ``dense`` calls it, wall and device (a CUDA graph of the
-    same calls), beside its yardstick."""
+    same calls), beside its yardstick (``b6_times``)."""
     import torch
-    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import w4a8_qmatmul as w4k
 
     weights = layer_weights(qparams)
@@ -939,16 +979,6 @@ def kernel_phase_b6(qparams, gen, iters):
         nbytes = w4.numel() + w8.numel()
         n_copies = max(1, math.ceil(2 * L2_BYTES / nbytes))
         copies = [(w4, w8)] + [(w4.clone(), w8.clone()) for _ in range(n_copies - 1)]
-        # Library yardstick: torch._int_mm on the materialized expanded
-        # activations and the int4 weights unpacked to int8 before the
-        # timing, the outlier product likewise, then the epilogue.
-        ke = k + s
-        kp, tp = ke + (-ke) % 8, t + (-t) % 8
-        wq = torch.zeros((kp, n), dtype=torch.int8, device="cuda")
-        wq[:ke] = pa.unpack_int4(w4.T).T
-        w8p = torch.zeros((tp, n), dtype=torch.int8, device="cuda")
-        w8p[:t] = w8
-        lib_copies = cycled(wq)
         for m in (1, 8, 256):
             x = (torch.randn((m, k), generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
             for out_dtype in (torch.float32, torch.bfloat16):
@@ -959,36 +989,17 @@ def kernel_phase_b6(qparams, gen, iters):
                     raise AssertionError(f"w4a8_qmatmul {names} M={m} {out_dtype}: not "
                                          f"bitwise (max |d| {d})")
             run_kernel = cycling(lambda ws: kern(x, ws, torch.bfloat16), copies)
-            ms, device_ms = time_ms(run_kernel, iters), graph_ms(run_kernel, iters)
+            tm = b6_times(run_kernel, x, w4, lin.s4, w8, lin.s8, src, oidx, iters)
             plain_ms = time_ms(lambda: plain(x, torch.bfloat16), max(2, iters // 5), warmup=1)
-            q, sc = pa.quant_rows(x, 127.0)
-            qe = torch.cat([q, q[:, src.long()]], 1) if s else q
-            mp = max(m, 32)
-            qp = torch.zeros((mp, kp), dtype=torch.int8, device="cuda")
-            qp[:m, :ke] = qe
-            q8 = torch.zeros((mp, tp), dtype=torch.int8, device="cuda")
-            q8[:m, :t] = qe[:, oidx.long()]
-            scp = torch.zeros((mp,), dtype=torch.float32, device="cuda")
-            scp[:m] = sc
-
-            def lib(wqc):
-                y = torch._int_mm(qp, wqc).float() * (scp[:, None] * lin.s4[None, :])
-                if t:
-                    y = y + torch._int_mm(q8, w8p).float() * (scp[:, None] * lin.s8[None, :])
-                return y.to(torch.bfloat16)
-
-            run_lib = cycling(lib, lib_copies)
-            lib_ms, lib_dev = time_ms(run_lib, iters), graph_ms(run_lib, iters)
-            del qp, q8, run_lib
             bound, by = w4a8_bound_ms(m, k, s, t, n)
-            rows.append(dict(names=names, M=m, K=k, S=s, T=t, N=n, ms=ms, device_ms=device_ms,
-                             plain_ms=plain_ms, library_ms=lib_ms, library_device_ms=lib_dev,
+            rows.append(dict(names=names, M=m, K=k, S=s, T=t, N=n, **tm, plain_ms=plain_ms,
                              bound_ms=bound, bound_by=by, max_abs_err=0.0))
             log(f"B6 w4a8_qmatmul {'/'.join(names)} M={m} K={k}+{s} T={t} N={n}: "
-                f"kernel_ms={ms:.4f} device_ms={device_ms:.4f} plain_ms={plain_ms:.4f} "
-                f"library_ms={lib_ms:.4f} library_device_ms={lib_dev:.4f} "
+                f"kernel_ms={tm['ms']:.4f} device_ms={tm['device_ms']:.4f} "
+                f"plain_ms={plain_ms:.4f} library_ms={tm['library_ms']:.4f} "
+                f"library_device_ms={tm['library_device_ms']:.4f} "
                 f"bound_ms={bound:.4f} ({by}) bitwise=yes (f32 and bf16 out)")
-        del copies, lib_copies, wq, w8p, lin
+        del copies, lin
     del converted
     return rows
 

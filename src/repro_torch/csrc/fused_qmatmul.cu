@@ -37,6 +37,32 @@
 
 #include "i8_tc_gemm.cuh"
 
+namespace rtq {
+namespace {
+
+// B1's GEMM launcher. `tile` (the host's choice from M,
+// kernels/fused_qmatmul.py's plan): 0 = 256 columns x 8 tokens a block
+// (decode, M <= 8); 1 = 128 columns x 64 tokens (M > 8), as
+// i8_tc_gemm.cuh's launch_i8_tile describes them.
+inline int i8_tc_launch(int tile, const int8_t* q, int M, int Kp, const int8_t* w, int Ke,
+                        int N, int stages_per_split, int nsplit, const float* xs,
+                        const float* ws, int* acc_ws, int* counters, void* out, int out_bf16,
+                        cudaStream_t st) {
+  switch (tile) {
+    case 0:
+      return launch_i8_tile<4, 1, 1, 1>(q, M, Kp, w, Ke, N, stages_per_split, nsplit, xs, ws,
+                                        acc_ws, counters, out, out_bf16, st);
+    case 1:
+      return launch_i8_tile<2, 2, 4, 2>(q, M, Kp, w, Ke, N, stages_per_split, nsplit, xs, ws,
+                                        acc_ws, counters, out, out_bf16, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+}  // namespace rtq
+
 // x_bf16: 1 if x is bfloat16, 0 if float32; out_bf16 likewise for out.
 // w8 [K+S, N] with N % 16 == 0, 16-byte aligned (else cudaErrorInvalidValue).
 // Scratch from the caller: q_exp [M, Kp] int8 (16-byte aligned), scale [M]

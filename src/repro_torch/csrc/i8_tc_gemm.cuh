@@ -1,35 +1,45 @@
-// The int8 tensor-core GEMM with its epilogue, for Hopper (sm_90a):
+// The int8 tensor-core GEMMs with their epilogues, for Hopper (sm_90a):
+//   i8_tc_gemm_kernel (B1, fused_qmatmul.cu): one sum over int8 weights,
 //     out[m, n] = f32(sum_k q[m, k] * w[k, n]) * (xs[m] * ws[n])
-// with q [M, Kp] int8 (row stride Kp, a multiple of 16, zero past the
-// contraction), w [Ke, N] int8 (N contiguous, Ke <= Kp), xs [M] (or null =
-// 1) and ws [N] f32, out [M, N] f32 or bf16. B1 (fused_qmatmul.cu) runs it
-// on the rows its prologue quantized, [x | x[:, src_tail]]; the header has
-// no B1-specific piece, so B6's int4 pass and outlier rows can instantiate
-// its ring and fragments later, as wo_tc_gemm.cuh serves B4 and B5.
+//   with q [M, Kp] int8 (row stride Kp, a multiple of 16, zero past the
+//   contraction), w [Ke, N] int8 (N contiguous, Ke <= Kp), xs [M] (or null
+//   = 1) and ws [N] f32, out [M, N] f32 or bf16;
+//   w4_tc_gemm_kernel (B6, w4a8_qmatmul.cu), its sibling on the same tile,
+//   ring and fragments: two sums, acc4 over split-half packed int4 weights
+//   w4 [H, N] (byte row j: expanded row j in its low nibble, row H + j in
+//   its high one) against q2 [M, 2 * Hp] (expanded rows [0, H) at column
+//   0, [H, 2H) at column Hp), and acc8 over int8 outlier rows w8 [T, N]
+//   against q8 [M, Tp], with B6's epilogue
+//     out = fma(f32(acc4), xs[m] * s4[n], f32(acc8) * (xs[m] * s8[n]))
+//   (f32(acc4) * (xs[m] * s4[n]) when T == 0), every step an _rn intrinsic.
+// B1's kernel is its own, so that B6's stages and sums leave B1's code as
+// it was. wo_tc_gemm.cuh is the bf16 counterpart that serves B4 and B5.
 //
 // Why the bits are the plain version's. s8 x s8 products summed in s32 are
 // exact in any order, tile or split ((K + S) * 127 * 127 < 2^31 at every
-// glm4-9b shape: 13970 * 16129), so the tile and the split are chosen from
-// M at the host and a row's bits still do not depend on the call's row
-// count. The one float step is the epilogue, __fmul_rn(__int2float_rn(acc),
-// xs[m] * ws[n]), grouped and rounded as the plain version's.
+// glm4-9b shape: 13970 * 16129; B6's nibbles enter as 16 x their value,
+// (K + S) * 127 * 128 < 2^31 too), so the tile and the split are chosen
+// from M at the host and a row's bits still do not depend on the call's row
+// count. The one float step is the epilogue, one code path for every tile
+// and split, grouped and rounded as the plain version's.
 //
-// What bounds it on this card: at decode (M <= 8) the int8 weight bytes over
-// HBM (2.7 ms of a glm4-9b step at 3.35 TB/s); at prefill (M = 256) the
-// products, on the int8 tensor cores (1,979 TOP/s dense, which mma.sync
-// does not reach).
+// What bounds it on this card: at decode (M <= 8) the weight bytes over HBM
+// (B1's int8: 2.7 ms of a glm4-9b step at 3.35 TB/s; B6's nibbles and
+// outlier rows: 1.5 ms); at prefill (M = 256) the products, on the int8
+// tensor cores (1,979 TOP/s dense, which mma.sync does not reach).
 //
-// Design of i8_tc_gemm_kernel<WC, WT, TG, MINB>. A block owns 64*WC output columns
-// and 8*TG*WT tokens, and a range of whole 32-row stages of the contraction
-// (split K over blockIdx.z). Its WC*WT consumer warps each own 64 columns x
-// 8*TG tokens; one more warp is the producer. The producer's lane 0 streams
-// the block's stages through a ring of kI8Stages slots in shared memory with
-// the TMA: per stage the weights' [32 rows x 64*WC columns] as boxes of 128
-// columns (128-byte swizzle: 16-byte chunk c of row r lies at chunk c ^ (r %
-// 8)) and the tokens' [8*TG*WT rows x 32 bytes] (32-byte swizzle: chunk c
-// of row r at c ^ ((r / 4) % 2)), counted on the slot's "full" mbarrier; a
-// slot is refilled once every consumer warp has arrived on its "empty"
-// mbarrier. The TMA zero-fills what lies past Ke, N or M.
+// Design of i8_tc_gemm_kernel<WC, WT, TG, MINB>. A block owns 64*WC
+// output columns and 8*TG*WT tokens, and a range of whole 32-row stages of
+// the contraction (split K over blockIdx.z). Its WC*WT consumer warps each
+// own 64 columns x 8*TG tokens; one more warp is the producer. The
+// producer's lane 0 streams the block's stages through a ring of kI8Stages
+// slots in shared memory with the TMA: per stage the weights' [32 rows x
+// 64*WC columns] as boxes of 128 columns (128-byte swizzle: 16-byte chunk c
+// of row r lies at chunk c ^ (r % 8)) and the tokens' [8*TG*WT rows x 32
+// bytes] (32-byte swizzle: chunk c of row r at c ^ ((r / 4) % 2)), counted
+// on the slot's "full" mbarrier; a slot is refilled once every consumer
+// warp has arrived on its "empty" mbarrier. The TMA zero-fills what lies
+// past the weight rows, N or M.
 //
 // The MMA is mma.sync.m16n8k32.row.col.s32.s8.s8.s32 with the weights as
 // operand A (16 output columns an MMA) and 8 tokens as operand B. The int8
@@ -43,17 +53,33 @@
 // slots {4t..4t+3, 16+4t..16+4t+3} are the stage's rows with the same
 // numbers, so a B fragment is two 4-byte loads of a token's row.
 //
+// B6's stages. The first nst4 stages of its contraction are int4 stages: 32
+// byte rows of w4 (the same box as B1's, half of B1's bytes a contraction
+// row) and two token boxes, q2's columns 32s.. and Hp + 32s.. (Hp a
+// multiple of 32, so no box reads across the halves). After the transposes
+// a word holds 4 consecutive byte rows of one column; w & 0xF0F0F0F0 is 16 x
+// its high nibbles as int8 bytes and (w << 4) & 0xF0F0F0F0 16 x its low ones
+// (two's complement: byte h << 4 is 16 * sext4(h)), the A fragments of two
+// k-steps against the two token boxes: 8 MMAs a token group for one weight
+// box, 3 integer operations a word to unpack. The sum is 16 x acc4, exact,
+// and shifted back (>> 4, exact) where it leaves the registers. The rest are
+// outlier stages, B1's stage exactly over w8 [T, N] and q8 (the TMA
+// zero-fills past T). A stage's expect_tx count follows its kind. A block
+// keeps one register sum: if its stage range crosses from the int4 stages
+// to the outlier ones, each warp parks acc4 in shared memory (a region of
+// its own, beside the ring) and starts acc8 from zero.
+//
 // Epilogue in the kernel. The warps' int32 sums meet in shared memory (the
 // ring's space), and the block writes them in coalesced rows: with one
 // split it applies the epilogue itself; with several, each block adds its
-// sums into an int32 accumulator [M, N] with atomics (exact, so the order
-// does not matter), and the last block of a tile to finish (an atomic
-// count, reset by that block) reads the totals, 16 in flight a thread,
-// applies the epilogue and zeroes the accumulator again. No memset and no
-// separate epilogue launch.
+// sums into an int32 accumulator ([M, N]; B6 with T > 0: acc4 then acc8,
+// [2, M, N]) with atomics (exact, so the order does not matter), and the
+// last block of a tile to finish (an atomic count, reset by that block)
+// reads the totals, 16 in flight a thread, applies the epilogue and zeroes
+// the accumulator again. No memset and no separate epilogue launch.
 //
-// The TMA needs N % 16 == 0 and 16-byte aligned weights; the launcher
-// refuses anything else (cudaErrorInvalidValue), and a caller with a ragged
+// The TMA needs N % 16 == 0 and 16-byte aligned weights; the launchers
+// refuse anything else (cudaErrorInvalidValue), and a caller with a ragged
 // N (hymba-1.5b's 32001-column lm_head) zero-pads the weights' columns.
 
 #pragma once
@@ -70,21 +96,24 @@ constexpr int kI8BoxCols = 128;  // columns of a weight box (the 128-byte swizzl
 constexpr int kI8Stages = 6;     // ring slots
 
 // The block tile of i8_tc_gemm_kernel<WC, WT, TG> and its shared memory: the
-// ring (every slot's weight boxes, then every slot's token tile) or the
-// warps' int32 sums [tokens][columns + 4], whichever is larger, plus 1 KB
-// to align the start (the 128-byte swizzle's unit).
-template <int WC, int WT, int TG>
+// ring (every slot's weight boxes, then every slot's token boxes: one, or
+// two for B6's int4 stages) or the warps' int32 sums [tokens][columns + 4],
+// whichever is larger, then (W4) the parked acc4 of the same shape, plus 1
+// KB to align the start (the 128-byte swizzle's unit).
+template <int WC, int WT, int TG, bool W4 = false>
 struct I8Tile {
   static constexpr int kWarps = WC * WT;              // consumer warps
   static constexpr int kThreads = 32 * (kWarps + 1);  // and the producer warp
   static constexpr int kCols = kI8WarpCols * WC;
   static constexpr int kToks = 8 * TG * WT;
   static constexpr int kWStage = kI8StageK * kCols;  // bytes
-  static constexpr int kXStage = kToks * kI8StageK;  // bytes
+  static constexpr int kXStage = kToks * kI8StageK;  // bytes of one token box
+  static constexpr int kXSlot = (W4 ? 2 : 1) * kXStage;
   static constexpr int kOutStride = kCols + 4;       // int32 words a token row
-  static constexpr int kRing = kI8Stages * (kWStage + kXStage);
+  static constexpr int kRing = kI8Stages * (kWStage + kXSlot);
   static constexpr int kOut = kToks * kOutStride * 4;
-  static constexpr int kSmem = 1024 + (kRing > kOut ? kRing : kOut);
+  static constexpr int kMain = kRing > kOut ? kRing : kOut;
+  static constexpr int kSmem = 1024 + kMain + (W4 ? kOut : 0);
 };
 
 __device__ __forceinline__ void mma_16832_s8(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
@@ -334,28 +363,310 @@ int launch_i8_tile(const int8_t* q, int M, int Kp, const int8_t* w, int Ke, int 
                                             ws, acc_ws, counters, out, st);
 }
 
-// The launcher. `tile` (the host's choice from M, kernels/fused_qmatmul.py's
-// plan): 0 = 256 columns x 8 tokens a block, one block an SM (decode, M <=
-// 8); 1 = 128 columns x 64 tokens, two blocks an SM (M > 8: verifies and
-// prefills). q [M, Kp] int8, Kp % 16 == 0, zero past the contraction;
-// w [Ke, N] int8, N % 16 == 0, 16-byte aligned; stages_per_split * nsplit 32-row stages
-// cover Kp; acc_ws [M, N] int32 and counters (one int per token tile and
-// column tile), both zero at rest and left zero by the kernel, unused when
-// nsplit == 1. Returns cudaGetLastError() (0 = ok).
-inline int i8_tc_launch(int tile, const int8_t* q, int M, int Kp, const int8_t* w, int Ke,
-                        int N, int stages_per_split, int nsplit, const float* xs,
-                        const float* ws, int* acc_ws, int* counters, void* out, int out_bf16,
-                        cudaStream_t st) {
-  switch (tile) {
-    case 0:
-      return launch_i8_tile<4, 1, 1, 1>(q, M, Kp, w, Ke, N, stages_per_split, nsplit, xs, ws,
-                                        acc_ws, counters, out, out_bf16, st);
-    case 1:
-      return launch_i8_tile<2, 2, 4, 2>(q, M, Kp, w, Ke, N, stages_per_split, nsplit, xs, ws,
-                                        acc_ws, counters, out, out_bf16, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+// Every token group's B fragment from a token box (zeros past M), loaded at
+// once, then the live groups' MMAs.
+template <int TG>
+__device__ __forceinline__ void i8_box_mmas(int (&acc)[TG][4][4], const uint32_t (&a)[2][8],
+                                            const unsigned char* xt, int tr0, int g, int t,
+                                            int live) {
+  uint32_t b[TG][2];
+#pragma unroll
+  for (int q = 0; q < TG; ++q) {
+    const int tr = tr0 + 8 * q + g;  // token row of the tile
+    const int sw = (tr >> 2) & 1;
+    const unsigned char* row = xt + tr * kI8StageK + 4 * t;
+    b[q][0] = *reinterpret_cast<const uint32_t*>(row + (sw << 4));
+    b[q][1] = *reinterpret_cast<const uint32_t*>(row + ((sw ^ 1) << 4));
   }
+#pragma unroll
+  for (int q = 0; q < TG; ++q)
+    if (q < live) i8_group_mmas(acc[q], a, b[q][0], b[q][1]);
+}
+
+// A consumer warp's sums into ot [token][column] (row stride `stride`
+// words), each shifted right by `shift` (4 for B6's 16 x acc4: exact).
+template <int TG>
+__device__ __forceinline__ void i8_store_sums(int* ot, int stride, const int (&acc)[TG][4][4],
+                                              int tok0, int col0, int g, int t, int shift) {
+#pragma unroll
+  for (int q = 0; q < TG; ++q)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int tok = tok0 + 8 * q + 2 * t, c = col0 + 8 * g + 2 * j;
+      *reinterpret_cast<int2*>(ot + tok * stride + c) =
+          make_int2(acc[q][j][0] >> shift, acc[q][j][2] >> shift);
+      *reinterpret_cast<int2*>(ot + (tok + 1) * stride + c) =
+          make_int2(acc[q][j][1] >> shift, acc[q][j][3] >> shift);
+    }
+}
+
+// B6's epilogue of output (m, n) from its sums.
+__device__ __forceinline__ float w4a8_out(int a4, int a8, bool outliers, const float* xs,
+                                          const float* s4, const float* s8, int m, int n) {
+  const float c4 = __fmul_rn(xs[m], s4[n]);
+  if (!outliers) return __fmul_rn(__int2float_rn(a4), c4);
+  return __fmaf_rn(__int2float_rn(a4), c4,
+                   __fmul_rn(__int2float_rn(a8), __fmul_rn(xs[m], s8[n])));
+}
+
+// B6's GEMM: i8_tc_gemm_kernel's tile, ring, fragments and split-K
+// epilogue over nst4 int4 stages (w4map, q2map) and then ceil(T / 32)
+// outlier stages (w8map, q8map); two sums, acc4 and acc8.
+template <int WC, int WT, int TG, int MINB, typename TO>
+__global__ void __launch_bounds__(I8Tile<WC, WT, TG>::kThreads, MINB) w4_tc_gemm_kernel(
+    const __grid_constant__ CUtensorMap w4map,  // w4 [H, N], boxes 128 x 32
+    const __grid_constant__ CUtensorMap q2map,  // q2 [M, 2 Hp], boxes 32 x kToks
+    const __grid_constant__ CUtensorMap w8map,  // w8 [T, N], boxes 128 x 32 (unset when T == 0)
+    const __grid_constant__ CUtensorMap q8map,  // q8 [M, Tp], boxes 32 x kToks (unset when T == 0)
+    int M, int nst4, int nst, int hp, int N, int stages_per_split, int nsplit,
+    const float* __restrict__ xs,  // [M]
+    const float* __restrict__ s4,  // [N]
+    const float* __restrict__ s8,  // [N]
+    int* __restrict__ acc_ws,      // [T > 0 ? 2 : 1, M, N] when nsplit > 1, zero at rest
+    int* __restrict__ counters,    // [gridDim.x * gridDim.y], zero at rest
+    TO* __restrict__ out) {        // [M, N]
+  using T = I8Tile<WC, WT, TG, true>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kI8Stages];
+  __shared__ __align__(8) uint64_t empty[kI8Stages];
+  __shared__ int s_last;
+  unsigned char* smem = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.x * T::kToks;
+  const int n0 = blockIdx.y * T::kCols;
+  const int s0 = blockIdx.z * stages_per_split;
+  const int mine = max(0, min(nst, s0 + stages_per_split) - s0);
+  const int wc = warp % WC, wt = warp / WC;  // a consumer warp's column and token slot
+  // Its token groups holding a token.
+  const int live = max(0, min(TG, (M - m0 - wt * 8 * TG + 7) / 8));
+  const bool outliers = nst > nst4;
+  // The parked acc4 of a block whose stages cross into the outlier rows.
+  int* park = reinterpret_cast<int*>(smem + T::kMain);
+
+  int acc[TG][4][4];
+#pragma unroll
+  for (int q = 0; q < TG; ++q)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[q][j][e] = 0;
+
+  unsigned char* wring = smem;
+  unsigned char* xring = smem + kI8Stages * T::kWStage;
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < kI8Stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], T::kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == T::kWarps) {
+    // The producer: stage i into slot i % kI8Stages, once the consumers
+    // have released the slot's previous stage; an int4 stage's second
+    // token box (the high nibbles' activations) is q2's column hp + k0.
+    if (lane == 0)
+      for (int i = 0; i < mine; ++i) {
+        const int slot = i % kI8Stages;
+        if (i >= kI8Stages) mbar_wait(&empty[slot], ((i / kI8Stages) - 1) & 1);
+        const int s = s0 + i;
+        const bool four = s < nst4;
+        const CUtensorMap* wm = four ? &w4map : &w8map;
+        const CUtensorMap* qm = four ? &q2map : &q8map;
+        const int k0 = (four ? s : s - nst4) * kI8StageK;
+        unsigned char* xdst = xring + slot * T::kXSlot;
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive_expect_tx(&full[slot], T::kWStage + (four ? 2 : 1) * T::kXStage);
+#pragma unroll
+        for (int b = 0; b < T::kCols / kI8BoxCols; ++b)
+          tma_load_2d(wring + slot * T::kWStage + b * kI8StageK * kI8BoxCols, wm,
+                      n0 + b * kI8BoxCols, k0, &full[slot]);
+        tma_load_2d(xdst, qm, k0, m0, &full[slot]);
+        if (four) tma_load_2d(xdst + T::kXStage, qm, hp + k0, m0, &full[slot]);
+      }
+  } else {
+    // A consumer: its 8 columns of the weight box lie in 16-byte chunk
+    // `chunk`, at byte `half` of it.
+    const int lcol = (wc & 1) * kI8WarpCols + 8 * g;
+    const int chunk = lcol >> 4, half = lcol & 8;
+    for (int i = 0; i < mine; ++i) {
+      const int slot = i % kI8Stages;
+      const bool four = s0 + i < nst4;
+      if (s0 + i == nst4 && i > 0) {
+        // The block's int4 stages are done: park acc4, start acc8.
+        i8_store_sums(park, T::kOutStride, acc, wt * 8 * TG, wc * kI8WarpCols, g, t, 4);
+#pragma unroll
+        for (int q = 0; q < TG; ++q)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[q][j][e] = 0;
+      }
+      mbar_wait(&full[slot], (i / kI8Stages) & 1);
+      const unsigned char* wbox =
+          wring + slot * T::kWStage + (wc >> 1) * (kI8StageK * kI8BoxCols);
+      const unsigned char* xt = xring + slot * T::kXSlot;
+      uint32_t lo[2][4], hi[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+          const int r = 16 * h + 4 * t + ii;
+          const uint2 v = *reinterpret_cast<const uint2*>(
+              wbox + r * kI8BoxCols + ((chunk ^ (r & 7)) << 4) + half);
+          lo[h][ii] = v.x;
+          hi[h][ii] = v.y;
+        }
+      uint32_t a[2][8];
+      i8_a_fragments(lo, hi, a);
+      if (four) {
+        uint32_t nib[2][8];  // 16 x the low nibbles, then 16 x the high ones
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) nib[h][c] = (a[h][c] << 4) & 0xF0F0F0F0u;
+        i8_box_mmas<TG>(acc, nib, xt, wt * 8 * TG, g, t, live);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) nib[h][c] = a[h][c] & 0xF0F0F0F0u;
+        i8_box_mmas<TG>(acc, nib, xt + T::kXStage, wt * 8 * TG, g, t, live);
+      } else {
+        i8_box_mmas<TG>(acc, a, xt, wt * 8 * TG, g, t, live);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);
+    }
+  }
+
+  // The warps' sums meet in shared memory (the ring's space), [token][column];
+  // acc4 leaves the registers as its value (>> 4).
+  const int slast = s0 + mine - 1;  // the block's last stage
+  __syncthreads();
+  int* ot = reinterpret_cast<int*>(smem);
+  if (warp < T::kWarps)
+    i8_store_sums(ot, T::kOutStride, acc, wt * 8 * TG, wc * kI8WarpCols, g, t,
+                  slast < nst4 ? 4 : 0);
+  __syncthreads();
+  // Where the block's sums lie; null where its stages hold none of a kind.
+  const bool has4 = s0 < nst4, has8 = slast >= nst4;
+  const int* p8 = has8 ? ot : nullptr;
+  const int* p4 = has4 ? (has8 ? park : ot) : nullptr;
+  const int mrows = min(T::kToks, M - m0);
+  const int ncols = min(T::kCols, N - n0);
+  const size_t mn = (size_t)M * N;
+  if (nsplit == 1) {
+    for (int e = tid; e < mrows * T::kCols; e += T::kThreads) {
+      const int r = e / T::kCols, c = e % T::kCols;
+      if (c < ncols) {
+        const int m = m0 + r, n = n0 + c, o = r * T::kOutStride + c;
+        store_out(out, (size_t)m * N + n,
+                  w4a8_out(p4[o], outliers ? p8[o] : 0, outliers, xs, s4, s8, m, n));
+      }
+    }
+    return;
+  }
+  // Several splits: each block adds its sums into the int32 accumulator
+  // (exact in any order); the last block of this (token tile, column tile)
+  // reads the totals, applies the epilogue and leaves the accumulator zero.
+  for (int e = tid; e < mrows * T::kCols; e += T::kThreads) {
+    const int r = e / T::kCols, c = e % T::kCols;
+    if (c < ncols) {
+      const size_t i = (size_t)(m0 + r) * N + n0 + c;
+      const int o = r * T::kOutStride + c;
+      if (p4 != nullptr) atomicAdd(acc_ws + i, p4[o]);
+      if (p8 != nullptr) atomicAdd(acc_ws + mn + i, p8[o]);
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  int* count = counters + blockIdx.y * gridDim.x + blockIdx.x;
+  if (tid == 0) s_last = atomicAdd(count, 1) == nsplit - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  constexpr int kBatch = 16;  // totals in flight a thread
+  for (int e0 = tid; e0 < mrows * T::kCols; e0 += kBatch * T::kThreads) {
+    int a[kBatch], b[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * T::kThreads, r = e / T::kCols, c = e % T::kCols;
+      const bool in = e < mrows * T::kCols && c < ncols;
+      const size_t i = (size_t)(m0 + r) * N + n0 + c;
+      a[u] = in ? __ldcg(acc_ws + i) : 0;
+      b[u] = outliers && in ? __ldcg(acc_ws + mn + i) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * T::kThreads, r = e / T::kCols, c = e % T::kCols;
+      if (e < mrows * T::kCols && c < ncols) {
+        const int m = m0 + r, n = n0 + c;
+        const size_t i = (size_t)m * N + n;
+        acc_ws[i] = 0;
+        if (outliers) acc_ws[mn + i] = 0;
+        store_out(out, i, w4a8_out(a[u], b[u], outliers, xs, s4, s8, m, n));
+      }
+    }
+  }
+  if (tid == 0) *count = 0;
+}
+
+// A weight map ([rows, N] bytes, boxes 128 x 32, 128-byte swizzle) and a
+// token map ([M, cols] bytes, boxes 32 x toks, 32-byte swizzle), as B1's.
+inline bool i8_weight_map(CUtensorMap* map, const void* w, int rows, int N) {
+  return tensor_map(map, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, rows, N, kI8BoxCols, kI8StageK,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
+}
+inline bool i8_token_map(CUtensorMap* map, const void* q, int M, int cols, int toks) {
+  return tensor_map(map, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, M, cols, kI8StageK, toks,
+                    CU_TENSOR_MAP_SWIZZLE_32B);
+}
+
+// B6's launcher of one block tile (B1's tiles: <4, 1, 1, 1> at decode, <2,
+// 2, 4, 2> above M = 8). q2 [M, 2 * Hp] int8 (Hp % 32 == 0, Hp >= H), w4
+// [H, N] uint8; q8 [M, Tp] int8 (Tp % 16 == 0, Tp >= Tn) and w8 [Tn, N]
+// int8, both unused when Tn == 0; N % 16 == 0, 16-byte aligned weights;
+// stages_per_split * nsplit stages cover the Hp / 32 int4 stages and the
+// ceil(Tn / 32) outlier stages; acc_ws [Tn > 0 ? 2 : 1, M, N] int32 and
+// counters (one int per token tile and column tile), both zero at rest and
+// left zero by the kernel, unused when nsplit == 1. Returns
+// cudaGetLastError() (0 = ok).
+template <int WC, int WT, int TG, int MINB>
+int launch_w4_tile(const int8_t* q2, int Hp, const uint8_t* w4, int H, const int8_t* q8, int Tp,
+                   const int8_t* w8, int Tn, int M, int N, int stages_per_split, int nsplit,
+                   const float* xs, const float* s4, const float* s8, int* acc_ws,
+                   int* counters, void* out, int out_bf16, cudaStream_t st) {
+  using T = I8Tile<WC, WT, TG, true>;
+  // The largest dynamic shared memory set for each output type, per device.
+  static std::atomic<int> smem_set[2][kMaxDevices];
+  CUtensorMap w4map{}, q2map{}, w8map{}, q8map{};
+  if (N % 16 != 0 || Hp % kI8StageK != 0 || Hp < H || Tp < Tn ||
+      !(i8_weight_map(&w4map, w4, H, N) && i8_token_map(&q2map, q2, M, 2 * Hp, T::kToks)) ||
+      (Tn > 0 && !(i8_weight_map(&w8map, w8, Tn, N) &&
+                   i8_token_map(&q8map, q8, M, Tp, T::kToks))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nst4 = Hp / kI8StageK;
+  const int nst = nst4 + (Tn + kI8StageK - 1) / kI8StageK;
+  const dim3 grid((M + T::kToks - 1) / T::kToks, (N + T::kCols - 1) / T::kCols, nsplit);
+  cudaError_t err;
+  if (out_bf16) {
+    auto kern = w4_tc_gemm_kernel<WC, WT, TG, MINB, __nv_bfloat16>;
+    err = ensure_dynamic_smem(kern, smem_set[1], T::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<grid, T::kThreads, T::kSmem, st>>>(w4map, q2map, w8map, q8map, M, nst4, nst, Hp, N,
+                                              stages_per_split, nsplit, xs, s4, s8, acc_ws,
+                                              counters, static_cast<__nv_bfloat16*>(out));
+  } else {
+    auto kern = w4_tc_gemm_kernel<WC, WT, TG, MINB, float>;
+    err = ensure_dynamic_smem(kern, smem_set[0], T::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<grid, T::kThreads, T::kSmem, st>>>(w4map, q2map, w8map, q8map, M, nst4, nst, Hp, N,
+                                              stages_per_split, nsplit, xs, s4, s8, acc_ws,
+                                              counters, static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -13,9 +13,9 @@
 //   int8_gemm_kernel     __dp4a int8 x int8 -> int32 GEMM over [K+S, N]
 //                        int8 weights, split K meeting in an int32
 //                        workspace through atomicAdd (exact, so order-free);
-//                        split_k_grid picks the split (B6's int4 GEMM too).
-//                        B4/B5's int8 paths and B6's outlier rows run it;
-//                        B1 runs i8_tc_gemm.cuh's int8 tensor cores.
+//                        split_k_grid picks the split. B4/B5's int8 paths
+//                        run it; B1 and B6 run i8_tc_gemm.cuh's int8 tensor
+//                        cores.
 //   wo_gemm_kernel       weight-only GEMM on the CUDA cores: float x (staged
 //                        in shared memory as f32, OCS tail gathered there),
 //                        int8 weights converted in registers, f32

@@ -1,5 +1,5 @@
 // The Tensor Memory Accelerator (TMA) and mbarrier pieces the tensor-core
-// GEMMs share (wo_tc_gemm.cuh: B4/B5; i8_tc_gemm.cuh: B1): 2-D tensor maps
+// GEMMs share (wo_tc_gemm.cuh: B4/B5; i8_tc_gemm.cuh: B1/B6): 2-D tensor maps
 // built on the host, box loads into shared memory counted on an mbarrier,
 // and the mbarrier operations of a ring of shared-memory stages.
 

@@ -16,50 +16,104 @@
 // multiply-adds.
 //
 // Design. As for B1 (fused_qmatmul.cu), the TPU kernel's resident [bm, K]
-// row tile does not fit shared memory, so the work is four launches with
-// the kernel's numerics:
-//   1. w4a8_prologue: one block per row computes the row abs-max, the scale
-//      and every value of the expanded int8 row, written split in two halves
+// row tile does not fit shared memory, so a call is two launches with the
+// kernel's numerics:
+//   1. w4a8_prologue: blocks of a row (one for each 4 KB of its q2 row, so
+//      that a decode call's few rows still spread over many SMs) each
+//      compute the row abs-max (16-byte loads) and the scale, and write
+//      their share of the expanded int8 row, split in two halves
 //      q2 [M, 2*Hp]: expanded rows [0, H) at 0 and [H, K+S) at Hp (H =
-//      (K+S)/2, Hp = H rounded up to 16, zero padded), so that the GEMM
-//      reads the activations of the low and the high nibbles of one weight
-//      byte row as two aligned 4-byte words; and the outlier activations
-//      q8 [M, Tp] = q_exp[:, outlier_idx] (zero padded). The TPU's one-hot
-//      gather matmuls become indexed loads: a duplicate or outlier value is
-//      re-quantized from its source channel with the same arithmetic, so
-//      the byte equals the original's.
-//   2. int4_gemm: each thread owns 4 adjacent output columns and TM rows; it
-//      reads one 32-bit word of w4 (4 columns) from each of 4 consecutive
-//      byte rows — every weight byte is read once — transposes the 4x4
-//      bytes with __byte_perm, sign-extends the low and the high nibbles
-//      of each column word in registers (per-byte (v ^ 8) - 8 with
-//      __vsub4) and issues two __dp4a per row and column: low nibbles
-//      against q2[m, j..j+3], high nibbles against q2[m, Hp+j..Hp+j+3].
-//      Split K as in int8_gemm (qmatmul_common.cuh): over threadIdx.y (shared memory) and
-//      blockIdx.z, meeting in the int32 acc4 through atomicAdd (exact, so
-//      order-free).
-//   3. int8_gemm (qmatmul_common.cuh, the __dp4a GEMM): q8 @ w8
-//      into acc8, when T > 0.
-//   4. w4a8_epilogue: out = fma(f32(acc4), scale[m] * s4[n], f32(acc8) *
-//      (scale[m] * s8[n])) when T > 0, f32(acc4) * (scale[m] * s4[n]) when
-//      T == 0 (no +0.0 added, which would turn a -0.0 into +0.0); every
-//      step an explicit _rn intrinsic, so nvcc contracts nothing else;
-//      rounded once to the output type.
-// Tensor-core (mma/wgmma) tiles and TMA are later work.
+//      (K+S)/2, Hp = H rounded up to 32, zero padded), so that each 32-row
+//      stage of the GEMM reads the activations of the low and the high
+//      nibbles of its weight byte rows as two token boxes that never cross
+//      the halves; and the outlier activations q8 [M, Tp] =
+//      q_exp[:, outlier_idx] (Tp = T rounded up to 32, zero padded). The
+//      TPU's one-hot gather matmuls become indexed loads: a duplicate or
+//      outlier value is re-quantized from its source channel with the same
+//      arithmetic, so the byte equals the original's.
+//   2. w4_tc_gemm (i8_tc_gemm.cuh, B1's tile, ring and fragments): the int4 stages
+//      (Hp / 32 of them, 32 byte rows of w4 against both halves' token
+//      boxes, the nibbles unpacked in registers into the A fragments of two
+//      int8 tensor-core k-steps) and then the outlier stages (ceil(T / 32),
+//      B1's int8 stage over w8 and q8) stream through one TMA ring; the
+//      tile and the split of K come from the host's plan
+//      (kernels/w4a8_qmatmul.py); split K meets in a zero-at-rest int32
+//      accumulator [T > 0 ? 2 : 1, M, N] through atomics, and the tile's
+//      last block applies the epilogue in the kernel: out = fma(f32(acc4),
+//      scale[m] * s4[n], f32(acc8) * (scale[m] * s8[n])) when T > 0,
+//      f32(acc4) * (scale[m] * s4[n]) when T == 0 (no +0.0 added, which
+//      would turn a -0.0 into +0.0); every step an explicit _rn intrinsic,
+//      so nvcc contracts nothing else; rounded once to the output type.
+// No memset and no separate epilogue launch. The TMA reads weight rows of a
+// multiple of 16 bytes: the wrapper zero-pads a ragged N.
 //
 // Numerics (bitwise equal to the plain version, w4a8_matmul_ref, and to the
 // reference's compiled w4a8_matmul_ref and interpret-mode kernel):
 // scale = max(amax, 1e-30) * float32(1/qmax); q = clamp(floor(x * (1/scale)
 // + 0.5)), the reciprocal by __fdiv_rn and the multiply and add by
-// __fmul_rn / __fadd_rn; the integer sums are exact.
+// __fmul_rn / __fadd_rn; the integer sums are exact in any order, so
+// neither the tile nor the split moves a bit.
 
-#include "qmatmul_common.cuh"
+#include "i8_tc_gemm.cuh"
 
+namespace rtq {
 namespace {
 
-using namespace rtq;
+// The absolute values of the 16 bytes of x in u, as floats, folded into a
+// running maximum (bf16: 8 values, f32: 4). Exact, and order-free: the same
+// maximum as one value at a time.
+__device__ __forceinline__ float absmax16(float m, uint4 u, const __nv_bfloat16*) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m = fmaxf(m, fabsf(__uint_as_float(w[i] << 16)));
+    m = fmaxf(m, fabsf(__uint_as_float(w[i] & 0xFFFF0000u)));
+  }
+  return m;
+}
+__device__ __forceinline__ float absmax16(float m, uint4 u, const float*) {
+  m = fmaxf(m, fabsf(__uint_as_float(u.x)));
+  m = fmaxf(m, fabsf(__uint_as_float(u.y)));
+  m = fmaxf(m, fabsf(__uint_as_float(u.z)));
+  return fmaxf(m, fabsf(__uint_as_float(u.w)));
+}
 
-// One block per row of x [M, K].
+// row_absmax_scale (qmatmul_common.cuh) with the row read in 16-byte loads
+// from its first 16-byte boundary on (scalar loads before it and after its
+// last whole 16 bytes): at decode a call has one block a row, so the row's
+// load latency is the prologue's time. The same scale, bit for bit.
+template <typename T>
+__device__ float row_absmax_scale16(const T* xr, int n, float inv_qmax, float* red) {
+  constexpr int kV = 16 / sizeof(T);
+  const int head = min(n, static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(xr) & 15)) & 15) /
+                                           sizeof(T)));
+  const int nv = (n - head) / kV;
+  float amax = 0.f;
+  for (int k = threadIdx.x; k < head; k += kQuantThreads) amax = fmaxf(amax, fabsf(load_f32(xr, k)));
+  const uint4* xv = reinterpret_cast<const uint4*>(xr + head);
+#pragma unroll 4
+  for (int v = threadIdx.x; v < nv; v += kQuantThreads) amax = absmax16(amax, __ldg(xv + v), xr);
+  for (int k = head + nv * kV + threadIdx.x; k < n; k += kQuantThreads)
+    amax = fmaxf(amax, fabsf(load_f32(xr, k)));
+  for (int off = 16; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
+  __syncthreads();
+  float m = red[0];
+  for (int w = 1; w < kQuantThreads / 32; ++w) m = fmaxf(m, red[w]);
+  return __fmul_rn(fmaxf(m, 1e-30f), inv_qmax);
+}
+
+// q2 words (4 bytes) a prologue block writes at most: a row's words are
+// shared out among ceil(2 * Hp / 4 / kPrologueWords) blocks.
+constexpr int kPrologueWords = 1024;
+
+// Blocks (row, part) over x [M, K]: every part computes the row's scale (the
+// same bits), part 0 stores it, and each writes its share of the row's
+// expanded int8 values in q2's two halves, the last part the outlier
+// activations in q8 too; 4 bytes a thread and store (2 * Hp and Tp are
+// multiples of 32). At decode a call has few rows, and a row's parts run
+// side by side.
 template <typename T>
 __global__ void __launch_bounds__(kQuantThreads) w4a8_prologue_kernel(
     const T* __restrict__ x, int K, int S, const int* __restrict__ src_tail,
@@ -68,216 +122,103 @@ __global__ void __launch_bounds__(kQuantThreads) w4a8_prologue_kernel(
     float* __restrict__ scale_out) {
   __shared__ float red[kQuantThreads / 32];
   const size_t row = blockIdx.x;
+  const bool last = blockIdx.y == gridDim.y - 1;
   const T* xr = x + row * (size_t)K;
-  const float sc = row_absmax_scale(xr, K, inv_qmax, red);
-  if (threadIdx.x == 0) scale_out[row] = sc;
+  const float sc = row_absmax_scale16(xr, K, inv_qmax, red);
+  if (blockIdx.y == 0 && threadIdx.x == 0) scale_out[row] = sc;
   const float rcp = __fdiv_rn(1.0f, sc);
   const int Ke = K + S;
   const int H = Ke / 2;
-  int8_t* qr = q2 + row * (size_t)(2 * Hp);
+  const int words = (2 * Hp) / 4;
+  const int per = (words + gridDim.y - 1) / gridDim.y;
+  const int w1 = min(words, (int)(blockIdx.y + 1) * per);
   // Expanded row e reads source channel e (e < K) or src_tail[e - K].
-  for (int i = threadIdx.x; i < 2 * Hp; i += kQuantThreads) {
-    const int e = i < Hp ? i : H + (i - Hp);
-    const bool live = i < Hp ? i < H : e < Ke;
-    int8_t v = 0;
-    if (live) v = quant_rcp(load_f32(xr, e < K ? e : src_tail[e - K]), rcp, qmax);
-    qr[i] = v;
-  }
-  if (Tn > 0) {
-    int8_t* q8r = q8 + row * (size_t)Tp;
-    for (int t = threadIdx.x; t < Tp; t += kQuantThreads) {
+  uint32_t* qr = reinterpret_cast<uint32_t*>(q2 + row * (size_t)(2 * Hp));
+  for (int w = blockIdx.y * per + threadIdx.x; w < w1; w += kQuantThreads) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int i = 4 * w + b;
+      const int e = i < Hp ? i : H + (i - Hp);
+      const bool live = i < Hp ? i < H : e < Ke;
       int8_t v = 0;
-      if (t < Tn) {
-        const int e = oidx[t];
-        v = quant_rcp(load_f32(xr, e < K ? e : src_tail[e - K]), rcp, qmax);
+      if (live) v = quant_rcp(load_f32(xr, e < K ? e : src_tail[e - K]), rcp, qmax);
+      word |= static_cast<uint32_t>(static_cast<uint8_t>(v)) << (8 * b);
+    }
+    qr[w] = word;
+  }
+  if (Tn > 0 && last) {
+    uint32_t* q8r = reinterpret_cast<uint32_t*>(q8 + row * (size_t)Tp);
+    for (int w = threadIdx.x; w < Tp / 4; w += kQuantThreads) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int t = 4 * w + b;
+        int8_t v = 0;
+        if (t < Tn) {
+          const int e = oidx[t];
+          v = quant_rcp(load_f32(xr, e < K ? e : src_tail[e - K]), rcp, qmax);
+        }
+        word |= static_cast<uint32_t>(static_cast<uint8_t>(v)) << (8 * b);
       }
-      q8r[t] = v;
+      q8r[w] = word;
     }
   }
 }
 
-// The 4 sign-extended nibbles (low, or high) of a word of packed bytes, as
-// a word of int8 bytes for __dp4a.
-__device__ __forceinline__ int nibbles_lo(uint32_t w) {
-  return static_cast<int>(__vsub4((w & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u));
-}
-__device__ __forceinline__ int nibbles_hi(uint32_t w) {
-  return static_cast<int>(__vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u));
-}
-
-template <int TM>
-__global__ void __launch_bounds__(kGemmTx * kGemmTy) int4_gemm_kernel(
-    const int8_t* __restrict__ q2,  // [M, 2*Hp] zero padded halves
-    const uint8_t* __restrict__ w4,  // [H, N] packed, N % 4 == 0
-    int M, int H, int Hp, int N, int k_chunk,
-    int* __restrict__ acc) {         // [M, N] int32, zeroed
-  __shared__ int red[kGemmTy][TM * 4][kGemmTx];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int n0 = (blockIdx.x * kGemmTx + tx) * 4;
-  const int m0 = blockIdx.y * TM;
-  const int kz0 = blockIdx.z * k_chunk;
-  const int kz1 = min(kz0 + k_chunk, Hp);
-  const bool col_ok = n0 < N;
-
-  int sum[TM][4];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) sum[i][j] = 0;
-
-  for (int k = kz0 + 4 * ty; k < kz1; k += 4 * kGemmTy) {
-    if (!col_ok) continue;
-    uint32_t r[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      r[i] = (k + i < H)
-                 ? __ldg(reinterpret_cast<const unsigned int*>(w4 + (size_t)(k + i) * N + n0))
-                 : 0u;
-    }
-    // 4x4 byte transpose: b[j] holds column n0+j at byte rows k..k+3.
-    const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
-    const uint32_t t1 = __byte_perm(r[2], r[3], 0x5140);
-    const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362);
-    const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
-    uint32_t b[4];
-    b[0] = __byte_perm(t0, t1, 0x5410);
-    b[1] = __byte_perm(t0, t1, 0x7632);
-    b[2] = __byte_perm(t2, t3, 0x5410);
-    b[3] = __byte_perm(t2, t3, 0x7632);
-    int lo[4], hi[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      lo[j] = nibbles_lo(b[j]);
-      hi[j] = nibbles_hi(b[j]);
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int m = m0 + i;
-      int a_lo = 0, a_hi = 0;
-      if (m < M) {
-        const int8_t* qm = q2 + (size_t)m * (2 * Hp);
-        a_lo = __ldg(reinterpret_cast<const int*>(qm + k));
-        a_hi = __ldg(reinterpret_cast<const int*>(qm + Hp + k));
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sum[i][j] = __dp4a(a_lo, lo[j], sum[i][j]);
-        sum[i][j] = __dp4a(a_hi, hi[j], sum[i][j]);
-      }
-    }
+// B6's GEMM launcher. `tile` (the host's choice from M,
+// kernels/w4a8_qmatmul.py's plan, B1's tiles): 0 = 256 columns x 8 tokens a
+// block (decode, M <= 8); 1 = 128 columns x 64 tokens (M > 8), as
+// i8_tc_gemm.cuh's launch_w4_tile describes them.
+inline int w4_tc_launch(int tile, const int8_t* q2, int Hp, const uint8_t* w4, int H,
+                        const int8_t* q8, int Tp, const int8_t* w8, int Tn, int M, int N,
+                        int stages_per_split, int nsplit, const float* xs, const float* s4,
+                        const float* s8, int* acc_ws, int* counters, void* out, int out_bf16,
+                        cudaStream_t st) {
+  switch (tile) {
+    case 0:
+      return launch_w4_tile<4, 1, 1, 1>(q2, Hp, w4, H, q8, Tp, w8, Tn, M, N, stages_per_split,
+                                        nsplit, xs, s4, s8, acc_ws, counters, out, out_bf16, st);
+    case 1:
+      return launch_w4_tile<2, 2, 4, 2>(q2, Hp, w4, H, q8, Tp, w8, Tn, M, N, stages_per_split,
+                                        nsplit, xs, s4, s8, acc_ws, counters, out, out_bf16, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) red[ty][i * 4 + j][tx] = sum[i][j];
-  __syncthreads();
-  if (ty != 0 || !col_ok) return;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + i;
-    if (m >= M) break;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int s = red[0][i * 4 + j][tx];
-#pragma unroll
-      for (int y = 1; y < kGemmTy; ++y) s += red[y][i * 4 + j][tx];
-      if (n0 + j < N) atomicAdd(acc + (size_t)m * N + n0 + j, s);
-    }
-  }
-}
-
-template <int TM>
-void launch_int4_gemm_tm(const int8_t* q2, const uint8_t* w4, int M, int H, int Hp, int N,
-                         int* acc, cudaStream_t st) {
-  int k_chunk;  // int8_gemm's split rule over the Hp byte rows
-  const dim3 grid = split_k_grid(M, Hp, N, TM, &k_chunk);
-  dim3 block(kGemmTx, kGemmTy);
-  int4_gemm_kernel<TM><<<grid, block, 0, st>>>(q2, w4, M, H, Hp, N, k_chunk, acc);
-}
-
-void launch_int4_gemm(const int8_t* q2, const uint8_t* w4, int M, int H, int Hp, int N,
-                      int* acc, cudaStream_t st) {
-  if (M <= 1) {
-    launch_int4_gemm_tm<1>(q2, w4, M, H, Hp, N, acc, st);
-  } else if (M <= 2) {
-    launch_int4_gemm_tm<2>(q2, w4, M, H, Hp, N, acc, st);
-  } else if (M <= 4) {
-    launch_int4_gemm_tm<4>(q2, w4, M, H, Hp, N, acc, st);
-  } else {
-    launch_int4_gemm_tm<8>(q2, w4, M, H, Hp, N, acc, st);
-  }
-}
-
-template <typename TO>
-__global__ void w4a8_epilogue_kernel(const int* __restrict__ acc4,
-                                     const int* __restrict__ acc8,  // null when T == 0
-                                     const float* __restrict__ xs,
-                                     const float* __restrict__ s4,
-                                     const float* __restrict__ s8, int M, int N,
-                                     TO* __restrict__ out) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)M * N) return;
-  const int m = static_cast<int>(i / N);
-  const int n = static_cast<int>(i % N);
-  const float a4 = __int2float_rn(acc4[i]);
-  const float c4 = __fmul_rn(xs[m], s4[n]);
-  float v;
-  if (acc8 != nullptr) {
-    v = __fmaf_rn(a4, c4, __fmul_rn(__int2float_rn(acc8[i]), __fmul_rn(xs[m], s8[n])));
-  } else {
-    v = __fmul_rn(a4, c4);
-  }
-  store_out(out, i, v);
 }
 
 }  // namespace
+}  // namespace rtq
 
 // x_bf16: 1 if x is bfloat16, 0 if float32; out_bf16 likewise for out.
-// Scratch from the caller: q2 [M, 2*Hp] int8 (Hp = (K+S)/2 rounded up to
-// 16), q8 [M, Tp] int8 (Tp = T rounded up to 16; unused when T == 0),
-// scale [M] f32, acc [T > 0 ? 2 : 1, M, N] int32. Returns cudaGetLastError()
-// of the first failing step (0 = ok).
+// w4 [H, N] uint8 and w8 [T, N] int8 with N % 16 == 0, 16-byte aligned
+// (else cudaErrorInvalidValue). Scratch from the caller: q2 [M, 2*Hp] int8
+// (Hp = H rounded up to 32), q8 [M, Tp] int8 (Tp = T rounded up to 32;
+// unused when T == 0), scale [M] f32, and with nsplit > 1 acc_ws [T > 0 ?
+// 2 : 1, M, N] int32 and counters (one int per token tile and column
+// tile), both zero at rest. tile, stages_per_split and nsplit: the host's
+// plan (w4_tc_launch). Returns cudaGetLastError() of the first failing step
+// (0 = ok).
 extern "C" int w4a8_qmatmul_launch(
     const void* x, int x_bf16, int M, int K, int S, const int* src_tail,
     const int* outlier_idx, int Tn, const uint8_t* w4, const float* s4, const int8_t* w8,
     const float* s8, int N, float qmax, float inv_qmax, int8_t* q2, int Hp, int8_t* q8,
-    int Tp, float* scale, int* acc, void* out, int out_bf16, void* stream) {
+    int Tp, float* scale, int tile, int stages_per_split, int nsplit, int* acc_ws,
+    int* counters, void* out, int out_bf16, void* stream) {
   using namespace rtq;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 parts(M, ((2 * Hp) / 4 + kPrologueWords - 1) / kPrologueWords);
   if (x_bf16) {
-    w4a8_prologue_kernel<__nv_bfloat16><<<M, kQuantThreads, 0, st>>>(
+    w4a8_prologue_kernel<__nv_bfloat16><<<parts, kQuantThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x), K, S, src_tail, outlier_idx, Tn, qmax,
         inv_qmax, q2, Hp, q8, Tp, scale);
   } else {
-    w4a8_prologue_kernel<float><<<M, kQuantThreads, 0, st>>>(
+    w4a8_prologue_kernel<float><<<parts, kQuantThreads, 0, st>>>(
         static_cast<const float*>(x), K, S, src_tail, outlier_idx, Tn, qmax, inv_qmax, q2,
         Hp, q8, Tp, scale);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  const size_t mn = (size_t)M * N;
-  err = cudaMemsetAsync(acc, 0, (Tn > 0 ? 2 : 1) * mn * sizeof(int), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  launch_int4_gemm(q2, w4, M, (K + S) / 2, Hp, N, acc, st);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int* acc8 = nullptr;
-  if (Tn > 0) {
-    acc8 = acc + mn;
-    launch_int8_gemm(q8, w8, M, Tn, Tp, N, acc8, st);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-
-  const unsigned int blocks = static_cast<unsigned int>((mn + kEpiThreads - 1) / kEpiThreads);
-  if (out_bf16) {
-    w4a8_epilogue_kernel<__nv_bfloat16><<<blocks, kEpiThreads, 0, st>>>(
-        acc, acc8, scale, s4, s8, M, N, static_cast<__nv_bfloat16*>(out));
-  } else {
-    w4a8_epilogue_kernel<float><<<blocks, kEpiThreads, 0, st>>>(
-        acc, acc8, scale, s4, s8, M, N, static_cast<float*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return w4_tc_launch(tile, q2, Hp, w4, (K + S) / 2, q8, Tp, w8, Tn, M, N, stages_per_split,
+                      nsplit, scale, s4, s8, acc_ws, counters, out, out_bf16, st);
 }

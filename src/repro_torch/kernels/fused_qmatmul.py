@@ -48,6 +48,7 @@ __all__ = [
     "launch",
     "launch_plan",
     "launches",
+    "split_plan",
     "reset_launches",
 ]
 
@@ -60,8 +61,8 @@ launches = 0
 # the H100's 132, tile 1 above M = 8 at two (its occupancy). The
 # contraction goes in stages of 32 rows, split over the grid until the
 # tiles reach the blocks wanted, with at least 4 stages a split; the
-# splits meet in an int32 accumulator [M, N] (zero at rest), so a split
-# needs it within _MAX_ACC_BYTES.
+# splits meet in an int32 accumulator [M, N] (zero at rest; B6's [2, M, N]
+# with outlier rows), so a split needs it within _MAX_ACC_BYTES.
 _TILES = ((8, 256, 132), (64, 128, 264))
 _STAGE_K = 32
 _MIN_SPLIT_STAGES = 4
@@ -99,25 +100,37 @@ def tile_for(m: int) -> int:
     return 0 if m <= 8 else 1
 
 
-@functools.lru_cache(maxsize=1024)
-def launch_plan(m: int, kp: int, n: int) -> Tuple[int, int, int, int, int]:
+def split_plan(m: int, nst: int, n: int, sums: int = 1,
+               one_wave: bool = False) -> Tuple[int, int, int, int, int]:
     """``(tile, stages_per_split, nsplit, accumulator bytes, counter bytes)``
-    of an ``m``-row call over ``kp`` rows of contraction (K + S rounded up
-    to 16) and ``n`` columns: :func:`tile_for`'s tile, the split of the
-    ``ceil(kp / 32)`` stages, and with a split the int32 accumulator
-    ``[m, n]`` and one counter per token tile and column tile."""
+    of an ``m``-row call over ``nst`` 32-row stages and ``n`` columns on the
+    int8 tensor-core GEMM: :func:`tile_for`'s tile, the split of the
+    stages, and with a split the int32 accumulator (``sums`` of ``[m, n]``)
+    and one counter per token tile and column tile. B1 has one sum; B6
+    (``kernels/w4a8_qmatmul.py``) two when it has outlier rows. The splits
+    reach the blocks wanted (B1), or with ``one_wave`` stop short of them,
+    so that no block waits for a second wave (B6 at decode)."""
     tile = tile_for(m)
     toks, cols, want = _TILES[tile]
     tiles = math.ceil(m / toks) * math.ceil(n / cols)
-    nst = math.ceil(kp / _STAGE_K)
-    nsplit = max(1, min(math.ceil(want / tiles), nst // _MIN_SPLIT_STAGES))
-    if 4 * m * n > _MAX_ACC_BYTES:
+    reach = want // tiles if one_wave else math.ceil(want / tiles)
+    nsplit = max(1, min(reach, nst // _MIN_SPLIT_STAGES))
+    acc_bytes = 4 * sums * m * n
+    if acc_bytes > _MAX_ACC_BYTES:
         nsplit = 1
     per = math.ceil(nst / nsplit)
     nsplit = math.ceil(nst / per)
     if nsplit == 1:
         return tile, per, 1, 0, 0
-    return tile, per, nsplit, 4 * m * n, 4 * tiles
+    return tile, per, nsplit, acc_bytes, 4 * tiles
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(m: int, kp: int, n: int) -> Tuple[int, int, int, int, int]:
+    """:func:`split_plan` of an ``m``-row call over ``kp`` rows of
+    contraction (K + S rounded up to 16), ``ceil(kp / 32)`` stages, and
+    ``n`` columns."""
+    return split_plan(m, math.ceil(kp / _STAGE_K), n)
 
 
 def fused_quant_matmul_plain(

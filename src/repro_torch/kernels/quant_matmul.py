@@ -144,9 +144,10 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def padded_cols(n: int, align: int = 4) -> int:
     """The columns a card GEMM runs for ``n`` output columns: ``n`` when
-    ``n % align == 0``, else ``n`` rounded up to 16. B4, B5 and B6 read
-    weights in 4-column words, B1's TMA in rows of a multiple of 16 bytes
-    (``align=16``); rows of 16 bytes also keep B4/B5 on their TMA path. The
+    ``n % align == 0``, else ``n`` rounded up to 16. B4 and B5 read
+    weights in 4-column words, B1's and B6's TMA in rows of a multiple of
+    16 bytes (``align=16``); rows of 16 bytes also keep B4/B5 on their TMA
+    path. The
     rounding never crosses a 128- or 256-column tile, so the split of K,
     and every column below ``n``, is what an aligned call of the same
     columns gives."""

@@ -7,11 +7,22 @@ pallas_call in ``w4a8_qmatmul_kernel``, ``:290``; the wrapper
 layer of the ``w4a8`` serving tier runs. The CUDA source is
 ``csrc/w4a8_qmatmul.cu``: a row prologue (abs-max, reciprocal-form scale,
 the int8 row, the OCS tail and the outlier rows gathered by indexed
-loads), a ``__dp4a`` GEMM that reads each packed weight byte once and
-sign-extends its two nibbles in registers, the ``__dp4a`` int8 GEMM over the outlier
-rows, and the f32 epilogue. What bounds it on the card: the weight bytes at
-decode (half of B1's, plus the outlier rows), the int8 multiply-adds at
-prefill.
+loads) and one launch of the int8 tensor-core GEMM of
+``csrc/i8_tc_gemm.cuh`` (B1's), whose int4 stages unpack both nibbles of
+each packed weight byte in registers and whose outlier stages are B1's
+int8 stage, with the f32 epilogue in it -- two device operations a call.
+What bounds it on the card: the weight bytes at decode (half of B1's,
+plus the outlier rows), the int8 multiply-adds at prefill.
+
+**Plan** (:func:`launch_plan`, from (M, int4 stages, outlier stages, N) on
+the host): B1's tiles and split rule
+(:func:`repro_torch.kernels.fused_qmatmul.split_plan`: a stage of either
+kind is one 32-row weight box, as B1's is), over the int4 stages and then
+the outlier ones, the decode tile's splits kept to one wave of blocks,
+with an accumulator of two sums when there are outlier rows. The row scratch (``q2``, ``q8``, ``scale``), the split-K accumulator
+and its counters are kept per device (:mod:`repro_torch.kernels.scratch`),
+so a steady loop, or a CUDA-graph capture after one sizing call,
+allocates only the output.
 
 **Contract** (``repro_torch.core.ocs.W4A8Linear`` layout): ``w4`` is
 ``[(K+S)/2, N]`` uint8, byte row ``j`` holding expanded rows ``j`` (low
@@ -24,24 +35,37 @@ are bitwise
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
-from . import ref
+from . import ref, scratch
 from .build import load
+from .fused_qmatmul import split_plan, tile_for
 from .quant_matmul import pad_cols, padded_cols
 
 __all__ = [
     "w4a8_matmul_plain",
     "w4a8_matmul_cuda",
+    "launch",
+    "launch_plan",
     "launches",
     "reset_launches",
+    "row_layout",
 ]
 
-# Wrapper calls that launched the CUDA kernel (one per call: the prologue,
-# the two GEMMs and the epilogue of one call count once).
+# Wrapper calls that launched the CUDA kernel (one per call: the prologue
+# and the GEMM of one call count once).
 launches = 0
+
+# Rows of the contraction a GEMM stage (csrc/i8_tc_gemm.cuh). Each half of
+# q2 and q8 are padded to whole stages, so no token box of a stage reads
+# across the halves.
+_STAGE_K = 32
+# The int4 sum enters the tensor cores as 16 x its nibbles: |sum| <= (K+S)
+# * 127 * 128 must stay below 2^31.
+_MAX_KE = (2**31 - 1) // (127 * 128)
 
 _lib = None
 
@@ -62,12 +86,35 @@ def _bind():
             c_void_p, c_void_p, c_void_p, c_void_p, c_int,  # w4, s4, w8, s8, N
             c_float, c_float,  # qmax, inv_qmax
             c_void_p, c_int, c_void_p, c_int,  # q2, Hp, q8, Tp
-            c_void_p, c_void_p,  # scale, acc scratch
+            c_void_p,  # scale
+            c_int, c_int, c_int, c_void_p, c_void_p,  # tile, stages, nsplit, acc, counters
             c_void_p, c_int, c_void_p,  # out, out_bf16, stream
         ]
         fn.restype = c_int
         _lib = fn
     return _lib
+
+
+def row_layout(h: int, t: int) -> Tuple[int, int]:
+    """``(Hp, Tp)``: the columns of each half of ``q2`` (``h`` = (K+S)/2
+    byte rows of ``w4``) and of ``q8`` (``t`` outlier rows), each rounded
+    up to whole 32-row stages; ``q2`` is ``[M, 2 * Hp]``, ``q8`` ``[M,
+    Tp]`` (row strides the TMA reads)."""
+    return h + (-h) % _STAGE_K, t + (-t) % _STAGE_K
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(m: int, st4: int, st8: int, n: int) -> Tuple[int, int, int, int, int]:
+    """``(tile, stages_per_split, nsplit, accumulator bytes, counter bytes)``
+    of an ``m``-row call over ``st4`` int4 stages (``Hp / 32``), ``st8``
+    outlier stages (``Tp / 32``) and ``n`` columns: B1's tiles and split
+    rule over the ``st4 + st8`` stages, int4 ones first, except that the
+    decode tile's splits stop at one wave of blocks (132, one an SM): a
+    B6 decode call reads half of B1's weight bytes, so a second wave's
+    blocks cost more than they add (timed on the card). With a split the
+    int32 accumulator holds ``acc4`` and, with outlier rows, ``acc8``
+    (``[st8 > 0 ? 2 : 1, m, n]``), one split when that is over the bound."""
+    return split_plan(m, st4 + st8, n, 2 if st8 else 1, one_wave=tile_for(m) == 0)
 
 
 def w4a8_matmul_plain(
@@ -123,6 +170,8 @@ def _check(x, w4, s4, w8, s8, src_tail, outlier_idx, bits):
         raise ValueError(f"s4/s8 have {s4.numel()}/{s8.numel()} entries, want N = {n}")
     if not 2 <= bits <= 8:
         raise ValueError(f"bits must be in [2, 8], got {bits}")
+    if ke > _MAX_KE:
+        raise ValueError(f"K + S = {ke} over {_MAX_KE}: the int4 sum would overflow int32")
     if m == 0:
         raise ValueError("empty x")
 
@@ -150,35 +199,46 @@ def w4a8_matmul_cuda(
     out_dtype = out_dtype or torch.float32
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
-    m, k = x.shape
-    kh, n_out = w4.shape
-    # A ragged N runs zero columns up to n (the kernel reads weights in
-    # 4-column words) and is sliced, as the reference's wrapper pads N.
-    n = padded_cols(n_out)
+    n_out = w4.shape[1]
+    n = padded_cols(n_out, 16)  # a ragged N runs zero columns up to n
     w4, s4, w8, s8 = pad_cols(w4, n), pad_cols(s4, n), pad_cols(w8, n), pad_cols(s8, n)
-    s = 2 * kh - k
-    t = outlier_idx.shape[0]
-    hp = kh + (-kh) % 16  # each half of the expanded row, zero padded
-    tp = t + (-t) % 16
-    qmax = float((1 << (bits - 1)) - 1)
-    dev = x.device
-    q2 = torch.empty((m, 2 * hp), dtype=torch.int8, device=dev)
-    q8 = torch.empty((m, tp), dtype=torch.int8, device=dev) if t else None
-    scale = torch.empty((m,), dtype=torch.float32, device=dev)
-    acc = torch.empty((2 if t else 1, m, n), dtype=torch.int32, device=dev)
-    out = torch.empty((m, n), dtype=out_dtype, device=dev)
-    fn = _bind()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), m, k, s,
-        src_tail.data_ptr(), outlier_idx.data_ptr(), t,
-        w4.data_ptr(), s4.data_ptr(), w8.data_ptr(), s8.data_ptr(), n,
-        qmax, ref.inv_qmax(qmax),
-        q2.data_ptr(), hp, q8.data_ptr() if t else None, tp,
-        scale.data_ptr(), acc.data_ptr(),
-        out.data_ptr(), int(out_dtype == torch.bfloat16), stream,
-    )
+    out = torch.empty((x.shape[0], n), dtype=out_dtype, device=x.device)
+    err = launch(_bind(), x, w4, s4, w8, s8, src_tail, outlier_idx, out,
+                 float((1 << (bits - 1)) - 1))
     if err != 0:
         raise RuntimeError(f"w4a8_qmatmul launch failed: cudaError {err}")
     launches += 1
     return out if n == n_out else out[:, :n_out].contiguous()
+
+
+def launch(fn, x, w4, s4, w8, s8, src_tail, outlier_idx, out, qmax: float) -> int:
+    """Run B6's entry point ``fn`` (the prologue and the GEMM) into ``out``
+    with :func:`launch_plan`'s tile and split, the row scratch (``q2`` [M,
+    2 * Hp] int8, ``q8`` [M, Tp] int8 when T > 0, ``scale`` [M] f32:
+    :func:`row_layout`) and, with a split, the int32 accumulator and its
+    counters (zero at rest: the kernel leaves them zero), all kept per
+    device (``scratch``; reuse relies on stream order). Returns the entry
+    point's cudaError (0 = ok)."""
+    m, k = x.shape
+    h, n = w4.shape
+    t = outlier_idx.shape[0]
+    hp, tp = row_layout(h, t)
+    dev = x.device
+    tile, per, nsplit, acc_bytes, count_bytes = launch_plan(
+        m, hp // _STAGE_K, tp // _STAGE_K, n)
+    q2 = scratch.buffer("b6_q2", dev, m * 2 * hp)
+    q8 = scratch.buffer("b6_q8", dev, m * tp).data_ptr() if t else None
+    scale = scratch.buffer("b6_scale", dev, 4 * m)
+    acc = counters = None
+    if nsplit > 1:
+        acc = scratch.buffer("b6_acc", dev, acc_bytes, zeroed=True).data_ptr()
+        counters = scratch.buffer("split_k_counters", dev, count_bytes, zeroed=True).data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return fn(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), m, k, 2 * h - k,
+        src_tail.data_ptr(), outlier_idx.data_ptr(), t,
+        w4.data_ptr(), s4.data_ptr(), w8.data_ptr(), s8.data_ptr(), n,
+        qmax, ref.inv_qmax(qmax),
+        q2.data_ptr(), hp, q8, tp, scale.data_ptr(), tile, per, nsplit, acc, counters,
+        out.data_ptr(), int(out.dtype == torch.bfloat16), stream,
+    )

@@ -1,7 +1,8 @@
 """Wall and device time per call of B2 (paged attention), B5
-(quant_matmul), B4 (ocs_matmul) and B1 (fused_qmatmul) on the card, beside
-their library yardsticks, against this checkout's ``src`` or another's, so
-that a parent and a change can be timed in one call.
+(quant_matmul), B4 (ocs_matmul), B1 (fused_qmatmul) and B6 (w4a8_qmatmul)
+on the card, beside their library yardsticks, against this checkout's
+``src`` or another's, so that a parent and a change can be timed in one
+call.
 
     python3 src/repro_torch/launch/kernel_times.py [--src DIR] [--calls N] [--ragged]
         [--out FILE]
@@ -12,8 +13,10 @@ archive``); without it the ``src`` this file lies in is used. Only the
 wrappers' public calls are used: ``paged_attention_cuda(pool, table, pos,
 q, k_new, v_new)``, ``quant_matmul_cuda(x, w8, w_scale, [x_scale],
 out_dtype=...)``, ``ocs_quant_matmul_cuda(x, w8, w_scale, src_tail,
-[x_scale], tail_mult=..., tail_is_mask=..., out_dtype=...)`` and
-``fused_quant_matmul_cuda(x, w8, w_scale, src_tail, out_dtype=...)``. The cases,
+[x_scale], tail_mult=..., tail_is_mask=..., out_dtype=...)``,
+``fused_quant_matmul_cuda(x, w8, w_scale, src_tail, out_dtype=...)`` and
+``w4a8_matmul_cuda(x, w4, s4, w8, s8, src_tail, outlier_idx,
+out_dtype=...)``. The cases,
 the yardsticks and both timings are
 ``chip_smoke.py``'s (this checkout's, at its root): ``time_ms`` (wall,
 CUDA events around back-to-back calls, host work included) and
@@ -41,6 +44,13 @@ Cases, at glm4-9b's shapes (random data from ``--seed``):
   step; weights cycled as for B4. Yardstick: ``torch._int_mm`` on the
   quantized, zero-padded operands (M padded to 32; its weights cycled),
   then the epilogue (``chip_smoke.b1_times``).
+- B6 (``w4a8_matmul_cuda``): the same shapes as ``to_w4a8(., 0.05)``
+  leaves them (the same OCS tails, T = 209 outlier rows, 699 at
+  ``w_down``), random packed nibbles, bf16 x and out, M = 8 and M = 256,
+  each summed as one 40-layer step; the (w4, w8) pairs cycled past the
+  L2. Yardstick: ``torch._int_mm`` x 2 (the int4 weights unpacked to int8
+  before the timing, and the outlier rows) + the epilogue
+  (``chip_smoke.b6_times``).
 - With ``--ragged`` (wrappers that take a ragged N only): B1, B4, B5 and
   B6 at hymba-1.5b's lm_head, N = 32001, against the same calls on
   weights zero-padded to 32016 columns before the timing
@@ -48,9 +58,9 @@ Cases, at glm4-9b's shapes (random data from ``--seed``):
 - Digests: the sha256 of B4's f32 outputs (wq/wo and w_down shapes with
   their OCS tails, M = 8 and 256, weight-only as ``dense`` calls it and
   int8) and of B5's weight-only ones on the same inputs (the first K rows
-  of the weights), and of B1's f32 and bf16 outputs (wq/wo, w_down and
-  lm_head, M = 8 and 256), so that two checkouts' runs show whose bits
-  moved.
+  of the weights), and of B1's and B6's f32 and bf16 outputs (wq/wo,
+  w_down and lm_head, M = 8 and 256), so that two checkouts' runs show
+  whose bits moved.
 
 Prints one line a case and writes the lot as JSON to ``--out``.
 """
@@ -128,6 +138,84 @@ def b1_digests(seed: int):
                 out[f"{name} M={m} {str(dt)[6:]}"] = hashlib.sha256(
                     raw.cpu().numpy().tobytes()).hexdigest()
     return out
+
+
+# to_w4a8(., 0.05)'s outlier rows at glm4-9b's K + S (4178 -> 209, 13970 -> 699).
+B6_OUTLIERS = {"wq/wo": 209, "wk/wv": 209, "w_gate/w_up": 209, "w_down": 699, "lm_head": 209}
+
+
+def b6_case(gen, k, s, t, n):
+    """Random W4A8 operands at (K, S, T, N): packed nibbles [(K+S)/2, N],
+    both scales, outlier rows [T, N], a tail and sorted outlier indices."""
+    import torch
+
+    w4 = torch.randint(0, 256, ((k + s) // 2, n), generator=gen, device="cuda",
+                       dtype=torch.int32).to(torch.uint8)
+    s4 = torch.rand((n,), generator=gen, device="cuda") * 0.01 + 1e-4
+    w8 = torch.randint(-127, 128, (t, n), generator=gen, device="cuda", dtype=torch.int8)
+    s8 = torch.rand((n,), generator=gen, device="cuda") * 0.001 + 1e-5
+    src = torch.randint(0, k, (s,), generator=gen, device="cuda", dtype=torch.int32)
+    oidx = torch.sort(torch.randperm(k + s, generator=gen, device="cuda")[:t]).values
+    return w4, s4, w8, s8, src, oidx.to(torch.int32)
+
+
+def b6_digests(seed: int):
+    """sha256 of B6's f32 and bf16 outputs on inputs drawn from a fresh
+    generator."""
+    import hashlib
+
+    import torch
+    from repro_torch.kernels import w4a8_qmatmul as w4q
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for name in ("wq/wo", "w_down", "lm_head"):
+        (k, n), _ = B5_SHAPES[name]
+        args = b6_case(gen, k, B4_TAILS[name], B6_OUTLIERS[name], n)
+        for m in (8, 256):
+            x = (torch.randn((m, k), generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
+            for dt in (torch.float32, torch.bfloat16):
+                y = w4q.w4a8_matmul_cuda(x, *args, out_dtype=dt)
+                raw = y.view(torch.int16 if dt == torch.bfloat16 else torch.int32)
+                out[f"{name} M={m} {str(dt)[6:]}"] = hashlib.sha256(
+                    raw.cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def b6_rows(gen, calls: int):
+    """B6's rows at M = 8 and 256 and each M's calls of one step, timed with
+    ``chip_smoke.b6_times`` (the ``_int_mm`` x 2 + epilogue yardstick)."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import w4a8_qmatmul as w4q
+
+    rows = []
+    steps = {m: dict(ms=0.0, device_ms=0.0, library_ms=0.0, library_device_ms=0.0)
+             for m in (8, 256)}
+    for name, ((k, n), per_step) in B5_SHAPES.items():
+        s, t = B4_TAILS[name], B6_OUTLIERS[name]
+        w4, s4, w8, s8, src, oidx = b6_case(gen, k, s, t, n)
+        nbytes = w4.numel() + w8.numel()
+        copies = [(w4, w8)] + [(w4.clone(), w8.clone())
+                               for _ in range(math.ceil(2 * cs.L2_BYTES / nbytes) - 1)]
+        for m in (8, 256):
+            x = (torch.randn((m, k), generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
+            run = cs.cycling(lambda ws: w4q.w4a8_matmul_cuda(
+                x, ws[0], s4, ws[1], s8, src, oidx, out_dtype=torch.bfloat16), copies)
+            tm = cs.b6_times(run, x, w4, s4, w8, s8, src, oidx, calls)
+            rows.append(dict(kernel="B6", names=name, M=m, K=k, S=s, T=t, N=n, **tm))
+            print(f"B6 {name} M={m} K={k}+{s} T={t} N={n}: ms={tm['ms']:.4f} device_ms="
+                  f"{tm['device_ms']:.4f} library_ms={tm['library_ms']:.4f} library_device_ms="
+                  f"{tm['library_device_ms']:.4f}", flush=True)
+            for key in steps[m]:
+                steps[m][key] += per_step * tm[key]
+        del copies
+    for m, tm in steps.items():
+        print(f"B6 one {LAYERS}-layer step's M={m} calls (7 x {LAYERS} + lm_head): "
+              f"ms={tm['ms']:.3f} device_ms={tm['device_ms']:.3f} library_ms="
+              f"{tm['library_ms']:.3f} library_device_ms={tm['library_device_ms']:.3f}",
+              flush=True)
+    return rows, steps
 
 
 def b1_rows(gen, calls: int):
@@ -310,18 +398,24 @@ def main(argv=None) -> int:
           f"{b4_step['library_ms']:.3f} library_device_ms={b4_step['library_device_ms']:.3f}")
     more, b1_steps = b1_rows(gen, args.calls)
     rows += more
+    more, b6_steps = b6_rows(gen, args.calls)
+    rows += more
     digests = b4_digests(args.seed + 1)
     for key, d in digests.items():
         print(f"B4 {key}: sha256 {d}")
     b1_sha = b1_digests(args.seed + 2)
     for key, d in b1_sha.items():
         print(f"B1 {key}: sha256 {d}")
+    b6_sha = b6_digests(args.seed + 3)
+    for key, d in b6_sha.items():
+        print(f"B6 {key}: sha256 {d}")
     if args.ragged:
         rows += ragged_rows(gen, args.calls)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(card=card, rows=rows, b5_step=step, b4_step=b4_step,
-                                   b1_steps=b1_steps, b4_sha256=digests, b1_sha256=b1_sha),
+                                   b1_steps=b1_steps, b6_steps=b6_steps, b4_sha256=digests,
+                                   b1_sha256=b1_sha, b6_sha256=b6_sha),
                               indent=1))
     return 0
 

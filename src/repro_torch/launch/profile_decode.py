@@ -40,9 +40,12 @@ from ..serving import EngineConfig, Request, ServingEngine
 FAMILIES = (
     ("fused_qmatmul: row_quant", ("row_quant_kernel",)),
     ("w4a8_qmatmul: prologue", ("w4a8_prologue_kernel",)),
-    ("int4_gemm (w4a8_qmatmul)", ("int4_gemm_kernel",)),
+    ("int4_gemm (w4a8_qmatmul before its tensor cores)", ("int4_gemm_kernel",)),
     ("i8_tc_gemm (fused_qmatmul, int8 tensor cores, epilogue fused)", ("i8_tc_gemm_kernel",)),
-    ("int8_gemm (w4a8_qmatmul's outlier rows; quant_/ocs_matmul int8)", ("int8_gemm_kernel",)),
+    ("w4_tc_gemm (w4a8_qmatmul's int4 and outlier stages, int8 tensor cores, epilogue fused)",
+     ("w4_tc_gemm_kernel",)),
+    ("int8_gemm (quant_/ocs_matmul int8; w4a8_qmatmul's outlier rows before its tensor cores)",
+     ("int8_gemm_kernel",)),
     ("wo_tc_gemm (quant_matmul, bf16 tensor cores)", ("wo_tc_gemm_kernel",)),
     ("wo_gemm (ocs_matmul; quant_matmul's f32 x)", ("wo_gemm_kernel",)),
     ("epilogue", ("epilogue_kernel",)),

@@ -381,7 +381,13 @@ def test_ocs_matmul_cuda_refuses_before_launch():
 
 
 # (M, K, N, S, T, x dtype): ragged shapes (N % 4 == 0), T == 0 and S == 0,
-# and glm4-9b's K+S = 4178 (T = 209) and 13970 (T = 699).
+# and glm4-9b's K+S = 4178 (T = 209) and 13970 (T = 699); the decode and
+# the 64-token tiles on either side of M = 8 (9, and 40: a verify of 8 x
+# 5), an odd K+S (309, padded as to_w4a8 pads it), T = 1 and T = 33 (one
+# outlier stage, two), N = 37 (run on 48 columns), a split whose stage
+# ranges cross from the int4 stages into the outlier ones (wk/wv at M = 8:
+# 15 splits), and the lm_head's width at M = 256 (one split: the
+# accumulator's bound).
 W4A8_CASES = [
     (5, 300, 72, 8, 0, torch.float32),
     (33, 250, 52, 6, 13, torch.bfloat16),
@@ -389,19 +395,34 @@ W4A8_CASES = [
     (1, 4096, 4096, 82, 209, torch.bfloat16),
     (8, 13696, 256, 274, 699, torch.bfloat16),
     (256, 4096, 512, 82, 209, torch.bfloat16),
+    (9, 4096, 4096, 82, 209, torch.bfloat16),
+    (40, 4096, 4096, 82, 209, torch.float32),
+    (7, 301, 64, 8, 20, torch.bfloat16),
+    (8, 1000, 128, 6, 1, torch.bfloat16),
+    (24, 1000, 256, 6, 33, torch.float32),
+    (5, 300, 37, 8, 13, torch.bfloat16),
+    (8, 4096, 256, 82, 209, torch.bfloat16),
+    (256, 4096, 151552, 82, 209, torch.bfloat16),
 ]
 
 
 def _w4a8_case(m, k, n, s, t, dt, seed):
+    """Random W4A8 operands; an odd K+S gets what ``to_w4a8`` gives it: a
+    dead tail entry (src 0) and a zero last expanded row (the high nibble
+    of the last byte row)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = (torch.randn((m, k), generator=g, device="cuda") * 2.0).to(dt)
-    w4 = torch.randint(0, 256, ((k + s) // 2, n), generator=g, device="cuda",
+    ke = k + s + (k + s) % 2
+    w4 = torch.randint(0, 256, (ke // 2, n), generator=g, device="cuda",
                        dtype=torch.int32).to(torch.uint8)
     s4 = torch.rand((n,), generator=g, device="cuda") * 0.01 + 1e-4
     w8 = torch.randint(-127, 128, (t, n), generator=g, device="cuda", dtype=torch.int8)
     s8 = torch.rand((n,), generator=g, device="cuda") * 0.001 + 1e-5
     src = torch.randint(0, k, (s,), generator=g, device="cuda", dtype=torch.int32)
     oidx = torch.sort(torch.randperm(k + s, generator=g, device="cuda")[:t]).values
+    if ke > k + s:
+        src = torch.cat([src, torch.zeros((1,), dtype=torch.int32, device="cuda")])
+        w4[-1] &= 0x0F
     return x, w4, s4, w8, s8, src, oidx.to(torch.int32)
 
 
@@ -420,6 +441,54 @@ def test_w4a8_qmatmul_cuda_bitwise(m, k, n, s, t, dt):
         assert tw4.launches == n0 + 1
         assert _same_bits(got, want), out_dtype
         assert _same_bits(tw4.w4a8_matmul_cuda(*args, out_dtype=out_dtype), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,s,t,dt", [c for c in W4A8_CASES if c[0] > 1])
+def test_w4a8_qmatmul_rows_independent_of_call_rows_cuda(m, k, n, s, t, dt):
+    """Each row of an M-row B6 call is bitwise the same row called alone
+    (f32 out), whatever tile and split the M-row call ran: the verify
+    contract."""
+    cuda_or_skip()
+    x, *rest = _w4a8_case(m, k, n, s, t, dt, m * 7 + k + t)
+    got = tw4.w4a8_matmul_cuda(x, *rest)
+    for r in range(m):
+        alone = tw4.w4a8_matmul_cuda(x[r:r + 1].contiguous(), *rest)
+        assert _same_bits(alone, got[r:r + 1]), r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(8, 4096), (8, 256), (256, 4096)])
+def test_w4a8_qmatmul_split_leaves_workspace_zero_cuda(m, n):
+    """Repeated B6 calls with a split K (glm4-9b's wq/wo at M = 8 and 256,
+    wk/wv at M = 8, whose splits cross into the outlier stages) give the
+    same bits, count one launch each, reuse the kept scratch after the
+    first call, and leave the two-sum accumulator and the counters at zero;
+    a call captured in a CUDA graph and replayed gives them too."""
+    from repro_torch.kernels import scratch
+
+    cuda_or_skip()
+    args = _w4a8_case(m, 4096, n, 82, 209, torch.bfloat16, m + n)
+    hp, tp = tw4.row_layout(2089, 209)
+    assert tw4.launch_plan(m, hp // 32, tp // 32, n)[2] > 1
+    first = tw4.w4a8_matmul_cuda(*args, out_dtype=torch.bfloat16)
+    kept = {key: buf.data_ptr() for key, buf in scratch._bufs.items()}
+    n0 = tw4.launches
+    for _ in range(3):
+        assert _same_bits(tw4.w4a8_matmul_cuda(*args, out_dtype=torch.bfloat16), first)
+    assert tw4.launches == n0 + 3
+    assert {key: buf.data_ptr() for key, buf in scratch._bufs.items()} == kept
+    torch.cuda.synchronize()
+    for key in ("b6_acc", "split_k_counters"):
+        assert int(scratch.buffer(key, first.device, 0).count_nonzero()) == 0, key
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = tw4.w4a8_matmul_cuda(*args, out_dtype=torch.bfloat16)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _same_bits(replayed, first)
+    assert {key: buf.data_ptr() for key, buf in scratch._bufs.items()} == kept
+    assert int(scratch.buffer("b6_acc", first.device, 0).count_nonzero()) == 0
 
 
 @pytest.mark.cuda

@@ -4,8 +4,9 @@ The kernels run only on the card, but what their wrappers decide before a
 launch is plain Python: B2's split of the block table into chunks and the
 size of its merge workspace, the tensor-core tiles and split of K that B5
 and B4 share (B4's over the virtual rows of its OCS tail), B1's int8
-tensor-core tile and split (free to follow M: its sums are integers), the
-columns a ragged N runs, the workspaces
+tensor-core tile and split (free to follow M: its sums are integers), B6's
+on the same GEMM over its int4 and outlier stages, the columns a ragged N
+runs, the workspaces
 the wrappers keep between calls, and the scales handed to the epilogues. A
 row's bits must not depend on the call's row count or on the lanes'
 positions (the verify contract), so these plans may follow only from the
@@ -26,6 +27,7 @@ from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import quant_matmul as tqm
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import scratch
+from repro_torch.kernels import w4a8_qmatmul as tw4
 
 # (T, ps, hd): glm4-9b's serving table (max_len 512, pages of 16, hd 128),
 # a long context, the smoke model's head width, the card tests' small pages,
@@ -532,8 +534,8 @@ def test_b1_launch_hands_the_plan_and_kept_scratch_to_the_kernel(monkeypatch):
                                     (32001, 32016), (1, 16), (151552, 151552)])
 def test_ragged_n_runs_padded_to_16(n, want):
     """A ragged N (N % 4 != 0) runs on the card zero-padded to a multiple of
-    16 (B4/B5 on their TMA path, B6's 4-column words), B1 any N % 16 != 0
-    (its TMA's rows), and the padding never crosses a 128- or 256-column
+    16 (B4/B5 on their TMA path), B1 and B6 any N % 16 != 0 (their TMA's
+    rows), and the padding never crosses a 128- or 256-column
     tile, so the split of K, and every column below N, is that of an
     aligned call of the same columns; an N the kernels take as it is runs
     unpadded."""
@@ -547,8 +549,141 @@ def test_ragged_n_runs_padded_to_16(n, want):
     assert tqm.wo_split_plan(4178, want) == tqm.wo_split_plan(4178, n)
     for m in (8, 256):
         assert tfq.launch_plan(m, 4192, b1)[:3] == tfq.launch_plan(m, 4192, n)[:3]
+        assert tw4.launch_plan(m, 66, 7, b1)[:3] == tw4.launch_plan(m, 66, 7, n)[:3]
     w8 = torch.ones((3, n), dtype=torch.int8)
     p = tqm.pad_cols(w8, want)
     assert p.shape == (3, want) and p.is_contiguous()
     assert torch.equal(p[:, :n], w8) and int(p[:, n:].count_nonzero()) == 0
     assert tqm.pad_cols(w8, n) is w8
+
+
+# glm4-9b's W4A8 linear shapes (K + S, T, N) as to_w4a8(., 0.05) leaves the
+# serving tree (H = (K+S)/2 byte rows of nibbles, T outlier rows), and B6's
+# plan at a decode step (M = 8) and a prefill (M = 256) as (tile, stages a
+# split, splits, accumulator bytes, counter bytes): the accumulator holds
+# acc4 and acc8, [2, M, N].
+B6_PLANS = {
+    "wq/wo": ((4178, 209, 4096), (0, 10, 8, 262144, 64), (1, 25, 3, 8388608, 512)),
+    "wk/wv": ((4178, 209, 256), (0, 5, 15, 16384, 4), (1, 5, 15, 524288, 32)),
+    "w_gate/w_up": ((4178, 209, 13696), (0, 37, 2, 876544, 216), (1, 73, 1, 0, 0)),
+    "w_down": ((13970, 699, 4096), (0, 31, 8, 262144, 64), (1, 81, 3, 8388608, 512)),
+    "lm_head": ((4178, 209, 151552), (0, 73, 1, 0, 0), (1, 73, 1, 0, 0)),
+}
+# A decode row, a decode step, the tile switch, a verify of 8 x 5, prefill.
+B6_MS = (1, 8, 9, 40, 256, 512)
+
+
+def _b6_stages(ke, t):
+    hp, tp = tw4.row_layout(ke // 2, t)
+    return hp // 32, tp // 32
+
+
+@pytest.mark.parametrize("name", list(B6_PLANS))
+def test_b6_launch_plan_at_glm4_9b(name):
+    """B6's plan at a decode step and a prefill: B1's tiles and split rule
+    over its int4 stages (ceil(H / 32)) and outlier stages (ceil(T / 32)),
+    at decode as many splits as one wave of 132 blocks holds (B1 reaches
+    past it: 9 splits of wq/wo's 16 column tiles, where B6 takes 8); the
+    lm_head's tiles fill the SMs alone, and at M = 256 its two-sum
+    accumulator would be 310 MB, over the bound, so it is one split at
+    either M."""
+    (ke, t, n), decode, prefill = B6_PLANS[name]
+    st4, st8 = _b6_stages(ke, t)
+    assert tw4.launch_plan(8, st4, st8, n) == decode
+    assert tw4.launch_plan(256, st4, st8, n) == prefill
+
+
+@pytest.mark.parametrize("m", B6_MS)
+@pytest.mark.parametrize("name", list(B6_PLANS))
+def test_b6_launch_plan_covers_both_kinds_of_stages(name, m):
+    """At every row count: B1's tile for M; each half of q2 and q8 padded
+    to whole 32-row stages (no token box reads across the halves, and the
+    row strides are multiples of 16 bytes, as the TMA wants); the splits
+    cover the int4 stages and the outlier stages exactly, int4 first; with
+    a split the accumulator holds both sums, [2, M, N], within its bound,
+    and one counter per token tile and column tile; one split whenever the
+    bound binds, and then neither."""
+    (ke, t, n), _, _ = B6_PLANS[name]
+    h = ke // 2
+    hp, tp = tw4.row_layout(h, t)
+    assert hp % 32 == 0 and 0 <= hp - h < 32 and tp % 32 == 0 and 0 <= tp - t < 32
+    st4, st8 = hp // 32, tp // 32
+    assert (st4, st8) == (math.ceil(h / 32), math.ceil(t / 32))
+    tile, per, nsplit, acc_bytes, count_bytes = tw4.launch_plan(m, st4, st8, n)
+    assert (tile, per, nsplit, acc_bytes, count_bytes) == tfq.split_plan(
+        m, st4 + st8, n, 2, one_wave=m <= 8)
+    assert tile == tfq.tile_for(m)
+    assert (nsplit - 1) * per < st4 + st8 <= nsplit * per
+    toks, cols, want = tfq._TILES[tile]
+    tiles = math.ceil(m / toks) * math.ceil(n / cols)
+    if tile == 0 and nsplit > 1:
+        assert tiles * nsplit <= want == 132
+    if 8 * m * n > tfq._MAX_ACC_BYTES:
+        assert nsplit == 1
+    if nsplit == 1:
+        assert (acc_bytes, count_bytes) == (0, 0)
+    else:
+        assert per >= 4
+        assert acc_bytes == 2 * 4 * m * n <= tfq._MAX_ACC_BYTES
+        assert count_bytes == 4 * tiles
+
+
+@pytest.mark.parametrize("h,t,want", [(2089, 209, (2112, 224)), (6985, 699, (7008, 704)),
+                                      (155, 1, (160, 32)), (500, 33, (512, 64)),
+                                      (64, 0, (64, 0)), (1, 32, (32, 32))])
+def test_b6_row_layout_pads_to_whole_stages(h, t, want):
+    """q2's halves and q8 at glm4-9b's shapes, an odd byte-row count (K+S =
+    309 padded to 310), T = 1, 33 and 0, and one byte row; with T == 0 there
+    are no outlier stages and the plan has one sum."""
+    assert tw4.row_layout(h, t) == want
+    if t == 0:
+        assert tw4.launch_plan(8, want[0] // 32, 0, 4096) == tfq.split_plan(
+            8, want[0] // 32, 4096, 1, one_wave=True)
+
+
+def test_b6_launch_hands_the_plan_and_kept_scratch_to_the_kernel(monkeypatch):
+    """``launch`` hands B6's entry point the plan, the row layout, the kept
+    row scratch and, with a split, the kept two-sum accumulator and
+    counters, both zeroed (a stand-in entry point records the calls;
+    nothing launches); equal calls reuse the same buffers; a call with one
+    split passes neither, and a call without outlier rows no q8."""
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: type("Stream", (), {"cuda_stream": 7}))
+    scratch.clear()
+    dev = torch.device("cpu")
+
+    def calls_of(m, n, t, reps):
+        x = torch.zeros((m, 4096), dtype=torch.bfloat16)
+        w4 = torch.zeros((2089, n), dtype=torch.uint8)
+        w8 = torch.zeros((t, n), dtype=torch.int8)
+        ws, src = torch.ones(n), torch.zeros(82, dtype=torch.int32)
+        oidx = torch.arange(t, dtype=torch.int32)
+        out = torch.empty((m, n), dtype=torch.bfloat16)
+        calls = []
+        for _ in range(reps):
+            assert tw4.launch(lambda *a: calls.append(a) or 0, x, w4, ws, w8, ws, src, oidx,
+                              out, 127.0) == 0
+        return calls
+
+    a, b = calls_of(8, 4096, 209, 2)
+    assert a == b
+    assert a[2:5] == (8, 4096, 82) and a[7] == 209 and a[12] == 4096  # M, K, S; T; N
+    assert a[13:15] == (127.0, tref.inv_qmax(127.0))
+    assert (a[16], a[18]) == (2112, 224)  # Hp, Tp
+    assert a[20:23] == (0, 10, 8)  # tile, stages a split, splits
+    assert a[15] == scratch.buffer("b6_q2", dev, 0).data_ptr()
+    assert a[17] == scratch.buffer("b6_q8", dev, 0).data_ptr()
+    assert a[19] == scratch.buffer("b6_scale", dev, 0).data_ptr()
+    acc = scratch.buffer("b6_acc", dev, 0)
+    counters = scratch.buffer("split_k_counters", dev, 0)
+    assert (a[23], a[24]) == (acc.data_ptr(), counters.data_ptr())
+    assert acc.numel() >= 2 * 4 * 8 * 4096 and counters.numel() >= 4 * 16
+    assert int(acc.count_nonzero()) == 0 and int(counters.count_nonzero()) == 0
+    assert scratch.buffer("b6_q2", dev, 0).numel() >= 8 * 2 * 2112
+    (c,) = calls_of(256, 151552, 209, 1)
+    assert c[20:25] == (1, 73, 1, None, None) and c[-2:] == (1, 7)
+    assert scratch.buffer("b6_q2", dev, 0).numel() >= 256 * 2 * 2112
+    (d,) = calls_of(8, 4096, 0, 1)
+    assert d[7] == 0 and d[17] is None and d[18] == 0
+    assert d[20:23] == tfq.split_plan(8, 66, 4096, 1, one_wave=True)[:3]
+    scratch.clear()
