@@ -28,15 +28,18 @@ Phases (any failure raises, and the script exits non-zero with no result):
    lanes, ragged positions, one all-trash lane, a NaN-poisoned trash page,
    Q = 1): appended pools bitwise, outputs within ``B2_ATOL``; the same
    at pages of 1 and 2 rows (untimed).
-   ``ocs_matmul`` (B4) weight-only at every shape with M in {1, 8, 256},
-   on the bf16 tensor cores with the OCS tail gathered in the kernel (the
-   route ``dense`` takes; checked by the wrapper's count of CUDA-core
-   calls): f32 outputs within the summation-order bound
-   (``WO_TOL_FACTOR``), bf16 outputs within it plus one bf16 ulp; its
-   CUDA-core route (f32 x) once a shape at M = 8, within the same bound;
-   int8 mode at M in {8, 256}: bitwise. A
-   ``w_down`` prefill long enough to run in two row chunks (the bound on
-   the split-K workspace): rows bitwise an 8-row call's, within the bound.
+   ``ocs_matmul`` (B4) weight-only at every shape with M in {1, 8, 64,
+   256}, on the bf16 tensor cores with the OCS tail gathered in the kernel
+   (the route ``dense`` takes; checked by the wrapper's count of CUDA-core
+   calls; the decode tile or the prefill tile by ``quant_matmul.tc_plan``):
+   f32 outputs within the summation-order bound (``WO_TOL_FACTOR``), bf16
+   outputs within it plus one bf16 ulp, the first 8 rows of each M = 64
+   and M = 256 call bitwise an 8-row call's (the decode tile's); its CUDA-core route (f32 x)
+   once a shape at M = 8, within the same bound; int8 mode at M in {8,
+   256}: bitwise. A ``w_down`` prefill of 519 rows (the decode tile would
+   have run it in two row chunks to bound its split-K workspace): rows at
+   the start, the middle and the end bitwise an 8-row call's, within the
+   bound.
    ``paged_attention`` with Q > 1 query tokens per lane (B2', the
    speculative verify; Q in {2, 5, 17}) on the three pool kinds: pools
    bitwise, outputs within ``B2_ATOL``, every row bitwise the sequential
@@ -566,13 +569,27 @@ def wo_times(run_kern, xeb, ws, wb_copies, iters):
     weight copies) and of its library yardstick: bf16 ``torch.matmul`` of
     the materialized expanded activations ``xeb`` and the weights converted
     to bf16 before the timing (``wb_copies``), then the column scales
-    ``ws``. Device times are CUDA graphs of the same calls."""
+    ``ws``. Device times are CUDA graphs of the same calls. Where the
+    contraction (K + S) is not a multiple of 16, also the same product with
+    both operands zero-padded to one (exact: the padding adds zero
+    products), as ``library_aligned_ms`` and ``library_aligned_device_ms``:
+    rows of K + S bf16 that are not 16-byte multiples may keep the library
+    off its aligned kernels."""
     import torch
 
     run_lib = cycling(lambda wb: torch.matmul(xeb, wb) * ws, wb_copies)
-    return dict(ms=time_ms(run_kern, iters), library_ms=time_ms(run_lib, iters),
-                device_ms=graph_ms(run_kern, iters),
-                library_device_ms=graph_ms(run_lib, iters))
+    t = dict(ms=time_ms(run_kern, iters), library_ms=time_ms(run_lib, iters),
+             device_ms=graph_ms(run_kern, iters), library_device_ms=graph_ms(run_lib, iters))
+    ke = xeb.shape[1]
+    pad = (-ke) % 16
+    if pad:
+        xep = torch.nn.functional.pad(xeb, (0, pad))
+        wp_copies = [torch.nn.functional.pad(wb, (0, 0, 0, pad)) for wb in wb_copies]
+        run_al = cycling(lambda wb: torch.matmul(xep, wb) * ws, wp_copies)
+        t.update(library_aligned_ms=time_ms(run_al, iters),
+                 library_aligned_device_ms=graph_ms(run_al, iters))
+        del wp_copies
+    return t
 
 
 def wo_tol(xe, w8, ws, k, s):
@@ -618,11 +635,14 @@ def matmul_bound_ms(m, k, s, n, *, x_bytes, out_bytes, peak_ops):
 def kernel_phase_wo(label, qparams, gen, iters):
     """B4 (``ocs_matmul``, the OCS tree) or B5 (``quant_matmul``, the
     clip-only tree) at every glm4-9b linear shape: weight-only at M in {1,
-    8, 256} (f32 outputs within the summation-order bound, bf16 outputs
-    within it plus one bf16 ulp; timed with bf16 outputs, as ``dense`` calls
-    it, wall and device), int8 at M in {8, 256} (bitwise). B4's bf16 calls
-    must all take the tensor cores; its CUDA-core route (f32 x) is checked
-    once a shape at M = 8, within the same bound."""
+    8, 64, 256} (f32 outputs within the summation-order bound, bf16 outputs
+    within it plus one bf16 ulp; at M >= 64 the first 8 rows bitwise an
+    8-row call's, the decode tile's, whichever tile the call took; timed with bf16
+    outputs, as ``dense`` calls it, wall and device; each row names the
+    tile ``quant_matmul.tc_plan`` gave the call), int8 at M in {8, 256}
+    (bitwise). B4's bf16 calls must all take the tensor cores; its
+    CUDA-core route (f32 x) is checked once a shape at M = 8, within the
+    same bound."""
     import torch
     from repro_torch.kernels import ocs_matmul as om
     from repro_torch.kernels import quant_matmul as qm
@@ -662,11 +682,15 @@ def kernel_phase_wo(label, qparams, gen, iters):
         copies = cycled(w8)
         wb_copies = cycled(w8.to(torch.bfloat16))
         n_cuda_cores = om.launches_cuda_cores
-        for m in (1, 8, 256):
+        for m in (1, 8, 64, 256):
             x = (torch.randn((m, k), generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
             xe = torch.cat([x.float(), x[:, src.long()].float() * mult], 1) if s else x.float()
+            tile = qm.TC_TILE_NAMES[qm.tc_plan(m, k, qm.tc_rows(k, s), n, qm._MAX_PART_BYTES)[0]]
             got, want = kern(x, w8, torch.float32), plain(x, torch.float32)
             torch.cuda.synchronize()
+            if m > 8 and not same_bits(kern(x[:8].contiguous(), w8, torch.float32), got[:8]):
+                raise AssertionError(f"{label} {names} M={m} ({tile} tile): rows 0..7 differ "
+                                     "from an 8-row call's")
             tol = wo_tol(xe, w8, ws, k, s)
             err = (got - want).abs()
             ratio = (err / tol.clamp_min(1e-30)).max().item()
@@ -686,14 +710,17 @@ def kernel_phase_wo(label, qparams, gen, iters):
             bound, by = matmul_bound_ms(m, k, s, n, x_bytes=2, out_bytes=2,
                                         peak_ops=BF16_FLOPS)
             err_max = err.max().item()
-            rows.append(dict(mode="weight-only", names=names, M=m, K=k, S=s, N=n,
+            rows.append(dict(mode="weight-only", names=names, M=m, K=k, S=s, N=n, tile=tile,
                              plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                              max_abs_err=err_max, tol_share=ratio, bf16_steps=ulps, **t))
-            log(f"{label} weight-only {'/'.join(names)} M={m} K={k}+{s} N={n}: kernel_ms="
-                f"{t['ms']:.4f} device_ms={t['device_ms']:.4f} plain_ms={plain_ms:.4f} "
-                f"library_ms={t['library_ms']:.4f} library_device_ms="
-                f"{t['library_device_ms']:.4f} bound_ms={bound:.4f} ({by}) f32 max|d|="
-                f"{err_max:.3g} ({ratio:.3g} of bound), bf16 within bound + 1 ulp")
+            aligned = (f" library_aligned_device_ms={t['library_aligned_device_ms']:.4f}"
+                       if "library_aligned_device_ms" in t else "")
+            log(f"{label} weight-only {'/'.join(names)} M={m} K={k}+{s} N={n} ({tile} tile): "
+                f"kernel_ms={t['ms']:.4f} device_ms={t['device_ms']:.4f} plain_ms="
+                f"{plain_ms:.4f} library_ms={t['library_ms']:.4f} library_device_ms="
+                f"{t['library_device_ms']:.4f}{aligned} bound_ms={bound:.4f} ({by}) f32 "
+                f"max|d|={err_max:.3g} ({ratio:.3g} of bound), bf16 within bound + 1 ulp"
+                + (", rows 0..7 bitwise an 8-row call's" if m > 8 else ""))
         del wb_copies
         if om.launches_cuda_cores != n_cuda_cores:
             raise AssertionError(f"{label} {names}: bf16 x left the tensor cores")
@@ -713,8 +740,8 @@ def kernel_phase_wo(label, qparams, gen, iters):
             log(f"{label} f32 x (CUDA-core route) {'/'.join(names)} M=8 K={k}+{s} N={n}: "
                 f"f32 max|d|={err.max().item():.3g} ({ratio:.3g} of bound)")
         if names == ["w_down"]:
-            rows.append(wo_chunk_case(label, kern, plain, k, s, n, w8, ws, src, mult, gen,
-                                      iters))
+            rows.append(wo_long_case(label, kern, plain, k, s, n, w8, ws, src, mult, gen,
+                                     iters))
         for m in (8, 256):
             x8 = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
                                dtype=torch.int8)
@@ -767,19 +794,23 @@ def kernel_phase_wo(label, qparams, gen, iters):
     return rows
 
 
-def wo_chunk_case(label, kern, plain, k, s, n, w8, ws, src, mult, gen, iters):
-    """A prefill long enough that the weight-only GEMM runs in two row
-    chunks (``quant_matmul.wo_row_chunk``, which bounds its split-K
-    workspace): rows at the start, across the chunk boundary and at the end
-    bitwise the same rows in an 8-row call; every output within the
-    summation-order bound of the plain version; timed."""
+def wo_long_case(label, kern, plain, k, s, n, w8, ws, src, mult, gen, iters):
+    """A prefill of the w_down shape long enough that the decode tile would
+    run it in two row chunks (``quant_matmul.wo_row_chunk``, which bounds
+    the split-K workspace; 519 rows): rows at the start, across that chunk
+    boundary and at the end bitwise the same rows in an 8-row call; every
+    output within the summation-order bound of the plain version; timed,
+    with the plan ``quant_matmul.tc_plan`` gives it (its tile and rows a
+    launch)."""
     import torch
     from repro_torch.kernels import quant_matmul as qm
 
     # The tensor-core split plan of B5's K rows or B4's Kb + S virtual rows.
-    nsplit = qm.tc_split_plan(qm.tc_rows(k, s), n)[1]
+    kv = qm.tc_rows(k, s)
+    nsplit = qm.tc_split_plan(kv, n)[1]
     chunk = qm.wo_row_chunk(1 << 30, n, nsplit)
     m = chunk + 64
+    tile, _, _, rows, part_bytes, _ = qm.tc_plan(m, k, kv, n, qm._MAX_PART_BYTES)
     x = (torch.randn((m, k), generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
     got = kern(x, w8, torch.float32)
     for lo in (0, chunk - 4, m - 8):
@@ -798,16 +829,15 @@ def wo_chunk_case(label, kern, plain, k, s, n, w8, ws, src, mult, gen, iters):
     ms = time_ms(lambda: kern(x, w8, torch.bfloat16), iters)
     plain_ms = time_ms(lambda: plain(x, torch.bfloat16), max(2, iters // 5), warmup=1)
     bound, by = matmul_bound_ms(m, k, s, n, x_bytes=2, out_bytes=2, peak_ops=BF16_FLOPS)
-    part_mib = 4 * nsplit * chunk * n / 2**20
-    log(f"{label} weight-only w_down M={m} K={k}+{s} N={n} in 2 row chunks of <= {chunk} "
-        f"(split-K workspace {part_mib:.1f} MiB; {4 * nsplit * m * n / 2**20:.1f} MiB in one "
-        f"launch): kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.4f} ({by}) "
-        f"f32 max|d|={err.max().item():.3g} ({ratio:.3g} of bound); rows bitwise an 8-row "
-        "call's")
-    return dict(mode="weight-only", names=["w_down"], M=m, K=k, S=s, N=n, ms=ms,
+    name = qm.TC_TILE_NAMES[tile]
+    log(f"{label} weight-only w_down M={m} K={k}+{s} N={n} ({name} tile, {rows} rows a launch, "
+        f"split-K workspace {part_bytes / 2**20:.1f} MiB): kernel_ms={ms:.4f} plain_ms="
+        f"{plain_ms:.4f} bound_ms={bound:.4f} ({by}) f32 max|d|={err.max().item():.3g} "
+        f"({ratio:.3g} of bound); rows bitwise an 8-row call's")
+    return dict(mode="weight-only", names=["w_down"], M=m, K=k, S=s, N=n, tile=name, ms=ms,
                 plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by=by,
-                max_abs_err=err.max().item(), tol_share=ratio, row_chunk=chunk,
-                workspace_mib=part_mib)
+                max_abs_err=err.max().item(), tol_share=ratio, rows_a_launch=rows,
+                workspace_mib=part_bytes / 2**20)
 
 
 def kernel_phase_b3(gen, iters):
@@ -1515,7 +1545,7 @@ def main(argv=None) -> int:
     b5_step = step_sum(b5, L, "weight-only")
     for label, rows, mode in (("B1", b1, None), ("B4 weight-only", b4, "weight-only"),
                               ("B5 weight-only", b5, "weight-only"), ("B6", b6, None)):
-        for m in (8, 256):
+        for m in (8, 64, 256) if mode else (8, 256):
             t = step_sum(rows, L, mode, m)
             log(f"{label}, the M={m} calls of one {L}-layer step (7 x {L} + "
                 f"lm_head): ms={t['ms']:.3f} device_ms={t['device_ms']:.3f} library_ms="
@@ -1543,6 +1573,15 @@ def main(argv=None) -> int:
         return e
 
     wo_err = lambda rows: max(r["max_abs_err"] for r in rows if r["mode"] == "weight-only")
+
+    def wo_tiles(rows):
+        """The tiles B4's or B5's weight-only calls took, by row count."""
+        tiles = {}
+        for r in rows:
+            if "tile" in r:
+                tiles.setdefault(str(r["M"]), set()).add(r["tile"])
+        return {m: sorted(v) for m, v in tiles.items()}
+
     kernels = [
         entry("fused_qmatmul", "src/repro/kernels/fused_qmatmul.py:60",
               serves["w8a8"]["launches"]["fused_qmatmul"], 0.0, b1_step),
@@ -1564,6 +1603,10 @@ def main(argv=None) -> int:
               max(r["max_abs_err"] for r in b2v), b2v_main,
               source="src/repro_torch/csrc/paged_attention.cu"),
     ]
+    tiles = {"ocs_matmul": wo_tiles(b4), "quant_matmul": wo_tiles(b5)}
+    for k in kernels:
+        if k["name"] in tiles:
+            k["tiles"] = tiles[k["name"]]
     what = {"fused_qmatmul": "one decode step's calls, M=8",
             "paged_attention": "one call, int8 pool, 8 lanes",
             "ocs_matmul": "one decode step's calls, M=8, weight-only",

@@ -8,13 +8,16 @@
 // routes, chosen by the wrapper from the operands and the caller's
 // declaration (never by a failure, never by reading the device):
 //   * weight-only, bf16 x, tail_mult absent or declared a 0/1 mask: every
-//     linear layer of the engine's default "dequant" mode. wo_tc_gemm.cuh's
-//     bf16 tensor-core GEMM (B5's kernel) with the OCS tail gathered inside
-//     it (ocs_matmul_tc_launch): the weights stay the one [K + S, N] int8
-//     tensor behind one TMA map, the contraction walks Kb + S virtual rows
-//     (Kb = K rounded up to 32), and a tail stage's token operand is
-//     gathered by the threads as x[m, src_tail[j]] * tail_mult[j], exact in
-//     bf16. One launch a call, the epilogue fused.
+//     linear layer of the engine's default "dequant" mode. B5's bf16
+//     tensor-core GEMM (wo_tc_gemm.cuh's decode tile, or for calls of many
+//     rows wo_tc_prefill.cuh's prefill tile) with the OCS tail gathered
+//     inside it (ocs_matmul_tc_launch): the weights stay the one [K + S, N]
+//     int8 tensor behind one TMA map, the contraction walks Kb + S virtual
+//     rows (Kb = K rounded up to 32), and a tail stage's token operand is
+//     gathered as x[m, src_tail[j]] * tail_mult[j], exact in bf16 (by the
+//     decode tile's threads into their B fragments, by the prefill tile's
+//     producer warp into the stage's shared-memory slot). One launch a
+//     call, the epilogue fused.
 //   * weight-only, f32 x or multipliers not declared a mask (products that
 //     need not be exact in bf16): qmatmul_common.cuh's wo_gemm_kernel on
 //     the CUDA cores. A block of 256 threads owns 256 output columns and up
@@ -38,20 +41,22 @@
 // bf16 tensor cores (989 TFLOP/s) on the serving route, on the f32 CUDA
 // cores (67 TFLOP/s) on the other weight-only one.
 
-#include "wo_tc_gemm.cuh"
+#include "wo_tc_prefill.cuh"
 
-// Weight-only, bf16 x, on the tensor cores. tail_mult [S] f32 holding only
+// Weight-only, bf16 x, on the tensor cores: tile 0 is wo_tc_gemm.cuh's
+// decode tile, 1 and 2 wo_tc_prefill.cuh's prefill tile with its splits in
+// space or in time (the wrapper's tc_plan). tail_mult [S] f32 holding only
 // 0 and 1, or null (= 1); xs [M] f32 or null (= 1), ws [N] f32; k_chunk %
 // 32 == 0 with k_chunk * nsplit >= Kb + S (Kb = K rounded up to 32); part
-// [nsplit, M, N] f32 scratch (unused when nsplit == 1); counters: one int
-// per (token tile, column tile) of the launch, zero at rest. Returns
-// cudaGetLastError() (0 = ok).
+// [nsplit, M, N] f32 scratch (unused with one split, or splits in time);
+// counters: one int per (token tile, column tile) of the launch, zero at
+// rest. Returns cudaGetLastError() (0 = ok).
 extern "C" int ocs_matmul_tc_launch(
     const void* x, int M, int K, int S, const int* src_tail, const float* tail_mult,
     const int8_t* w8, const float* xs, const float* ws, int N, int k_chunk, int nsplit,
-    float* part, int* counters, void* out, int out_bf16, void* stream) {
-  return rtq::wo_tc_launch<true>(x, M, K, S, src_tail, tail_mult, w8, xs, ws, N, k_chunk,
-                                 nsplit, part, counters, out, out_bf16, stream);
+    int tile, float* part, int* counters, void* out, int out_bf16, void* stream) {
+  return rtq::wo_tc_tile_launch<true>(x, M, K, S, src_tail, tail_mult, w8, xs, ws, N, k_chunk,
+                                      nsplit, tile, part, counters, out, out_bf16, stream);
 }
 
 // Weight-only on the CUDA cores. x_bf16: 1 if x is bfloat16, 0 if float32.

@@ -4,8 +4,9 @@
 // behind quant_matmul_kernel / quant_matmul, and the S == 0 fallback of
 // ocs_quant_matmul): y = (x @ w8) * (x_scale[m] * w_scale[n]) with
 //   * x bf16: weight-only on bf16 tensor cores, wo_tc_gemm.cuh's
-//     wo_tc_gemm_kernel without the OCS tail (B4, ocs_matmul.cu, runs the
-//     same kernel with it). Every linear layer of a clip-only tree
+//     wo_tc_gemm_kernel (the decode tile) or wo_tc_prefill.cuh's
+//     wo_tc_prefill_kernel (the prefill tile) without the OCS tail (B4,
+//     ocs_matmul.cu, runs the same kernels with it). Every linear layer of a clip-only tree
 //     (ocs_ratio = 0, the paper's baseline) served in "dequant" mode;
 //   * x f32 (no serving caller; its products are not exact in bf16):
 //     weight-only on the CUDA cores, qmatmul_common.cuh's wo_gemm_kernel,
@@ -13,24 +14,27 @@
 //   * x int8: int8 x int8 -> int32 (qmatmul_common.cuh's __dp4a GEMM, bitwise).
 //
 // What bounds it on this card, why the tensor cores keep the weight-only
-// contract, and the design of the tensor-core GEMM: wo_tc_gemm.cuh.
+// contract, and the design of the tensor-core GEMM: wo_tc_gemm.cuh and
+// wo_tc_prefill.cuh.
 //
 // The int8 path reads x in place when K % 16 == 0 and otherwise copies it
 // once into a zero-padded [M, Kp] buffer.
 
-#include "wo_tc_gemm.cuh"
+#include "wo_tc_prefill.cuh"
 
-// Weight-only, bf16 x, on the tensor cores (wo_tc_gemm.cuh, no OCS tail).
-// xs [M] f32 or null (= 1), ws [N] f32; k_chunk % 32 == 0 with k_chunk *
-// nsplit >= K; part [nsplit, M, N] f32 scratch (unused when nsplit == 1);
-// counters: one int per (token tile, column tile) of the launch, zero at
-// rest (the kernel leaves them zero). Returns cudaGetLastError() (0 = ok).
+// Weight-only, bf16 x, on the tensor cores (no OCS tail): tile 0 is
+// wo_tc_gemm.cuh's decode tile, 1 and 2 wo_tc_prefill.cuh's prefill tile
+// with its splits in space or in time (the wrapper's tc_plan). xs [M] f32 or
+// null (= 1), ws [N] f32; k_chunk % 32 == 0 with k_chunk * nsplit >= K;
+// part [nsplit, M, N] f32 scratch (unused with one split, or splits in
+// time); counters: one int per (token tile, column tile) of the launch, zero
+// at rest (the kernels leave them zero). Returns cudaGetLastError() (0 = ok).
 extern "C" int quant_matmul_tc_launch(
     const void* x, int M, int K, const int8_t* w8, const float* xs, const float* ws, int N,
-    int k_chunk, int nsplit, float* part, int* counters, void* out, int out_bf16,
+    int k_chunk, int nsplit, int tile, float* part, int* counters, void* out, int out_bf16,
     void* stream) {
-  return rtq::wo_tc_launch<false>(x, M, K, 0, nullptr, nullptr, w8, xs, ws, N, k_chunk, nsplit,
-                                  part, counters, out, out_bf16, stream);
+  return rtq::wo_tc_tile_launch<false>(x, M, K, 0, nullptr, nullptr, w8, xs, ws, N, k_chunk,
+                                       nsplit, tile, part, counters, out, out_bf16, stream);
 }
 
 // Weight-only on the CUDA cores (qmatmul_common.cuh's wo_gemm_kernel, B4's

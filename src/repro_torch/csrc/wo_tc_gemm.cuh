@@ -20,6 +20,8 @@
 // products, on the bf16 tensor cores rather than the f32 CUDA cores -- but
 // this tile is built for decode (8-32 tokens a block, each weight stage
 // converted once per block), so at M = 256 it still trails a bf16 GEMM.
+// Calls of many rows take wo_tc_prefill.cuh's prefill tile instead, which
+// sums every output element in this kernel's exact order.
 //
 // Design of wo_tc_gemm_kernel. A block of 4 warps owns 128 output columns
 // (one warp's width) and 8*G tokens (G groups of 8, the MMA's n) and a

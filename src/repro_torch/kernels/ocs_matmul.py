@@ -14,8 +14,10 @@ at decode and the multiply-adds at prefill.
 declaration, never by a failure and never by a read from the device): bf16
 x with ``tail_mult`` None or declared a 0/1 mask (``tail_is_mask=True``, as
 ``dense`` declares a packed leaf's) -- every linear layer of ``dequant``
-serving -- runs B5's bf16 tensor-core GEMM (``csrc/wo_tc_gemm.cuh``) with
-the tail gathered inside it; f32 x, or multipliers not declared a mask, run
+serving -- runs B5's bf16 tensor-core GEMM (``csrc/wo_tc_gemm.cuh``'s
+decode tile or ``csrc/wo_tc_prefill.cuh``'s prefill tile, by
+:func:`repro_torch.kernels.quant_matmul.tc_plan`) with the tail gathered
+inside it; f32 x, or multipliers not declared a mask, run
 the CUDA-core weight-only GEMM (counted in ``launches_cuda_cores``); int8 x
 the dp4a GEMM. The split of K follows from (K, S, N) alone on every route.
 
@@ -88,7 +90,8 @@ def _bind():
             c_void_p, c_int, c_int, c_int,  # x, M, K, S
             c_void_p, c_void_p,  # src_tail, tail_mult
             c_void_p, c_void_p, c_void_p, c_int,  # w8, xs, ws, N
-            c_int, c_int, c_void_p, c_void_p,  # k_chunk, nsplit, part, counters
+            c_int, c_int, c_int,  # k_chunk, nsplit, tile
+            c_void_p, c_void_p,  # part, counters
             c_void_p, c_int, c_void_p,  # out, out_bf16, stream
         ]
         tc.restype = c_int

@@ -9,8 +9,9 @@ accumulation). It is ``ops.quant_matmul`` and the S == 0 case of
 ``ops.ocs_quant_matmul``, so every linear layer of a clip-only tree
 (``ocs_ratio=0``) served in ``dequant`` mode runs it. The CUDA source is
 ``csrc/quant_matmul.cu`` (the kernels of ``csrc/ocs_matmul.cu`` with no OCS
-tail: bf16 x on ``csrc/wo_tc_gemm.cuh``'s tensor cores, f32 x on the CUDA
-cores); what bounds it on the card is the int8 weight bytes at decode and
+tail: bf16 x on the tensor cores, ``csrc/wo_tc_gemm.cuh``'s decode tile or
+``csrc/wo_tc_prefill.cuh``'s prefill tile by :func:`tc_plan`, f32 x on the
+CUDA cores); what bounds it on the card is the int8 weight bytes at decode and
 the multiply-adds at prefill.
 
 **Contract**: ``x_scale`` ([M], a scalar, or None = 1) and ``w_scale``
@@ -42,6 +43,10 @@ __all__ = [
     "pad_cols",
     "tc_rows",
     "tc_split_plan",
+    "tc_plan",
+    "TC_DECODE",
+    "TC_PREFILL",
+    "TC_TILE_NAMES",
     "launches",
     "reset_launches",
 ]
@@ -74,6 +79,22 @@ _TC_COLS = 128
 _TC_STAGE_K = 32
 _TC_WANT_BLOCKS = 264
 _TC_MIN_SPLIT_ROWS = 256
+# Its tiles (tc_plan): the decode tile (8-32 tokens a block, split K over
+# the grid, csrc/wo_tc_gemm.cuh) and the prefill tile (csrc/wo_tc_prefill.cuh:
+# 64 tokens x 128 columns a block, each weight stage converted once per 64
+# tokens, every split of a block walked in time, no workspace). A call takes
+# the prefill tile from _TC_PREFILL_MIN_ROWS rows on once its 64 x 128 tiles
+# reach _TC_PREFILL_MIN_TILES, enough to give most of the H100's 132 SMs a
+# block; with fewer (glm4-9b's wk/wv, 2 column tiles) the decode tile's
+# splits over the grid were faster. Both thresholds were chosen by timing
+# both tiles at glm4-9b's shapes (``launch/kernel_times.py --tiles``;
+# PERF.md). Both tiles sum every element in one order, so the choice
+# changes no bit. The tile indices are the entry points' ``tile``.
+TC_DECODE, TC_PREFILL = 0, 1
+TC_TILE_NAMES = ("decode", "prefill")
+_TC_PREFILL_TOKS = 64
+_TC_PREFILL_MIN_ROWS = 64
+_TC_PREFILL_MIN_TILES = 96
 
 
 def reset_launches() -> None:
@@ -97,7 +118,8 @@ def _bind():
         tc.argtypes = [
             c_void_p, c_int, c_int,  # x, M, K
             c_void_p, c_void_p, c_void_p, c_int,  # w8, xs, ws, N
-            c_int, c_int, c_void_p, c_void_p,  # k_chunk, nsplit, part, counters
+            c_int, c_int, c_int,  # k_chunk, nsplit, tile
+            c_void_p, c_void_p,  # part, counters
             c_void_p, c_int, c_void_p,  # out, out_bf16, stream
         ]
         tc.restype = c_int
@@ -255,18 +277,40 @@ def _tc_launch_plan(m: int, k: int, n: int, max_part: int) -> Tuple[int, int, in
         n / _TC_COLS)
 
 
+def tc_plan(m: int, k: int, kv: int, n: int,
+            max_part: int) -> Tuple[int, int, int, int, int, int]:
+    """``(tile, k_chunk, nsplit, rows, workspace bytes, counter bytes)`` of
+    an ``m``-row call of the tensor-core GEMM over ``k`` columns of x,
+    ``kv`` rows of contraction (:func:`tc_rows`) and ``n`` columns. Both
+    tiles take :func:`tc_split_plan`'s split of ``kv`` rows for ``n``
+    columns. ``TC_PREFILL`` (one launch: no row chunks, no workspace, no
+    counter) from ``_TC_PREFILL_MIN_ROWS`` rows on, for operands the TMA
+    takes (``n % 16 == 0``, ``k % 8 == 0``) and at least
+    ``_TC_PREFILL_MIN_TILES`` tiles of 64 x 128; else ``TC_DECODE``, with
+    :func:`_tc_launch_plan`'s row chunks, workspace (within ``max_part``)
+    and counters, its splits in space (one a block). Operands the TMA cannot
+    take run the decode tile's non-TMA branch."""
+    tiles = math.ceil(m / _TC_PREFILL_TOKS) * math.ceil(n / _TC_COLS)
+    if (m >= _TC_PREFILL_MIN_ROWS and n % 16 == 0 and k % 8 == 0
+            and tiles >= _TC_PREFILL_MIN_TILES):
+        return (TC_PREFILL, *tc_split_plan(kv, n), m, 0, 0)
+    return (TC_DECODE, *_tc_launch_plan(m, kv, n, max_part))
+
+
 def launch_tc(fn, x, out, xs, ws, kv: int, *args) -> int:
     """Run a bf16 tensor-core entry point (B5's, or B4's with its OCS tail)
-    over ``x``'s rows with :func:`tc_split_plan`'s split of ``kv`` rows of
-    contraction (:func:`tc_rows`), in row chunks when the split needs a
-    workspace (kept per device, as are the counters). ``args`` are the
-    entry point's arguments between ``K`` and ``xs``; ``xs`` may be None
-    (= 1). Returns the first nonzero cudaError, else 0."""
+    over ``x``'s rows with :func:`tc_plan`'s tile and :func:`tc_split_plan`'s
+    split of ``kv`` rows of contraction (:func:`tc_rows`), in row chunks
+    when the split needs a workspace (kept per device, as are the
+    counters). ``args`` are the entry point's arguments between ``K`` and
+    ``xs``; ``xs`` may be None (= 1). Returns the first nonzero cudaError,
+    else 0."""
     m, k = x.shape
     n = out.shape[1]
-    k_chunk, nsplit, rows, part_bytes, count_bytes = _tc_launch_plan(m, kv, n, _MAX_PART_BYTES)
+    tile, k_chunk, nsplit, rows, part_bytes, count_bytes = tc_plan(m, k, kv, n,
+                                                                   _MAX_PART_BYTES)
     part = counters = None
-    if nsplit > 1:
+    if part_bytes:
         part = scratch.buffer("split_k", x.device, part_bytes).data_ptr()
         counters = scratch.buffer("split_k_counters", x.device, count_bytes,
                                   zeroed=True).data_ptr()
@@ -276,7 +320,7 @@ def launch_tc(fn, x, out, xs, ws, kv: int, *args) -> int:
         xr, outr = (x, out) if rows == m else (x[r:r + rows], out[r:r + rows])
         xsr = xs if xs is None or rows == m else xs[r:r + rows]
         err = fn(xr.data_ptr(), xr.shape[0], k, *args, _ptr(xsr), ws.data_ptr(), n,
-                 k_chunk, nsplit, part, counters, outr.data_ptr(), out_bf16, stream)
+                 k_chunk, nsplit, tile, part, counters, outr.data_ptr(), out_bf16, stream)
         if err != 0:
             return err
     return 0

@@ -5,7 +5,7 @@ on the card, beside their library yardsticks, against this checkout's
 call.
 
     python3 src/repro_torch/launch/kernel_times.py [--src DIR] [--calls N] [--ragged]
-        [--out FILE]
+        [--tiles] [--out FILE]
 
 ``--src DIR`` puts ``DIR`` first on ``sys.path`` before ``repro_torch`` is
 imported (say the ``src`` of a parent commit unpacked with ``git
@@ -31,14 +31,17 @@ Cases, at glm4-9b's shapes (random data from ``--seed``):
   (wq/wo, wk/wv, w_gate/w_up, w_down, lm_head), M = 8 and 256, bf16 out;
   weight copies cycled past the 50 MB L2. Yardstick: bf16 ``torch.matmul``
   of the weights converted before the timing, times the column scales.
-  The M = 8 rows are also summed as one 40-layer decode step (7 x 40 calls
-  + the lm_head).
+  Each M's rows are also summed as one 40-layer step (7 x 40 calls + the
+  lm_head). Each row names the tile ``quant_matmul.tc_plan`` gave the call
+  (the argument lists of both are the same in a parent whose plan has no
+  tile; its rows say "decode").
 - B4 (``ocs_quant_matmul_cuda``): the same shapes with the OCS tails the
   serving recipe gives glm4-9b (S = 82, 274 at ``w_down``), an all-ones
-  mask declared as ``dense`` declares a packed leaf's, M = 8 (summed as one
-  decode step) and the lm_head at M = 256; weights cycled with
+  mask declared as ``dense`` declares a packed leaf's, M = 8 and 256, each
+  summed as one step, tiles named as B5's; weights cycled with
   ``chip_smoke.cycled``, timed with ``chip_smoke.wo_times``, whose
-  yardstick multiplies the materialized expanded activations.
+  yardstick multiplies the materialized expanded activations, and again
+  with K + S zero-padded to a multiple of 16 (``library_aligned_*``).
 - B1 (``fused_quant_matmul_cuda``): the same shapes with the same OCS
   tails, bf16 x and out, M = 8 and M = 256, each summed as one 40-layer
   step; weights cycled as for B4. Yardstick: ``torch._int_mm`` on the
@@ -55,6 +58,11 @@ Cases, at glm4-9b's shapes (random data from ``--seed``):
   B6 at hymba-1.5b's lm_head, N = 32001, against the same calls on
   weights zero-padded to 32016 columns before the timing
   (:func:`ragged_rows`).
+- With ``--tiles`` (wrappers with a prefill tile only): B5 and B4 at each
+  shape and M in ``TILE_MS``, device ms with the decode tile and with the
+  prefill tile (``quant_matmul.tc_plan`` overridden for the timing), beside
+  the tile the plan picks (:func:`tile_rows`): the timing that sets the
+  plan's thresholds.
 - Digests: the sha256 of B4's f32 outputs (wq/wo and w_down shapes with
   their OCS tails, M = 8 and 256, weight-only as ``dense`` calls it and
   int8) and of B5's weight-only ones on the same inputs (the first K rows
@@ -299,6 +307,67 @@ def ragged_rows(gen, calls: int):
     return rows
 
 
+# Row counts of the --tiles sweep: verify-sized calls and prefill buckets.
+TILE_MS = (32, 64, 128, 192, 256)
+
+
+def tile_rows(gen, calls: int):
+    """B5 and B4 (the serving tails, an all-ones mask declared) at each
+    glm4-9b shape and M in ``TILE_MS``, bf16 x and out, weights cycled past
+    the L2: device ms a call with the decode tile and with the prefill tile
+    (the plan overridden for the timing; the same split either way), and
+    the tile the plan picks."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import ocs_matmul as om
+    from repro_torch.kernels import quant_matmul as qm
+
+    plan = qm.tc_plan
+
+    def forced(tile):
+        def fixed(m, k, kv, n, max_part):
+            if tile == qm.TC_PREFILL:
+                return (tile, *qm.tc_split_plan(kv, n), m, 0, 0)
+            return (qm.TC_DECODE, *qm._tc_launch_plan(m, kv, n, max_part))
+        return fixed
+
+    rows = []
+    for label in ("B5", "B4"):
+        for name, ((k, n), _) in B5_SHAPES.items():
+            s = B4_TAILS[name] if label == "B4" else 0
+            w8 = torch.randint(-127, 128, (k + s, n), generator=gen, device="cuda",
+                               dtype=torch.int8)
+            ws = torch.rand((n,), generator=gen, device="cuda") * 0.01 + 1e-4
+            src = torch.randint(0, k, (s,), generator=gen, device="cuda", dtype=torch.int32)
+            mult = torch.ones((s,), device="cuda")
+            copies = cs.cycled(w8)
+            for m in TILE_MS:
+                x = (torch.randn((m, k), generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
+                if s:
+                    run = cs.cycling(lambda wt: om.ocs_quant_matmul_cuda(
+                        x, wt, ws, src, tail_mult=mult, tail_is_mask=True,
+                        out_dtype=torch.bfloat16), copies)
+                else:
+                    run = cs.cycling(lambda wt: qm.quant_matmul_cuda(
+                        x, wt, ws, out_dtype=torch.bfloat16), copies)
+                dev = {}
+                for tile in (qm.TC_DECODE, qm.TC_PREFILL):
+                    qm.tc_plan = forced(tile)
+                    try:
+                        dev[qm.TC_TILE_NAMES[tile]] = cs.graph_ms(run, calls)
+                    finally:
+                        qm.tc_plan = plan
+                picked = qm.TC_TILE_NAMES[plan(m, k, qm.tc_rows(k, s), n, qm._MAX_PART_BYTES)[0]]
+                rows.append(dict(kernel=label, names=name, M=m, K=k, S=s, N=n, plan=picked,
+                                 decode_device_ms=dev["decode"],
+                                 prefill_device_ms=dev["prefill"]))
+                print(f"tiles: {label} {name} M={m} K={k}+{s} N={n}: decode device_ms="
+                      f"{dev['decode']:.4f} prefill device_ms={dev['prefill']:.4f} "
+                      f"(the plan: {picked})", flush=True)
+            del copies
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
@@ -307,6 +376,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="kernel_times.json")
     ap.add_argument("--ragged", action="store_true",
                     help="also time the GEMMs at a ragged N (this tree's wrappers only)")
+    ap.add_argument("--tiles", action="store_true",
+                    help="also time B5 and B4 on each of their two tiles (this tree's only)")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.src).resolve()))
     sys.path.insert(1, str(ROOT))
@@ -320,6 +391,13 @@ def main(argv=None) -> int:
     from repro_torch.kernels import ocs_matmul as om
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import quant_matmul as qm
+
+    def tile(m, k, s, n):
+        """The tile this checkout's plan gives the call ("decode" where the
+        plan has no other)."""
+        if not hasattr(qm, "tc_plan"):
+            return "decode"
+        return qm.TC_TILE_NAMES[qm.tc_plan(m, k, qm.tc_rows(k, s), n, qm._MAX_PART_BYTES)[0]]
 
     card = cs.gpu_line()
     print(f"card: {card}; repro_torch from {Path(pa.__file__).resolve().parents[2]}", flush=True)
@@ -339,7 +417,8 @@ def main(argv=None) -> int:
             print(f"B2 pool={kind} Q={qn}: ms={ms:.4f} device_ms={dev:.4f} library_ms="
                   f"{lib:.4f} library_device_ms={lib_dev:.4f}", flush=True)
             del pool
-    step = {"ms": 0.0, "device_ms": 0.0, "library_ms": 0.0, "library_device_ms": 0.0}
+    keys = ("ms", "device_ms", "library_ms", "library_device_ms")
+    b5_steps = {m: dict.fromkeys(keys, 0.0) for m in (8, 256)}
     for name, ((k, n), per_step) in B5_SHAPES.items():
         w8 = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
         ws = torch.rand((n,), generator=gen, device="cuda") * 0.01 + 1e-4
@@ -360,19 +439,21 @@ def main(argv=None) -> int:
 
             ms, dev = times(kern)
             lms, ldev = times(lib)
-            rows.append(dict(kernel="B5", names=name, M=m, K=k, N=n, ms=ms, device_ms=dev,
-                             library_ms=lms, library_device_ms=ldev))
-            print(f"B5 {name} M={m} K={k} N={n}: ms={ms:.4f} device_ms={dev:.4f} library_ms="
-                  f"{lms:.4f} library_device_ms={ldev:.4f}", flush=True)
-            if m == 8:
-                for key, v in (("ms", ms), ("device_ms", dev), ("library_ms", lms),
-                               ("library_device_ms", ldev)):
-                    step[key] += per_step * v
+            t = tile(m, k, 0, n)
+            rows.append(dict(kernel="B5", names=name, M=m, K=k, N=n, tile=t, ms=ms,
+                             device_ms=dev, library_ms=lms, library_device_ms=ldev))
+            print(f"B5 {name} M={m} K={k} N={n} ({t} tile): ms={ms:.4f} device_ms={dev:.4f} "
+                  f"library_ms={lms:.4f} library_device_ms={ldev:.4f}", flush=True)
+            for key, v in (("ms", ms), ("device_ms", dev), ("library_ms", lms),
+                           ("library_device_ms", ldev)):
+                b5_steps[m][key] += per_step * v
         del copies, lib_copies, wb
-    print(f"B5 one {LAYERS}-layer decode step (M=8, 7 x {LAYERS} + lm_head calls): "
-          f"ms={step['ms']:.3f} device_ms={step['device_ms']:.3f} library_ms="
-          f"{step['library_ms']:.3f} library_device_ms={step['library_device_ms']:.3f}")
-    b4_step = dict.fromkeys(step, 0.0)
+    for m, st in b5_steps.items():
+        print(f"B5 one {LAYERS}-layer step's M={m} calls (7 x {LAYERS} + lm_head): "
+              f"ms={st['ms']:.3f} device_ms={st['device_ms']:.3f} library_ms="
+              f"{st['library_ms']:.3f} library_device_ms={st['library_device_ms']:.3f}")
+    b4_steps = {m: dict.fromkeys(keys + ("library_aligned_ms", "library_aligned_device_ms"), 0.0)
+                for m in (8, 256)}
     for name, ((k, n), per_step) in B5_SHAPES.items():
         s = B4_TAILS[name]
         w8 = torch.randint(-127, 128, (k + s, n), generator=gen, device="cuda", dtype=torch.int8)
@@ -380,22 +461,27 @@ def main(argv=None) -> int:
         src = torch.randint(0, k, (s,), generator=gen, device="cuda", dtype=torch.int32)
         mult = torch.ones((s,), device="cuda")
         copies, wb_copies = cs.cycled(w8), cs.cycled(w8.to(torch.bfloat16))
-        for m in (8, 256) if name == "lm_head" else (8,):
+        for m in (8, 256):
             x = (torch.randn((m, k), generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
             t = cs.wo_times(cs.cycling(lambda wt: om.ocs_quant_matmul_cuda(
                 x, wt, ws, src, tail_mult=mult, tail_is_mask=True, out_dtype=torch.bfloat16),
                 copies), torch.cat([x, x[:, src.long()]], 1), ws, wb_copies, args.calls)
-            rows.append(dict(kernel="B4", names=name, M=m, K=k, S=s, N=n, **t))
-            print(f"B4 {name} M={m} K={k}+{s} N={n}: ms={t['ms']:.4f} device_ms="
+            tl = tile(m, k, s, n)
+            rows.append(dict(kernel="B4", names=name, M=m, K=k, S=s, N=n, tile=tl, **t))
+            aligned = (f" library_aligned_device_ms={t['library_aligned_device_ms']:.4f}"
+                       if "library_aligned_device_ms" in t else "")
+            print(f"B4 {name} M={m} K={k}+{s} N={n} ({tl} tile): ms={t['ms']:.4f} device_ms="
                   f"{t['device_ms']:.4f} library_ms={t['library_ms']:.4f} library_device_ms="
-                  f"{t['library_device_ms']:.4f}", flush=True)
-            if m == 8:
-                for key in b4_step:
-                    b4_step[key] += per_step * t[key]
+                  f"{t['library_device_ms']:.4f}{aligned}", flush=True)
+            for key in b4_steps[m]:
+                b4_steps[m][key] += per_step * t.get(key, t[key.replace("_aligned", "")])
         del copies, wb_copies
-    print(f"B4 one {LAYERS}-layer decode step (M=8, 7 x {LAYERS} + lm_head calls): "
-          f"ms={b4_step['ms']:.3f} device_ms={b4_step['device_ms']:.3f} library_ms="
-          f"{b4_step['library_ms']:.3f} library_device_ms={b4_step['library_device_ms']:.3f}")
+    for m, st in b4_steps.items():
+        print(f"B4 one {LAYERS}-layer step's M={m} calls (7 x {LAYERS} + lm_head): "
+              f"ms={st['ms']:.3f} device_ms={st['device_ms']:.3f} library_ms="
+              f"{st['library_ms']:.3f} library_device_ms={st['library_device_ms']:.3f} "
+              f"library_aligned_ms={st['library_aligned_ms']:.3f} library_aligned_device_ms="
+              f"{st['library_aligned_device_ms']:.3f}")
     more, b1_steps = b1_rows(gen, args.calls)
     rows += more
     more, b6_steps = b6_rows(gen, args.calls)
@@ -411,9 +497,11 @@ def main(argv=None) -> int:
         print(f"B6 {key}: sha256 {d}")
     if args.ragged:
         rows += ragged_rows(gen, args.calls)
+    if args.tiles:
+        rows += tile_rows(gen, args.calls)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(json.dumps(dict(card=card, rows=rows, b5_step=step, b4_step=b4_step,
+    out.write_text(json.dumps(dict(card=card, rows=rows, b5_steps=b5_steps, b4_steps=b4_steps,
                                    b1_steps=b1_steps, b6_steps=b6_steps, b4_sha256=digests,
                                    b1_sha256=b1_sha, b6_sha256=b6_sha),
                               indent=1))

@@ -46,7 +46,8 @@ FAMILIES = (
      ("w4_tc_gemm_kernel",)),
     ("int8_gemm (quant_/ocs_matmul int8; w4a8_qmatmul's outlier rows before its tensor cores)",
      ("int8_gemm_kernel",)),
-    ("wo_tc_gemm (quant_matmul, bf16 tensor cores)", ("wo_tc_gemm_kernel",)),
+    ("wo_tc_gemm (quant_matmul, bf16 tensor cores; its prefill tile too)",
+     ("wo_tc_gemm_kernel", "wo_tc_prefill_kernel")),
     ("wo_gemm (ocs_matmul; quant_matmul's f32 x)", ("wo_gemm_kernel",)),
     ("epilogue", ("epilogue_kernel",)),
     ("paged_attention (append, chunks, merge)",

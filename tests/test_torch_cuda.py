@@ -686,7 +686,7 @@ def _row_independence_cases():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [40, 256])
+@pytest.mark.parametrize("m", [40, 64, 256])
 def test_rows_independent_of_row_count_cuda(m):
     """The verify contract's base: a row's bits do not depend on how many
     rows the call holds. Rows of calls of 8 (a decode step's lanes), 1 and
@@ -1303,3 +1303,140 @@ def test_paged_attention_cuda_short_pages(kind, ps, qn, hd):
     short, sixteen = _logical(got_p, table, ps, blocks), _logical(p16, table16, 16, blocks)
     for key in short:
         assert _same_bits(short[key], sixteen[key]), key
+
+
+# glm4-9b's linear shapes (K, N) for the tensor-core GEMM's two tiles (B5,
+# S = 0; B4 with the serving recipe's tails, S = 82, 274 at w_down), and
+# ragged ones (K % 32 != 0, S % 32 != 0, N % 128 != 0) that take the prefill
+# tile when its tile threshold is lowered.
+WO_TILE_SHAPES = {"wq/wo": (4096, 82, 4096), "wk/wv": (4096, 82, 256),
+                  "w_gate/w_up": (4096, 82, 13696), "w_down": (13696, 274, 4096),
+                  "lm_head": (4096, 82, 151552)}
+WO_TILE_RAGGED = [(1000, 70, 208), (4104, 130, 400)]
+WO_TILE_MS = (24, 40, 63, 64, 65, 128, 256, 512)
+
+
+def _wo_tile_rows_check(k, s, n, b4, seed, mult_kind="mask"):
+    """Rows of calls of every WO_TILE_MS row count, whichever tile each takes,
+    bitwise the same rows of 8-row calls (the decode tile) and of one-row
+    calls; returns the tiles taken."""
+    x, w8, ws, src, mult = _b4_tc_case(512, k, s, n, mult_kind, seed)
+    x[3] = -0.0  # a row of negative zeros
+    if not b4:
+        w8 = w8[:k].contiguous()
+
+    def call(xx):
+        if b4:
+            return tom.ocs_quant_matmul_cuda(xx, w8, ws, src, tail_mult=mult, tail_is_mask=True,
+                                             out_dtype=torch.float32)
+        return tqm.quant_matmul_cuda(xx, w8, ws, out_dtype=torch.float32)
+
+    eight = torch.cat([call(x[lo:lo + 8].contiguous()) for lo in range(0, 512, 8)])
+    ones = {r: call(x[r:r + 1].contiguous()) for r in (0, 3, 63, 64, 255, 511)}
+    tiles = set()
+    for m in WO_TILE_MS:
+        tiles.add(tqm.tc_plan(m, k, tqm.tc_rows(k, s if b4 else 0), n, tqm._MAX_PART_BYTES)[0])
+        full = call(x[:m])
+        assert _same_bits(full, eight[:m]), (k, s, n, b4, m)
+        for r, one in ones.items():
+            if r < m:
+                assert _same_bits(full[r:r + 1], one), (k, s, n, b4, m, r)
+    return tiles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b4", [False, True], ids=["B5", "B4"])
+@pytest.mark.parametrize("name", list(WO_TILE_SHAPES))
+def test_wo_tiles_rows_bitwise_the_decode_tile_cuda(name, b4):
+    """At every glm4-9b shape, for B5 and B4, the rows of calls of 24 to 512
+    rows are bitwise those of 8-row calls (the decode tile's) and of one-row
+    calls, across the prefill tile's thresholds (M0 = 64 rows and its tile
+    count): the prefill tile walks the splits in time, the decode tile
+    splits in space, and both sum every element in the decode tile's
+    order."""
+    cuda_or_skip()
+    k, s, n = WO_TILE_SHAPES[name]
+    tiles = _wo_tile_rows_check(k, s, n, b4, k + s + n)
+    assert (tqm.TC_PREFILL in tiles) == (name != "wk/wv") and tqm.TC_DECODE in tiles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b4,mult_kind", [(False, None), (True, "mask"), (True, None)],
+                         ids=["B5", "B4-mask", "B4-no-multipliers"])
+@pytest.mark.parametrize("k,s,n", WO_TILE_RAGGED)
+def test_wo_prefill_tile_ragged_rows_bitwise_the_decode_tile_cuda(monkeypatch, k, s, n, b4,
+                                                                  mult_kind):
+    """With the prefill tile's tile threshold at 1, shapes ragged in K, S and
+    N take it from M0 on: their rows, the tail stages' gathered tokens (a
+    0/1 mask or no multipliers) and the zeros past K included, are bitwise
+    those of 8-row and one-row calls."""
+    cuda_or_skip()
+    monkeypatch.setattr(tqm, "_TC_PREFILL_MIN_TILES", 1)
+    tiles = _wo_tile_rows_check(k, s, n, b4, k + s + n + 1, mult_kind)
+    assert tiles == {tqm.TC_DECODE, tqm.TC_PREFILL}  # below M0, and from it on
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b4", [False, True], ids=["B5", "B4"])
+def test_wo_tiles_launch_scratch_and_graph_replay_cuda(b4):
+    """A prefill-tile call (wq/wo at M = 256) is one launch that needs no
+    workspace and no counter, and replays bitwise from a CUDA graph; a
+    decode-tile call with its splits in space (wk/wv at M = 256) leaves
+    the split-K counters at zero, reuses its kept scratch and replays
+    bitwise from a CUDA graph."""
+    from repro_torch.kernels import scratch
+
+    cuda_or_skip()
+    for name, tile in (("wq/wo", tqm.TC_PREFILL), ("wk/wv", tqm.TC_DECODE)):
+        k, s, n = WO_TILE_SHAPES[name]
+        x, w8, ws, src, mult = _b4_tc_case(256, k, s, n, "mask", 5)
+        s = s if b4 else 0
+        w8 = w8[:k + s].contiguous()
+
+        def call():
+            if b4:
+                return tom.ocs_quant_matmul_cuda(x, w8, ws, src, tail_mult=mult,
+                                                 tail_is_mask=True, out_dtype=torch.bfloat16)
+            return tqm.quant_matmul_cuda(x, w8, ws, out_dtype=torch.bfloat16)
+
+        plan = tqm.tc_plan(256, k, tqm.tc_rows(k, s), n, tqm._MAX_PART_BYTES)
+        assert plan[0] == tile and (plan[4] == 0) == (tile == tqm.TC_PREFILL)
+        first = call()
+        kept = {key: buf.data_ptr() for key, buf in scratch._bufs.items()}
+        n0 = tom.launches + tqm.launches
+        again = call()
+        assert tom.launches + tqm.launches == n0 + 1
+        assert _same_bits(again, first)
+        assert {key: buf.data_ptr() for key, buf in scratch._bufs.items()} == kept
+        torch.cuda.synchronize()
+        counters = scratch._bufs.get(("split_k_counters", x.device))
+        if counters is not None:
+            assert int(counters.count_nonzero()) == 0
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = call()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_bits(replayed, first), name
+        if counters is not None:
+            assert int(counters.count_nonzero()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,n,k", [(1, 200, 4096), (1, 256, 4100), (2, 256, 4096)])
+def test_wo_prefill_tile_refuses_what_it_cannot_take_cuda(tile, n, k):
+    """B5's entry point refuses a prefill-tile call the TMA cannot take (N %
+    16 != 0, K % 8 != 0) or an unknown tile with cudaErrorInvalidValue (1)
+    and launches nothing; the wrapper raises on any nonzero code."""
+    cuda_or_skip()
+    x = torch.zeros((64, k), dtype=torch.bfloat16, device="cuda")
+    w8 = torch.zeros((k, n), dtype=torch.int8, device="cuda")
+    ws = torch.ones(n, device="cuda")
+    out = torch.full((64, n), 7.0, device="cuda")
+    k_chunk, nsplit = tqm.tc_split_plan(k, n)
+    err = tqm._bind()["tc"](x.data_ptr(), 64, k, w8.data_ptr(), None, ws.data_ptr(), n, k_chunk,
+                            nsplit, tile, None, None, out.data_ptr(), 0,
+                            torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 1
+    assert bool((out == 7.0).all())

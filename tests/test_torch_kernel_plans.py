@@ -687,3 +687,185 @@ def test_b6_launch_hands_the_plan_and_kept_scratch_to_the_kernel(monkeypatch):
     assert d[7] == 0 and d[17] is None and d[18] == 0
     assert d[20:23] == tfq.split_plan(8, 66, 4096, 1, one_wave=True)[:3]
     scratch.clear()
+
+
+
+# The tensor-core GEMM's tile plan (B5 and B4, ``tc_plan``): glm4-9b's B5
+# shapes (S = 0) and B4's (S = 82, 274 at w_down, and after pad_to=128),
+# at row counts below, at and above the prefill tile's row threshold M0 =
+# 64 and its tile threshold (96 tiles: 129 rows at N = 4096): decode rows
+# and steps, verifies of 8 x 5 and 8 x 8, prefill buckets.
+TC_TILE_SHAPES = {**{f"B5 {name}": (k, 0, n) for name, ((k, n), _) in TC_PLANS.items()},
+                  **{f"B4 {name}": ksn for name, (ksn, _) in B4_TC_PLANS.items()}}
+TC_TILE_MS = (1, 8, 16, 17, 32, 40, 63, 64, 65, 72, 128, 129, 256, 512)
+
+
+def _tc_plan(m, k, s, n):
+    return tqm.tc_plan(m, k, tqm.tc_rows(k, s), n, tqm._MAX_PART_BYTES)
+
+
+@pytest.mark.parametrize("m", TC_TILE_MS)
+@pytest.mark.parametrize("name", list(TC_TILE_SHAPES))
+def test_tc_plan_picks_the_tile_from_m(name, m):
+    """Both tiles take ``tc_split_plan(kv, n)`` unchanged. A call takes the
+    prefill tile from M0 = 64 rows on when its 64 x 128 tiles reach
+    ``_TC_PREFILL_MIN_TILES``: one launch that walks every split in time,
+    with no workspace and no counter. Every other call keeps the decode
+    tile and its launch plan as they were: its splits in space, one a
+    block, in row chunks that bound the workspace, with its counters."""
+    k, s, n = TC_TILE_SHAPES[name]
+    kv = tqm.tc_rows(k, s)
+    tile, k_chunk, nsplit, rows, part_bytes, count_bytes = _tc_plan(m, k, s, n)
+    assert (k_chunk, nsplit) == tqm.tc_split_plan(kv, n)
+    assert (tqm._TC_PREFILL_MIN_ROWS, tqm._TC_PREFILL_MIN_TILES) == (64, 96)
+    tiles = math.ceil(m / 64) * math.ceil(n / 128)
+    if m >= 64 and tiles >= 96:
+        assert (tile, rows, part_bytes, count_bytes) == (tqm.TC_PREFILL, m, 0, 0)
+    else:
+        assert tile == tqm.TC_DECODE
+        assert (k_chunk, nsplit, rows, part_bytes, count_bytes) == tqm._tc_launch_plan(
+            m, kv, n, tqm._MAX_PART_BYTES)
+        if nsplit > 1:  # one split a block: the workspace and a counter a tile
+            assert 0 < part_bytes == 4 * nsplit * rows * n <= tqm._MAX_PART_BYTES
+            assert count_bytes == 4 * math.ceil(rows / 8) * math.ceil(n / 128)
+
+
+# The tile the plan gives glm4-9b's five shape classes (B5's S = 0 and B4's
+# tails alike) at a decode step, a verify of 8 x 5 and prefills of 64, 128,
+# 129 and 256 rows: the prefill tile from M0 on where its tiles give most
+# SMs a block (w_gate/w_up and the lm_head from 64 rows: 107 and 1184 column
+# tiles; wq/wo and w_down from 129: 3 x 32), the decode tile for wk/wv (2
+# column tiles).
+TC_TILE_AT = {
+    "wq/wo": ("decode", "decode", "decode", "decode", "prefill", "prefill"),
+    "wk/wv": ("decode", "decode", "decode", "decode", "decode", "decode"),
+    "w_gate/w_up": ("decode", "decode", "prefill", "prefill", "prefill", "prefill"),
+    "w_down": ("decode", "decode", "decode", "decode", "prefill", "prefill"),
+    "lm_head": ("decode", "decode", "prefill", "prefill", "prefill", "prefill"),
+}
+
+
+@pytest.mark.parametrize("name", list(TC_TILE_SHAPES))
+def test_tc_plan_at_glm4_9b(name):
+    k, s, n = TC_TILE_SHAPES[name]
+    want = TC_TILE_AT[name.split(" ")[1]]
+    got = tuple(tqm.TC_TILE_NAMES[_tc_plan(m, k, s, n)[0]] for m in (8, 40, 64, 128, 129, 256))
+    assert got == want
+
+
+@pytest.mark.parametrize("k,s,n", [(1000, 0, 200), (130, 0, 336), (1000, 70, 200),
+                                   (130, 7, 336)])
+def test_tc_plan_keeps_what_the_tma_cannot_take_on_the_decode_tile(monkeypatch, k, s, n):
+    """N % 16 != 0 or K % 8 != 0 (no serving shape) stays on the decode
+    tile's non-TMA branch at any M, even where the row and tile thresholds
+    would admit the prefill tile; the prefill tile has no such branch."""
+    monkeypatch.setattr(tqm, "_TC_PREFILL_MIN_TILES", 1)
+    for m in (64, 256, 8192):
+        plan = _tc_plan(m, k, s, n)
+        assert plan[0] == tqm.TC_DECODE
+        assert plan[1:] == tqm._tc_launch_plan(m, tqm.tc_rows(k, s), n, tqm._MAX_PART_BYTES)
+    # The same call with the TMA's alignment takes the prefill tile.
+    assert _tc_plan(8192, k + (-k) % 8, s, n + (-n) % 16)[0] == tqm.TC_PREFILL
+
+
+def _decode_chains(nst):
+    """The decode tile's sums within a split of ``nst`` stages
+    (``csrc/wo_tc_gemm.cuh``): warp w takes ``mine`` stages w, w + 4, ... in
+    order, and the 4 warps' sums are added in order w = 0..3."""
+    chains = []
+    for w in range(4):
+        mine = (nst - w + 3) // 4 if nst > w else 0
+        chains.append([w + 4 * i for i in range(mine)])
+    return chains
+
+
+def _prefill_walk(kv, k_chunk, nsplit):
+    """The (split, chain, stage) sequence of a prefill-tile block
+    (``csrc/wo_tc_prefill.cuh``): every split z in order; within it, warp
+    group c sums chain c, the stages c, c + 4, ... (its loop over ``s``, and
+    its ring's cursor ``PfChainCursor``), and the chain sums are added in
+    order c = 0..3 (the named barriers 1-4)."""
+    walk = []
+    for z in range(nsplit):
+        nst = math.ceil((min(kv, (z + 1) * k_chunk) - z * k_chunk) / 32)
+        for c in range(4):
+            walk += [(z, c, s) for s in range(c, nst, 4)]
+    return walk
+
+
+@pytest.mark.parametrize("name", list(TC_TILE_SHAPES))
+def test_prefill_walk_is_the_decode_tiles_chain_order(name):
+    """The stage order the plan hands the prefill kernel (its split of the
+    contraction, walked in time) visits every stage of every split once,
+    splits in order z = 0..nsplit-1; within a split chain c holds the decode
+    tile's warp c's stages (s % 4 == c, ascending), and the chains are added
+    in the order the decode tile adds its warps' sums."""
+    k, s, n = TC_TILE_SHAPES[name]
+    kv = tqm.tc_rows(k, s)
+    k_chunk, nsplit = _tc_plan(512, k, s, n)[1:3]
+    walk = _prefill_walk(kv, k_chunk, nsplit)
+    assert [z for z, _, _ in walk] == sorted(z for z, _, _ in walk)
+    seen = Counter((z, st) for z, _, st in walk)
+    total = 0
+    for z in range(nsplit):
+        nst = math.ceil((min(kv, (z + 1) * k_chunk) - z * k_chunk) / 32)
+        total += nst
+        assert all(seen[(z, st)] == 1 for st in range(nst))
+        chains = [[st for zz, c, st in walk if zz == z and c == cc] for cc in range(4)]
+        assert chains == _decode_chains(nst)
+        assert all(st % 4 == c for zz, c, st in walk if zz == z)
+    assert sum(seen.values()) == total
+    assert (nsplit - 1) * k_chunk < kv <= nsplit * k_chunk and k_chunk % 32 == 0
+
+
+def test_tc_launch_hands_the_plan_and_kept_scratch_to_the_kernel(monkeypatch):
+    """``launch_tc`` hands B5's and B4's entry point the plan's tile and
+    split and, for the decode tile with a split, its kept workspace and
+    counters (a stand-in entry point records the calls; nothing launches):
+    a prefill-tile call one launch with neither; a decode-tile call the kept
+    split-K workspace and the kept counters, zeroed, in row chunks of the
+    workspace bound."""
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: type("Stream", (), {"cuda_stream": 7}))
+    scratch.clear()
+    dev = torch.device("cpu")
+
+    def calls_of(m, n, s):
+        x = torch.zeros((m, 4096), dtype=torch.bfloat16)
+        out = torch.empty((m, n), dtype=torch.bfloat16)
+        ws = torch.ones(n)
+        args = (s, 111, 222, 333) if s else (333,)  # B4: S, src_tail, tail_mult; w8
+        calls = []
+        assert tqm.launch_tc(lambda *a: calls.append(a) or 0, x, out, None, ws,
+                             tqm.tc_rows(4096, s), *args) == 0
+        return calls, 3 + len(args) + 2  # the index of N
+
+    # B5 wq/wo at M = 256: the prefill tile, its 9 splits in one launch.
+    (c,), at = calls_of(256, 4096, 0)
+    assert c[1:4] == (256, 4096, 333) and c[4] is None
+    assert c[at:] == (4096, 480, 9, tqm.TC_PREFILL, None, None, c[-3], 1, 7)
+    # B4 w_gate/w_up at a prefill of 64 rows: the prefill tile.
+    (c,), at = calls_of(64, 13696, 82)
+    assert c[3:7] == (82, 111, 222, 333)
+    assert c[at:at + 6] == (13696, 1408, 3, tqm.TC_PREFILL, None, None)
+    # B5's lm_head, one split: the prefill tile too.
+    (c,), at = calls_of(64, 151552, 0)
+    assert c[at:at + 6] == (151552, 4096, 1, tqm.TC_PREFILL, None, None)
+    # B4 wk/wv at M = 256: the decode tile, one of its 15 splits a block.
+    (c,), at = calls_of(256, 256, 82)
+    part = scratch.buffer("split_k", dev, 0)
+    counters = scratch.buffer("split_k_counters", dev, 0)
+    assert c[at:at + 6] == (256, 288, 15, tqm.TC_DECODE, part.data_ptr(), counters.data_ptr())
+    assert part.numel() >= 4 * 15 * 256 * 256 and counters.numel() >= 4 * 32 * 2
+    assert int(counters.count_nonzero()) == 0
+    # A smaller workspace bound: the decode tile's row chunks, one buffer.
+    monkeypatch.setattr(tqm, "_MAX_PART_BYTES", 4 * 15 * 100 * 256)
+    calls, at = calls_of(256, 256, 82)
+    assert [a[1] for a in calls] == [100, 100, 56]
+    assert {a[at + 3:at + 6] for a in calls} == {
+        (tqm.TC_DECODE, scratch.buffer("split_k", dev, 0).data_ptr(),
+         scratch.buffer("split_k_counters", dev, 0).data_ptr())}
+    # The prefill tile's calls do not chunk: no workspace bounds them.
+    (c,), at = calls_of(512, 4096, 82)
+    assert c[1] == 512 and c[at + 3:at + 6] == (tqm.TC_PREFILL, None, None)
+    scratch.clear()
