@@ -70,7 +70,20 @@ Phases (any failure raises, and the script exits non-zero with no result):
    pages drafting with the first 10 layers, (f) w4a8 on int4 pages drafting
    in w4a8. Each is held token for token against the plain phase of its
    mode, its allocator state at retire against that phase's, and its
-   launches against the count its rounds and draft steps give. Then, on
+   launches against the count its rounds and draft steps give. Then the
+   request lifecycle on the same requests: (h) dequant with
+   ``prefill_budget=128, chunk_size=64`` (at least the chunks the prompts
+   need, at most 128 prompt tokens a step) and (i) dequant with optimistic
+   admission on a pool of each prompt's pages plus one (at least one
+   preemption, the page peak within the capacity), each held against the
+   plain dequant phase: a request may part from it only where one prefill
+   of the plain model gives a top-2 logit margin below ``TIE_MARGIN``
+   (each parting printed); (j) w8a8 on int8 pages with odd uids sampled
+   (``SAMPLED_PARAMS``, ``seed=uid``): greedy requests bitwise the plain
+   w8a8 phase's, every request bitwise the same served again in reverse
+   submission order. Each chunk and each resume is one prefill call in
+   the launch reckoning, and every serve phase ends with no page in use.
+   Then, on
    the first ``--short-layers`` layers of the same tree (default 10; the
    second cut), a plain w8a8 phase and (g) ``SpecConfig(k=16,
    adaptive=False)`` in w8a8 on int8 pages (verify Q = 17; the draft is
@@ -136,6 +149,14 @@ WO_TOL_FACTOR = 2.0
 # and of a sound one summing in another order are in
 # tests/test_torch_smoke_check.py.
 MODEL_RTOL = 0.01
+
+# Phases (h) and (i) may part from the plain dequant phase only where the
+# plain model's top-2 logit margin is below this (logits): the CPU engine
+# tests' bound (tests/_torch_lifecycle.py, TIE_TOL). The partings seen had
+# margins of at most 0.0312, one bf16 step of logits of 4-8 (H100).
+TIE_MARGIN = 0.25
+# Phase (j)'s sampled requests: SamplingParams(**SAMPLED_PARAMS, seed=uid).
+SAMPLED_PARAMS = dict(temperature=0.8, top_k=50, top_p=0.9)
 
 L2_BYTES = 50 * 2**20
 
@@ -1066,7 +1087,27 @@ def alloc_state(a):
             a.prefix_hit_pages, a.prefix_lookup_pages, a.peak_in_use)
 
 
-def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel, plain=None):
+def seeded_requests(cfg, seed, sampled=False):
+    """The serve phases' 8 requests: prompts of 16-256 seeded tokens, 32 new
+    tokens each, greedy; with ``sampled``, odd uids get
+    ``SAMPLED_PARAMS`` with ``seed=uid``."""
+    import numpy as np
+    from repro_torch.serving import Request, SamplingParams
+
+    rng = np.random.default_rng(seed)
+    reqs = [
+        Request(uid=i, prompt=rng.integers(0, cfg.vocab, int(rng.integers(16, 257))).tolist(),
+                max_new_tokens=32)
+        for i in range(8)
+    ]
+    if sampled:
+        for r in reqs[1::2]:
+            r.sampling = SamplingParams(**SAMPLED_PARAMS, seed=r.uid)
+    return reqs
+
+
+def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel, plain=None,
+                sampled=False, reverse=False):
     """Serve 8 seeded requests; every launch count is set to 0 just before
     and read just after. ``matmul_kernel`` must run 7*L+1 times per decode
     step and per prefill call, the other matmul kernels not at all.
@@ -1077,25 +1118,23 @@ def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel, plain=None
     n layers, B2 n times per draft step and L times per one-token round,
     B2's Q > 1 path L times per other round; the outputs must equal
     ``plain``'s (the plain phase of the same mode on the same prompts) token
-    for token, and the allocator must end in its state."""
-    import numpy as np
+    for token, and the allocator must end in its state.
+
+    Every prefill call counts, a chunk of budgeted prefill and a resume's
+    re-prefill alike. ``sampled`` gives odd uids ``SAMPLED_PARAMS``;
+    ``reverse`` submits the requests in reverse order."""
     import torch
     from repro_torch.core.apply import map_with_path
     from repro_torch.core.ocs import OCSQuantLinear, W4A8Linear
-    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving import ServingEngine
     from repro_torch.serving import kv_cache as kvc
 
     t0 = time.perf_counter()
     eng = ServingEngine(cfg, qparams, ecfg, device="cuda")
     torch.cuda.synchronize()
     t_construct = time.perf_counter() - t0
-    rng = np.random.default_rng(seed)
-    reqs = [
-        Request(uid=i, prompt=rng.integers(0, cfg.vocab, int(rng.integers(16, 257))).tolist(),
-                max_new_tokens=32)
-        for i in range(8)
-    ]
-    for r in reqs:
+    reqs = seeded_requests(cfg, seed, sampled)
+    for r in reqs[::-1] if reverse else reqs:
         eng.submit(r)
     mods = counters()
     for mod, _ in mods.values():
@@ -1159,7 +1198,10 @@ def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel, plain=None
     if counts != want:
         raise AssertionError(f"{label}: launch counts {counts}, want {want}")
     outputs = {r.uid: list(r.output) for r in done}
+    prompts = {r.uid: list(r.prompt) for r in done}
     alloc = alloc_state(eng.allocator)
+    if eng.allocator.in_use():
+        raise AssertionError(f"{label}: {eng.allocator.in_use()} pages in use at the end")
     if plain is not None:
         bad = sorted(uid for uid in outputs if outputs[uid] != plain["outputs"][uid])
         if bad:
@@ -1190,11 +1232,154 @@ def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel, plain=None
             f"{stats['spec_verify_time_s']:.3f} s; launch counts "
             f"{ {k: v for k, v in counts.items() if v} } as reckoned; tokens identical to the "
             f"plain phase's, allocator state at retire equal")
+    if ecfg.prefill_budget or ecfg.admission != "reserve" or sampled:
+        log(f"serve {label}: scheduler {stats['sched_policy']}, budget "
+            f"{stats['sched_prefill_budget']:.0f}, {stats['sched_chunks']:.0f} chunks, "
+            f"{stats['sched_budget_limited_steps']:.0f} budget-limited steps, peak "
+            f"{stats['sched_peak_step_prefill_tokens']:.0f} prefill tokens a step, "
+            f"{stats['sched_aging_promotions']:.0f} aging promotions | preempted "
+            f"{stats['preempted']}, shed {stats['shed']}, timed out {stats['timed_out']} | "
+            f"queue wait p50 {stats['queue_wait_p50_s'] * 1e3:.1f} ms p95 "
+            f"{stats['queue_wait_p95_s'] * 1e3:.1f} ms | pages peak "
+            f"{stats['kv_pages_peak']:.0f} of {stats['kv_pages_capacity']:.0f}")
     return dict(stats=stats, wall_s=wall, launches=counts, n_layers=L, pool=pool_kind,
                 construct_s=t_construct, weight_bytes=weight_bytes[tree],
                 kv_bytes_per_token=kvc.kv_bytes_per_token(eng.cfg), outputs=outputs,
-                alloc=alloc, spec=None if spec is None else dataclasses.asdict(spec),
+                alloc=alloc, prompts=prompts,
+                spec=None if spec is None else dataclasses.asdict(spec),
                 draft_steps=None if spec is None else dec.draft_steps)
+
+
+def top2_margin(cfg, params, tokens, mode):
+    """The top-2 logit margin after ``tokens``: one prefill of the whole
+    sequence (no prefix, no chunks) through the port's model in ``mode`` on
+    fresh float32 pages."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import kv_cache as kvc
+
+    ps = 16
+    n = len(tokens)
+    nb = kvc.pages_needed(n, ps)
+    caches = kvc.init_paged_cache(dataclasses.replace(cfg, kv_bits=None), 1, nb + 1, ps,
+                                  nb, device="cuda")
+    toks = torch.zeros((1, nb * ps), dtype=torch.int64, device="cuda")
+    toks[0, :n] = torch.as_tensor(tokens, device="cuda")
+    with torch.no_grad():
+        logits, _ = T.prefill_into_pages(
+            params, toks, cfg, [layer["attn"] for layer in caches["layers"]],
+            torch.arange(1, nb + 1, dtype=torch.int32, device="cuda"),
+            length=torch.tensor([n], dtype=torch.int32, device="cuda"),
+            prefix_ids=torch.zeros((0,), dtype=torch.int32, device="cuda"), mode=mode)
+    top = torch.topk(logits[0].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def hold_near_ties(label, cfg, params, got, plain, mode):
+    """``got``'s tokens against the plain phase's: a request may part from
+    it only where the plain model's top-2 margin after the common prefix
+    is below ``TIE_MARGIN``. Prints each parting; returns them."""
+    partings = []
+    for uid, want in plain["outputs"].items():
+        have = got["outputs"][uid]
+        d = next((j for j, (x, y) in enumerate(zip(have, want)) if x != y), None)
+        if d is None:
+            continue
+        margin = top2_margin(cfg, params, plain["prompts"][uid] + want[:d], mode)
+        partings.append(dict(uid=uid, at=d, margin=margin))
+        log(f"serve {label}: request {uid} parts from the plain phase at output token {d} "
+            f"({want[d]} -> {have[d]}); the plain model's top-2 margin there {margin:.4f} "
+            f"(bound {TIE_MARGIN})")
+        if not margin < TIE_MARGIN:
+            raise AssertionError(f"{label}: request {uid} parts at token {d}, where the "
+                                 f"top-2 margin {margin:.4f} is no near-tie")
+    log(f"serve {label}: tokens held against the plain phase: "
+        f"{8 - len(partings)} of 8 requests identical, {len(partings)} part at near-ties")
+    return partings
+
+
+def lifecycle_phases(cfg, qparams, seed, card, serve_cfg, serves):
+    """Phases (h)-(j): budgeted chunked prefill and optimistic admission in
+    dequant, sampled lanes in w8a8 on int8 pages, each served like the plain
+    phases and held against them."""
+    from repro_torch.kernels import quant_matmul
+    from repro_torch.serving import kv_cache as kvc
+
+    prompts = serves["dequant"]["prompts"]
+    out = {}
+    # (h) Budgeted chunked prefill: 64-row chunks, at most 128 prompt tokens
+    # a step.
+    ecfg = serve_cfg.replace(prefill_budget=128, chunk_size=64)
+    ph = serve_phase("chunked dequant", cfg, qparams, seed, card, ecfg, "ocs_matmul")
+    st = ph["stats"]
+    need = sum(-(-len(p) // 64) for p in prompts.values())
+    if st["sched_chunks"] < need:
+        raise AssertionError(f"chunked dequant: {st['sched_chunks']} chunks, the prompts "
+                             f"need {need}")
+    if st["sched_peak_step_prefill_tokens"] > 128:
+        raise AssertionError("chunked dequant: a step ran more than 128 prompt tokens")
+    w_gate = qparams["layers"]["mlp"]["w_gate"].weight.values  # [L, d + S, d_ff]
+    s_rows = w_gate.shape[1] - cfg.d_model
+    tile = quant_matmul.tc_plan(64, cfg.d_model, quant_matmul.tc_rows(cfg.d_model, s_rows),
+                                w_gate.shape[2], 1 << 30)[0]
+    log(f"serve chunked dequant: {st['sched_chunks']:.0f} chunks (the prompts need {need}), "
+        f"{st['prefill_calls']} prefill calls; a 64-row chunk's w_gate/w_up call takes "
+        f"the {quant_matmul.TC_TILE_NAMES[tile]} tile")
+    ph["partings"] = hold_near_ties("chunked dequant", cfg, qparams, ph, serves["dequant"],
+                                    "dequant")
+    out["chunked dequant"] = ph
+    # (i) Optimistic admission on a pool that holds every prompt plus one
+    # page of headroom each, and no more: decode growth must preempt.
+    n_pages = 1 + sum(kvc.pages_needed(len(p), 16) + 1 for p in prompts.values())
+    ecfg = serve_cfg.replace(admission="optimistic", n_pages=n_pages)
+    ph = serve_phase("optimistic dequant", cfg, qparams, seed, card, ecfg, "ocs_matmul")
+    st = ph["stats"]
+    if st["preempted"] < 1:
+        raise AssertionError("optimistic dequant: no lane was preempted")
+    if st["kv_pages_peak"] > st["kv_pages_capacity"]:
+        raise AssertionError("optimistic dequant: the page peak passed the capacity")
+    log(f"serve optimistic dequant: pool of {n_pages} pages, {st['preempted']} preemptions, "
+        f"{st['prefill_calls']} prefill calls for 8 requests (resumes re-prefill)")
+    ph["partings"] = hold_near_ties("optimistic dequant", cfg, qparams, ph,
+                                    serves["dequant"], "dequant")
+    out["optimistic dequant"] = ph
+    # (j) Sampled lanes beside greedy ones in w8a8 on int8 pages, then the
+    # same requests submitted in reverse order to a second engine.
+    ecfg = serve_cfg.replace(matmul_mode="w8a8", kv_bits=8)
+    ph = serve_phase("sampled w8a8", cfg, qparams, seed, card, ecfg, "fused_qmatmul",
+                     sampled=True)
+    again = serve_phase("sampled w8a8, reversed", cfg, qparams, seed, card, ecfg,
+                        "fused_qmatmul", sampled=True, reverse=True)
+    plain = serves["w8a8"]["outputs"]
+    for uid, toks in ph["outputs"].items():
+        if uid % 2 == 0 and toks != plain[uid]:
+            raise AssertionError(f"sampled w8a8: greedy request {uid} differs from the "
+                                 "plain w8a8 phase's tokens")
+        if toks != again["outputs"][uid]:
+            raise AssertionError(f"sampled w8a8: request {uid} differs when served again "
+                                 "in reverse order")
+    # The sampler at one decode step of this phase (8 lanes, the odd 4
+    # sampled) against the greedy step's argmax: wall per call of
+    # back-to-back calls.
+    import torch
+    from repro_torch.serving import SamplingParams, sampling
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    logits = (torch.randn((8, cfg.vocab), generator=g, device="cuda") * 3).to(torch.bfloat16)
+    samp = sampling.params_to_arrays(
+        [r.sampling or SamplingParams() for r in seeded_requests(cfg, seed, True)], "cuda")
+    pos = torch.full((8,), 300, dtype=torch.int32, device="cuda")
+    ph["sampler_ms"] = time_ms(lambda: sampling.sample_tokens(logits, samp, pos), 20)
+    ph["argmax_ms"] = time_ms(lambda: torch.argmax(logits, dim=-1), 20)
+    log(f"serve sampled w8a8: sample_tokens on [8, {cfg.vocab}] bf16 logits "
+        f"{ph['sampler_ms']:.3f} ms a step against argmax {ph['argmax_ms']:.3f} ms")
+    differ = sum(ph["outputs"][u] != plain[u] for u in range(1, 8, 2))
+    log(f"serve sampled w8a8: greedy requests bitwise the plain w8a8 phase's; sampled "
+        f"requests bitwise the same served again in reverse order ({differ} of 4 differ "
+        f"from greedy)")
+    out["sampled w8a8"] = ph
+    out["sampled w8a8, reversed"] = again
+    return out
 
 
 def verify_check(label, cfg, params, mode, kv_bits, seed):
@@ -1507,6 +1692,8 @@ def main(argv=None) -> int:
         serves[label] = serve_phase(label, cfg, qparams, args.seed, card, ecfg,
                                     MODE_KERNEL[ecfg.matmul_mode], plain=serves[plain])
     mark("spec serves")
+    serves.update(lifecycle_phases(cfg, qparams, args.seed, card, serve_cfg, serves))
+    mark("lifecycle serves")
     # A window of 16 (verify Q = 17) drafting in the target's own mode (the
     # draft is the target, so every draft must be accepted), on the first
     # --short-layers layers of the same tree against a plain w8a8 phase of

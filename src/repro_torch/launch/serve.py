@@ -1,4 +1,4 @@
-"""Serving launcher: random model -> OCS PTQ -> batched greedy serving.
+"""Serving launcher: random model -> OCS PTQ -> batched serving.
 
 The port of ``repro.launch.serve`` for the path the port has: a freshly
 initialized dense model (weights from ``--seed``), quantized once with the
@@ -13,8 +13,13 @@ outlier rows, ``--w4a8-outlier-ratio`` of them; int4 KV pages), and
 ``--ocs-ratio 0`` the clip-only tree (no OCS split). ``--spec-k K``
 serves with self-speculative decoding (K draft tokens per round, drafted
 in ``w8a8``; ``--draft-layers L`` cuts the drafter to the first L layers);
-its output is token-identical to plain greedy. Runs on the card;
-``--device cpu`` runs the plain PyTorch path at smoke size.
+its output is token-identical to plain greedy. ``--temperature T``
+(with ``--top-k`` / ``--top-p``) makes every request sampled, seeded with
+``--seed``. The scheduler and overload flags come from ``EngineConfig``
+too: ``--prefill-budget B --chunk-size C`` chunks prefill, ``--admission
+optimistic`` admits on prompt pages and preempts under pool pressure,
+``--max-queue``, ``--sched-policy``, ``--heartbeat-path``. Runs on the
+card; ``--device cpu`` runs the plain PyTorch path at smoke size.
 
     python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu
     python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu \
@@ -23,6 +28,9 @@ its output is token-identical to plain greedy. Runs on the card;
         --matmul-mode w4a8 --kv-bits 4
     python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu \
         --spec-k 4 --draft-layers 1
+    python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu \
+        --temperature 0.8 --top-k 40 --prefill-budget 16 --chunk-size 16 \
+        --admission optimistic
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ from ..models import transformer as T
 from ..serving import (
     EngineConfig,
     Request,
+    SamplingParams,
     ServingEngine,
     add_engine_config_args,
     engine_config_from_args,
@@ -57,6 +66,12 @@ def build_parser():
     ap.add_argument("--bits", type=int, default=8)
     ap.add_argument("--ocs-ratio", type=float, default=0.02)
     ap.add_argument("--clip", default="mse")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="request sampling temperature (0 = greedy)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="request top-k restriction (0 = off)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="request nucleus restriction (1 = off)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the plain PyTorch path)")
@@ -64,12 +79,13 @@ def build_parser():
     return ap
 
 
-def _make_requests(n, vocab, rng, max_new):
+def _make_requests(n, vocab, rng, max_new, sampling=None):
     reqs = []
     for i in range(n):
         plen = int(rng.integers(4, 12))
         prompt = rng.integers(0, vocab, plen).tolist()
-        reqs.append(Request(uid=i, prompt=prompt, max_new_tokens=max_new))
+        reqs.append(Request(uid=i, prompt=prompt, max_new_tokens=max_new,
+                            sampling=sampling))
     return reqs
 
 
@@ -105,7 +121,17 @@ def main(argv=None):
         time.time() - t0, args.bits, args.ocs_ratio, args.clip)
 
     ecfg = engine_config_from_args(args)
-    reqs = _make_requests(args.n_requests, cfg.vocab, rng, args.max_new)
+    sampling = None
+    if args.temperature > 0:
+        sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                                  top_p=args.top_p, seed=args.seed)
+    elif args.top_k or args.top_p < 1.0:
+        # temperature == 0 is exact greedy; silently dropping the
+        # restriction flags would pass greedy off as sampled decode.
+        raise SystemExit("serve: --top-k/--top-p only apply to sampled decode; "
+                         "set --temperature > 0")
+    reqs = _make_requests(args.n_requests, cfg.vocab, rng, args.max_new,
+                          sampling=sampling)
     done, stats, _eng = serve_once(cfg, qparams, reqs, ecfg, device=dev)
     log.info("%s", stats)
     reasons = {}
@@ -121,6 +147,14 @@ def main(argv=None):
     log.info(
         "throughput: prefill %.1f tok/s | decode %.1f tok/s | errors %d",
         stats["prefill_tok_per_s"], stats["decode_tok_per_s"], stats["errors"],
+    )
+    log.info(
+        "scheduler: %s, %d chunks, peak %d prefill tokens a step | preempted %d, "
+        "shed %d, timed out %d | queue wait p50 %.1f ms / p95 %.1f ms",
+        stats["sched_policy"], stats["sched_chunks"],
+        stats["sched_peak_step_prefill_tokens"], stats["preempted"], stats["shed"],
+        stats["timed_out"], stats["queue_wait_p50_s"] * 1e3,
+        stats["queue_wait_p95_s"] * 1e3,
     )
     if stats["spec_enabled"]:
         log.info(

@@ -1,8 +1,18 @@
 from .config import (  # noqa: F401
     EngineConfig,
+    SamplingParams,
     add_engine_config_args,
     engine_config_from_args,
 )
-from .engine import FINISH_REASONS, Request, ServingEngine  # noqa: F401
+from .engine import (  # noqa: F401
+    FINISH_REASONS,
+    EngineOverloaded,
+    EngineStats,
+    Request,
+    ServingEngine,
+    TokenEvent,
+)
 from .kv_cache import PageAllocator, pages_needed  # noqa: F401
+from .scheduler import StepScheduler  # noqa: F401
+from .spec_decode import SpecConfig  # noqa: F401
 from . import kv_cache  # noqa: F401

@@ -1,13 +1,15 @@
 """Typed serving configuration (the port of ``repro.serving.config``):
-``EngineConfig`` with the fields the greedy paged path uses (speculation
-included), the same defaults as the reference, and the argparse flags
-generated from it (``spec`` becomes ``--spec-k`` / ``--draft-layers``).
+per-request :class:`SamplingParams`, and ``EngineConfig`` with the fields
+the paged engine uses (speculation, admission, the step scheduler, the
+bounded queue and the watchdog), the same defaults, help texts and
+validation as the reference, and the argparse flags generated from it
+(``spec`` becomes ``--spec-k`` / ``--draft-layers``).
 
 There is no ``kernels`` field: the port dispatches by device (the CUDA
 kernels on the card, their plain versions on the CPU), not by a per-engine
-backend choice. Modes and policies the port has not reached yet are valid
-values that :class:`~repro_torch.serving.engine.ServingEngine` refuses at
-construction with ``NotImplementedError`` naming the ROADMAP item.
+backend choice. Nor are there the unpaged engine's ``paged`` (ROADMAP
+A16), the observability fields (``trace``, ``drift_*``, ``profile_dir``;
+A10) or the jit compile cache (nothing is compiled).
 """
 from __future__ import annotations
 
@@ -17,7 +19,42 @@ from typing import Optional
 
 from .spec_decode import SpecConfig
 
-__all__ = ["EngineConfig", "add_engine_config_args", "engine_config_from_args"]
+__all__ = [
+    "SamplingParams",
+    "EngineConfig",
+    "add_engine_config_args",
+    "engine_config_from_args",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    """Per-request decode sampling.
+
+    The default (``temperature == 0``) is exact greedy argmax, the decode
+    semantics every exactness contract of the engine is stated over.
+    Non-greedy requests draw from the temperature-scaled distribution
+    restricted by ``top_k`` / ``top_p``; a draw depends on ``(seed, token
+    position)`` only (``serving.sampling``), so a fixed seed reproduces its
+    tokens across runs and batch compositions on one device.
+    """
+
+    temperature: float = 0.0  # 0 = greedy (exact argmax)
+    top_k: int = 0  # 0 = no top-k restriction
+    top_p: float = 1.0  # 1 = no nucleus restriction
+    seed: int = 0  # per-request seed
+
+    def __post_init__(self):
+        if self.temperature < 0.0:
+            raise ValueError(f"temperature must be >= 0, got {self.temperature}")
+        if self.top_k < 0:
+            raise ValueError(f"top_k must be >= 0, got {self.top_k}")
+        if not 0.0 < self.top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {self.top_p}")
+
+    @property
+    def greedy(self) -> bool:
+        return self.temperature == 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,16 +106,71 @@ class EngineConfig:
     admission: str = dataclasses.field(
         default="reserve",
         metadata={
-            "help": "paged admission: reserve = worst-case pages up front "
-            "(optimistic admission is not ported yet, A9)",
+            "help": "paged admission policy: reserve = worst-case pages up "
+            "front (never preempts); optimistic = admit on prompt pages + "
+            "headroom, preempt-and-recompute the youngest lane on exhaustion",
             "choices": ["reserve", "optimistic"],
+        },
+    )
+    admission_headroom: int = dataclasses.field(
+        default=1,
+        metadata={
+            "help": "optimistic admission: decode pages granted beyond the "
+            "prompt at install time (>= 1 so the first decode token always "
+            "has a slot)",
+        },
+    )
+    max_queue: int = dataclasses.field(
+        default=0,
+        metadata={
+            "help": "bounded submit queue (0 = unbounded); a full queue "
+            "rejects with EngineOverloaded and finish_reason='shed'",
+        },
+    )
+    sched_policy: str = dataclasses.field(
+        default="fifo",
+        metadata={
+            "help": "admission/chunk ordering: fifo = submit order; sjf = "
+            "shortest remaining prefill first (aged requests are promoted "
+            "ahead after sched_aging_steps engine steps in queue)",
+            "choices": ["fifo", "sjf"],
         },
     )
     prefill_budget: int = dataclasses.field(
         default=0,
         metadata={
             "help": "max prefill tokens per engine step (0 = monolithic "
-            "prefill; chunked prefill is not ported yet, A9)",
+            "prefill); > 0 chunks prompts so decode lanes never wait behind "
+            "a whole prompt",
+        },
+    )
+    chunk_size: int = dataclasses.field(
+        default=64,
+        metadata={
+            "help": "prefill chunk length in tokens (a multiple of "
+            "page_size; only used when prefill_budget > 0)",
+        },
+    )
+    sched_aging_steps: int = dataclasses.field(
+        default=64,
+        metadata={
+            "help": "anti-starvation bound: a queued request older than this "
+            "many engine steps is ordered ahead of policy order (sjf cannot "
+            "starve long prompts)",
+        },
+    )
+    heartbeat_path: str = dataclasses.field(
+        default="",
+        metadata={
+            "help": "serving heartbeat file, written once per engine step "
+            "('' = off); external watchdogs read it for liveness",
+        },
+    )
+    heartbeat_interval_s: float = dataclasses.field(
+        default=0.0,
+        metadata={
+            "help": "min seconds between heartbeat file writes (0 = every "
+            "step); throttles the per-step atomic file replace on fast loops",
         },
     )
 
@@ -114,8 +206,45 @@ class EngineConfig:
             raise ValueError(
                 f"admission must be reserve|optimistic, got {self.admission!r}"
             )
+        if self.admission_headroom < 1:
+            raise ValueError(
+                "admission_headroom must be >= 1 (the first decode token "
+                f"needs a page slot), got {self.admission_headroom}"
+            )
+        if self.max_queue < 0:
+            raise ValueError(f"max_queue must be >= 0, got {self.max_queue}")
+        if self.sched_policy not in ("fifo", "sjf"):
+            raise ValueError(
+                f"sched_policy must be fifo|sjf, got {self.sched_policy!r}"
+            )
         if self.prefill_budget < 0:
             raise ValueError(f"prefill_budget must be >= 0, got {self.prefill_budget}")
+        if self.prefill_budget:
+            if self.chunk_size < 1:
+                raise ValueError(
+                    "chunk_size must be >= 1 when prefill_budget > 0, "
+                    f"got {self.chunk_size}"
+                )
+            if self.prefill_budget < self.chunk_size:
+                raise ValueError(
+                    "prefill_budget must be >= chunk_size (each step must "
+                    f"fit one chunk), got budget {self.prefill_budget} < "
+                    f"chunk {self.chunk_size}"
+                )
+            if self.chunk_size % self.page_size:
+                raise ValueError(
+                    "chunk_size must be a multiple of page_size, got chunk "
+                    f"{self.chunk_size} / page {self.page_size}"
+                )
+        if self.sched_aging_steps < 1:
+            raise ValueError(
+                f"sched_aging_steps must be >= 1, got {self.sched_aging_steps}"
+            )
+        if self.heartbeat_interval_s < 0:
+            raise ValueError(
+                "heartbeat_interval_s must be >= 0, got "
+                f"{self.heartbeat_interval_s}"
+            )
         if self.spec is not None and not isinstance(self.spec, SpecConfig):
             raise TypeError(f"spec must be a SpecConfig, got {type(self.spec)}")
         if (self.matmul_mode == "w4a8" and self.spec is not None

@@ -1440,3 +1440,126 @@ def test_wo_prefill_tile_refuses_what_it_cannot_take_cuda(tile, n, k):
     torch.cuda.synchronize()
     assert err == 1
     assert bool((out == 7.0).all())
+
+
+def _serve_cuda(cfg, q, reqs, **conf):
+    """Serve ``reqs`` on a card engine; returns (engine, {uid: tokens})."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+
+    eng = ServingEngine(cfg, q, EngineConfig(**conf), device="cuda")
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    return eng, {r.uid: list(r.output) for r in reqs}
+
+
+def _lifecycle_reqs(cfg, seed, lengths, max_new, sampled=()):
+    from repro_torch.serving import Request, SamplingParams
+
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab, n).tolist(),
+                    max_new_tokens=max_new,
+                    sampling=(SamplingParams(temperature=0.8, top_k=50, top_p=0.9, seed=i)
+                              if i in sampled else None))
+            for i, n in enumerate(lengths)]
+
+
+@pytest.mark.cuda
+def test_sampled_lane_solo_vs_batched_cuda():
+    """A sampled request draws bitwise the same tokens on the card alone
+    and beside other lanes (its draws depend on its seed and positions
+    only; every kernel's row is independent of the batch)."""
+    cuda_or_skip()
+    cfg, q = _smoke_tree("w8a8")
+    conf = dict(max_len=64, page_size=8, matmul_mode="w8a8", kv_bits=8)
+    reqs = _lifecycle_reqs(cfg, 4, (9, 14, 6), 10, sampled=(0, 1, 2))
+    _, batched = _serve_cuda(cfg, q, reqs, max_batch=3, **conf)
+    for r in _lifecycle_reqs(cfg, 4, (9, 14, 6), 10, sampled=(0, 1, 2)):
+        _, solo = _serve_cuda(cfg, q, [r], max_batch=1, **conf)
+        assert solo[r.uid] == batched[r.uid]
+    assert len({tuple(t) for t in batched.values()}) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matmul_mode,kv_bits", [("dequant", None), ("w8a8", 8)])
+def test_greedy_lanes_of_a_mixed_batch_cuda(matmul_mode, kv_bits):
+    """Greedy lanes beside sampled ones give bitwise the tokens of a
+    greedy-only batch of the same requests, and the sampler runs on the
+    card only for steps with a sampled lane."""
+    cuda_or_skip()
+    from repro_torch.serving import sampling
+
+    cfg, q = _smoke_tree("w8a8")
+    conf = dict(max_batch=4, max_len=64, page_size=8, matmul_mode=matmul_mode,
+                kv_bits=kv_bits)
+    lengths = (7, 12, 20, 5)
+    _, greedy = _serve_cuda(cfg, q, _lifecycle_reqs(cfg, 6, lengths, 12), **conf)
+    calls = []
+    real = sampling.sample_tokens
+
+    def spy(logits, samp, pos):
+        assert logits.is_cuda and pos.is_cuda
+        calls.append(logits.shape[0])
+        return real(logits, samp, pos)
+
+    sampling.sample_tokens = spy
+    try:
+        _, mixed = _serve_cuda(cfg, q, _lifecycle_reqs(cfg, 6, lengths, 12, sampled=(1, 3)),
+                               **conf)
+    finally:
+        sampling.sample_tokens = real
+    assert mixed[0] == greedy[0] and mixed[2] == greedy[2]
+    assert calls and set(calls) <= {1, 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matmul_mode,kernel", [("dequant", "ocs"), ("w8a8", "fused")])
+def test_chunked_prefill_launch_count_cuda(matmul_mode, kernel):
+    """Budgeted chunked prefill on the card: every chunk is one prefill
+    call, the mode's matmul kernel runs 7*L+1 times per decode step and per
+    prefill call, B2 L times per decode step (mid-prefill lanes ride the
+    decode step's launch), and every page comes back."""
+    cuda_or_skip()
+    cfg, q = _smoke_tree("w8a8")
+    mod = {"ocs": tom, "fused": tfq}[kernel]
+    reqs = _lifecycle_reqs(cfg, 7, (40, 7, 23), 8)
+    for m in (tom, tfq, tqm, tw4, tpa):
+        m.reset_launches()
+    eng, _ = _serve_cuda(cfg, q, reqs, max_batch=3, max_len=96, page_size=8,
+                         matmul_mode=matmul_mode, kv_bits=8 if matmul_mode == "w8a8" else None,
+                         prefill_budget=16, chunk_size=16)
+    s = eng.stats()
+    L = cfg.n_layers
+    assert s["prefill_calls"] == s["sched_chunks"] == 3 + 1 + 2
+    assert s["sched_peak_step_prefill_tokens"] <= 16
+    assert mod.launches == (7 * L + 1) * (s["decode_steps"] + s["prefill_calls"])
+    assert tpa.launches == L * s["decode_steps"]
+    others = [m for m in (tom, tfq, tqm, tw4) if m is not mod]
+    assert all(m.launches == 0 for m in others)
+    assert eng.allocator.in_use() == 0
+    assert all(r.finish_reason == "length" and len(r.output) == 8 for r in reqs)
+
+
+@pytest.mark.cuda
+def test_preempt_resume_cycle_cuda():
+    """Optimistic admission on a pool too small for the lanes' growth: the
+    card engine preempts, resumes with one prefill call over the committed
+    tokens past its prefix hits (counted in the launches), finishes every
+    request and ends with the allocator empty."""
+    cuda_or_skip()
+    cfg, q = _smoke_tree("w8a8")
+    reqs = _lifecycle_reqs(cfg, 7, (7, 5, 3), 20)
+    for m in (tom, tfq, tpa):
+        m.reset_launches()
+    eng, _ = _serve_cuda(cfg, q, reqs, max_batch=3, max_len=96, page_size=8, n_pages=9,
+                         admission="optimistic", matmul_mode="w8a8", kv_bits=8)
+    s = eng.stats()
+    L = cfg.n_layers
+    assert s["preempted"] >= 1
+    assert s["prefill_calls"] > 3  # the resumes re-prefilled
+    assert tfq.launches == (7 * L + 1) * (s["decode_steps"] + s["prefill_calls"])
+    assert tpa.launches == L * s["decode_steps"]
+    a = eng.allocator
+    assert a.in_use() == 0 and a.available() == a.capacity
+    assert a.peak_in_use <= a.capacity
+    assert all(r.finish_reason == "length" and len(r.output) == 20 for r in reqs)

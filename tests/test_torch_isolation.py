@@ -49,6 +49,9 @@ def test_imports_without_jax_or_repro():
     mods = _all_modules()
     assert "repro_torch.kernels.ops" in mods and len(mods) > 20
     assert "repro_torch.serving.spec_decode" in mods
+    for m in ("repro_torch.serving.sampling", "repro_torch.serving.scheduler",
+              "repro_torch.runtime.health"):
+        assert m in mods
     code = (
         "import sys, importlib, importlib.util\n"
         "sys.modules['jax'] = None\n"
@@ -216,18 +219,28 @@ def test_dense_refuses_unported_modes():
 
 
 def test_unported_modes_raise_at_engine_construction():
-    """The A9 policies still raise; the A12 tier (``matmul_mode="w4a8"``,
-    ``kv_bits=4``) constructs, converting the int8 leaves once."""
+    """The A9 policies (optimistic admission, budgeted chunked prefill)
+    construct and serve; a block the port has not reached (A13) still
+    raises; the A12 tier (``matmul_mode="w4a8"``, ``kv_bits=4``) constructs,
+    converting the int8 leaves once."""
+    import dataclasses
+
     from repro_torch.core.ocs import W4A8Linear
+    from repro_torch.serving import Request
 
     cfg = smoke_config("glm4-9b")
     params = T.init_params(cfg, seed=0, device="cpu")
-    for kw, item in (
-        (dict(matmul_mode="w8a8", admission="optimistic"), "A9"),
-        (dict(matmul_mode="w8a8", prefill_budget=64), "A9"),
-    ):
-        with pytest.raises(NotImplementedError, match=item):
-            ServingEngine(cfg, params, EngineConfig(max_len=64, **kw), device="cpu")
+    for kw in (dict(matmul_mode="w8a8", admission="optimistic"),
+               dict(matmul_mode="w8a8", prefill_budget=64)):
+        eng = ServingEngine(cfg, params, EngineConfig(max_len=64, page_size=16, **kw),
+                            device="cpu")
+        eng.submit(Request(uid=0, prompt=list(range(1, 21)), max_new_tokens=3))
+        (r,) = eng.run()
+        assert r.finish_reason == "length" and len(r.output) == 3
+        assert eng.stats()["kv_pages_in_use"] == 0.0
+    with pytest.raises(NotImplementedError, match="A13"):
+        ServingEngine(dataclasses.replace(cfg, block="moe"), params,
+                      EngineConfig(max_len=64), device="cpu")
     q = quantize_params(params, QuantRecipe(w_bits=8, ocs_ratio=0.02, per_channel=True),
                         device="cpu")
     for kw in (dict(matmul_mode="w4a8"), dict(matmul_mode="w8a8", kv_bits=4),
