@@ -41,11 +41,11 @@ Phases (any failure raises, and the script exits non-zero with no result):
    the start, the middle and the end bitwise an 8-row call's, within the
    bound.
    ``paged_attention`` with Q > 1 query tokens per lane (B2', the
-   speculative verify; Q in {2, 5, 17}) on the three pool kinds: pools
-   bitwise, outputs within ``B2_ATOL``, every row bitwise the sequential
-   Q = 1 launches at its position.
+   speculative verify and a resume's replay; Q in {2, 5, 17, 31}) on the
+   three pool kinds: pools bitwise, outputs within ``B2_ATOL``, every row
+   bitwise the sequential Q = 1 launches at its position.
    ``dynamic_quant`` (B3) at K in {4096, 13696}, M in {1, 8, 256}:
-   bitwise. ``w4a8_qmatmul`` (B6) at every shape (the layer-0 and lm_head
+   bitwise, timed on a CUDA graph too. ``w4a8_qmatmul`` (B6) at every shape (the layer-0 and lm_head
    leaves converted with ``to_w4a8(., 0.05)`` on the card, each conversion,
    and that of a stacked two-layer leaf, bitwise the same conversion on the
    CPU) with M in {1, 8, 256}: bitwise, f32 and bf16 outputs.
@@ -73,21 +73,39 @@ Phases (any failure raises, and the script exits non-zero with no result):
    launches against the count its rounds and draft steps give. Then the
    request lifecycle on the same requests: (h) dequant with
    ``prefill_budget=128, chunk_size=64`` (at least the chunks the prompts
-   need, at most 128 prompt tokens a step) and (i) dequant with optimistic
-   admission on a pool of each prompt's pages plus one (at least one
-   preemption, the page peak within the capacity), each held against the
-   plain dequant phase: a request may part from it only where one prefill
-   of the plain model gives a top-2 logit margin below ``TIE_MARGIN``
-   (each parting printed); (j) w8a8 on int8 pages with odd uids sampled
-   (``SAMPLED_PARAMS``, ``seed=uid``): greedy requests bitwise the plain
-   w8a8 phase's, every request bitwise the same served again in reverse
-   submission order. Each chunk and each resume is one prefill call in
-   the launch reckoning, and every serve phase ends with no page in use.
-   Then, on
-   the first ``--short-layers`` layers of the same tree (default 10; the
-   second cut), a plain w8a8 phase and (g) ``SpecConfig(k=16,
-   adaptive=False)`` in w8a8 on int8 pages (verify Q = 17; the draft is
-   the target: every draft accepted), held against it likewise.
+   need, at most 128 prompt tokens a step), held against the plain dequant
+   phase: a request may part from it only where one prefill of the plain
+   model gives a top-2 logit margin below ``TIE_MARGIN`` (each parting
+   printed; the prefill attention's key chunk follows the call's key
+   count, the reference's own rule); (i) dequant with optimistic admission
+   on a pool of each prompt's pages plus one (at least one preemption, the
+   page peak within the capacity): a resume re-prefills the prompt past its
+   hits and replays the committed tokens through the decode path, and every
+   request is bitwise the plain dequant phase's; (j) w8a8 on int8 pages
+   with odd uids sampled (``SAMPLED_PARAMS``, ``seed=uid``): greedy
+   requests bitwise the plain w8a8 phase's, every request bitwise the same
+   served again in reverse submission order. Then the observability layer
+   and the router: (k) dequant with ``trace=True, drift_every=4``: tokens
+   bitwise the plain dequant phase's, the span ring exported as Chrome
+   trace JSON to ``<out>/chip_smoke_trace.json`` and validated, one
+   explicit drift sample once all lanes decode leaving every pool byte as
+   it was (pools cloned and digested around it); (l) two w8a8 replicas on
+   int8 pages sharing the tree behind ``Router`` serve (j)'s requests and
+   replica 0 is killed once its lanes have committed 4 tokens: every output
+   bitwise (j)'s, at least one migration, every page of both pools back.
+   Each chunk and each resume's prefill is one prefill call in the launch
+   reckoning, each resume replay and drift sample a decode call (B2' when a
+   replay's tail is longer than one token), and every serve phase ends with
+   no page in use. Then, on the first ``--short-layers`` layers of the same
+   tree (default 10; the second cut), a plain w8a8 phase and (g)
+   ``SpecConfig(k=16, adaptive=False)`` in w8a8 on int8 pages (verify Q =
+   17; the draft is the target: every draft accepted), held against it
+   likewise, and (m) one chaos ``FaultPlan`` (InjectNaN, StallSteps,
+   PagePressure, KillReplica) run twice over two optimistic w8a8 replicas:
+   each request's (finish_reason, tokens) identical across the runs, the
+   poisoned request "error", the others bitwise the plain phase's, no page
+   leaked. B2' is then held at every tail length the replays of (i), (l)
+   and (m) ran.
 5. Clip-only tree: the OCS tree is freed, the same seeded weights are made
    again and quantized with ``ocs_ratio=0`` (the paper's baseline, no
    split), ``--short-layers`` deep (default 10). ``quant_matmul``
@@ -150,10 +168,11 @@ WO_TOL_FACTOR = 2.0
 # tests/test_torch_smoke_check.py.
 MODEL_RTOL = 0.01
 
-# Phases (h) and (i) may part from the plain dequant phase only where the
-# plain model's top-2 logit margin is below this (logits): the CPU engine
-# tests' bound (tests/_torch_lifecycle.py, TIE_TOL). The partings seen had
-# margins of at most 0.0312, one bf16 step of logits of 4-8 (H100).
+# Phase (h) may part from the plain dequant phase only where the plain
+# model's top-2 logit margin is below this (logits): the CPU engine tests'
+# bound (tests/_torch_lifecycle.py, TIE_TOL). The partings seen had margins
+# of at most 0.0312, one bf16 step of logits of 4-8 (H100). No resume is
+# held this way: phase (i) is bitwise.
 TIE_MARGIN = 0.25
 # Phase (j)'s sampled requests: SamplingParams(**SAMPLED_PARAMS, seed=uid).
 SAMPLED_PARAMS = dict(temperature=0.8, top_k=50, top_p=0.9)
@@ -491,49 +510,62 @@ def kernel_phase_b2(gen, iters):
 
 
 # B2's multi-row path: the verify windows of the spec phases (Q = k + 1 for
-# the default k = 4) and of SpecConfig(k=16), and a short one.
-B2V_QS = (2, 5, 17)
+# the default k = 4) and of SpecConfig(k=16), a short one, and Q = 31, a
+# resume replay's tail (32 new tokens: at most 31 committed past a prompt).
+B2V_QS = (2, 5, 17, 31)
+
+
+def b2v_check(gen, kind, qn):
+    """One B2 call with ``qn`` query tokens per lane on a ``kind`` pool
+    against its plain version and against ``qn`` sequential Q = 1 launches:
+    pools bitwise (the trash page, which several rows write and nothing
+    reads, aside), outputs finite and within ``B2_ATOL``, the all-trash lane
+    zeros, every row bitwise the sequential launches'. Returns (max |d|,
+    the case and the plain version's pool, for timing)."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+
+    pool, table, pos, q, kn, vn = b2_case(gen, kind, Q=qn, poison=True)
+    want_out, want_pool = pa.paged_attention_plain(pool, table, pos, q, kn, vn)
+    work = {k: v.clone() for k, v in pool.items()}
+    got_out, got_pool = pa.paged_attention_cuda(work, table, pos, q, kn, vn)
+    seq = {k: v.clone() for k, v in pool.items()}
+    outs = []
+    for j in range(qn):
+        o, seq = pa.paged_attention_cuda(seq, table, pos + j, q[:, j:j + 1].contiguous(),
+                                         kn[:, j:j + 1].contiguous(),
+                                         vn[:, j:j + 1].contiguous())
+        outs.append(o)
+    torch.cuda.synchronize()
+    for key in want_pool:
+        if not same_bits(got_pool[key][1:], want_pool[key][1:]):
+            raise AssertionError(f"paged_attention Q={qn} {kind}: pool {key} differs")
+        if not same_bits(seq[key][1:], got_pool[key][1:]):
+            raise AssertionError(f"paged_attention Q={qn} {kind}: pool {key} differs "
+                                 "from the sequential Q=1 launches'")
+    if not torch.isfinite(got_out).all() or got_out[7].abs().max().item() != 0.0:
+        raise AssertionError(f"paged_attention Q={qn} {kind}: nonfinite output or "
+                             "the all-trash lane not zeros")
+    err = (got_out - want_out).abs().max().item()
+    if err > B2_ATOL:
+        raise AssertionError(f"paged_attention Q={qn} {kind}: max |d| {err} > {B2_ATOL}")
+    if not same_bits(torch.cat(outs, 1), got_out):
+        raise AssertionError(f"paged_attention Q={qn} {kind}: rows differ from the "
+                             "sequential Q=1 launches")
+    del seq
+    return err, (pool, work, want_pool, table, pos, q, kn, vn)
 
 
 def kernel_phase_b2v(gen, iters):
-    """B2's Q > 1 rows (the speculative verify) on int8, float32 and int4
-    pools at Q in ``B2V_QS``: pools bitwise the plain version's (the trash
-    page, which several rows write and nothing reads, aside), outputs within
-    ``B2_ATOL``, and every row bitwise the sequential Q = 1 launches at its
-    position."""
-    import torch
+    """B2's Q > 1 rows (the speculative verify, and a resume's replay) on
+    int8, float32 and int4 pools at Q in ``B2V_QS``, held by
+    :func:`b2v_check` and timed."""
     from repro_torch.kernels import paged_attention as pa
 
     rows = []
     for kind in ("int8", "float32", "int4"):
         for qn in B2V_QS:
-            pool, table, pos, q, kn, vn = b2_case(gen, kind, Q=qn, poison=True)
-            want_out, want_pool = pa.paged_attention_plain(pool, table, pos, q, kn, vn)
-            work = {k: v.clone() for k, v in pool.items()}
-            got_out, got_pool = pa.paged_attention_cuda(work, table, pos, q, kn, vn)
-            seq = {k: v.clone() for k, v in pool.items()}
-            outs = []
-            for j in range(qn):
-                o, seq = pa.paged_attention_cuda(seq, table, pos + j, q[:, j:j + 1].contiguous(),
-                                                 kn[:, j:j + 1].contiguous(),
-                                                 vn[:, j:j + 1].contiguous())
-                outs.append(o)
-            torch.cuda.synchronize()
-            for key in want_pool:
-                if not same_bits(got_pool[key][1:], want_pool[key][1:]):
-                    raise AssertionError(f"paged_attention Q={qn} {kind}: pool {key} differs")
-                if not same_bits(seq[key][1:], got_pool[key][1:]):
-                    raise AssertionError(f"paged_attention Q={qn} {kind}: pool {key} differs "
-                                         "from the sequential Q=1 launches'")
-            if not torch.isfinite(got_out).all() or got_out[7].abs().max().item() != 0.0:
-                raise AssertionError(f"paged_attention Q={qn} {kind}: nonfinite output or "
-                                     "the all-trash lane not zeros")
-            err = (got_out - want_out).abs().max().item()
-            if err > B2_ATOL:
-                raise AssertionError(f"paged_attention Q={qn} {kind}: max |d| {err} > {B2_ATOL}")
-            if not same_bits(torch.cat(outs, 1), got_out):
-                raise AssertionError(f"paged_attention Q={qn} {kind}: rows differ from the "
-                                     "sequential Q=1 launches")
+            err, (pool, work, want_pool, table, pos, q, kn, vn) = b2v_check(gen, kind, qn)
             tm = b2_times(work, pool, want_pool, table, pos, q, kn, vn, kind, iters)
             bound, by = b2_bound_ms(pool, table, pos, q)
             b, _, h, hd = q.shape
@@ -545,7 +577,7 @@ def kernel_phase_b2v(gen, iters):
                 f"{tm['plain_ms']:.4f} library_ms={tm['library_ms']:.4f} library_device_ms="
                 f"{tm['library_device_ms']:.4f} bound_ms={bound:.5f} ({by}) max_abs_err="
                 f"{err:.3g} pools bitwise=yes, rows bitwise the sequential Q=1 launches")
-            del pool, work, seq, want_pool
+            del pool, work, want_pool
     return rows
 
 
@@ -878,12 +910,15 @@ def kernel_phase_b3(gen, iters):
                 raise AssertionError(f"dynamic_quant M={m} K={k}: not bitwise equal")
             # Not cycled: the activations come hot from the previous op.
             ms = time_ms(lambda: dq.dynamic_quant_cuda(x), iters)
+            device_ms = graph_ms(lambda: dq.dynamic_quant_cuda(x), iters)
             plain_ms = time_ms(lambda: dq.dynamic_quant_plain(x), max(2, iters // 5), warmup=1)
             bound = 1e3 * (m * k * 2 + m * k + m * 4) / HBM_BPS
-            rows.append(dict(M=m, K=k, ms=ms, plain_ms=plain_ms, library_ms=None,
-                             bound_ms=bound, bound_by="bytes", max_abs_err=0.0))
-            log(f"B3 dynamic_quant M={m} K={k}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"library_ms=null bound_ms={bound:.5f} (bytes) bitwise=yes")
+            rows.append(dict(M=m, K=k, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                             library_ms=None, bound_ms=bound, bound_by="bytes",
+                             max_abs_err=0.0))
+            log(f"B3 dynamic_quant M={m} K={k}: kernel_ms={ms:.4f} device_ms={device_ms:.4f} "
+                f"plain_ms={plain_ms:.4f} library_ms=null bound_ms={bound:.5f} (bytes) "
+                f"bitwise=yes")
     return rows, dq.launches
 
 
@@ -1107,7 +1142,7 @@ def seeded_requests(cfg, seed, sampled=False):
 
 
 def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel, plain=None,
-                sampled=False, reverse=False):
+                sampled=False, reverse=False, hook=None):
     """Serve 8 seeded requests; every launch count is set to 0 just before
     and read just after. ``matmul_kernel`` must run 7*L+1 times per decode
     step and per prefill call, the other matmul kernels not at all.
@@ -1121,8 +1156,13 @@ def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel, plain=None
     for token, and the allocator must end in its state.
 
     Every prefill call counts, a chunk of budgeted prefill and a resume's
-    re-prefill alike. ``sampled`` gives odd uids ``SAMPLED_PARAMS``;
-    ``reverse`` submits the requests in reverse order."""
+    re-prefill alike; a resume's replay (``engine.replay_lengths``: one
+    ``decode_tokens`` call over its committed tail) and a drift sample (one
+    ``decode_step``) count as a decode step does, the replay through B2's
+    Q > 1 path when its tail is longer than one token. ``sampled`` gives odd
+    uids ``SAMPLED_PARAMS``; ``reverse`` submits the requests in reverse
+    order; ``hook(engine)``, when given, runs after the counts are set to 0
+    and before the engine runs to its end (it may step the engine)."""
     import torch
     from repro_torch.core.apply import map_with_path
     from repro_torch.core.ocs import OCSQuantLinear, W4A8Linear
@@ -1140,6 +1180,7 @@ def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel, plain=None
     for mod, _ in mods.values():
         mod.reset_launches()
     t0 = time.perf_counter()
+    hooked = hook(eng) if hook is not None else None
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1182,17 +1223,21 @@ def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel, plain=None
         if layer["attn"]["k"].dtype != want_dtype:
             raise AssertionError(f"{label}: pool values are {layer['attn']['k'].dtype}")
     steps, calls = stats["decode_steps"], stats["prefill_calls"]
+    replays = list(eng.replay_lengths)
+    drift = int(stats["drift_samples"])
     want = {name: 0 for name in counts}
-    want[matmul_kernel] = (7 * L + 1) * (steps + calls)
+    want[matmul_kernel] = (7 * L + 1) * (steps + calls + len(replays) + drift)
+    want["paged_attention"] = L * (sum(1 for n in replays if n == 1) + drift)
+    want["paged_attention_verify"] = L * sum(1 for n in replays if n > 1)
     spec = ecfg.spec
     if spec is None:
-        want["paged_attention"] = L * steps
+        want["paged_attention"] += L * steps
     else:
         dec = eng._spec
         n = min(spec.draft_layers or L, L)
         want[MODE_KERNEL[spec.draft_mode]] += (7 * n + 1) * dec.draft_steps
-        want["paged_attention"] = n * dec.draft_steps + L * dec.plain_rounds
-        want["paged_attention_verify"] = L * (dec.rounds - dec.plain_rounds)
+        want["paged_attention"] += n * dec.draft_steps + L * dec.plain_rounds
+        want["paged_attention_verify"] += L * (dec.rounds - dec.plain_rounds)
         if not want["paged_attention_verify"]:
             raise AssertionError(f"{label}: no round verified more than one token")
     if counts != want:
@@ -1221,9 +1266,12 @@ def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel, plain=None
         f"p95 {stats['ttft_p95_s'] * 1e3:.1f} ms | itl p50 {stats['itl_p50_s'] * 1e3:.2f} ms "
         f"p95 {stats['itl_p95_s'] * 1e3:.2f} ms")
     if spec is None:
+        extra = (f" + {len(replays)} resume replays (tails {replays})" if replays else "") + (
+            f" + {drift} drift samples" if drift else "")
         log(f"serve {label}: {matmul_kernel} wrapper calls {counts[matmul_kernel]} = "
-            f"(7*{L}+1) x ({steps} decode steps + {calls} prefill calls); paged_attention "
-            f"{counts['paged_attention']} = {L} x {steps}; others 0")
+            f"(7*{L}+1) x ({steps} decode steps + {calls} prefill calls{extra}); "
+            f"paged_attention {counts['paged_attention']}, its Q>1 path "
+            f"{counts['paged_attention_verify']}, as reckoned; others 0")
     else:
         log(f"serve {label}: {spec}: {stats['spec_rounds']:.0f} rounds ({dec.plain_rounds} "
             f"of one token), {dec.draft_steps} draft steps; acceptance "
@@ -1245,7 +1293,7 @@ def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel, plain=None
     return dict(stats=stats, wall_s=wall, launches=counts, n_layers=L, pool=pool_kind,
                 construct_s=t_construct, weight_bytes=weight_bytes[tree],
                 kv_bytes_per_token=kvc.kv_bytes_per_token(eng.cfg), outputs=outputs,
-                alloc=alloc, prompts=prompts,
+                alloc=alloc, prompts=prompts, replays=replays, hook=hooked,
                 spec=None if spec is None else dataclasses.asdict(spec),
                 draft_steps=None if spec is None else dec.draft_steps)
 
@@ -1338,10 +1386,17 @@ def lifecycle_phases(cfg, qparams, seed, card, serve_cfg, serves):
         raise AssertionError("optimistic dequant: no lane was preempted")
     if st["kv_pages_peak"] > st["kv_pages_capacity"]:
         raise AssertionError("optimistic dequant: the page peak passed the capacity")
+    if not ph["replays"]:
+        raise AssertionError("optimistic dequant: no resume replayed its committed tokens")
+    bad = sorted(uid for uid, toks in ph["outputs"].items()
+                 if toks != serves["dequant"]["outputs"][uid])
+    if bad:
+        raise AssertionError(f"optimistic dequant: requests {bad} differ from the plain "
+                             "dequant phase's tokens (a resume must be bit-exact)")
     log(f"serve optimistic dequant: pool of {n_pages} pages, {st['preempted']} preemptions, "
-        f"{st['prefill_calls']} prefill calls for 8 requests (resumes re-prefill)")
-    ph["partings"] = hold_near_ties("optimistic dequant", cfg, qparams, ph,
-                                    serves["dequant"], "dequant")
+        f"{st['prefill_calls']} prefill calls for 8 requests, resume replays of "
+        f"{ph['replays']} tokens through the decode path (B2' at Q = each); every request "
+        f"bitwise the plain dequant phase's")
     out["optimistic dequant"] = ph
     # (j) Sampled lanes beside greedy ones in w8a8 on int8 pages, then the
     # same requests submitted in reverse order to a second engine.
@@ -1380,6 +1435,283 @@ def lifecycle_phases(cfg, qparams, seed, card, serve_cfg, serves):
     out["sampled w8a8"] = ph
     out["sampled w8a8, reversed"] = again
     return out
+
+
+def pool_digest(eng):
+    """Every pool tensor of every layer, cloned, and a digest of their bits
+    (an int64 sum of the words weighted by their index mod 65521)."""
+    import torch
+
+    clones, digest = [], 0
+    for layer in eng.caches["layers"]:
+        for key in sorted(layer["attn"]):
+            t = layer["attn"][key]
+            clones.append(t.clone())
+            w = t.contiguous().view(torch.int32 if t.element_size() == 4 else torch.uint8)
+            w = w.reshape(-1).to(torch.int64)
+            idx = torch.arange(w.numel(), device=w.device, dtype=torch.int64) % 65521 + 1
+            digest += int((w * idx).sum())
+    return clones, digest
+
+
+def traced_phase(cfg, qparams, seed, card, serve_cfg, serves, out_dir):
+    """Phase (k): the plain dequant phase with ``trace=True,
+    drift_every=4``. Tokens bitwise the plain dequant phase's; the Chrome
+    trace, exported under ``out_dir``, validates; one explicit
+    ``_drift_sample()`` once all 8 lanes decode leaves every pool byte as it
+    was (the pools cloned and digested before and after)."""
+    import torch
+    from repro_torch.obs.trace import validate_chrome_trace
+
+    box = {}
+
+    def hook(eng):
+        while not all(s.req is not None and not s.prefilling for s in eng.slots):
+            eng.step()
+        before, d0 = pool_digest(eng)
+        pos = eng.caches["pos"].clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._drift_sample()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after, d1 = pool_digest(eng)
+        same = all(same_bits(a, b) for a, b in zip(before, after))
+        if d0 != d1 or not same or not torch.equal(pos, eng.caches["pos"]):
+            raise AssertionError("traced dequant: a drift sample changed the pools")
+        if eng._drift_broken:
+            raise AssertionError("traced dequant: the drift monitor failed")
+        del before, after
+        box["eng"] = eng
+        return dict(digest_before=d0, digest_after=d1, sample_s=dt, at_step=eng.steps)
+
+    ecfg = serve_cfg.replace(trace=True, drift_every=4)
+    ph = serve_phase("traced dequant", cfg, qparams, seed, card, ecfg, "ocs_matmul", hook=hook)
+    eng = box.pop("eng")
+    bad = sorted(uid for uid, toks in ph["outputs"].items()
+                 if toks != serves["dequant"]["outputs"][uid])
+    if bad:
+        raise AssertionError(f"traced dequant: requests {bad} differ from the plain dequant "
+                             "phase's tokens")
+    path = Path(out_dir) / "chip_smoke_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    eng.trace.export(str(path))
+    err = validate_chrome_trace(json.loads(path.read_text()))
+    if err is not None:
+        raise AssertionError(f"traced dequant: the exported trace is invalid: {err}")
+    st = ph["stats"]
+    if not st["drift_samples"] or not st["drift_sites"]:
+        raise AssertionError("traced dequant: the drift monitor sampled nothing")
+    h = ph["hook"]
+    ph["trace"] = dict(path=str(path), events=len(eng.trace), dropped=eng.trace.dropped,
+                       summary=eng.trace.summary())
+    log(f"serve traced dequant: every request bitwise the plain dequant phase's; trace "
+        f"{len(eng.trace)} events ({eng.trace.dropped} dropped) -> {path.name}, valid; "
+        f"kinds {eng.trace.summary()}")
+    log(f"serve traced dequant: drift {st['drift_samples']:.0f} samples over "
+        f"{st['drift_sites']:.0f} sites, {st['drift_flagged_sites']:.0f} flagged, max ratio "
+        f"{st['drift_max_ratio']:.3f}; the explicit sample at step {h['at_step']} took "
+        f"{h['sample_s'] * 1e3:.1f} ms wall, pool digest {h['digest_before']} before and "
+        f"{h['digest_after']} after (pools bitwise unchanged)")
+    del eng
+    return ph
+
+
+def _router_counts(replicas, L):
+    """Launch counts of the replicas' engines against the reckoning: the
+    matmul kernel (7*L+1) per decode step, prefill call and resume replay;
+    B2 L per decode step and one-token replay; its Q > 1 path L per longer
+    replay."""
+    steps = calls = 0
+    reps = []
+    for eng in replicas:
+        st = eng.stats()
+        steps += st["decode_steps"]
+        calls += st["prefill_calls"]
+        reps += list(eng.replay_lengths)
+    return dict(steps=steps, calls=calls, replays=reps,
+                matmul=(7 * L + 1) * (steps + calls + len(reps)),
+                paged_attention=L * (steps + sum(1 for n in reps if n == 1)),
+                paged_attention_verify=L * sum(1 for n in reps if n > 1))
+
+
+def router_phase(cfg, qparams, seed, serve_cfg, serves, kill_after=4, device="cuda"):
+    """Phase (l): two replicas sharing the w8a8 tree on int8 pages serve
+    phase (j)'s requests (odd uids sampled) behind the router; replica 0 is
+    killed once every lane it holds has committed ``kill_after`` tokens.
+    Every output bitwise phase (j)'s, at least one migration, every page of
+    both pools back, the launches as reckoned."""
+    import torch
+    from repro_torch.serving import ReplicaSet, Router, RouterConfig
+
+    ecfg = serve_cfg.replace(matmul_mode="w8a8", kv_bits=8)
+    L = cfg.n_layers
+    mods = counters()
+    for mod, _ in mods.values():
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    router = Router(ReplicaSet.build(cfg, qparams, ecfg, 2, device=device),
+                    RouterConfig(placement="round_robin"))
+    engines = [rep.engine for rep in router.replicas]
+    leaf = lambda e: e.params["layers"]["mlp"]["w_up"].weight.values  # noqa: E731
+    shared = leaf(engines[0]).data_ptr() == leaf(engines[1]).data_ptr() == \
+        qparams["layers"]["mlp"]["w_up"].weight.values.data_ptr()
+    if not shared:
+        raise AssertionError("router: the replicas do not share the tree on the card")
+    reqs = seeded_requests(cfg, seed, sampled=True)
+    for r in reqs:
+        router.submit(r)
+    killed = None
+    while router.step():
+        if killed is None:
+            lanes = [s.req for s in engines[0].slots if s.req is not None]
+            if lanes and not engines[0].queue and all(
+                    len(r.output) >= kill_after for r in lanes):
+                killed = dict(step=router.steps, committed={r.uid: len(r.output) for r in lanes})
+                router.kill(0)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: getattr(mod, attr) for name, (mod, attr) in mods.items()}
+    st = router.stats()
+    if killed is None or st["router_migrated"] < 1:
+        raise AssertionError(f"router: no migration (kill {killed}, stats {st})")
+    if any(r.finish_reason != "length" or len(r.output) != 32 for r in reqs):
+        raise AssertionError(f"router: finish reasons {[r.finish_reason for r in reqs]}")
+    want_out = serves["sampled w8a8"]["outputs"]
+    bad = sorted(r.uid for r in reqs if list(r.output) != want_out[r.uid])
+    if bad:
+        raise AssertionError(f"router: requests {bad} differ from the sampled w8a8 phase's "
+                             "tokens after migration")
+    for eng in engines:
+        if eng.allocator.in_use() or eng.allocator.in_use() + eng.allocator.available() \
+                != eng.allocator.capacity:
+            raise AssertionError("router: a replica's pool did not get every page back")
+    rc = _router_counts(engines, L)
+    want = {name: 0 for name in counts}
+    want["fused_qmatmul"] = rc["matmul"]
+    want["paged_attention"] = rc["paged_attention"]
+    want["paged_attention_verify"] = rc["paged_attention_verify"]
+    if device == "cuda" and counts != want:
+        raise AssertionError(f"router: launch counts {counts}, want {want}")
+    log(f"serve router w8a8 (2 replicas, one tree): replica 0 killed at router step "
+        f"{killed['step']} with committed tokens {killed['committed']}; migrated "
+        f"{st['router_migrated']:.0f}, migrate p50 {st['router_migrate_p50_ms']:.2f} ms; the "
+        f"survivor replayed tails {rc['replays']}; every output bitwise the sampled w8a8 "
+        f"phase's (greedy and sampled), every page of both pools back; wall {wall:.2f} s")
+    log(f"serve router w8a8: fused_qmatmul {counts['fused_qmatmul']} = (7*{L}+1) x "
+        f"({rc['steps']} decode steps + {rc['calls']} prefill calls + {len(rc['replays'])} "
+        f"replays); paged_attention {counts['paged_attention']}, its Q>1 path "
+        f"{counts['paged_attention_verify']}, as reckoned")
+    per = [eng.stats() for eng in engines]
+    out = dict(stats=st, per_replica=per, wall_s=wall, launches=counts, killed=killed,
+               replays=rc["replays"], outputs={r.uid: list(r.output) for r in reqs})
+    del router, engines
+    return out
+
+
+# Phase (m)'s failure script over two replicas (round-robin placement: even
+# uids on replica 0, odd on replica 1): poison uid 1's third token, stall
+# replica 0 for three steps, take every free page of replica 1 for 24 steps
+# (its lanes' growth must preempt), kill replica 0.
+def chaos_plan():
+    from repro_torch.serving import (FaultPlan, InjectNaN, KillReplica, PagePressure,
+                                     StallSteps)
+
+    return FaultPlan((InjectNaN(step=0, replica=1, uid=1, at_output_index=3),
+                      StallSteps(step=2, replica=0, steps=3, seconds=0.05),
+                      PagePressure(step=4, replica=1, pages=1 << 20, hold_steps=24),
+                      KillReplica(step=10, replica=0)))
+
+
+def chaos_phase(cfg, qparams, seed, serve_cfg, plain, device="cuda"):
+    """Phase (m): :func:`chaos_plan` run twice over two replicas (w8a8,
+    int8 pages, optimistic admission on a pool of every prompt's pages plus
+    one each) serving the seeded greedy requests: each request's
+    (finish_reason, tokens) identical across the runs, the poisoned request
+    "error", every other request bitwise ``plain``'s (the plain w8a8 phase
+    of the same depth), no page leaked on either replica."""
+    import torch
+    from repro_torch.serving import ChaosHarness, ReplicaSet, Router, RouterConfig
+    from repro_torch.serving import kv_cache as kvc
+
+    reqs0 = seeded_requests(cfg, seed)
+    n_pages = 1 + sum(kvc.pages_needed(len(r.prompt), 16) + 1 for r in reqs0)
+    ecfg = serve_cfg.replace(matmul_mode="w8a8", kv_bits=8, admission="optimistic",
+                             n_pages=n_pages)
+    L = cfg.n_layers
+    mods = counters()
+    runs = []
+    for _ in range(2):
+        for mod, _m in mods.values():
+            mod.reset_launches()
+        router = Router(ReplicaSet.build(cfg, qparams, ecfg, 2, device=device),
+                        RouterConfig(placement="round_robin"))
+        reqs = seeded_requests(cfg, seed)
+        for r in reqs:
+            router.submit(r)
+        t0 = time.perf_counter()
+        harness = ChaosHarness(router, chaos_plan())
+        harness.run()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        engines = [rep.engine for rep in router.replicas]
+        for eng in engines:
+            a = eng.allocator
+            if a.in_use() or a.in_use() + a.available() != a.capacity:
+                raise AssertionError("chaos: a replica leaked pages")
+        counts = {name: getattr(mod, attr) for name, (mod, attr) in mods.items()}
+        rc = _router_counts(engines, L)
+        want = {name: 0 for name in counts}
+        want["fused_qmatmul"] = rc["matmul"]
+        want["paged_attention"] = rc["paged_attention"]
+        want["paged_attention_verify"] = rc["paged_attention_verify"]
+        if device == "cuda" and counts != want:
+            raise AssertionError(f"chaos: launch counts {counts}, want {want}")
+        st = router.stats()
+        runs.append(dict(outputs={r.uid: (r.finish_reason, list(r.output)) for r in reqs},
+                         stats=st, launches=counts, wall_s=wall, replays=rc["replays"],
+                         preempted=sum(e.stats()["preempted"] for e in engines),
+                         errors=sum(e.stats()["errors"] for e in engines)))
+        del router, engines, harness
+    a, b = runs
+    if a["outputs"] != b["outputs"]:
+        raise AssertionError("chaos: the two runs of one plan differ")
+    if a["outputs"][1][0] != "error":
+        raise AssertionError(f"chaos: the poisoned request ended {a['outputs'][1][0]!r}")
+    bad = sorted(uid for uid, (why, toks) in a["outputs"].items()
+                 if uid != 1 and (why != "length" or toks != plain[uid]))
+    if bad:
+        raise AssertionError(f"chaos: requests {bad} differ from the plain phase's tokens")
+    if not a["preempted"]:
+        raise AssertionError("chaos: the page pressure preempted no lane")
+    for i, run in enumerate(runs):
+        st = run["stats"]
+        log(f"serve chaos w8a8 ({L} layers), run {i + 1}: pool of {n_pages} pages a replica; "
+            f"placed {st['router_placed']:.0f}, migrated {st['router_migrated']:.0f}, drained "
+            f"{st['router_drained']:.0f}, dead {st['router_dead_replicas']:.0f}; preempted "
+            f"{run['preempted']}, quarantined {run['errors']}; replays {run['replays']}; "
+            f"wall {run['wall_s']:.2f} s; launches {run['launches']}")
+    log(f"serve chaos: both runs of {len(chaos_plan().faults)} faults give identical "
+        f"(finish_reason, tokens) for all 8 requests; uid 1 ended 'error'; the other 7 "
+        f"bitwise the plain {L}-layer w8a8 phase's; no page leaked")
+    return dict(runs=runs, n_pages=n_pages)
+
+
+def b2v_replay_holds(gen, qs_by_kind):
+    """B2's Q > 1 path at the tail lengths the resume replays ran
+    (``{pool kind: {Q, ...}}``), held as ``kernel_phase_b2v`` holds it,
+    untimed. Returns the rows."""
+    rows = []
+    for kind, qs in sorted(qs_by_kind.items()):
+        for qn in sorted(q for q in qs if q > 1):
+            err = b2v_check(gen, kind, qn)[0]
+            rows.append(dict(pool=kind, Q=qn, max_abs_err=err, timed=False))
+            log(f"B2' paged_attention pool={kind} Q={qn} (a resume replay's tail): "
+                f"max_abs_err={err:.3g} pools bitwise=yes, rows bitwise the sequential Q=1 "
+                f"launches")
+    return rows
 
 
 def verify_check(label, cfg, params, mode, kv_bits, seed):
@@ -1694,6 +2026,10 @@ def main(argv=None) -> int:
     mark("spec serves")
     serves.update(lifecycle_phases(cfg, qparams, args.seed, card, serve_cfg, serves))
     mark("lifecycle serves")
+    serves["traced dequant"] = traced_phase(cfg, qparams, args.seed, card, serve_cfg, serves,
+                                            args.out)
+    serves["router w8a8"] = router_phase(cfg, qparams, args.seed, serve_cfg, serves)
+    mark("traced and router serves")
     # A window of 16 (verify Q = 17) drafting in the target's own mode (the
     # draft is the target, so every draft must be accepted), on the first
     # --short-layers layers of the same tree against a plain w8a8 phase of
@@ -1710,6 +2046,16 @@ def main(argv=None) -> int:
     if serves["spec k=16"]["stats"]["spec_acceptance_rate"] != 1.0:
         raise AssertionError("spec k=16: a draft in the target's own mode was rejected")
     mark("k=16 serves")
+    serves["chaos"] = chaos_phase(cfg_short, q_short, args.seed, serve_cfg,
+                                  serves["w8a8 short"]["outputs"])
+    mark("chaos serves")
+    # B2' at every tail length the resume replays ran: float32 pages in (i),
+    # int8 pages in (l) and (m).
+    replay_qs = {"float32": set(serves["optimistic dequant"]["replays"]),
+                 "int8": set(serves["router w8a8"]["replays"]).union(
+                     *(run["replays"] for run in serves["chaos"]["runs"]))}
+    b2v_replay = b2v_replay_holds(gen_k, replay_qs)
+    mark("B2' replay holds")
     del qparams, q_short
 
     cfg_clip = cfg_short
@@ -1745,6 +2091,15 @@ def main(argv=None) -> int:
     # B2's Q > 1 path at the default window (k = 4: Q = 5) on the default
     # float32 pages; launches from the default spec phase.
     b2v_main = next(r for r in b2v if r["pool"] == "float32" and r["Q"] == 5)
+
+    # B2's Q > 1 launches: the default spec phase's verifies and the resume
+    # replays of (i), (l) and the first run of (m).
+    verify_launches = {
+        "spec dequant": serves["spec dequant"]["launches"]["paged_attention_verify"],
+        "optimistic dequant": serves["optimistic dequant"]["launches"]["paged_attention_verify"],
+        "router w8a8": serves["router w8a8"]["launches"]["paged_attention_verify"],
+        "chaos": serves["chaos"]["runs"][0]["launches"]["paged_attention_verify"],
+    }
 
     def entry(name, replaces, launches, err, t, source=None):
         source = source or f"src/repro_torch/csrc/{name}.cu"
@@ -1786,8 +2141,8 @@ def main(argv=None) -> int:
               serves["w4a8"]["launches"]["paged_attention"], b2_int4["max_abs_err"], b2_int4,
               source="src/repro_torch/csrc/paged_attention.cu"),
         entry("paged_attention_verify", "src/repro/kernels/paged_attention.py:534",
-              serves["spec dequant"]["launches"]["paged_attention_verify"],
-              max(r["max_abs_err"] for r in b2v), b2v_main,
+              sum(verify_launches.values()),
+              max(r["max_abs_err"] for r in b2v + b2v_replay), b2v_main,
               source="src/repro_torch/csrc/paged_attention.cu"),
     ]
     tiles = {"ocs_matmul": wo_tiles(b4), "quant_matmul": wo_tiles(b5)}
@@ -1803,11 +2158,12 @@ def main(argv=None) -> int:
             "w4a8_qmatmul": "one decode step's calls, M=8",
             "paged_attention_int4": "one call, int4 pool, 8 lanes; B2's int4 branch",
             "paged_attention_verify": "one call, float32 pool, 8 lanes, Q=5; B2's Q>1 rows; "
-                                      "launches from the default spec phase"}
+                                      f"launches {verify_launches}"}
     for k in kernels:
         lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
-        dev = (f" device_ms={k['device_ms']:.4f} library_device_ms="
-               f"{k['library_device_ms']:.4f}" if "device_ms" in k else "")
+        dev = (f" device_ms={k['device_ms']:.4f}" if "device_ms" in k else "") + (
+            f" library_device_ms={k['library_device_ms']:.4f}"
+            if "library_device_ms" in k else "")
         log(f"kernel {k['name']} ({what[k['name']]}): kernel_ms={k['ms']:.4f} plain_ms="
             f"{k['plain_ms']:.4f} library_ms={lib}{dev} bound_ms={k['bound_ms']:.4f} "
             f"({k['bound_by']}) launches={k['launches']} max_abs_err={k['max_abs_err']:.3g}")
@@ -1816,7 +2172,8 @@ def main(argv=None) -> int:
     detail = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                   n_layers=L, short_layers=cfg_clip.n_layers, build_s=t_build,
                   quantize_s=t_quant, quantize_clip_s=t_quant_clip, total_s=total,
-                  peak_mem_gib=peak_gb, b1=b1, b2=b2, b2v=b2v, b3=b3, b4=b4, b5=b5, b6=b6,
+                  peak_mem_gib=peak_gb, b1=b1, b2=b2, b2v=b2v, b2v_replay=b2v_replay, b3=b3,
+                  b4=b4, b5=b5, b6=b6,
                   verify_check=verify, serve=serves, phase_end_s=marks,
                   reference_check=refc, kernels=kernels)
     out = Path(args.out)

@@ -8,7 +8,7 @@ from .quantizer import (  # noqa: F401
     quantize_tensor,
     storage_dtype,
 )
-from .histogram import StreamingHistogram  # noqa: F401
+from .histogram import ChannelStats, StreamingHistogram  # noqa: F401
 from .clipping import CLIP_METHODS, find_clip, mse_clip  # noqa: F401
 from .ocs import (  # noqa: F401
     OCSQuantLinear,

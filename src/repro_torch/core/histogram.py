@@ -11,15 +11,17 @@ scale the raw samples cannot be stored, so we accumulate:
   for OCS channel selection.
 
 Everything here is host-side numpy — calibration is a pipeline stage, not a
-training hot loop. (The port's copy of ``repro.core.histogram``; the per-channel
-statistics for activation OCS arrive with calibration. A whole weight tensor
-is binned on its own device by ``clipping._tensor_to_hist``.)
+training hot loop. (The port's copy of ``repro.core.histogram``. A whole
+weight tensor is binned on its own device by ``clipping._tensor_to_hist``.)
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
 import numpy as np
 
-__all__ = ["StreamingHistogram"]
+__all__ = ["StreamingHistogram", "ChannelStats"]
 
 
 class StreamingHistogram:
@@ -83,3 +85,41 @@ class StreamingHistogram:
         if self.total == 0:
             return 0.0
         return float((self.counts * self.bin_centers**2).sum() / self.total)
+
+
+@dataclasses.dataclass
+class ChannelStats:
+    """Per-channel calibration stats for activation OCS (paper §5.3).
+
+    ``exceed_counts[c]`` counts values in channel ``c`` above the (running)
+    99th-percentile threshold — channels with the highest counts are split.
+    """
+
+    n_channels: int
+    percentile: float = 0.99
+    abs_max: Optional[np.ndarray] = None
+    exceed_counts: Optional[np.ndarray] = None
+    hist: Optional[StreamingHistogram] = None
+
+    def __post_init__(self):
+        if self.abs_max is None:
+            self.abs_max = np.zeros(self.n_channels, dtype=np.float32)
+        if self.exceed_counts is None:
+            self.exceed_counts = np.zeros(self.n_channels, dtype=np.int64)
+        if self.hist is None:
+            self.hist = StreamingHistogram()
+
+    def update(self, x: np.ndarray, channel_axis: int = -1) -> None:
+        """x: activation batch; channel_axis indexes the layer's input channels."""
+        x = np.asarray(x, dtype=np.float32)
+        x = np.moveaxis(x, channel_axis, -1).reshape(-1, self.n_channels)
+        ax = np.abs(x)
+        self.hist.update(ax)
+        thresh = self.hist.quantile(self.percentile)
+        self.abs_max = np.maximum(self.abs_max, ax.max(axis=0))
+        self.exceed_counts += (ax > thresh).sum(axis=0)
+
+    def split_order(self) -> np.ndarray:
+        """Channels ordered by outlier-count (descending), ties by abs-max."""
+        # lexsort: last key is primary.
+        return np.lexsort((-self.abs_max, -self.exceed_counts))

@@ -21,6 +21,15 @@ optimistic`` admits on prompt pages and preempts under pool pressure,
 ``--max-queue``, ``--sched-policy``, ``--heartbeat-path``. Runs on the
 card; ``--device cpu`` runs the plain PyTorch path at smoke size.
 
+``--replicas N`` serves through N engine replicas (one shared quantized
+tree) behind the fault-tolerant router (``--placement``). Observability:
+``--trace`` records the engine's span ring and ``--trace-out`` exports it
+as Chrome trace JSON, ``--metrics-out`` writes the Prometheus text after
+the run, ``--metrics-jsonl`` streams a registry snapshot every
+``--metrics-every`` engine steps, ``--drift-every N`` samples the
+quant-drift monitor, ``--profile-dir`` opens a ``torch.profiler`` window
+around the run; progress is logged at ``--log-level``.
+
     python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu
     python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu \
         --matmul-mode w8a8 --kv-bits 8
@@ -31,11 +40,15 @@ card; ``--device cpu`` runs the plain PyTorch path at smoke size.
     python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu \
         --temperature 0.8 --top-k 40 --prefill-budget 16 --chunk-size 16 \
         --admission optimistic
+    python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu \
+        --trace --trace-out trace.json --metrics-out metrics.prom --drift-every 2
+    python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu \
+        --replicas 2 --placement round_robin
 """
 from __future__ import annotations
 
 import argparse
-import logging
+import json
 import time
 
 import numpy as np
@@ -45,16 +58,20 @@ from ..core.apply import quantize_params
 from ..core.recipe import QuantRecipe
 from ..device import resolve_device
 from ..models import transformer as T
+from ..obs.log import add_log_level_arg, get_logger, setup_logging
 from ..serving import (
     EngineConfig,
+    ReplicaSet,
     Request,
+    Router,
+    RouterConfig,
     SamplingParams,
     ServingEngine,
     add_engine_config_args,
     engine_config_from_args,
 )
 
-log = logging.getLogger("repro_torch.launch.serve")
+log = get_logger("launch.serve")
 
 
 def build_parser():
@@ -72,9 +89,24 @@ def build_parser():
                     help="request top-k restriction (0 = off)")
     ap.add_argument("--top-p", type=float, default=1.0,
                     help="request nucleus restriction (1 = off)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serve through N engine replicas behind the "
+                         "fault-tolerant router (1 = the plain single-engine path)")
+    ap.add_argument("--placement", default="least_loaded",
+                    choices=["least_loaded", "round_robin"],
+                    help="router placement policy (only with --replicas > 1)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the plain PyTorch path)")
+    ap.add_argument("--trace-out", default="",
+                    help="export the span ring as Chrome trace JSON (requires --trace)")
+    ap.add_argument("--metrics-out", default="",
+                    help="write Prometheus text exposition after the run")
+    ap.add_argument("--metrics-jsonl", default="",
+                    help="stream periodic registry snapshots (JSONL)")
+    ap.add_argument("--metrics-every", type=int, default=50,
+                    help="engine steps between --metrics-jsonl snapshots")
+    add_log_level_arg(ap)
     add_engine_config_args(ap, defaults=EngineConfig(max_batch=4, max_len=128))
     return ap
 
@@ -89,12 +121,71 @@ def _make_requests(n, vocab, rng, max_new, sampling=None):
     return reqs
 
 
-def serve_once(cfg, params, reqs, ecfg: EngineConfig, *, device=None):
+# Additive per-replica counters the replicated report sums; point-in-time
+# percentiles report the worst replica instead (summing a p95 is nonsense).
+_SUM_STATS = (
+    "completed", "cancelled", "decoded_tokens", "decode_steps", "preempted",
+    "shed", "timed_out", "errors", "prefill_tokens", "prefill_calls",
+    "prefill_requests", "kv_pages_capacity", "kv_pages_in_use", "sched_chunks",
+    "sched_budget_limited_steps", "sched_aging_promotions",
+)
+_MAX_STATS = (
+    "ttft_p50_s", "ttft_p95_s", "itl_p50_s", "itl_p95_s", "mean_latency_s",
+    "step_p50_ms", "step_p95_ms", "step_stalled", "queue_wait_p50_s",
+    "queue_wait_p95_s", "kv_pool_peak_occupancy",
+)
+
+
+def serve_replicated(cfg, params, reqs, ecfg: EngineConfig, n: int, placement: str, *,
+                     device=None):
+    """Serve through the fault-tolerant router (``--replicas N``): stats are
+    replica 0's view with additive counters summed (and percentiles taken
+    from the worst replica) plus the router's ``router_*`` layer."""
+    router = Router(ReplicaSet.build(cfg, params, ecfg, n, device=device),
+                    RouterConfig(placement=placement))
+    for r in reqs:
+        router.submit(r)
+    t0 = time.time()
+    router.run(max_steps=100_000)
+    wall = time.time() - t0
+    per = [rep.engine.stats() for rep in router.replicas]
+    s = dict(per[0])
+    for key in _SUM_STATS:
+        s[key] = sum(p[key] for p in per)
+    for key in _MAX_STATS:
+        s[key] = max(p[key] for p in per)
+    s.update(router.stats())
+    s["wall_s"] = round(wall, 2)
+    s["tokens_per_s"] = round(s["decoded_tokens"] / max(wall, 1e-9), 1)
+    return reqs, s, router
+
+
+def serve_once(cfg, params, reqs, ecfg: EngineConfig, *, device=None,
+               metrics_jsonl: str = "", metrics_every: int = 50):
     eng = ServingEngine(cfg, params, ecfg, device=device)
     for r in reqs:
         eng.submit(r)
     t0 = time.time()
-    done = eng.run()
+    if metrics_jsonl:
+        # Step by step, so registry snapshots stream while serving (run() is
+        # the same loop without the snapshot hook).
+        eng.start_profile()
+        try:
+            with open(metrics_jsonl, "w") as f:
+                for _ in range(10_000):
+                    busy = eng.step()
+                    if eng.steps % max(metrics_every, 1) == 0:
+                        f.write(json.dumps({"step": eng.steps, "time": time.time(),
+                                            "metrics": eng.metrics_snapshot()}) + "\n")
+                    if not busy and not eng.queue:
+                        break
+                f.write(json.dumps({"step": eng.steps, "time": time.time(),
+                                    "metrics": eng.metrics_snapshot()}) + "\n")
+        finally:
+            eng.stop_profile()
+        done = eng.done
+    else:
+        done = eng.run()
     wall = time.time() - t0
     s = eng.stats()
     s["wall_s"] = round(wall, 2)
@@ -104,7 +195,9 @@ def serve_once(cfg, params, reqs, ecfg: EngineConfig, *, device=None):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
+    setup_logging(args.log_level)
+    if args.trace_out and not args.trace:
+        raise SystemExit("serve: --trace-out requires --trace")
     dev = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     rng = np.random.default_rng(args.seed)
@@ -116,7 +209,7 @@ def main(argv=None):
     )
     t0 = time.time()
     qparams = quantize_params(params, recipe, device=dev)
-    logging.getLogger("repro_torch.launch.ptq").info(
+    get_logger("launch.ptq").info(
         "quantized in %.1fs (w%d, ocs r=%s, clip=%s)",
         time.time() - t0, args.bits, args.ocs_ratio, args.clip)
 
@@ -132,7 +225,18 @@ def main(argv=None):
                          "set --temperature > 0")
     reqs = _make_requests(args.n_requests, cfg.vocab, rng, args.max_new,
                           sampling=sampling)
-    done, stats, _eng = serve_once(cfg, qparams, reqs, ecfg, device=dev)
+    if args.replicas > 1:
+        if args.trace_out or args.metrics_jsonl:
+            raise SystemExit(
+                "serve: --trace-out/--metrics-jsonl export one engine's telemetry; "
+                "with --replicas > 1 use --metrics-out (router registry) instead")
+        done, stats, router = serve_replicated(cfg, qparams, reqs, ecfg, args.replicas,
+                                               args.placement, device=dev)
+        eng = router.replicas[0].engine
+    else:
+        done, stats, eng = serve_once(cfg, qparams, reqs, ecfg, device=dev,
+                                      metrics_jsonl=args.metrics_jsonl,
+                                      metrics_every=args.metrics_every)
     log.info("%s", stats)
     reasons = {}
     for r in done:
@@ -162,6 +266,38 @@ def main(argv=None):
             "window k=%d", stats["spec_rounds"], stats["spec_acceptance_rate"],
             stats["spec_tokens_per_target_step"], stats["spec_k"],
         )
+    if args.replicas > 1:
+        log.info(
+            "router: %d replicas (%d healthy) | placed %.0f | retried %.0f | migrated "
+            "%.0f | drained %.0f | dead %.0f | migrate p50 %.1f ms",
+            args.replicas, int(stats["router_healthy_replicas"]), stats["router_placed"],
+            stats["router_retried"], stats["router_migrated"], stats["router_drained"],
+            stats["router_dead_replicas"], stats["router_migrate_p50_ms"],
+        )
+    if stats.get("drift_enabled"):
+        log.info(
+            "quant drift: %.0f samples over %.0f sites | flagged %.0f | max live/calib "
+            "ratio %.2f", stats["drift_samples"], stats["drift_sites"],
+            stats["drift_flagged_sites"], stats["drift_max_ratio"],
+        )
+        for site, info in sorted(eng.drift_report().items()):
+            if info["ratio"] > 1.0:
+                log.warning(
+                    "drift site %s: live rate %.2e vs calib %.2e (ratio %.1f, clip %.3g)",
+                    site, info["live_rate"], info["calib_rate"], info["ratio"],
+                    info["clip"])
+    if args.trace_out:
+        eng.trace.export(args.trace_out)
+        log.info("trace: %d events (%d dropped) -> %s", len(eng.trace), eng.trace.dropped,
+                 args.trace_out)
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            if args.replicas > 1:
+                f.write(router.metrics_text())  # router_* / replica_health_*
+            f.write(eng.metrics_text())
+        log.info("metrics: Prometheus exposition -> %s", args.metrics_out)
+    if args.metrics_jsonl:
+        log.info("metrics: JSONL snapshots -> %s", args.metrics_jsonl)
     return stats
 
 

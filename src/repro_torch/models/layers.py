@@ -30,11 +30,17 @@ The mode is an argument, never a module global. Calibrated activation grids
 (``a_scale``) have no producer on the serving path and are not ported.
 Activations stay bfloat16 between layers, as in the reference (``embed``
 casts).
+
+Every call first hands its input to ``core.tap.tag`` under its ``name``
+(the reference's tap sites: ``attn_q`` ... ``mlp_down``, ``lm_head``),
+which does nothing unless a collector is active (the drift monitor's
+sampled forward).
 """
 from __future__ import annotations
 
 import torch
 
+from ..core import tap
 from ..core.ocs import OCSQuantLinear, W4A8Linear
 from ..kernels import ops as kops
 
@@ -98,7 +104,8 @@ def _w4a8(w: W4A8Linear, x: torch.Tensor) -> torch.Tensor:
 def dense(w, x: torch.Tensor, *, mode: str, name: str = "") -> torch.Tensor:
     """y = x @ w with quantization-aware dispatch. x: [..., Cin]; ``mode``
     is one of :data:`MODES` (ignored for float weights); ``name`` labels
-    errors."""
+    errors and is the tap site's name."""
+    tap.tag(name, x)
     what = name or "dense"
     if isinstance(w, W4A8Linear):
         if mode != "w4a8":
@@ -122,7 +129,7 @@ def dense(w, x: torch.Tensor, *, mode: str, name: str = "") -> torch.Tensor:
         if w.a_bits is not None and w.a_scale is not None:
             raise NotImplementedError(
                 f"{what}: static calibrated activation grids (a_scale) are not "
-                "ported (ROADMAP A10/A14)"
+                "ported (ROADMAP A14)"
             )
         if w.weight.values.ndim != 2 or w.spec.mult.ndim != 1:
             raise ValueError(

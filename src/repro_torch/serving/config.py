@@ -1,15 +1,18 @@
 """Typed serving configuration (the port of ``repro.serving.config``):
 per-request :class:`SamplingParams`, and ``EngineConfig`` with the fields
 the paged engine uses (speculation, admission, the step scheduler, the
-bounded queue and the watchdog), the same defaults, help texts and
+bounded queue, the watchdog, and the observability layer's span trace,
+profiler window and drift monitor), the same defaults, help texts and
 validation as the reference, and the argparse flags generated from it
-(``spec`` becomes ``--spec-k`` / ``--draft-layers``).
+(``spec`` becomes ``--spec-k`` / ``--draft-layers``; ``trace`` a
+``store_true`` flag).
 
 There is no ``kernels`` field: the port dispatches by device (the CUDA
 kernels on the card, their plain versions on the CPU), not by a per-engine
 backend choice. Nor are there the unpaged engine's ``paged`` (ROADMAP
-A16), the observability fields (``trace``, ``drift_*``, ``profile_dir``;
-A10) or the jit compile cache (nothing is compiled).
+A16) or the jit compile cache (nothing is compiled). ``profile_dir``
+opens a ``torch.profiler`` window where the reference opens a
+``jax.profiler`` one.
 """
 from __future__ import annotations
 
@@ -173,6 +176,47 @@ class EngineConfig:
             "step); throttles the per-step atomic file replace on fast loops",
         },
     )
+    trace: bool = dataclasses.field(
+        default=False,
+        metadata={
+            "help": "record typed span events (admit / prefill_chunk / "
+            "decode_step / spec / preempt / shed / ...) into a bounded "
+            "host-side ring buffer; export Chrome trace JSON via "
+            "ServingEngine.trace",
+            "store_true": True,
+        },
+    )
+    trace_capacity: int = dataclasses.field(
+        default=8192,
+        metadata={
+            "help": "span-event ring capacity; the oldest events drop once "
+            "full (bounded memory no matter how long the engine runs)",
+        },
+    )
+    profile_dir: str = dataclasses.field(
+        default="",
+        metadata={
+            "help": "torch.profiler trace output directory ('' = off); run() "
+            "wraps the serving loop in a profiler window (CPU and CUDA "
+            "activity, one Chrome trace file per window)",
+        },
+    )
+    drift_every: int = dataclasses.field(
+        default=0,
+        metadata={
+            "help": "sample quantization-drift telemetry every N engine "
+            "steps (0 = off): each sample runs one eager tapped forward "
+            "over the live decode batch and books per-site activation "
+            "saturation against the calibrated clip grid",
+        },
+    )
+    drift_threshold: float = dataclasses.field(
+        default=4.0,
+        metadata={
+            "help": "drift flag: live outlier mass above this multiple of "
+            "the calibrated outlier mass marks a site as drifted (> 1)",
+        },
+    )
 
     spec: Optional[SpecConfig] = dataclasses.field(
         default=None,
@@ -245,6 +289,19 @@ class EngineConfig:
                 "heartbeat_interval_s must be >= 0, got "
                 f"{self.heartbeat_interval_s}"
             )
+        if self.trace_capacity < 1:
+            raise ValueError(
+                f"trace_capacity must be >= 1, got {self.trace_capacity}"
+            )
+        if self.drift_every < 0:
+            raise ValueError(
+                f"drift_every must be >= 0, got {self.drift_every}"
+            )
+        if self.drift_threshold <= 1.0:
+            raise ValueError(
+                "drift_threshold must be > 1 (a site at its calibrated "
+                f"outlier mass is not drifted), got {self.drift_threshold}"
+            )
         if self.spec is not None and not isinstance(self.spec, SpecConfig):
             raise TypeError(f"spec must be a SpecConfig, got {type(self.spec)}")
         if (self.matmul_mode == "w4a8" and self.spec is not None
@@ -280,6 +337,9 @@ def add_engine_config_args(
                            help="self-speculative draft window (0 = off)")
             g.add_argument(_flag("draft_layers"), type=int, default=sd.draft_layers or 0,
                            help="truncate the drafter to the first L layers (0 = all)")
+        elif meta.get("store_true"):
+            g.add_argument(_flag(f.name), action="store_true", default=default,
+                           help=meta.get("help"))
         elif meta.get("optional_int"):
             g.add_argument(_flag(f.name), type=int, default=default or 0,
                            help=meta.get("help"))

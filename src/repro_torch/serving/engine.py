@@ -18,8 +18,13 @@
   ``admission_headroom`` and grows each lane before every decode step or
   speculation round, preempting the youngest lane when the pool runs dry
   (its full committed pages are registered in the prefix cache and the
-  request is requeued at the head; the resume takes them back as prefix
-  hits and re-prefills the committed tail past them).
+  request is requeued at the head). The resume takes them back as prefix
+  hits, re-prefills the prompt past them as a fresh install would, and
+  replays the committed output tokens past the prompt through the decode
+  path (:meth:`ServingEngine._run_replay`, one
+  :func:`models.transformer.decode_tokens` call over the lane's table row),
+  so every K/V row it writes is bitwise the row the decode steps wrote and
+  a resumed greedy stream is token for token the uninterrupted one.
 * **prefill** -- monolithic by default: one
   :func:`models.transformer.prefill_into_pages` call per request over the
   prompt suffix past its prefix hits. With ``EngineConfig.prefill_budget >
@@ -44,8 +49,27 @@
   :class:`EngineOverloaded` (``"shed"``); every ``step()`` runs inside the
   watchdog (``runtime.health.StepTimer``, and ``HeartbeatMonitor`` when
   ``heartbeat_path`` is set).
-* **stats** -- :class:`EngineStats` under the reference's field names;
-  ``stats()`` returns its dict view.
+* **faults** -- :meth:`ServingEngine.inject_fault` poisons (NaN) the step
+  that would produce one output token of one request; the NaN flows
+  through the same finite check as a real fault. Consecutive quarantines
+  count in ``_fault_streak`` (a healthy completion clears it), which the
+  replica router's breaker reads. The reference's automatic kernel
+  fallback has no counterpart: the port dispatches by device with no
+  fallback, so ``kernel_fallbacks`` stays 0.
+* **observability** -- a per-engine
+  :class:`~repro_torch.obs.metrics.MetricsRegistry` owns every counter and
+  histogram the engine books (the counter attributes are registry-backed
+  properties); ``EngineConfig.trace`` turns on a bounded
+  :class:`~repro_torch.obs.trace.TraceRing` of the reference's span events
+  (exportable as Chrome trace JSON); ``EngineConfig.drift_every`` samples
+  a :class:`~repro_torch.obs.drift.QuantDriftMonitor` forward every N
+  steps (it restores the page-pool rows it writes); ``profile_dir`` wraps
+  :meth:`ServingEngine.run` in a ``torch.profiler`` window. Spans time
+  host wall around work that already synchronises; nothing is added to
+  the device stream for them.
+* **stats** -- :class:`EngineStats` under the reference's field names,
+  derived from the registry; ``stats()`` returns its dict view and
+  :meth:`ServingEngine.metrics_text` the registry as Prometheus text.
 
 Every linear layer of prefill and decode runs in ``EngineConfig.matmul_mode``
 (passed to the model functions, which pass it to every ``layers.dense``):
@@ -64,13 +88,13 @@ Every linear layer of prefill and decode runs in ``EngineConfig.matmul_mode``
 
 ``EngineConfig.kv_bits`` picks the page pools: float32 (unset), int8 (8)
 or packed int4 (4; B2's int4 branch). The engine runs on the card unless
-built with ``device="cpu"``. The unpaged engine, tracing, metrics export
-and drift monitoring are later slices (ROADMAP A10, A13).
+built with ``device="cpu"``. The unpaged engine (ROADMAP A16) and the
+other architectures (A13) are later slices.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import math
 import time
 from collections import deque
 from typing import Deque, Dict, Iterator, List, Optional, Sequence, Tuple
@@ -84,6 +108,10 @@ from ..core.ocs import OCSQuantLinear, to_w4a8
 from ..device import resolve_device
 from ..kernels.paged_attention import check_layout
 from ..models import transformer as T
+from ..obs.drift import QuantDriftMonitor, clips_from_params
+from ..obs.log import get_logger
+from ..obs.metrics import MetricsRegistry
+from ..obs.trace import TraceRing
 from ..runtime.health import HeartbeatMonitor, StepTimer
 from . import kv_cache as kvc
 from . import sampling as sampling_mod
@@ -114,6 +142,8 @@ FINISH_REASONS = ("eos", "length", "cancelled", "timeout", "error", "shed")
 # cannot hang on a request that silently left the queue ("cancelled" simply
 # ends the stream).
 _SENTINEL_REASONS = ("timeout", "error", "shed")
+
+_LOG = get_logger("serving.engine")
 
 
 class EngineOverloaded(RuntimeError):
@@ -172,14 +202,18 @@ class TokenEvent:
 @dataclasses.dataclass
 class EngineStats:
     """Typed serving counters under the reference's field names: its stats
-    schema v10 without the span-trace and drift fields (``trace_*``,
-    ``drift_*``: their subsystems are a later slice) and without the fields
-    of what the port does not have (JAX backends, jit traces and compile
-    time, the kernel fallback, the attention-time probe); ``spec_compile_s``
-    stays 0. ``device`` is the port's own. The dict view (:meth:`as_dict`)
-    is what ``ServingEngine.stats()`` returns. Latency means and
-    percentiles are nearest-rank over every observation; ``completed``
-    counts successful terminals (eos/length) only."""
+    schema v10 without the fields of what the port does not have (JAX
+    backends, jit traces and compile time, the kernel fallback, the
+    attention-time probe); ``spec_compile_s`` stays 0. ``device`` is the
+    port's own. Every field is derived from the engine's metrics registry,
+    as the reference's v8+ is: counts read registry counters, latency means
+    and percentiles the registry histograms (nearest-rank over a rolling
+    window of 4096 observations, so exact for shorter runs), point-in-time
+    readings the gauges refreshed at read time. The span-trace fields
+    (``trace_*``) and the quant-drift fields (``drift_*``) are 0 while
+    their subsystem is off. The dict view (:meth:`as_dict`) is what
+    ``ServingEngine.stats()`` returns; ``completed`` counts successful
+    terminals (eos/length) only."""
 
     completed: int = 0
     cancelled: int = 0
@@ -237,6 +271,14 @@ class EngineStats:
     sched_budget_limited_steps: float = 0.0
     sched_aging_promotions: float = 0.0
     sched_peak_step_prefill_tokens: float = 0.0
+    trace_enabled: float = 0.0
+    trace_events: float = 0.0
+    trace_dropped: float = 0.0
+    drift_enabled: float = 0.0
+    drift_samples: float = 0.0
+    drift_sites: float = 0.0
+    drift_flagged_sites: float = 0.0
+    drift_max_ratio: float = 0.0
     device: str = "cuda"
 
     def as_dict(self) -> Dict:
@@ -261,12 +303,38 @@ class _Slot:
         return self.req is not None and self.prefill_pos >= 0
 
 
-def _percentile(xs: List[float], q: float) -> float:
-    """Nearest-rank percentile (0 when empty), as the reference's metrics."""
-    if not xs:
-        return 0.0
-    s = sorted(xs)
-    return s[min(len(s) - 1, max(0, math.ceil(q / 100.0 * len(s)) - 1))]
+# Counter attribute -> (registry metric name, integer-valued, help): the
+# reference's names for the counters the port books. Each attribute is a
+# ServingEngine property over a registered Counter
+# (_install_counter_properties), so ``self.steps += 1`` *is* the metric
+# update. Nothing is compiled, so every prefill and decode second is warm.
+_COUNTER_METRICS = {
+    "steps": ("engine_steps_total", True, "engine step iterations"),
+    "decoded_tokens": ("engine_decoded_tokens_total", True,
+                       "decode tokens booked into request outputs"),
+    "completed": ("engine_completed_total", True,
+                  "successful terminals (eos/length)"),
+    "cancelled": ("engine_cancelled_total", True,
+                  "requests cancelled mid-flight"),
+    "preempted": ("engine_preempted_total", True,
+                  "lanes preempted under page-pool pressure"),
+    "shed": ("engine_shed_total", True,
+             "requests rejected at submit (bounded queue full)"),
+    "timed_out": ("engine_timed_out_total", True,
+                  "requests shed past their deadline_s"),
+    "errors": ("engine_errors_total", True,
+               "requests quarantined on nonfinite logits"),
+    "prefill_calls": ("engine_prefill_calls_total", True,
+                      "calls spent on prefill"),
+    "prefill_requests": ("engine_prefill_requests_total", True,
+                         "requests that entered prefill"),
+    "prefill_tokens": ("engine_prefill_tokens_total", True,
+                       "prompt tokens run through prefill compute"),
+    "prefill_time_s": ("engine_prefill_warm_seconds_total", False,
+                       "prefill wall time"),
+    "decode_time_s": ("engine_decode_warm_seconds_total", False,
+                      "decode wall time (decode steps, spec rounds, resume replays)"),
+}
 
 
 class ServingEngine:
@@ -291,6 +359,28 @@ class ServingEngine:
         self.cfg = cfg
         self.config = config
         self.kv_bits = cfg.kv_bits
+        # The registry always exists: every counter attribute below is a
+        # registry-backed property (_COUNTER_METRICS), so booking costs one
+        # float add whether anyone reads it or not. Span tracing and drift
+        # sampling are opt-in (EngineConfig.trace / drift_every).
+        self.metrics = MetricsRegistry()
+        self._metric_counters = {
+            attr: self.metrics.counter(name, help_)
+            for attr, (name, _integer, help_) in _COUNTER_METRICS.items()
+        }
+        self._hist_ttft = self.metrics.histogram(
+            "request_ttft_seconds", "submit -> first booked token")
+        self._hist_itl = self.metrics.histogram(
+            "request_itl_seconds", "gap between consecutive booked tokens")
+        self._hist_qwait = self.metrics.histogram(
+            "request_queue_wait_seconds", "submit -> first lane admission")
+        self._hist_latency = self.metrics.histogram(
+            "request_latency_seconds",
+            "submit -> done over successful terminals (eos/length)")
+        self._hist_step = self.metrics.histogram(
+            "engine_step_seconds", "one step() call, productive or not")
+        self.trace: Optional[TraceRing] = (
+            TraceRing(config.trace_capacity) if config.trace else None)
         self.params = tree_to(params, self.device)
         if config.matmul_mode == "w4a8":
             # The sub-8-bit weight tier, converted once, on the engine's
@@ -301,6 +391,25 @@ class ServingEngine:
                 return leaf
 
             self.params = map_with_path(to_tier, self.params)
+        # Quant-drift monitor: clips come from the tree's calibrated
+        # activation grids where present; other sites self-calibrate from
+        # early traffic. The sub-8-bit tiers calibrate against a wider
+        # baseline-saturation floor. The first sampling failure disables
+        # the monitor for good (telemetry never takes the serving loop down).
+        grid_bits = 4 if (cfg.kv_bits == 4 or config.matmul_mode == "w4a8") else 8
+        self._drift: Optional[QuantDriftMonitor] = (
+            QuantDriftMonitor(clips=clips_from_params(self.params),
+                              factor=config.drift_threshold, grid_bits=grid_bits)
+            if config.drift_every > 0 else None
+        )
+        self._drift_broken = False
+        self._drift_last_step = -1
+        self._profiler = None  # the torch.profiler window of profile_dir
+        # The router's view: every engine of the port is paged, and it has
+        # no automatic kernel fallback (dispatch is by device), so the
+        # breaker's fallback term always reads 0.
+        self.paged = True
+        self.kernel_fallbacks = 0
         self.max_batch = config.max_batch
         self.max_len = config.max_len
         self.matmul_mode = config.matmul_mode
@@ -325,23 +434,7 @@ class ServingEngine:
         self.done: List[Request] = []
         self.tokens = torch.zeros((self.max_batch, 1), dtype=torch.int32, device=self.device)
         self.admission = config.admission
-        self.steps = 0
-        self.decoded_tokens = 0
-        self.completed = 0
-        self.cancelled = 0
-        self.preempted = 0
-        self.shed = 0
-        self.timed_out = 0
-        self.errors = 0
-        self.prefill_calls = 0
-        self.prefill_requests = 0
-        self.prefill_tokens = 0
-        self.prefill_time_s = 0.0
-        self.decode_time_s = 0.0
-        self._ttft: List[float] = []
-        self._itl: List[float] = []
-        self._latency: List[float] = []
-        self._qwait: List[float] = []
+        self.replay_lengths: List[int] = []  # each resume replay's token count
         self._install_seq = 0  # monotonic install stamp (victim selection)
         # The step scheduler orders admission for every engine and plans
         # the chunks of budgeted prefill when prefill_budget > 0.
@@ -352,7 +445,11 @@ class ServingEngine:
             prefill_budget=config.prefill_budget,
             chunk_size=config.chunk_size,
         )
+        self._sched.trace = self.trace  # budget-limited / promotion instants
         self._preempted_uids: set = set()  # resumes outrank policy order
+        self._fault_at: Dict[int, int] = {}  # uid -> output index to poison
+        self._fault_streak = 0  # consecutive quarantined requests (no
+        # healthy eos/length completion in between)
         # Serving watchdog: step-time percentiles and an optional heartbeat.
         self._step_timer = StepTimer(window=200)
         self._heartbeat = (
@@ -369,6 +466,8 @@ class ServingEngine:
         # lane under spec.draft_mode, the target verifies them in one step.
         self._spec = (spec_mod.SpecDecoder(cfg, config.spec, self.matmul_mode)
                       if config.spec is not None else None)
+        if self._spec is not None:
+            self._spec.trace = self.trace  # draft/verify spans, engine lane
 
     # ------------------------------------------------------------- sampling
 
@@ -399,14 +498,22 @@ class ServingEngine:
             b *= 2
         return min(max(b, self.page_size), self.max_len)
 
+    def _scope(self, name: str):
+        """A ``torch.profiler`` label while the profile_dir window is open
+        (the reference's ``jax.named_scope``), else nothing."""
+        if self._profiler is None:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function(name)
+
     def _prefill(
         self, tokens: np.ndarray, prefix_ids: List[int], page_ids: List[int],
         sp: SamplingParams, sample_pos: int,
-    ) -> Tuple[int, bool]:
+    ) -> Tuple[int, bool, float, float]:
         """One prefill call: ``tokens`` (positions ``len(prefix_ids) *
         page_size`` on) into ``page_ids``, the pages ``prefix_ids`` read as
         the prefix. Returns (the token after the last one, drawn by ``sp`` at
-        ``sample_pos``; the finite flag of its logits)."""
+        ``sample_pos``; the finite flag of its logits; the call's start and
+        wall seconds, for its span)."""
         m = len(tokens)  # >= 1
         bucket = self._prefill_bucket(m)
         nb = bucket // self.page_size
@@ -418,7 +525,7 @@ class ServingEngine:
         dev = self.device
         pools = [layer["attn"] for layer in self.caches["layers"]]
         t0 = time.perf_counter()
-        with torch.no_grad():
+        with torch.no_grad(), self._scope("serving_prefill"):
             logits, new_pools = T.prefill_into_pages(
                 self.params, torch.as_tensor(toks, device=dev), self.cfg, pools,
                 torch.as_tensor(ids, device=dev),
@@ -432,11 +539,53 @@ class ServingEngine:
             else:
                 pos = torch.as_tensor([sample_pos], dtype=torch.int32, device=dev)
                 first = int(sampling_mod.sample_tokens(logits, self._samp_one(sp), pos)[0])
-        self.prefill_time_s += time.perf_counter() - t0
+        elapsed = time.perf_counter() - t0
+        self.prefill_time_s += elapsed
         self.prefill_calls += 1
         self.prefill_tokens += m
         self.caches["layers"] = [{"attn": p} for p in new_pools]
+        return first, finite, t0, elapsed
+
+    def _prefill_request(self, tokens: np.ndarray, prefix_ids: List[int],
+                         page_ids: List[int], sp: SamplingParams, sample_pos: int,
+                         uid) -> Tuple[int, bool]:
+        """:meth:`_prefill` of a request's prompt suffix (an install or a
+        resume), traced as one ``prefill`` span."""
+        first, finite, t0, elapsed = self._prefill(tokens, prefix_ids, page_ids, sp,
+                                                   sample_pos)
+        if self.trace is not None:
+            self.trace.emit("prefill", track=uid, ts=t0, dur=elapsed, step=self.steps,
+                            tokens=len(tokens))
         return first, finite
+
+    def _run_replay(self, slot_idx: int, tokens: np.ndarray, start: int) -> None:
+        """Write decode-path K/V for positions ``start .. start+len(tokens)-1``
+        of lane ``slot_idx`` (whose table row must already be set): one
+        :func:`models.transformer.decode_tokens` call at b = 1 over the
+        lane's table row, its logits discarded (a resume already knows every
+        committed token). Every kernel gives a row what its one-token call
+        gives it (the verify contract), so each row written is bitwise the
+        row the uninterrupted run's decode step wrote. The port runs
+        eagerly: the call takes exactly the tail, no bucket. Booked as
+        decode time, as the reference books it."""
+        if len(tokens) == 0:
+            return
+        dev = self.device
+        caches = {
+            "layers": self.caches["layers"],
+            "table": self.caches["table"][slot_idx:slot_idx + 1],
+            "pos": torch.tensor([start], dtype=torch.int32, device=dev),
+        }
+        toks = torch.as_tensor(np.asarray(tokens, np.int32)[None, :], device=dev)
+        t0 = time.perf_counter()
+        with torch.no_grad(), self._scope("serving_replay"):
+            _, new_caches = T.decode_tokens(self.params, toks, caches, self.cfg,
+                                            mode=self.matmul_mode)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)  # the replay's time is decode time
+        self.decode_time_s += time.perf_counter() - t0
+        self.caches["layers"] = new_caches["layers"]
+        self.replay_lengths.append(len(tokens))
 
     def _finish_first_token(self, req: Request, first: int) -> bool:
         """Book the prefill-produced token; True if the request is already
@@ -445,7 +594,9 @@ class ServingEngine:
         req.t_first_token = now
         req.output.append(first)
         req.t_tokens.append(now)
-        self._ttft.append(now - req.t_submit)
+        self._hist_ttft.observe(now - req.t_submit)
+        if self.trace is not None:
+            self.trace.emit("first_token", track=req.uid, step=self.steps)
         if req.eos_id is not None and first == req.eos_id:
             req.finish_reason = "eos"
         elif req.max_new_tokens <= 1:
@@ -458,20 +609,70 @@ class ServingEngine:
         return True
 
     def _book_terminal(self, req: Request) -> None:
+        """Registry and trace booking for one terminal request, called once
+        wherever a request leaves the engine with ``t_done`` stamped (a shed
+        at submit excepted: it never entered and emits its own ``shed``
+        instant). Successful terminals book the latency histogram; every
+        terminal emits a ``retire`` instant."""
         if req.finish_reason in ("eos", "length"):
             self.completed += 1
-            self._latency.append(req.t_done - req.t_submit)
+            if req.t_done and req.t_submit:
+                self._hist_latency.observe(req.t_done - req.t_submit)
         elif req.finish_reason == "cancelled":
             self.cancelled += 1
-        elif req.finish_reason == "error":
-            self.errors += 1
+        if self.trace is not None:
+            self.trace.emit("retire", track=req.uid, step=self.steps,
+                            finish_reason=req.finish_reason)
 
     def _quarantine(self, req: Request) -> None:
-        """Terminal-error a request whose prefill logits went nonfinite."""
+        """Terminal-error a request whose prefill logits went nonfinite
+        (before it took a lane; an active lane retires through ``_retire``
+        with the reason set)."""
         req.finish_reason = "error"
         req.t_done = time.perf_counter()
         self.done.append(req)
         self._book_terminal(req)
+        self._note_fault(req)
+
+    def _note_fault(self, req: Request) -> None:
+        """Book one quarantined request. The streak counts consecutive
+        quarantines with no healthy completion in between (``_retire``
+        clears it on eos/length); the replica router's breaker reads it. The
+        reference demotes its attention kernel after three; the port has no
+        fallback."""
+        self.errors += 1
+        self._fault_at.pop(req.uid, None)
+        self._fault_streak += 1
+        if self.trace is not None:
+            self.trace.emit("quarantine", track=req.uid, step=self.steps,
+                            streak=self._fault_streak)
+
+    def inject_fault(self, uid: int, at_output_index: int) -> None:
+        """Test hook: poison (NaN) the step that would produce output token
+        ``at_output_index`` (>= 1; index 0 comes from prefill) of request
+        ``uid``. The NaN is added to that lane's logits and flows through
+        the same finite check as a real numerical fault, so tests exercise
+        the quarantine path end to end."""
+        self._fault_at[uid] = at_output_index
+
+    def _fault_row(self, window: int = 1) -> Optional[np.ndarray]:
+        """Per-lane injection row for the next decode or verify step: NaN
+        for lanes whose pending fault falls inside the step's output window
+        (``window`` tokens for a speculative round), 0.0 otherwise. None
+        when no lane has one due, so a step without a pending fault adds
+        nothing to its logits and launches what it launches without the
+        hook."""
+        if not self._fault_at:
+            return None
+        fault = np.zeros((self.max_batch,), np.float32)
+        for i, slot in enumerate(self.slots):
+            r = slot.req
+            if r is None or slot.prefilling:
+                continue
+            at = self._fault_at.get(r.uid)
+            if at is not None and at < len(r.output) + window:
+                fault[i] = np.nan
+        return fault if np.isnan(fault).any() else None
 
     def _set_row(self, slot_idx: int, pages: List[int]) -> None:
         row = np.full((self.max_pages_per_seq,), kvc.TRASH_PAGE, np.int32)
@@ -539,9 +740,11 @@ class ServingEngine:
             return False
         hit_ids, new_ids, keys = claim
         self.allocator.note_prefix_stats(len(hit_ids), n // ps)
+        self._emit_prefix(req, hit_ids)
         row_ids = hit_ids + new_ids
         self.prefill_requests += 1
-        first, finite = self._prefill(prompt[len(hit_ids) * ps:], hit_ids, new_ids, sp, n - 1)
+        first, finite = self._prefill_request(prompt[len(hit_ids) * ps:], hit_ids, new_ids,
+                                              sp, n - 1, req.uid)
         if not finite:
             self.allocator.release(row_ids)
             self._quarantine(req)
@@ -559,36 +762,55 @@ class ServingEngine:
         self._install_seq += 1
         return True
 
+    def _emit_prefix(self, req: Request, hit_ids: List[int]) -> None:
+        if self.trace is not None:
+            self.trace.emit("prefix_hit" if hit_ids else "prefix_miss", track=req.uid,
+                            step=self.steps, pages=len(hit_ids))
+
     def _resume_paged(self, slot_idx: int, req: Request) -> bool:
-        """Re-install a request preempted mid-decode (``req.output`` holds
-        its committed tokens). The full pages of its committed context,
-        registered at preemption, come back as prefix hits; one prefill call
-        re-writes the committed positions past them (prompt remainder and
-        decoded tokens alike), and the lane decodes on from its last
-        committed token. Re-prefilled rows follow prefill's numerics, not
-        the decode steps' that first wrote them, so the continuation may
-        part from an uninterrupted run at a near-tie."""
-        n = len(req.prompt)
+        """Re-install a preempted request (``req.output`` holds its committed
+        tokens) with bit-exact recompute, as the reference does:
+
+        * full pages of the committed context (prompt + output, registered
+          at preemption) come back as prefix hits, their rows the original
+          bits;
+        * a prompt remainder past the hits re-runs the same suffix prefill
+          as a fresh install (its first token is already committed and is
+          discarded; a nonfinite result quarantines as a fresh prefill
+          does); a prompt fully covered by hits makes no prefill call;
+        * the committed output tokens past the prompt and the hits replay
+          through the decode path (:meth:`_run_replay`), whose K/V rows are
+          bitwise what the uninterrupted run's decode steps wrote, so the
+          continuation decodes over the same cache and a greedy stream is
+          token for token the uninterrupted one.
+        """
+        prompt = np.asarray(req.prompt, np.int64)
+        n = len(prompt)
         m = len(req.output)
         ps = self.page_size
         pos = n + m - 1  # committed position: K/V must exist below it
-        ctx = np.concatenate([np.asarray(req.prompt, np.int64),
-                              np.asarray(req.output, np.int64)])
+        ctx = np.concatenate([prompt, np.asarray(req.output, np.int64)])
         # Every full committed page is reusable: the resume needs no logits.
         claim = self._claim_pages(ctx[:pos], pos + 1, self._need_total(req), pos // ps)
         if claim is None:
             return False
         hit_ids, new_ids, keys = claim
         row_ids = hit_ids + new_ids
-        h = len(hit_ids) * ps
-        if h < pos:
-            _, finite = self._prefill(ctx[h:pos], hit_ids, new_ids, _GREEDY, pos - 1)
+        h = len(hit_ids) * ps  # committed tokens covered by hits
+        self._emit_prefix(req, hit_ids)
+        if h < n:
+            _, finite = self._prefill_request(prompt[h:], hit_ids, new_ids, _GREEDY, n - 1,
+                                              req.uid)
             if not finite:
                 self.allocator.release(row_ids)
                 self._quarantine(req)
                 return True
-        # (Re-)publish the full committed pages; pages still registered from
-        # the preemption win (first writer wins).
+        # The table row first: the replay decodes through it.
+        self._set_row(slot_idx, row_ids)
+        start = max(h, n)
+        self._run_replay(slot_idx, ctx[start:pos], start)
+        # (Re-)publish the full committed pages this resume rewrote; pages
+        # still registered from the preemption win (first writer wins).
         for j in range(len(hit_ids), pos // ps):
             self.allocator.register(keys[j], row_ids[j])
         self._start_decoding(slot_idx, _Slot(req=req, remaining=req.max_new_tokens - m,
@@ -620,6 +842,7 @@ class ServingEngine:
             return False
         hit_ids, new_ids, keys = claim
         self.allocator.note_prefix_stats(len(hit_ids), n // ps)
+        self._emit_prefix(req, hit_ids)
         self.slots[slot_idx] = _Slot(
             req=req, remaining=req.max_new_tokens, pages=hit_ids + new_ids,
             seq=self._install_seq, prefill_pos=len(hit_ids) * ps, keys=keys,
@@ -658,8 +881,11 @@ class ServingEngine:
         sp = req.sampling or _GREEDY
         ps = self.page_size
         p0 = start // ps
-        first, finite = self._prefill(prompt[start:end], slot.pages[:p0], slot.pages[p0:],
-                                      sp, n - 1)
+        first, finite, t0, elapsed = self._prefill(prompt[start:end], slot.pages[:p0],
+                                                   slot.pages[p0:], sp, n - 1)
+        if self.trace is not None:
+            self.trace.emit("prefill_chunk", track=req.uid, ts=t0, dur=elapsed,
+                            step=self.steps, start=start, grant=grant, final=end >= n)
         if not finite:
             self.allocator.release(slot.pages)
             self.slots[slot_idx] = _Slot()
@@ -688,6 +914,8 @@ class ServingEngine:
         slot.req.t_done = time.perf_counter()
         if slot.req.finish_reason is None:
             slot.req.finish_reason = "length"
+        if slot.req.finish_reason in ("eos", "length"):
+            self._fault_streak = 0  # a healthy completion clears the streak
         self.done.append(slot.req)
         self._book_terminal(slot.req)
         # Reclaim the pages (retirement is truncate to 0 tokens; cancel rides
@@ -706,7 +934,8 @@ class ServingEngine:
         hit-able and the resume usually allocates only the tail page."""
         slot = self.slots[slot_idx]
         req = slot.req
-        if not slot.prefilling:
+        prefilling = slot.prefilling
+        if not prefilling:
             # Mid-prefill lanes registered their full pages chunk by chunk,
             # and their table row is still the trash page.
             pos = len(req.prompt) + len(req.output) - 1
@@ -722,6 +951,12 @@ class ServingEngine:
         self._preempted_uids.add(req.uid)
         self.queue.appendleft(req)
         self.preempted += 1
+        if self.trace is not None:
+            if prefilling:
+                self.trace.emit("preempt", track=req.uid, step=self.steps, prefilling=True)
+            else:
+                self.trace.emit("preempt", track=req.uid, step=self.steps, prefilling=False,
+                                committed=len(req.output))
 
     def _grow_lane(self, slot_idx: int, delta: int, touched: Dict) -> None:
         """Grow lane ``slot_idx``'s pages to cover its next ``delta``
@@ -783,6 +1018,8 @@ class ServingEngine:
             self.done.append(r)
             self._book_terminal(r)
             self.timed_out += 1
+            if self.trace is not None:
+                self.trace.emit("shed", track=r.uid, step=self.steps, where="queue_deadline")
         for i, slot in enumerate(self.slots):
             if slot.req is not None and expired(slot.req):
                 slot.req.finish_reason = "timeout"
@@ -832,6 +1069,8 @@ class ServingEngine:
             req.finish_reason = "shed"
             req.t_done = req.t_submit
             self.shed += 1
+            if self.trace is not None:
+                self.trace.emit("shed", track=req.uid, step=self.steps, where="queue_full")
             raise EngineOverloaded(
                 f"queue full ({len(self.queue)}/{self.config.max_queue}): "
                 f"request {req.uid} shed",
@@ -942,14 +1181,25 @@ class ServingEngine:
             free = next((i for i, s in enumerate(self.slots) if s.req is None), None)
             if free is None:
                 break
+            # Before _install: a monolithic prefill books the first token
+            # into req.output, which would make every admission look like a
+            # resume after the fact.
+            resumed = self._is_resume(req)
+            t_install = time.perf_counter()
             if not self._install(free, req):
                 break  # pool full: wait for pages to be reclaimed
             self.queue.remove(req)
             self._sched.note_admitted(req.uid)
+            if self.trace is not None:
+                # ts = the pre-install instant, so the admit sorts ahead of
+                # the prefill span _install just emitted.
+                self.trace.emit("resume" if resumed else "admit", track=req.uid,
+                                step=self.steps, ts=t_install,
+                                queued_s=t_install - req.t_submit)
             self._preempted_uids.discard(req.uid)
             if not req.t_admit:
                 req.t_admit = time.perf_counter()
-                self._qwait.append(req.t_admit - req.t_submit)
+                self._hist_qwait.observe(req.t_admit - req.t_submit)
 
     def _spec_step(self) -> bool:
         """One speculative iteration: draft k tokens per lane, verify all k+1
@@ -976,14 +1226,19 @@ class ServingEngine:
         # through the verify path when every lane needs exactly 1 token).
         k_want = min(dec.controller.k,
                      max(0, max(s.remaining for s in self.slots if s.req) - 1))
-        greedy, drafts, finite, self.caches, k = dec.propose_and_verify(
-            self.params, self.caches, self.tokens, k_want)
+        fault = self._fault_row(window=k_want + 1)
+        dec.trace_step = self.steps  # spec spans land on the engine lane
+        with self._scope("serving_spec_round"):
+            greedy, drafts, finite, self.caches, k = dec.propose_and_verify(
+                self.params, self.caches, self.tokens, k_want,
+                fault=None if fault is None else torch.as_tensor(fault, device=self.device))
         self.steps += 1
         now = time.perf_counter()
         new_pos = pos0.copy()
         next_tok = tok0.copy()
         round_committed = round_acc = round_prop = 0
         to_retire = []
+        faulted: List[Request] = []
         for i, slot in enumerate(self.slots):
             if slot.req is None:
                 continue  # idle lanes drafted/verified into the trash page
@@ -992,6 +1247,7 @@ class ServingEngine:
                 # is suspect), leave the position at the round start; other
                 # lanes are unaffected (the flag is per lane).
                 slot.req.finish_reason = "error"
+                faulted.append(slot.req)
                 to_retire.append(i)
                 continue
             usable = min(k, slot.remaining - 1)  # drafts that could commit
@@ -999,7 +1255,7 @@ class ServingEngine:
             used = 0
             done = False
             for t in commit:
-                self._itl.append(now - slot.req.t_tokens[-1])  # in-round gaps: 0.0
+                self._hist_itl.observe(now - slot.req.t_tokens[-1])  # in-round gaps: 0.0
                 slot.req.output.append(int(t))
                 slot.req.t_tokens.append(now)
                 self.decoded_tokens += 1
@@ -1031,6 +1287,8 @@ class ServingEngine:
                                       device=self.device)[:, None]
         for i in to_retire:
             self._retire(i)
+        for r in faulted:
+            self._note_fault(r)
         # The engine's decode time mirrors the draft + verify time, so
         # decode_tok_per_s stays the generation throughput under speculation.
         self.decode_time_s += (dec.draft_time_s + dec.verify_time_s) - warm0
@@ -1042,16 +1300,67 @@ class ServingEngine:
         lanes (preempting on exhaustion), decode one token for every
         decoding lane (or run one speculation round), retire finished lanes.
         False when idle."""
+        t0 = time.perf_counter()
         self._step_timer.start()
         try:
             out = self._step_impl()
         finally:
-            self._step_timer.stop()
+            self._hist_step.observe(self._step_timer.stop())
+        if self.trace is not None:
+            self.trace.emit("step", ts=t0, dur=time.perf_counter() - t0, step=self.steps,
+                            active=sum(1 for s in self.slots if s.req is not None),
+                            queued=len(self.queue))
         if self._heartbeat is not None:
             active = sum(1 for s in self.slots if s.req is not None)
             self._heartbeat.beat(self.steps, {"active": active, "queued": len(self.queue)},
                                  force=not out and not self.queue)
+        if (self._drift is not None and out and self.steps != self._drift_last_step
+                and self.steps % self.config.drift_every == 0):
+            self._drift_last_step = self.steps
+            self._drift_sample()
         return out
+
+    def _pool_rows(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(page, row) of the position each lane's next decode step writes:
+        the rows a decode step over the live batch appends to every layer's
+        pool (idle and mid-prefill lanes write the trash page)."""
+        ps = self.page_size
+        table = self.caches["table"]
+        lin = torch.clamp(self.caches["pos"].long(), 0, table.shape[1] * ps - 1)
+        page = torch.gather(table.long(), 1, (lin // ps)[:, None])[:, 0]
+        return page, lin % ps
+
+    def _drift_sample(self) -> None:
+        """One monitoring forward: a decode step over the live batch with a
+        drift collector active, so the ``core.tap`` sites in ``layers.dense``
+        feed the monitor. Its logits are discarded. On the card the step
+        appends its K/V rows to the pools in place, so the rows it writes (one
+        per lane and layer) are read before and written back after: every
+        pool byte and the lane positions are as they were. Runs after the
+        watchdog's timed window; the first failure disables the monitor for
+        the engine's lifetime."""
+        if self._drift_broken:
+            return
+        if not any(s.req is not None and not s.prefilling for s in self.slots):
+            return  # nothing decoding: the batch rows are all garbage
+        page, row = self._pool_rows()
+        pools = [layer["attn"] for layer in self.caches["layers"]]
+        saved = [{key: t[page, :, row].clone() for key, t in pool.items()} for pool in pools]
+
+        def forward():
+            with torch.no_grad():
+                T.decode_step(self.params, self.tokens, self.caches, self.cfg,
+                              mode=self.matmul_mode)
+
+        try:
+            self._drift.sample(forward)
+        except Exception as e:  # telemetry never takes the serving loop down
+            self._drift_broken = True
+            _LOG.warning("quant-drift monitor disabled: %s", e)
+        finally:
+            for pool, rows in zip(pools, saved):
+                for key, t in pool.items():
+                    t[page, :, row] = rows[key]
 
     def _step_impl(self) -> bool:
         self._shed_expired()
@@ -1075,12 +1384,16 @@ class ServingEngine:
         if not any(s.req is not None and not s.prefilling for s in self.slots):
             return True  # growth preempted every lane; re-admit next step
         sampled = self._active_sampled()
+        n_active = sum(1 for s in self.slots if s.req is not None and not s.prefilling)
+        fault = self._fault_row()
         t0 = time.perf_counter()
-        with torch.no_grad():
+        with torch.no_grad(), self._scope("serving_decode_step"):
             pos = self.caches["pos"]  # each lane's consumed position
             logits, self.caches = T.decode_step(
                 self.params, self.tokens, self.caches, self.cfg, mode=self.matmul_mode
             )
+            if fault is not None:  # the injection hook: NaN on poisoned lanes
+                logits = logits + torch.as_tensor(fault, device=self.device)[:, None]
             finite = torch.isfinite(logits).all(dim=-1)
             if sampled:
                 nxt = sampling_mod.sample_tokens(logits, self._samp_device(), pos)[:, None]
@@ -1091,6 +1404,10 @@ class ServingEngine:
         finite_np = finite.cpu().numpy()
         now = time.perf_counter()
         self.decode_time_s += now - t0
+        if self.trace is not None:
+            self.trace.emit("decode_step", ts=t0, dur=now - t0, step=self.steps,
+                            lanes=n_active)
+        faulted: List[Request] = []
         for i, slot in enumerate(self.slots):
             if slot.req is None or slot.prefilling:
                 continue  # mid-prefill lanes decoded into the trash page
@@ -1098,10 +1415,11 @@ class ServingEngine:
                 # Nonfinite logits: book nothing, free the lane; neighbour
                 # lanes are unaffected (the flag is per lane).
                 slot.req.finish_reason = "error"
+                faulted.append(slot.req)
                 self._retire(i)
                 continue
             tok = int(nxt_np[i, 0])
-            self._itl.append(now - slot.req.t_tokens[-1])
+            self._hist_itl.observe(now - slot.req.t_tokens[-1])
             slot.req.output.append(tok)
             slot.req.t_tokens.append(now)
             self.decoded_tokens += 1
@@ -1113,20 +1431,131 @@ class ServingEngine:
                 slot.req.finish_reason = "length"
                 self._retire(i)
         self.tokens = nxt
+        for r in faulted:
+            self._note_fault(r)
         return True
 
     def run(self, max_steps: int = 10_000) -> List[Request]:
-        """Drive until the queue and the lanes drain (or the step budget)."""
-        for _ in range(max_steps):
-            if not self.step() and not self.queue:
-                break
+        """Drive until the queue and the lanes drain (or the step budget).
+        ``EngineConfig.profile_dir`` wraps the drive in a ``torch.profiler``
+        window."""
+        self.start_profile()
+        try:
+            for _ in range(max_steps):
+                if not self.step() and not self.queue:
+                    break
+        finally:
+            self.stop_profile()
         return self.done
 
-    def engine_stats(self) -> EngineStats:
-        """The typed stats record (``stats()`` is its dict view)."""
+    def start_profile(self) -> None:
+        """Open a ``torch.profiler`` window (CPU activity, and CUDA activity
+        on the card) that writes a Chrome trace into
+        ``EngineConfig.profile_dir`` when it closes; a no-op when unset or
+        already open. A profiler that cannot start is logged, never raised:
+        it must not take the serving loop down."""
+        if not self.config.profile_dir or self._profiler is not None:
+            return
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        try:
+            prof = torch.profiler.profile(
+                activities=acts,
+                on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                    self.config.profile_dir))
+            prof.start()
+        except Exception as e:
+            _LOG.warning("torch profiler window not opened: %s", e)
+            return
+        self._profiler = prof
+
+    def stop_profile(self) -> None:
+        """Close the window :meth:`start_profile` opened (writing its trace)."""
+        prof, self._profiler = self._profiler, None
+        if prof is None:
+            return
+        try:
+            prof.stop()
+        except Exception as e:
+            _LOG.warning("torch profiler window not closed: %s", e)
+
+    def _refresh_gauges(self) -> None:
+        """Mirror point-in-time engine state into registry gauges, so the
+        Prometheus text, the snapshots and the stats view read one source.
+        Counters and histograms book live at their event sites; readings of
+        live structures (pool occupancy, queue depth, rolling step
+        percentiles, the scheduler's counters) refresh here, at read
+        time."""
+        m = self.metrics
         alloc = self.allocator
-        cap = alloc.capacity
-        sched = self._sched
+        m.gauge("engine_queue_depth", "requests waiting for a lane").set(len(self.queue))
+        m.gauge("engine_active_lanes", "lanes holding a request").set(
+            sum(1 for s in self.slots if s.req is not None))
+        m.gauge("engine_step_p50_ms", "rolling step-time p50").set(
+            self._step_timer.percentile(50) * 1e3)
+        m.gauge("engine_step_p95_ms", "rolling step-time p95").set(
+            self._step_timer.percentile(95) * 1e3)
+        m.gauge("engine_step_stalled", "watchdog straggler flag").set(
+            1.0 if self._step_timer.is_straggling else 0.0)
+        m.gauge("kv_pages_capacity", "page-pool capacity").set(float(alloc.capacity))
+        m.gauge("kv_pages_in_use", "pages currently owned by lanes").set(
+            float(alloc.in_use()))
+        m.gauge("kv_pages_cached", "prefix-cache pages (reclaimable)").set(
+            float(alloc.cached_pages()))
+        m.gauge("kv_pages_peak", "peak pages in use").set(float(alloc.peak_in_use))
+        m.gauge("kv_pool_occupancy", "in-use fraction of the pool").set(
+            alloc.in_use() / alloc.capacity if alloc.capacity else 0.0)
+        m.gauge("kv_pool_peak_occupancy", "peak in-use fraction").set(
+            alloc.peak_in_use / alloc.capacity if alloc.capacity else 0.0)
+        m.gauge("prefix_hit_rate", "prefix-cache page hit rate").set(alloc.hit_rate())
+        m.gauge("prefix_hit_pages", "prefix-cache pages reused").set(
+            float(alloc.prefix_hit_pages))
+        m.gauge("sched_chunks", "prefill chunk calls planned").set(float(self._sched.chunks))
+        m.gauge("sched_budget_limited_steps", "steps where the prefill budget bound").set(
+            float(self._sched.budget_limited_steps))
+        m.gauge("sched_aging_promotions", "requests promoted by the aging bound").set(
+            float(self._sched.aging_promotions))
+        m.gauge("sched_peak_step_prefill_tokens", "max prefill tokens in one step").set(
+            float(self._sched.peak_step_tokens))
+        if self._spec is not None:
+            m.gauge("spec_acceptance_rate", "draft-token acceptance rate (EMA source)").set(
+                self._spec.acceptance_rate)
+        if self.trace is not None:
+            m.gauge("trace_events", "span events currently in the ring").set(
+                float(len(self.trace)))
+            m.gauge("trace_dropped", "span events aged out of the bounded ring").set(
+                float(self.trace.dropped))
+        m.gauge("kv_bytes_per_token", "per-token KV cache footprint across all layers").set(
+            float(kvc.kv_bytes_per_token(self.cfg)))
+        m.gauge("kv_pool_capacity_tokens", "page-pool capacity expressed in tokens").set(
+            float(alloc.capacity * self.page_size))
+        if self._drift is not None:
+            self._drift.publish(m)
+
+    def metrics_text(self) -> str:
+        """Prometheus text exposition of the engine's registry (gauges
+        refreshed first)."""
+        self._refresh_gauges()
+        return self.metrics.prometheus_text()
+
+    def metrics_snapshot(self) -> dict:
+        """JSON-safe nested registry snapshot (one JSONL line per call)."""
+        self._refresh_gauges()
+        return self.metrics.snapshot()
+
+    def drift_report(self) -> dict:
+        """Per-site drift diagnostics ({} when ``drift_every`` is off)."""
+        return self._drift.report() if self._drift is not None else {}
+
+    def engine_stats(self) -> EngineStats:
+        """The typed stats record (``stats()`` is its dict view), derived
+        from the metrics registry: counts read registry counters (through
+        the attribute facade), percentiles the registry histograms booked
+        live at the event sites, point-in-time readings the gauges of
+        :meth:`_refresh_gauges`."""
+        self._refresh_gauges()
+        gv = lambda name: self.metrics.gauge(name).value  # noqa: E731
         s = EngineStats(
             completed=self.completed,
             cancelled=self.cancelled,
@@ -1134,17 +1563,17 @@ class ServingEngine:
             shed=self.shed,
             timed_out=self.timed_out,
             errors=self.errors,
-            step_p50_ms=self._step_timer.percentile(50) * 1e3,
-            step_p95_ms=self._step_timer.percentile(95) * 1e3,
-            step_stalled=1.0 if self._step_timer.is_straggling else 0.0,
+            step_p50_ms=gv("engine_step_p50_ms"),
+            step_p95_ms=gv("engine_step_p95_ms"),
+            step_stalled=gv("engine_step_stalled"),
             decode_steps=self.steps,
             decoded_tokens=self.decoded_tokens,
-            mean_latency_s=float(np.mean(self._latency)) if self._latency else 0.0,
-            mean_ttft_s=float(np.mean(self._ttft)) if self._ttft else 0.0,
-            ttft_p50_s=_percentile(self._ttft, 50),
-            ttft_p95_s=_percentile(self._ttft, 95),
-            itl_p50_s=_percentile(self._itl, 50),
-            itl_p95_s=_percentile(self._itl, 95),
+            mean_latency_s=self._hist_latency.mean,
+            mean_ttft_s=self._hist_ttft.mean,
+            ttft_p50_s=self._hist_ttft.percentile(50),
+            ttft_p95_s=self._hist_ttft.percentile(95),
+            itl_p50_s=self._hist_itl.percentile(50),
+            itl_p95_s=self._hist_itl.percentile(95),
             prefill_tokens=self.prefill_tokens,
             prefill_time_s=self.prefill_time_s,
             prefill_tok_per_s=(
@@ -1160,34 +1589,64 @@ class ServingEngine:
                 self.prefill_calls / self.prefill_requests if self.prefill_requests else 0.0
             ),
             kv_page_size=float(self.page_size),
-            kv_pages_capacity=float(cap),
-            kv_pages_in_use=float(alloc.in_use()),
-            kv_pages_cached=float(alloc.cached_pages()),
-            kv_pages_peak=float(alloc.peak_in_use),
-            kv_pool_occupancy=alloc.in_use() / cap if cap else 0.0,
-            kv_pool_peak_occupancy=alloc.peak_in_use / cap if cap else 0.0,
-            prefix_hit_rate=alloc.hit_rate(),
-            prefix_hit_pages=float(alloc.prefix_hit_pages),
+            kv_pages_capacity=gv("kv_pages_capacity"),
+            kv_pages_in_use=gv("kv_pages_in_use"),
+            kv_pages_cached=gv("kv_pages_cached"),
+            kv_pages_peak=gv("kv_pages_peak"),
+            kv_pool_occupancy=gv("kv_pool_occupancy"),
+            kv_pool_peak_occupancy=gv("kv_pool_peak_occupancy"),
+            prefix_hit_rate=gv("prefix_hit_rate"),
+            prefix_hit_pages=gv("prefix_hit_pages"),
             matmul_mode=self.matmul_mode,
             kv_bits=float(self.kv_bits or 0),
-            kv_bytes_per_token=float(kvc.kv_bytes_per_token(self.cfg)),
-            kv_pool_capacity_tokens=float(cap * self.page_size),
+            kv_bytes_per_token=gv("kv_bytes_per_token"),
+            kv_pool_capacity_tokens=gv("kv_pool_capacity_tokens"),
             spec_enabled=1.0 if self._spec is not None else 0.0,
-            queue_wait_p50_s=_percentile(self._qwait, 50),
-            queue_wait_p95_s=_percentile(self._qwait, 95),
+            queue_wait_p50_s=self._hist_qwait.percentile(50),
+            queue_wait_p95_s=self._hist_qwait.percentile(95),
             sched_policy=self.config.sched_policy,
             sched_prefill_budget=float(self.config.prefill_budget),
-            sched_chunks=float(sched.chunks),
-            sched_budget_limited_steps=float(sched.budget_limited_steps),
-            sched_aging_promotions=float(sched.aging_promotions),
-            sched_peak_step_prefill_tokens=float(sched.peak_step_tokens),
+            sched_chunks=gv("sched_chunks"),
+            sched_budget_limited_steps=gv("sched_budget_limited_steps"),
+            sched_aging_promotions=gv("sched_aging_promotions"),
+            sched_peak_step_prefill_tokens=gv("sched_peak_step_prefill_tokens"),
+            trace_enabled=1.0 if self.trace is not None else 0.0,
+            trace_events=float(len(self.trace)) if self.trace is not None else 0.0,
+            trace_dropped=float(self.trace.dropped) if self.trace is not None else 0.0,
+            drift_enabled=1.0 if self._drift is not None else 0.0,
             device=str(self.device),
         )
         if self._spec is not None:
             for k, v in self._spec.stats().items():
                 setattr(s, k, v)
+        if self._drift is not None:
+            for k, v in self._drift.stats().items():
+                setattr(s, k, float(v))
         return s
 
     def stats(self) -> Dict:
         """The dict view of :meth:`engine_stats`."""
         return self.engine_stats().as_dict()
+
+
+def _install_counter_properties() -> None:
+    """Install the counter attributes as registry-backed properties:
+    ``eng.steps`` reads ``Counter.value`` (an int for integer-valued
+    counters); ``eng.steps += 1`` goes get -> add -> set through
+    ``Counter.set_``, which refuses to move a counter backwards."""
+
+    def make(attr: str, integer: bool):
+        def fget(self):
+            v = self._metric_counters[attr].value
+            return int(v) if integer else v
+
+        def fset(self, v):
+            self._metric_counters[attr].set_(float(v))
+
+        return property(fget, fset)
+
+    for attr, (_name, integer, _help) in _COUNTER_METRICS.items():
+        setattr(ServingEngine, attr, make(attr, integer))
+
+
+_install_counter_properties()

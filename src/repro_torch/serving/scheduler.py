@@ -1,7 +1,6 @@
 """Continuous-batching step scheduler: admission order + chunked-prefill
 token budgeting (the port of ``repro.serving.scheduler``, pure
-bookkeeping; the reference's code without its span-trace hooks, which
-belong to the observability slice).
+bookkeeping, with the reference's span-trace hooks).
 
 Without a budget, a newly admitted request runs its whole prompt in one
 prefill call while every live decode lane waits behind it. This module is
@@ -71,6 +70,9 @@ class StepScheduler:
         self.peak_step_tokens = 0
         self._first_seen: dict = {}  # uid -> engine step first observed queued
         self._promoted: set = set()  # uids already counted as aging promotions
+        # Optional TraceRing attached by the engine: the budget-limited and
+        # aging-promotion instants.
+        self.trace = None
 
     # -- admission ordering -------------------------------------------------
 
@@ -100,6 +102,11 @@ class StepScheduler:
                 ):
                     self._promoted.add(r.uid)
                     self.aging_promotions += 1
+                    if self.trace is not None:
+                        self.trace.emit(
+                            "sched_promote", track=r.uid, step=step,
+                            waited=step - self._first_seen[r.uid],
+                        )
 
         def key(i: int):
             r = queue[i]
@@ -142,6 +149,12 @@ class StepScheduler:
                 break
         if limited:
             self.budget_limited_steps += 1
+            if self.trace is not None:
+                self.trace.emit(
+                    "sched_budget_limited",
+                    budget=self.prefill_budget,
+                    planned=self.prefill_budget - left,
+                )
         self.chunks += len(plan)
         used = self.prefill_budget - left
         if used > self.peak_step_tokens:

@@ -135,9 +135,14 @@ class SpecDecoder:
         self.compile_s = 0.0  # nothing is compiled: stays 0
         self.draft_steps = 0  # draft decode steps (the sum of the windows)
         self.plain_rounds = 0  # rounds with k == 0: a one-token verify
+        # The engine attaches its TraceRing (or leaves None) and stamps
+        # trace_step before each round, so draft/verify spans land on the
+        # engine lane.
+        self.trace = None
+        self.trace_step = 0
 
     def propose_and_verify(self, params, caches, tokens: torch.Tensor,
-                           k: Optional[int] = None):
+                           k: Optional[int] = None, fault: Optional[torch.Tensor] = None):
         """One speculation round over the whole decode batch.
 
         tokens: ``[B, 1]`` current per-lane tokens. Drafts ``k`` proposals
@@ -148,7 +153,9 @@ class SpecDecoder:
         [B])`` as numpy, the caches (target K/V written for every proposed
         position, ``pos`` past the window) and ``k``; the caller commits
         per lane and rewinds ``pos``, committing nothing for a lane whose
-        ``finite`` flag is False.
+        ``finite`` flag is False. ``fault`` (``[B]`` float32, NaN on the
+        lanes the engine's fault-injection hook poisons) is added to the
+        verify logits before the finite check; None adds nothing.
         """
         if k is None:
             k = self.controller.k
@@ -174,6 +181,8 @@ class SpecDecoder:
             caches["pos"] = pos0
             logits, caches = T.verify_step(params, torch.cat([tokens, draft_toks], dim=1),
                                            caches, cfg, mode=self.matmul_mode)
+            if fault is not None:
+                logits = logits + fault[:, None, None]
             finite = torch.isfinite(logits).all(dim=2).all(dim=1)  # [B]
             greedy = torch.argmax(logits, dim=-1).to(torch.int32)  # [B, k+1]
             np_greedy = greedy.cpu().numpy()  # sync: the verify step has retired
@@ -184,6 +193,12 @@ class SpecDecoder:
         self.rounds += 1
         self.draft_steps += k
         self.plain_rounds += k == 0
+        if self.trace is not None:
+            self.trace.emit("spec_draft", ts=t0, dur=t1 - t0,
+                            step=self.trace_step, k=k)
+            self.trace.emit("spec_verify", ts=t1, dur=t2 - t1,
+                            step=self.trace_step,
+                            lanes=int(tokens.shape[0]))
         return np_greedy, np_drafts, np_finite, caches, k
 
     def book_lane(self, n_accepted: int, n_committed: int, n_proposed: int) -> None:

@@ -3,13 +3,15 @@ overload): a smoke-size quantized tree made by the port alone, serving
 shortcuts, and the near-tie rule that holds two token streams against each
 other.
 
-Chunked prefill, a resume's re-prefill and the monolithic prefill sum the
-same attention in different orders (the prefill attention's key chunk
-follows the call's key count), so their greedy tokens are equal only up to
-a near-tie: at the first position where two streams part, the oracle's own
+Chunked prefill and the monolithic prefill sum the same attention in
+different orders (the prefill attention's key chunk follows the call's key
+count, the reference's own rule), and the port and the reference sum in
+different orders too, so such greedy tokens are equal only up to a
+near-tie: at the first position where two streams part, the oracle's own
 top-2 logit margin must be within ``TIE_TOL`` (the engine parity tests'
-bound, ``tests/test_torch_engine.py``). No test pins a seed to avoid a
-parting.
+bound, ``tests/test_torch_engine.py``). A resume after preemption is not
+held this way: it is bitwise (``tests/test_torch_overload.py``). No test
+pins a seed to avoid a parting.
 """
 import numpy as np
 import pytest

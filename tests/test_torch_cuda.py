@@ -1543,23 +1543,92 @@ def test_chunked_prefill_launch_count_cuda(matmul_mode, kernel):
 @pytest.mark.cuda
 def test_preempt_resume_cycle_cuda():
     """Optimistic admission on a pool too small for the lanes' growth: the
-    card engine preempts, resumes with one prefill call over the committed
-    tokens past its prefix hits (counted in the launches), finishes every
-    request and ends with the allocator empty."""
+    card engine preempts, resumes by re-prefilling only the prompt past its
+    prefix hits and replaying the committed tokens through the decode path
+    (B2's Q > 1 rows when the tail is longer than one token; every call
+    counted in the launches), finishes every request token for token as the
+    uncontended card engine does, and ends with the allocator empty."""
     cuda_or_skip()
     cfg, q = _smoke_tree("w8a8")
+    conf = dict(max_batch=3, max_len=96, page_size=8, matmul_mode="w8a8", kv_bits=8)
+    _, want = _serve_cuda(cfg, q, _lifecycle_reqs(cfg, 7, (7, 5, 3), 20), **conf)
     reqs = _lifecycle_reqs(cfg, 7, (7, 5, 3), 20)
     for m in (tom, tfq, tpa):
         m.reset_launches()
-    eng, _ = _serve_cuda(cfg, q, reqs, max_batch=3, max_len=96, page_size=8, n_pages=9,
-                         admission="optimistic", matmul_mode="w8a8", kv_bits=8)
+    eng, got = _serve_cuda(cfg, q, reqs, n_pages=9, admission="optimistic", **conf)
     s = eng.stats()
     L = cfg.n_layers
-    assert s["preempted"] >= 1
-    assert s["prefill_calls"] > 3  # the resumes re-prefilled
-    assert tfq.launches == (7 * L + 1) * (s["decode_steps"] + s["prefill_calls"])
-    assert tpa.launches == L * s["decode_steps"]
+    reps = eng.replay_lengths
+    assert s["preempted"] >= 1 and reps
+    assert s["prefill_calls"] <= 3 + s["preempted"]
+    assert got == want
+    assert tfq.launches == (7 * L + 1) * (s["decode_steps"] + s["prefill_calls"] + len(reps))
+    assert tpa.launches == L * (s["decode_steps"] + sum(1 for n in reps if n == 1))
+    assert tpa.launches_verify == L * sum(1 for n in reps if n > 1)
     a = eng.allocator
     assert a.in_use() == 0 and a.available() == a.capacity
     assert a.peak_in_use <= a.capacity
     assert all(r.finish_reason == "length" and len(r.output) == 20 for r in reqs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matmul_mode,kv_bits", [("dequant", None), ("w8a8", 8),
+                                                 ("w4a8", 4)])
+def test_drift_sample_restores_pools_cuda(matmul_mode, kv_bits):
+    """On the card a decode step appends to the pools in place: a drift
+    sample restores the rows it wrote, so every pool byte and the positions
+    are unchanged, and an engine sampling every step gives the tokens of
+    one that never samples."""
+    cuda_or_skip()
+    from repro_torch.serving import EngineConfig, ServingEngine
+
+    cfg, q = _smoke_tree("w8a8")
+    conf = dict(max_batch=3, max_len=64, page_size=8, matmul_mode=matmul_mode,
+                kv_bits=kv_bits)
+    eng = ServingEngine(cfg, q, EngineConfig(drift_every=1000, **conf), device="cuda")
+    for r in _lifecycle_reqs(cfg, 3, (5, 9), 10):
+        eng.submit(r)
+    for _ in range(4):
+        eng.step()
+    before = [{k: t.clone() for k, t in layer["attn"].items()} for layer in eng.caches["layers"]]
+    pos = eng.caches["pos"].clone()
+    eng._drift_sample()
+    torch.cuda.synchronize()
+    assert eng._drift.samples == 1 and not eng._drift_broken
+    for layer, old in zip(eng.caches["layers"], before):
+        for k, t in layer["attn"].items():
+            assert _same_bits(t, old[k]), k
+    assert torch.equal(eng.caches["pos"], pos)
+    _, want = _serve_cuda(cfg, q, _lifecycle_reqs(cfg, 3, (5, 9, 4), 10), **conf)
+    _, got = _serve_cuda(cfg, q, _lifecycle_reqs(cfg, 3, (5, 9, 4), 10), drift_every=1, **conf)
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_router_kill_migrate_exact_cuda():
+    """Two card replicas sharing one tree: a replica killed mid-decode
+    hands its lanes to the survivor, which resumes them bit-exactly (the
+    single-engine oracle's tokens), and no page leaks."""
+    cuda_or_skip()
+    from repro_torch.serving import EngineConfig, ReplicaSet, Router, RouterConfig
+
+    cfg, q = _smoke_tree("w8a8")
+    conf = dict(max_batch=2, max_len=64, page_size=8, matmul_mode="w8a8", kv_bits=8)
+    _, want = _serve_cuda(cfg, q, _lifecycle_reqs(cfg, 7, (7, 5, 3, 6), 10), **conf)
+    reqs = _lifecycle_reqs(cfg, 7, (7, 5, 3, 6), 10)
+    router = Router(ReplicaSet.build(cfg, q, EngineConfig(**conf), 2, device="cuda"),
+                    RouterConfig(placement="round_robin"))
+    p0 = router.replicas[0].engine.params["layers"]["mlp"]["w_up"].weight.values
+    p1 = router.replicas[1].engine.params["layers"]["mlp"]["w_up"].weight.values
+    assert p0.data_ptr() == p1.data_ptr()
+    for r in reqs:
+        router.submit(r)
+    for _ in range(4):
+        router.step()
+    router.kill(0)
+    router.run()
+    assert router.stats()["router_migrated"] >= 1
+    assert {r.uid: list(r.output) for r in reqs} == want
+    for rep in router.replicas:
+        a = rep.engine.allocator
+        assert a.in_use() + a.available() == a.capacity

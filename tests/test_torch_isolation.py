@@ -50,7 +50,10 @@ def test_imports_without_jax_or_repro():
     assert "repro_torch.kernels.ops" in mods and len(mods) > 20
     assert "repro_torch.serving.spec_decode" in mods
     for m in ("repro_torch.serving.sampling", "repro_torch.serving.scheduler",
-              "repro_torch.runtime.health"):
+              "repro_torch.runtime.health", "repro_torch.obs", "repro_torch.obs.log",
+              "repro_torch.obs.metrics", "repro_torch.obs.trace", "repro_torch.obs.drift",
+              "repro_torch.core.tap", "repro_torch.serving.router",
+              "repro_torch.serving.chaos"):
         assert m in mods
     code = (
         "import sys, importlib, importlib.util\n"
@@ -103,10 +106,17 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(cfg, q, EngineConfig(max_len=64, spec=SpecConfig(k=3)))
     ServingEngine(cfg, q, EngineConfig(max_len=64, spec=SpecConfig(k=3)), device="cpu")
+    from repro_torch.serving import ReplicaSet
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ReplicaSet.build(cfg, q, EngineConfig(max_len=64), 2)
+    ReplicaSet.build(cfg, q, EngineConfig(max_len=64), 2, device="cpu")
     from repro_torch.launch import serve
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "glm4-9b", "--smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "glm4-9b", "--smoke", "--replicas", "2"])
 
 
 def test_ops_refuse_devices_without_a_kernel():
