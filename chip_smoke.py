@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py [--layers N] [--short-layers N] [--out DIR]
+    python3 chip_smoke.py [--layers N] [--short-layers N] [--phi-layers N] [--out DIR]
 
 Phases (any failure raises, and the script exits non-zero with no result):
 
@@ -112,12 +112,46 @@ Phases (any failure raises, and the script exits non-zero with no result):
    (B5) is checked and timed as B4 at its shapes (weight-only and int8),
    and the tree is served in ``dequant`` mode as in 4(b): B5 7*L+1 times
    per step and call, B4 and B1 not at all.
-6. Reference check: a smoke-size glm4-9b run through prefill and
+6. MoE serving: the glm4-9b trees are freed; deepseek-moe-16b at its
+   published width (d_model 2048, 16/16 heads, hd 128, 64 routed experts
+   top-6 of expert_ff 1408, 2 shared experts fused to width 2816,
+   capacity factor 1.25, vocab 102400) and 28 layers deep (the published
+   depth, never cut), its seeded weights drawn leaf by leaf on the
+   card and quantized as drawn (``init_params(lazy=True)`` through
+   ``quantize_params``, the serving recipe; quantize seconds and peak
+   device memory printed). Served as in 4 in (n) w8a8 (int8 pages), (o)
+   dequant (float32 pages) and (p) w4a8 (int4 pages; the engine converts
+   the expert stacks): the phase's kernel runs 10*L+1 times per step and
+   call, 3*L of them one launch over an expert stack (its ``_experts``
+   count); the dropped assignments per call kind (prefill, decode, verify)
+   are counted from the routing (a wrapper of ``models.moe.dispatch``). After
+   each, a fresh engine's decode step is profiled (two steps, device
+   operations and busy share, ``launch/profile_decode.py``'s reckoning).
+   (q) spec w8a8 (drafting with the first quarter of the layers): its
+   acceptance and token agreement with (n), which it must equal wherever no
+   verify dropped an assignment (a token's MoE output follows the other
+   rows of its call, as in the reference). The engine's w4a8 conversion of
+   a layer-0 expert stack is bitwise ``to_w4a8`` on the card and on the
+   CPU. (r) its clip-only tree (``ocs_ratio=0``) at ``--short-layers``
+   (default 10, a cut) in dequant: B5 over the experts. Kernel phase: B4,
+   B5, B1 and B6 over the layer-0 expert stacks (E = 64; K 2048 -> N 1408
+   and K 1408 -> N 2048; C in ``STACK_CS``) with empty capacity rows and
+   an all-zero expert: one launch a call, every expert's slice bitwise its
+   2-D launch, zero rows zero, against the plain stacked call bitwise (B1,
+   B6) or within the weight-only bound (B4, B5, also on both of their
+   tiles, bitwise each other); timed with the library yardstick and the
+   bound. (s) phi3.5-moe-42b-a6.6b (16 experts top-2, no shared, GQA 32/8,
+   expert_ff 6400, vocab 32064) at ``--phi-layers`` (default 4 of 32, a
+   cut: its float32 tree is ~168 GB) in w8a8.
+7. Reference check: a smoke-size glm4-9b run through prefill and
    teacher-forced decode on the card (kernels) and on the CPU (plain
    versions) from the same weights, in w8a8 (int8 pages), dequant (float
    pages), dequant on a clip-only tree and w4a8 (int4 pages), the decode
    followed by a teacher-forced ``verify_step`` of 5 tokens; logits agree
-   within ``MODEL_RTOL`` of the largest logit.
+   within ``MODEL_RTOL`` of the largest logit. The same for the MoE smoke
+   configs (deepseek-moe-16b in the three tiers, phi3.5-moe in w8a8), the
+   card routing as the CPU did: its own expert set may differ only at a
+   near-tie (``ROUTE_TIE``).
 
 Output: a ``time:`` line at the end of each phase (seconds since the
 start), a ``kernels`` JSON line (every kernel's launches on its path,
@@ -1092,6 +1126,8 @@ def kernel_phase_b6(qparams, gen, iters):
 
 def counters():
     """Every launch count: name -> (wrapper module, count attribute).
+    ``<kernel>_experts`` is a matmul wrapper's count of its launches over
+    an expert stack (one a MoE layer's stacked matrix; part of its count),
     ``paged_attention_verify`` is B2's count of Q > 1 calls,
     ``ocs_matmul_cuda_cores`` B4's of calls on its CUDA-core route (none on
     a serving path: ``dense`` gives it bf16 x and declares a packed leaf's
@@ -1106,7 +1142,11 @@ def counters():
             "ocs_matmul_cuda_cores": (ocs_matmul, "launches_cuda_cores"),
             "quant_matmul": (quant_matmul, "launches"),
             "dynamic_quant": (dynamic_quant, "launches"),
-            "w4a8_qmatmul": (w4a8_qmatmul, "launches")}
+            "w4a8_qmatmul": (w4a8_qmatmul, "launches"),
+            "fused_qmatmul_experts": (fused_qmatmul, "launches_stack"),
+            "ocs_matmul_experts": (ocs_matmul, "launches_stack"),
+            "quant_matmul_experts": (quant_matmul, "launches_stack"),
+            "w4a8_qmatmul_experts": (w4a8_qmatmul, "launches_stack")}
 
 
 # The matmul kernel each mode runs on an OCS tree.
@@ -1142,10 +1182,13 @@ def seeded_requests(cfg, seed, sampled=False):
 
 
 def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel, plain=None,
-                sampled=False, reverse=False, hook=None):
+                sampled=False, reverse=False, hook=None, keep_params=False):
     """Serve 8 seeded requests; every launch count is set to 0 just before
-    and read just after. ``matmul_kernel`` must run 7*L+1 times per decode
-    step and per prefill call, the other matmul kernels not at all.
+    and read just after. ``matmul_kernel`` must run P*L+1 times per decode
+    step and per prefill call (P = ``matmuls_per_layer``: 7 for a dense
+    layer, 10 for a MoE layer with shared experts, 7 without), the other
+    matmul kernels not at all; of those, 3*L over the expert stacks in a
+    MoE model (its ``_experts`` count), one launch a stacked matrix.
 
     With ``ecfg.spec`` set, each step is a speculation round: the target's
     kernel runs 7*L+1 times per round and per prefill call, the drafter's
@@ -1162,7 +1205,9 @@ def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel, plain=None
     Q > 1 path when its tail is longer than one token. ``sampled`` gives odd
     uids ``SAMPLED_PARAMS``; ``reverse`` submits the requests in reverse
     order; ``hook(engine)``, when given, runs after the counts are set to 0
-    and before the engine runs to its end (it may step the engine)."""
+    and before the engine runs to its end (it may step the engine);
+    ``keep_params`` returns the engine's tree (converted, in w4a8) under
+    ``params``."""
     import torch
     from repro_torch.core.apply import map_with_path
     from repro_torch.core.ocs import OCSQuantLinear, W4A8Linear
@@ -1226,7 +1271,10 @@ def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel, plain=None
     replays = list(eng.replay_lengths)
     drift = int(stats["drift_samples"])
     want = {name: 0 for name in counts}
-    want[matmul_kernel] = (7 * L + 1) * (steps + calls + len(replays) + drift)
+    per = matmuls_per_layer(cfg)
+    stacks = 3 if cfg.block == "moe" else 0
+    want[matmul_kernel] = (per * L + 1) * (steps + calls + len(replays) + drift)
+    want[matmul_kernel + "_experts"] = stacks * L * (steps + calls + len(replays) + drift)
     want["paged_attention"] = L * (sum(1 for n in replays if n == 1) + drift)
     want["paged_attention_verify"] = L * sum(1 for n in replays if n > 1)
     spec = ecfg.spec
@@ -1235,7 +1283,8 @@ def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel, plain=None
     else:
         dec = eng._spec
         n = min(spec.draft_layers or L, L)
-        want[MODE_KERNEL[spec.draft_mode]] += (7 * n + 1) * dec.draft_steps
+        want[MODE_KERNEL[spec.draft_mode]] += (per * n + 1) * dec.draft_steps
+        want[MODE_KERNEL[spec.draft_mode] + "_experts"] += stacks * n * dec.draft_steps
         want["paged_attention"] += n * dec.draft_steps + L * dec.plain_rounds
         want["paged_attention_verify"] += L * (dec.rounds - dec.plain_rounds)
         if not want["paged_attention_verify"]:
@@ -1269,8 +1318,10 @@ def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel, plain=None
         extra = (f" + {len(replays)} resume replays (tails {replays})" if replays else "") + (
             f" + {drift} drift samples" if drift else "")
         log(f"serve {label}: {matmul_kernel} wrapper calls {counts[matmul_kernel]} = "
-            f"(7*{L}+1) x ({steps} decode steps + {calls} prefill calls{extra}); "
-            f"paged_attention {counts['paged_attention']}, its Q>1 path "
+            f"({per}*{L}+1) x ({steps} decode steps + {calls} prefill calls{extra})"
+            + (f", {counts[matmul_kernel + '_experts']} of them over the expert stacks "
+               f"(3*{L} a call)" if stacks else "")
+            + f"; paged_attention {counts['paged_attention']}, its Q>1 path "
             f"{counts['paged_attention_verify']}, as reckoned; others 0")
     else:
         log(f"serve {label}: {spec}: {stats['spec_rounds']:.0f} rounds ({dec.plain_rounds} "
@@ -1278,8 +1329,9 @@ def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel, plain=None
             f"{stats['spec_acceptance_rate']:.4f}, {stats['spec_tokens_per_target_step']:.4f} "
             f"tokens per target step; draft {stats['spec_draft_time_s']:.3f} s, verify "
             f"{stats['spec_verify_time_s']:.3f} s; launch counts "
-            f"{ {k: v for k, v in counts.items() if v} } as reckoned; tokens identical to the "
-            f"plain phase's, allocator state at retire equal")
+            f"{ {k: v for k, v in counts.items() if v} } as reckoned"
+            + ("; tokens identical to the plain phase's, allocator state at retire equal"
+               if plain is not None else ""))
     if ecfg.prefill_budget or ecfg.admission != "reserve" or sampled:
         log(f"serve {label}: scheduler {stats['sched_policy']}, budget "
             f"{stats['sched_prefill_budget']:.0f}, {stats['sched_chunks']:.0f} chunks, "
@@ -1290,12 +1342,15 @@ def serve_phase(label, cfg, qparams, seed, card, ecfg, matmul_kernel, plain=None
             f"queue wait p50 {stats['queue_wait_p50_s'] * 1e3:.1f} ms p95 "
             f"{stats['queue_wait_p95_s'] * 1e3:.1f} ms | pages peak "
             f"{stats['kv_pages_peak']:.0f} of {stats['kv_pages_capacity']:.0f}")
-    return dict(stats=stats, wall_s=wall, launches=counts, n_layers=L, pool=pool_kind,
-                construct_s=t_construct, weight_bytes=weight_bytes[tree],
-                kv_bytes_per_token=kvc.kv_bytes_per_token(eng.cfg), outputs=outputs,
-                alloc=alloc, prompts=prompts, replays=replays, hook=hooked,
-                spec=None if spec is None else dataclasses.asdict(spec),
-                draft_steps=None if spec is None else dec.draft_steps)
+    res = dict(stats=stats, wall_s=wall, launches=counts, n_layers=L, pool=pool_kind,
+               construct_s=t_construct, weight_bytes=weight_bytes[tree],
+               kv_bytes_per_token=kvc.kv_bytes_per_token(eng.cfg), outputs=outputs,
+               alloc=alloc, prompts=prompts, replays=replays, hook=hooked,
+               spec=None if spec is None else dataclasses.asdict(spec),
+               draft_steps=None if spec is None else dec.draft_steps)
+    if keep_params:
+        res["params"] = eng.params
+    return res
 
 
 def top2_margin(cfg, params, tokens, mode):
@@ -1860,6 +1915,653 @@ def reference_check(seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# MoE serving: deepseek-moe-16b (and phi3.5-moe-42b-a6.6b), the expert axis
+# of B4, B5, B1 and B6.
+
+# The capacities of the stacked-launch kernel phase: a decode step's (8
+# lanes route 48 assignments to 64 experts: C = 8) and a prefill's (C = 32:
+# a 256-token bucket).
+STACK_CS = (8, 32)
+# Card vs CPU at the MoE smoke sizes: the card routes as the CPU did, and
+# where its own router picks another expert set the k-th and (k+1)-th
+# probabilities must be this close (a flipped near-tie; the CPU test's
+# bound, tests/test_torch_moe.py).
+ROUTE_TIE = 0.01
+# The kernels' stacked entries in the kernels line: name -> (wrapper count
+# key, source, the TPU kernel its vmapped call reaches).
+STACK_KERNELS = {
+    "ocs_matmul_experts": ("ocs_matmul", "src/repro_torch/csrc/ocs_matmul.cu",
+                           "src/repro/kernels/ocs_matmul.py:44"),
+    "quant_matmul_experts": ("quant_matmul", "src/repro_torch/csrc/quant_matmul.cu",
+                             "src/repro/kernels/quant_matmul.py:39"),
+    "fused_qmatmul_experts": ("fused_qmatmul", "src/repro_torch/csrc/fused_qmatmul.cu",
+                              "src/repro/kernels/fused_qmatmul.py:60"),
+    "w4a8_qmatmul_experts": ("w4a8_qmatmul", "src/repro_torch/csrc/w4a8_qmatmul.cu",
+                             "src/repro/kernels/fused_qmatmul.py:220"),
+}
+
+
+def matmuls_per_layer(cfg) -> int:
+    """``dense`` calls of a quantized weight a layer: attention's 4, and the
+    MLP's 3 (dense) or the experts' 3 stacked calls plus the shared
+    experts' 3 (MoE)."""
+    if cfg.block == "moe":
+        return 4 + 3 + (3 if cfg.moe.n_shared else 0)
+    return 7
+
+
+def moe_model(arch, layers):
+    """``arch`` at full width, ``layers`` deep (None: its published depth),
+    the cut logged on its own line."""
+    from repro_torch.configs import get_config
+
+    base = get_config(arch)
+    layers = base.n_layers if layers is None else layers
+    cfg = dataclasses.replace(base, n_layers=layers)
+    m = cfg.moe
+    cut = "no cut" if layers == base.n_layers else f"cut: n_layers {layers} of {base.n_layers}"
+    log(f"model: {arch} at full width (d_model {cfg.d_model}, heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads}, hd {cfg.hd}, {m.n_experts} experts top-{m.top_k}, expert_ff "
+        f"{m.expert_ff}, {m.n_shared} shared, capacity factor {m.capacity_factor}, vocab "
+        f"{cfg.vocab}), {layers} layers ({cut})")
+    return cfg
+
+
+# The script's peak device memory before the last reset of the allocator's
+# peak (each MoE quantization measures its own).
+PEAK_BYTES = [0]
+
+
+def moe_quantized(cfg, seed, ratio):
+    """The seeded weights drawn leaf by leaf on the card (``init_params(lazy=
+    True)``) and quantized as drawn: the float32 tree is never whole.
+    Returns (tree, seconds, peak GiB of the quantization)."""
+    import torch
+    from repro_torch.core.apply import quantize_params
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.models import transformer as T
+
+    torch.cuda.synchronize()
+    PEAK_BYTES[0] = max(PEAK_BYTES[0], torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    lazy = T.init_params(cfg, seed=seed, device="cuda", lazy=True)
+    q = quantize_params(lazy, QuantRecipe(w_bits=8, w_clip="mse", ocs_ratio=ratio,
+                                          per_channel=True, pad_to=1), device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    held = (torch.cuda.memory_allocated() - base) / 2**30
+    log(f"quantize {cfg.name} ({cfg.n_layers} layers, ocs r={ratio}): {dt:.1f} s on the card, "
+        f"peak device memory {peak:.2f} GiB, tree {held:.2f} GiB")
+    return q, dt, peak
+
+
+def stack_rows(x, frac, gen):
+    """Zero all but about ``frac`` of ``x``'s capacity rows (empty slots),
+    expert 1 wholly: the occupancy a routed stack has."""
+    import torch
+
+    keep = torch.rand(x.shape[:2], generator=gen, device="cuda") < frac
+    keep[1] = False
+    return x * keep[..., None].to(x.dtype)
+
+
+def stack_call(kind, w, x, out_dtype, plain=False):
+    """The wrapper's stacked call (or its plain version) with the operands
+    ``dense`` gives it for the stacked leaf ``w`` of one layer."""
+    from repro_torch.kernels import fused_qmatmul as fq, ocs_matmul as om
+    from repro_torch.kernels import w4a8_qmatmul as w4
+    from repro_torch.kernels.quant_matmul import stack_scales
+
+    if kind == "B6":
+        fn = w4.w4a8_matmul_plain if plain else w4.w4a8_matmul_cuda
+        return fn(x, w.w4, w.s4, w.w8, w.s8, w.spec.src[:, w.n_orig:].contiguous(),
+                  w.outlier_idx, bits=w.a_bits, out_dtype=out_dtype)
+    e, n = w.weight.values.shape[0], w.weight.values.shape[-1]
+    ws = stack_scales(w.weight.scale, e, n, x.device)
+    src = w.spec.src[:, w.n_orig:].contiguous()
+    if kind == "B1":
+        fn = fq.fused_quant_matmul_plain if plain else fq.fused_quant_matmul_cuda
+        return fn(x, w.weight.values, ws, src, bits=8, out_dtype=out_dtype)
+    fn = om.ocs_quant_matmul_plain if plain else om.ocs_quant_matmul_cuda
+    return fn(x, w.weight.values, ws, src, tail_mult=w.spec.mult[:, w.n_orig:],
+              tail_is_mask=True, out_dtype=out_dtype)
+
+
+def stack_library(kind, w, x):
+    """The library yardstick of a stacked call (never called by the port):
+    weight-only, one bf16 ``torch.bmm`` of the materialized expanded
+    activations against the stack dequantized to bf16 before the timing,
+    then the column scales; B1, per expert ``torch._int_mm`` on the already
+    quantized, zero-padded operands plus the epilogue; B6 likewise over the
+    int4 weights unpacked to int8 and the outlier rows."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    e, c, k = x.shape
+    if kind in ("B4", "B5"):
+        vals = w.weight.values
+        ws = w.weight.scale.reshape(e, 1, -1).float()
+        src = w.spec.src[:, w.n_orig:].long()
+        xe = x
+        if src.shape[1]:
+            tail = torch.gather(x, 2, src[:, None, :].expand(e, c, src.shape[1]))
+            xe = torch.cat([x, tail * w.spec.mult[:, None, w.n_orig:].to(x.dtype)], 2)
+        wb = vals.to(torch.bfloat16)
+        return lambda: torch.bmm(xe, wb) * ws
+    rows, mp = [], max(c, 32)
+    for i in range(e):
+        xi = x[i]
+        if kind == "B1":
+            vals = w.weight.values[i]
+            src = w.spec.src[i, w.n_orig:].long()
+            q, sc = ref.dynamic_quant_ref(xi)
+            qe = torch.cat([q, q[:, src]], 1)
+            ke = qe.shape[1]
+            kp = ke + (-ke) % 8
+            qp = torch.zeros((mp, kp), dtype=torch.int8, device="cuda")
+            qp[:c, :ke] = qe
+            wp = torch.zeros((kp, vals.shape[1]), dtype=torch.int8, device="cuda")
+            wp[:ke] = vals
+            scp = torch.zeros((mp,), device="cuda")
+            scp[:c] = sc
+            rows.append((qp, wp, scp[:, None] * w.weight.scale.reshape(e, -1)[i][None, :],
+                         None, None, None))
+        else:
+            src = w.spec.src[i, w.n_orig:].long()
+            oidx = w.outlier_idx[i].long()
+            q, sc = pa.quant_rows(xi, 127.0)
+            qe = torch.cat([q, q[:, src]], 1)
+            ke = qe.shape[1]
+            kp = ke + (-ke) % 8
+            t = oidx.shape[0]
+            tp = t + (-t) % 8
+            n = w.w4.shape[-1]
+            wq = torch.zeros((kp, n), dtype=torch.int8, device="cuda")
+            wq[:ke] = pa.unpack_int4(w.w4[i].T).T
+            qp = torch.zeros((mp, kp), dtype=torch.int8, device="cuda")
+            qp[:c, :ke] = qe
+            q8 = torch.zeros((mp, tp), dtype=torch.int8, device="cuda")
+            q8[:c, :t] = qe[:, oidx]
+            w8p = torch.zeros((tp, n), dtype=torch.int8, device="cuda")
+            w8p[:t] = w.w8[i]
+            scp = torch.zeros((mp,), device="cuda")
+            scp[:c] = sc
+            rows.append((qp, wq, scp[:, None] * w.s4[i][None, :], q8, w8p,
+                         scp[:, None] * w.s8[i][None, :]))
+
+    def run():
+        for qp, wp, s4, q8, w8p, s8 in rows:
+            y = torch._int_mm(qp, wp).float() * s4
+            if q8 is not None:
+                y = y + torch._int_mm(q8, w8p).float() * s8
+            y.to(torch.bfloat16)
+
+    return run
+
+
+def stack_bound_ms(kind, w, x):
+    """Each input read once (x, the stacked weights, their tails and
+    scales), the output written once at HBM rate; or the multiply-adds at
+    the bf16 (B4, B5) or int8 (B1, B6) tensor-core peak: the larger. A tail
+    entry is its int32 source (B1, B6 fold the multipliers into the
+    weights) and, for B4, its float32 multiplier, as the 2-D bounds count
+    them."""
+    e, c, k = x.shape
+    if kind == "B6":
+        n = w.w4.shape[-1]
+        ke = 2 * w.w4.shape[1]
+        wbytes = w.w4.numel() + w.w8.numel() + 8 * e * n + 4 * w.outlier_idx.numel()
+        peak = INT8_OPS
+    else:
+        n = w.weight.values.shape[-1]
+        ke = w.weight.values.shape[1]
+        wbytes = w.weight.values.numel() + 4 * e * n
+        peak = INT8_OPS if kind == "B1" else BF16_FLOPS
+    tail = (8 if kind == "B4" else 4) * e * (ke - k)
+    byts = x.numel() * 2 + wbytes + tail + e * c * n * 2
+    ops = 2.0 * e * c * ke * n
+    t_b, t_o = byts / HBM_BPS, ops / peak
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def force_tile(tile):
+    """Make ``quant_matmul.tc_plan`` give ``tile``; returns the function that
+    undoes it."""
+    from repro_torch.kernels import quant_matmul as qm
+
+    plan = qm.tc_plan
+
+    def forced(m, k, kv, n, max_part):
+        if tile == qm.TC_PREFILL:
+            return (qm.TC_PREFILL, *qm.tc_split_plan(kv, n), m, 0, 0)
+        return (qm.TC_DECODE, *qm._tc_launch_plan(m, kv, n, max_part))
+
+    qm.tc_plan = forced
+
+    def undo():
+        qm.tc_plan = plan
+
+    return undo
+
+
+def kernel_phase_stack(leaves, gen, iters):
+    """B4, B5, B1 and B6 over deepseek-moe-16b's layer-0 expert stacks
+    (``leaves``: kind -> {"w_gate", "w_down"} stacked leaves, E = 64; w_up
+    has w_gate's shape) at C in ``STACK_CS``, bf16 x with empty capacity
+    rows (zero) and an all-zero expert: one launch a call (its count and
+    its stack count each move by one), each expert's output bitwise the 2-D
+    launch on its slice, zero rows zero; against the plain stacked call
+    bitwise (B1, B6) or within the weight-only bound (B4, B5; f32 outputs;
+    bf16 within it plus one bf16 ulp); B4 and B5 also on their prefill tile
+    at C = 32, bitwise the decode tile. Timed: wall and device ms, the plain
+    version, the library yardstick (``stack_library``) and the bound."""
+    import torch
+    from repro_torch.kernels import fused_qmatmul as fq, ocs_matmul as om
+    from repro_torch.kernels import quant_matmul as qm, w4a8_qmatmul as w4
+    from repro_torch.models.layers import dense
+
+    mods = {"B4": om, "B5": qm, "B1": fq, "B6": w4}
+    modes = {"B4": "dequant", "B5": "dequant", "B1": "w8a8", "B6": "w4a8"}
+    rows = []
+    for kind in ("B4", "B5", "B1", "B6"):
+        mod = mods[kind]
+        for name in ("w_gate", "w_down"):
+            w = leaves[kind][name]
+            k = w.n_orig
+            e = (w.w4 if kind == "B6" else w.weight.values).shape[0]
+            n = (w.w4 if kind == "B6" else w.weight.values).shape[-1]
+            s = (w.spec.src.shape[1] - k)
+            for c in STACK_CS:
+                x = (torch.randn((e, c, k), generator=gen, device="cuda") * 1.5).to(
+                    torch.bfloat16)
+                x = stack_rows(x, 48 / (e * 8) if c == 8 else 0.75, gen)
+                n0 = (mod.launches, mod.launches_stack)
+                got = dense(w, x, mode=modes[kind], name=f"moe_{name[2:]}")
+                torch.cuda.synchronize()
+                if (mod.launches, mod.launches_stack) != (n0[0] + 1, n0[1] + 1):
+                    raise AssertionError(f"{kind} stack {name}: not one launch")
+                if got.shape != (e, c, n) or not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"{kind} stack {name} C={c}: shape or non-finite")
+                zero = (x == 0).all(-1)
+                if not bool((got[zero] == 0).all()):
+                    raise AssertionError(f"{kind} stack {name} C={c}: a zero row is not zero")
+                for i in range(e):
+                    one = dense(w.layer(i), x[i], mode=modes[kind])
+                    if not same_bits(got[i], one):
+                        raise AssertionError(f"{kind} stack {name} C={c}: expert {i} differs "
+                                             "from its 2-D launch")
+                tiles = ["planned"]
+                if kind in ("B4", "B5") and c == max(STACK_CS):
+                    for tile in (qm.TC_DECODE, qm.TC_PREFILL):
+                        undo = force_tile(tile)
+                        try:
+                            forced = dense(w, x, mode=modes[kind])
+                            alone = [dense(w.layer(i), x[i], mode=modes[kind])
+                                     for i in (0, e // 2, e - 1)]
+                        finally:
+                            undo()
+                        if not same_bits(forced, got) or not all(
+                                same_bits(a, got[i]) for a, i in zip(alone, (0, e // 2, e - 1))):
+                            raise AssertionError(f"{kind} stack {name} C={c}: the "
+                                                 f"{qm.TC_TILE_NAMES[tile]} tile differs")
+                        tiles.append(qm.TC_TILE_NAMES[tile])
+                if kind in ("B1", "B6"):
+                    want = stack_call(kind, w, x, torch.bfloat16, plain=True)
+                    if not same_bits(got, want):
+                        raise AssertionError(f"{kind} stack {name} C={c}: differs from plain")
+                    err = 0.0
+                else:
+                    g32 = stack_call(kind, w, x, torch.float32)
+                    p32 = stack_call(kind, w, x, torch.float32, plain=True)
+                    xe, w8, ws = x.float(), w.weight.values, w.weight.scale.reshape(e, -1)
+                    if s:
+                        src = w.spec.src[:, k:].long()
+                        tail = torch.gather(xe, 2, src[:, None, :].expand(e, c, s))
+                        xe = torch.cat([xe, tail * w.spec.mult[:, None, k:]], 2)
+                    tol = torch.stack([wo_tol(xe[i], w8[i], ws[i], k, s) for i in range(e)])
+                    if not bool(((g32 - p32).abs() <= tol).all()):
+                        raise AssertionError(f"{kind} stack {name} C={c}: beyond the bound")
+                    p16 = stack_call(kind, w, x, torch.bfloat16, plain=True).float()
+                    lim = tol + bf16_ulp(torch.maximum(got.float().abs(), p16.abs()))
+                    if not bool(((got.float() - p16).abs() <= lim).all()):
+                        raise AssertionError(f"{kind} stack {name} C={c}: bf16 beyond the bound")
+                    err = float((g32 - p32).abs().max())
+                run = lambda: dense(w, x, mode=modes[kind])  # noqa: E731
+                plain = lambda: stack_call(kind, w, x, torch.bfloat16, plain=True)  # noqa: E731
+                lib = stack_library(kind, w, x)
+                bound, by = stack_bound_ms(kind, w, x)
+                r = dict(kernel=kind, name=name, E=e, C=c, K=k, S=s, N=n,
+                         ms=time_ms(run, iters), device_ms=graph_ms(run, iters),
+                         plain_ms=time_ms(plain, 2, warmup=1),
+                         library_ms=time_ms(lib, iters), library_device_ms=graph_ms(lib, iters),
+                         bound_ms=bound, bound_by=by, max_abs_err=err, tiles=tiles)
+                rows.append(r)
+                log(f"{kind} stack {name} E={e} C={c} K={k}+{s} N={n}: one launch, every "
+                    f"expert bitwise its 2-D launch ({', '.join(tiles)} tile), zero rows zero, "
+                    f"vs plain max |d| {err:.3g}; ms={r['ms']:.4f} device_ms="
+                    f"{r['device_ms']:.4f} plain_ms={r['plain_ms']:.3f} library_ms="
+                    f"{r['library_ms']:.4f} library_device_ms={r['library_device_ms']:.4f} "
+                    f"bound_ms={bound:.4f} ({by})")
+                del x, got
+    return rows
+
+
+def stack_step(rows, kind, L, c=8):
+    """One MoE decode step's stacked calls of ``kind`` (w_gate and w_up at
+    w_gate's shape, w_down; each once a layer), at capacity ``c``."""
+    tot = {key: 0.0 for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                                "library_device_ms", "bound_ms")}
+    by_ops = 0.0
+    for r in rows:
+        if r["kernel"] != kind or r["C"] != c:
+            continue
+        mult = L * (2 if r["name"] == "w_gate" else 1)
+        for key in tot:
+            tot[key] += mult * r[key]
+        if r["bound_by"] == "operations":
+            by_ops += mult * r["bound_ms"]
+    tot["bound_by"] = "operations" if by_ops > tot["bound_ms"] / 2 else "bytes"
+    tot["max_abs_err"] = max(r["max_abs_err"] for r in rows if r["kernel"] == kind)
+    return tot
+
+
+class RoutingCounts:
+    """Dropped assignments per call kind, from the routing the MoE block
+    computes (a wrapper of ``models.moe.dispatch``), kept on the device until
+    read; the call kind comes from the model function the engine called
+    (a prefill, a one-token decode step, a multi-token verify)."""
+
+    def __init__(self):
+        self.kind = "prefill"
+        self.dropped = {}
+        self.assigned = {}
+        self.calls = {}
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_mod
+        from repro_torch.models import transformer as T
+
+        self._orig = (T.prefill_into_pages, T.decode_tokens)
+        counts = self
+
+        def prefill(*a, **kw):
+            counts.kind = "prefill"
+            return counts._orig[0](*a, **kw)
+
+        def decode(params, tokens, *a, **kw):
+            counts.kind = "decode" if tokens.shape[1] == 1 else "verify"
+            return counts._orig[1](params, tokens, *a, **kw)
+
+        def dispatch(top_idx, n_experts, cap):
+            out = counts._dispatch(top_idx, n_experts, cap)
+            counts._note(out[2])
+            return out
+
+        self._dispatch = moe_mod.dispatch
+        T.prefill_into_pages, T.decode_tokens = prefill, decode
+        moe_mod.dispatch = dispatch
+        return self
+
+    def _note(self, keep):
+        k = self.kind
+        d = (~keep).sum()
+        self.dropped[k] = self.dropped[k] + d if k in self.dropped else d
+        self.assigned[k] = self.assigned.get(k, 0) + keep.numel()
+        self.calls[k] = self.calls.get(k, 0) + 1
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as moe_mod
+        from repro_torch.models import transformer as T
+
+        T.prefill_into_pages, T.decode_tokens = self._orig
+        moe_mod.dispatch = self._dispatch
+        return False
+
+    def summary(self):
+        return {k: dict(calls=self.calls[k], dropped=int(self.dropped[k]),
+                        assigned=self.assigned[k]) for k in self.calls}
+
+
+def moe_step_profile(label, cfg, params, ecfg, seed, steps=2):
+    """The MoE decode step's device operations and busy share: a fresh
+    engine on the served tree, the phase's requests, one unprofiled step
+    (admission, prefills, a decode), then ``steps`` decode steps under
+    ``torch.profiler`` (``launch/profile_decode.py``'s reckoning)."""
+    import torch
+    from repro_torch.launch.profile_decode import profile_steps
+    from repro_torch.serving import ServingEngine
+
+    eng = ServingEngine(cfg, params, ecfg, device="cuda")
+    for r in seeded_requests(cfg, seed):
+        eng.submit(r)
+    eng.step()
+    torch.cuda.synchronize()
+    prof = profile_steps(eng, steps)
+    ops = {k: v for k, v in prof["device_ops_per_step"].items() if v}
+    log(f"profile {label} ({cfg.n_layers} layers, 8 lanes, {steps} decode steps, profiler on): "
+        f"{prof['ops_per_step']:.0f} device operations a step; device busy "
+        f"{prof['busy_ms_per_step']:.2f} ms of {prof['wall_ms_per_step']:.2f} ms a step "
+        f"({100 * (1 - prof['busy_share']):.1f}% idle); hand-written families {ops}")
+    del eng
+    return prof
+
+
+def moe_phases(args, card, serve_cfg, gen):
+    """deepseek-moe-16b at its published depth (28, no cut): quantized leaf
+    by leaf on the card; served in w8a8 (int8 pages), dequant (float32
+    pages) and w4a8 (int4 pages); each step profiled once; a spec w8a8
+    phase; its clip-only tree at --short-layers (a cut) served in dequant
+    (B5); phi3.5-moe-42b-a6.6b at --phi-layers (a cut) in w8a8. Then the
+    stacked-launch kernel phase on the layer-0 experts."""
+    import torch
+    from repro_torch.core.ocs import to_w4a8
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.serving.spec_decode import SpecConfig
+
+    out = {"serves": {}, "profiles": {}, "drops": {}}
+    cfg = moe_model("deepseek-moe-16b", None)
+    q, t_q, peak_q = moe_quantized(cfg, args.seed, 0.02)
+    out.update(quantize_s=t_q, quantize_peak_gib=peak_q)
+    phases = (("w8a8", serve_cfg.replace(matmul_mode="w8a8", kv_bits=8), "fused_qmatmul"),
+              ("dequant", serve_cfg, "ocs_matmul"),
+              ("w4a8", serve_cfg.replace(matmul_mode="w4a8", kv_bits=4), "w4a8_qmatmul"))
+    q_w4a8 = None
+    for mode, ecfg, kern in phases:
+        label = f"deepseek-moe-16b {mode}"
+        with RoutingCounts() as rc:
+            res = serve_phase(label, cfg, q, args.seed, card, ecfg, kern,
+                              keep_params=mode == "w4a8")
+        if mode == "w4a8":
+            q_w4a8 = res.pop("params")
+        out["serves"][mode] = res
+        out["drops"][mode] = rc.summary()
+        log(f"serve {label}: dropped assignments by call kind {rc.summary()}")
+        out["profiles"][mode] = moe_step_profile(label, cfg, q_w4a8 if mode == "w4a8" else q,
+                                                 ecfg, args.seed)
+    log(f"serve deepseek-moe-16b: weight bytes w4a8 {out['serves']['w4a8']['weight_bytes'] / 1e9:.3f}"
+        f" GB vs int8 {out['serves']['w8a8']['weight_bytes'] / 1e9:.3f} GB; KV bytes per token "
+        f"{out['serves']['w8a8']['kv_bytes_per_token']} (int8), "
+        f"{out['serves']['dequant']['kv_bytes_per_token']} (float32), "
+        f"{out['serves']['w4a8']['kv_bytes_per_token']} (int4)")
+    # Self-speculation (w8a8, drafting with the first quarter of the layers):
+    # held to the plain w8a8 phase's tokens only where no verify dropped an
+    # assignment (a token's MoE output follows the other rows of its call:
+    # ROADMAP "MoE greedy exactness is a knife edge"); agreement reported.
+    spec = SpecConfig(draft_layers=max(1, cfg.n_layers // 4))
+    with RoutingCounts() as rc:
+        res = serve_phase("deepseek-moe-16b spec w8a8", cfg, q, args.seed, card,
+                          serve_cfg.replace(matmul_mode="w8a8", kv_bits=8, spec=spec),
+                          "fused_qmatmul")
+    plain = out["serves"]["w8a8"]["outputs"]
+    same = sum(a == b for uid in plain for a, b in zip(res["outputs"][uid], plain[uid]))
+    total = sum(len(v) for v in plain.values())
+    parted = sorted(uid for uid in plain if res["outputs"][uid] != plain[uid])
+    drops = rc.summary()
+    res.update(agreement=same / total, parted=parted)
+    out["serves"]["spec w8a8"] = res
+    out["drops"]["spec w8a8"] = drops
+    log(f"serve deepseek-moe-16b spec w8a8 ({spec}): acceptance "
+        f"{res['stats']['spec_acceptance_rate']:.4f}, token agreement with plain w8a8 "
+        f"{same}/{total} ({same / total:.4f}), requests parted {parted}; dropped "
+        f"assignments by call kind {drops}")
+    # A decode step of 8 lanes never drops (capacity 8); with no verify drop
+    # either, every row's MoE output is the plain step's, so the tokens are.
+    if parted and not drops.get("verify", {}).get("dropped"):
+        raise AssertionError("spec w8a8 parted from plain greedy with no verify drop")
+    leaves = {"B4": {}, "B1": {}, "B6": {}}
+    lp = layer_params(q, 0)["moe"]["experts"]
+    lp4 = layer_params(q_w4a8, 0)["moe"]["experts"]
+    for name in ("w_gate", "w_down"):
+        leaves["B4"][name] = leaves["B1"][name] = lp[name]
+        leaves["B6"][name] = lp4[name]
+    # The card's conversion of one layer-0 expert stack, bitwise the CPU's.
+    conv = to_w4a8_checked("layer-0 expert stack w_down", lp["w_down"])
+    if not all(same_bits(a, b) for a, b in ((conv.w4, lp4["w_down"].w4),
+                                            (conv.w8, lp4["w_down"].w8))):
+        raise AssertionError("the engine's w4a8 expert stack differs from to_w4a8's")
+    del conv, q_w4a8
+    # The clip-only tree (ocs_ratio=0: B5 over the experts), cut.
+    cfg_clip = moe_model("deepseek-moe-16b", min(args.short_layers, cfg.n_layers))
+    qclip, t_clip, _ = moe_quantized(cfg_clip, args.seed, 0.0)
+    out["quantize_clip_s"] = t_clip
+    with RoutingCounts() as rc:
+        out["serves"]["clip-only dequant"] = serve_phase(
+            f"deepseek-moe-16b clip-only dequant ({cfg_clip.n_layers} layers)", cfg_clip, qclip,
+            args.seed, card, serve_cfg, "quant_matmul")
+    out["drops"]["clip-only dequant"] = rc.summary()
+    leaves["B5"] = {name: layer_params(qclip, 0)["moe"]["experts"][name]
+                    for name in ("w_gate", "w_down")}
+    out["stack"] = kernel_phase_stack(leaves, gen, args.iters)
+    out["layers"] = cfg.n_layers
+    out["clip_layers"] = cfg_clip.n_layers
+    del q, qclip, leaves, lp, lp4
+    torch.cuda.empty_cache()
+    # phi3.5-moe-42b-a6.6b, w8a8, cut in depth.
+    cfg_phi = moe_model("phi3.5-moe-42b-a6.6b", args.phi_layers)
+    qphi, t_phi, peak_phi = moe_quantized(cfg_phi, args.seed, 0.02)
+    out.update(phi_quantize_s=t_phi, phi_layers=cfg_phi.n_layers)
+    with RoutingCounts() as rc:
+        out["serves"]["phi3.5 w8a8"] = serve_phase(
+            f"phi3.5-moe-42b-a6.6b w8a8 ({cfg_phi.n_layers} layers)", cfg_phi, qphi, args.seed,
+            card, serve_cfg.replace(matmul_mode="w8a8", kv_bits=8), "fused_qmatmul")
+    out["drops"]["phi3.5 w8a8"] = rc.summary()
+    log(f"serve phi3.5-moe-42b-a6.6b w8a8: dropped assignments by call kind {rc.summary()}")
+    del qphi
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_smoke_model(arch, seed, *, kv_bits, w4a8):
+    """A MoE smoke config and its tree quantized on the CPU with the
+    serving recipe (``w4a8``: converted as the engine converts it)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.apply import map_with_path, quantize_params
+    from repro_torch.core.ocs import OCSQuantLinear, to_w4a8
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(smoke_config(arch), kv_bits=kv_bits)
+    qp = quantize_params(T.init_params(cfg, seed=seed, device="cpu"),
+                         QuantRecipe(w_bits=8, w_clip="mse", ocs_ratio=0.02, per_channel=True,
+                                     pad_to=1), device="cpu")
+    if w4a8:
+        qp = map_with_path(lambda _p, leaf: to_w4a8(leaf, W4A8_RATIO)
+                           if isinstance(leaf, OCSQuantLinear) else leaf, qp)
+    return cfg, qp
+
+
+class ForcedRoutes:
+    """While active, every MoE routing records its ``top_idx`` (``record``)
+    or takes the next recorded one (``replay``: the gates are the caller's
+    own renormalized probabilities of those experts), and notes, where its
+    own choice differs as a set, the gap between its k-th and (k+1)-th
+    probabilities."""
+
+    def __init__(self, routes=None):
+        self.routes = [] if routes is None else routes
+        self.replay = routes is not None
+        self.margins = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe as moe_mod
+
+        self._orig = moe_mod.route
+        own_route = self._orig
+        state = self
+        it = iter(self.routes)
+
+        def route(router_w, xf, k):
+            gate, own = own_route(router_w, xf, k)
+            if not state.replay:
+                state.routes.append(own.cpu())
+                return gate, own
+            want = next(it).to(own.device)
+            probs = torch.softmax(xf.to(torch.float32) @ router_w.to(torch.float32), -1)
+            srt = torch.sort(probs, dim=-1, descending=True, stable=True).values
+            differ = (own.sort(-1).values != want.sort(-1).values).any(-1)
+            for r in torch.nonzero(differ).reshape(-1).tolist():
+                state.margins.append(float(srt[r, k - 1] - srt[r, k]))
+            g = probs.gather(1, want)
+            return g / torch.clamp_min(g.sum(-1, keepdim=True), 1e-9), want
+
+        moe_mod.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as moe_mod
+
+        moe_mod.route = self._orig
+        return False
+
+
+# MoE reference-check cases: (label, arch, matmul mode, KV bits).
+MOE_REFERENCE_CASES = (
+    ("deepseek-moe-16b w8a8, int8 pages", "deepseek-moe-16b", "w8a8", 8),
+    ("deepseek-moe-16b dequant, float32 pages", "deepseek-moe-16b", "dequant", None),
+    ("deepseek-moe-16b w4a8 + int4 pages", "deepseek-moe-16b", "w4a8", 4),
+    ("phi3.5-moe-42b-a6.6b w8a8, int8 pages", "phi3.5-moe-42b-a6.6b", "w8a8", 8),
+)
+
+
+def moe_reference_check(seed):
+    """The MoE smoke configs: card kernels vs CPU plain versions, same
+    weights (``smoke_logits``: prefill, 4 teacher-forced decodes, a
+    teacher-forced verify of 5). The card routes as the CPU did (its own
+    choice may differ only at a near-tie, ``ROUTE_TIE``), and the logits
+    agree within ``MODEL_RTOL``."""
+    import torch
+    from repro_torch.core.apply import tree_to
+
+    out = {}
+    for label, arch, mode, kv_bits in MOE_REFERENCE_CASES:
+        cfg, qp = moe_smoke_model(arch, seed, kv_bits=kv_bits, w4a8=mode == "w4a8")
+        with ForcedRoutes() as rec:
+            cpu = smoke_logits(qp, cfg, seed, "cpu", mode)
+        with ForcedRoutes(rec.routes) as rep:
+            card = smoke_logits(tree_to(qp, torch.device("cuda")), cfg, seed, "cuda", mode)
+        scale = cpu.abs().max().item()
+        err = (card - cpu).abs().max().item()
+        if any(m > ROUTE_TIE for m in rep.margins):
+            raise AssertionError(f"reference check ({label}): the card's router parted from "
+                                 f"the CPU's away from a near-tie: margins {rep.margins}")
+        if not torch.isfinite(card).all() or err > MODEL_RTOL * scale:
+            raise AssertionError(f"reference check ({label}): max |d logits| {err} > "
+                                 f"{MODEL_RTOL} x {scale}")
+        log(f"reference check ({label}; smoke, prefill + 4 teacher-forced decode steps + a "
+            f"teacher-forced verify of 5, card kernels vs CPU plain, {len(rec.routes)} "
+            f"routings, the card's own routing parting at {len(rep.margins)} rows, margins "
+            f"{[round(m, 6) for m in rep.margins]}): max |d logits| {err:.6g} of max |logit| "
+            f"{scale:.6g} ({err / scale:.3g}; limit {MODEL_RTOL})")
+        out[label] = dict(max_abs_err=err, logit_scale=scale, route_flips=len(rep.margins))
+    return out
+
+
 def step_sum(rows, L, mode=None, m=8):
     """One decode step's work of a matmul kernel: the M = 8 rows (``m``:
     the rows of another call size, 256 for a prefill's), each shape counted
@@ -1890,8 +2592,11 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=40,
                     help="glm4-9b depth (40 = the published depth, no cut)")
     ap.add_argument("--short-layers", type=int, default=10,
-                    help="depth of the clip-only tree and of the k=16 spec phase and "
-                         "its plain reference (paths that need no full-depth check)")
+                    help="depth of the clip-only trees (glm4-9b's and deepseek-moe-16b's) "
+                         "and of the k=16 spec phase and its plain reference (paths that "
+                         "need no full-depth check)")
+    ap.add_argument("--phi-layers", type=int, default=4,
+                    help="phi3.5-moe-42b-a6.6b depth (of 32: its float32 tree is ~168 GB)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out"))
@@ -2065,7 +2770,11 @@ def main(argv=None) -> int:
                                       serve_cfg, "quant_matmul")
     del qclip
     mark("clip-only tree")
+    torch.cuda.empty_cache()
+    moe = moe_phases(args, card, serve_cfg, gen_k)
+    mark("MoE phases")
     refc = reference_check(args.seed)
+    refc.update(moe_reference_check(args.seed))
     mark("reference check")
 
     L = cfg.n_layers
@@ -2145,6 +2854,19 @@ def main(argv=None) -> int:
               max(r["max_abs_err"] for r in b2v + b2v_replay), b2v_main,
               source="src/repro_torch/csrc/paged_attention.cu"),
     ]
+    # The expert-stacked launches: one MoE decode step's stacked calls (C = 8,
+    # w_gate, w_up and w_down of each of the L_moe layers); launches from the
+    # MoE serve phase of each kernel's mode (B5: the clip-only MoE phase).
+    Lm = moe["layers"]
+    stack_serve = {"ocs_matmul": "dequant", "quant_matmul": "clip-only dequant",
+                   "fused_qmatmul": "w8a8", "w4a8_qmatmul": "w4a8"}
+    stack_kind = {"ocs_matmul": "B4", "quant_matmul": "B5", "fused_qmatmul": "B1",
+                  "w4a8_qmatmul": "B6"}
+    for name, (base, source, replaces) in STACK_KERNELS.items():
+        t = stack_step(moe["stack"], stack_kind[base], Lm)
+        kernels.append(entry(name, replaces,
+                             moe["serves"][stack_serve[base]]["launches"][base + "_experts"],
+                             t["max_abs_err"], t, source=source))
     tiles = {"ocs_matmul": wo_tiles(b4), "quant_matmul": wo_tiles(b5)}
     for k in kernels:
         if k["name"] in tiles:
@@ -2159,6 +2881,10 @@ def main(argv=None) -> int:
             "paged_attention_int4": "one call, int4 pool, 8 lanes; B2's int4 branch",
             "paged_attention_verify": "one call, float32 pool, 8 lanes, Q=5; B2's Q>1 rows; "
                                       f"launches {verify_launches}"}
+    for name, (base, _, _) in STACK_KERNELS.items():
+        what[name] = (f"one {Lm}-layer deepseek-moe-16b decode step's expert-stacked calls "
+                      f"(E=64, C=8: w_gate, w_up, w_down a layer); launches from the "
+                      f"{stack_serve[base]} MoE serve phase")
     for k in kernels:
         lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
         dev = (f" device_ms={k['device_ms']:.4f}" if "device_ms" in k else "") + (
@@ -2168,20 +2894,23 @@ def main(argv=None) -> int:
             f"{k['plain_ms']:.4f} library_ms={lib}{dev} bound_ms={k['bound_ms']:.4f} "
             f"({k['bound_by']}) launches={k['launches']} max_abs_err={k['max_abs_err']:.3g}")
     total = time.perf_counter() - t_start
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    peak_gb = max(PEAK_BYTES[0], torch.cuda.max_memory_allocated()) / 2**30
     detail = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                   n_layers=L, short_layers=cfg_clip.n_layers, build_s=t_build,
                   quantize_s=t_quant, quantize_clip_s=t_quant_clip, total_s=total,
                   peak_mem_gib=peak_gb, b1=b1, b2=b2, b2v=b2v, b2v_replay=b2v_replay, b3=b3,
                   b4=b4, b5=b5, b6=b6,
-                  verify_check=verify, serve=serves, phase_end_s=marks,
+                  verify_check=verify, serve=serves, phase_end_s=marks, moe=moe,
                   reference_check=refc, kernels=kernels)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(detail, indent=1, default=str))
     log(f"total: {total:.1f} s (build {t_build:.1f} s, quantize {t_quant:.1f} + "
-        f"{t_quant_clip:.1f} s), depth {L} layers (clip-only tree {cfg_clip.n_layers}), "
-        f"peak device memory {peak_gb:.1f} GiB")
+        f"{t_quant_clip:.1f} s, deepseek-moe-16b {moe['quantize_s']:.1f} + "
+        f"{moe['quantize_clip_s']:.1f} s, phi3.5-moe {moe['phi_quantize_s']:.1f} s), depth {L} "
+        f"layers (clip-only tree {cfg_clip.n_layers}; deepseek-moe-16b {Lm}, its clip-only "
+        f"tree {moe['clip_layers']}; phi3.5-moe {moe['phi_layers']}), peak device memory "
+        f"{peak_gb:.1f} GiB")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,21 +1,23 @@
 """Architecture registry: --arch <id> lookup + reduced smoke variants.
 
-The port serves the dense attention archs; the other families of
-``repro.configs`` (MoE, SSM, hybrid, encoder) arrive with their model code.
+The port serves the dense and MoE attention archs; the other families of
+``repro.configs`` (SSM, hybrid, encoder) arrive with their model code.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import List
 
-from .base import ModelConfig
+from .base import ModelConfig, MoEConfig
 
-from . import deepseek_7b, glm4_9b, qwen3_14b
+from . import deepseek_7b, deepseek_moe_16b, glm4_9b, phi35_moe_42b, qwen3_14b
 
 ARCHS = {
     "glm4-9b": glm4_9b.CONFIG,
     "deepseek-7b": deepseek_7b.CONFIG,
     "qwen3-14b": qwen3_14b.CONFIG,
+    "deepseek-moe-16b": deepseek_moe_16b.CONFIG,
+    "phi3.5-moe-42b-a6.6b": phi35_moe_42b.CONFIG,
 }
 
 
@@ -31,8 +33,9 @@ def get_config(name: str) -> ModelConfig:
 
 def smoke_config(name: str) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests (the same reduction as
-    ``repro.configs.registry.smoke_config`` for the dense archs: GQA ratio
-    and qk-norm kept, width/depth/vocab shrunk)."""
+    ``repro.configs.registry.smoke_config`` for the dense and MoE archs:
+    GQA ratio, qk-norm and top-k routing kept, width/depth/vocab and the
+    expert count shrunk)."""
     cfg = get_config(name)
     kw = dict(
         name=cfg.name + "-smoke",
@@ -46,4 +49,12 @@ def smoke_config(name: str) -> ModelConfig:
         attn_chunk=32,
         remat=False,
     )
+    if cfg.moe is not None:
+        kw["moe"] = MoEConfig(
+            n_experts=8,
+            top_k=min(cfg.moe.top_k, 3),
+            expert_ff=32,
+            n_shared=min(cfg.moe.n_shared, 1),
+        )
+        kw["d_ff"] = 32
     return dataclasses.replace(cfg, **kw)

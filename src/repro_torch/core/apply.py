@@ -3,10 +3,13 @@
 
 :func:`quantize_params` turns every quantizable weight into an
 :class:`OCSQuantLinear` leaf (expanded int8 values + scales + expansion
-spec). Weights with a leading layer dim (``[L, Cin, Cout]``) are quantized
-per slice and restacked: each layer gets its own split table and scale.
-The tree is a nested dict of tensors laid out like
-``models.transformer.init_params``.
+spec). Weights with leading stack dims (``[L, Cin, Cout]``, a MoE layer's
+experts ``[L, E, Cin, Cout]``) are quantized per slice into preallocated
+stacks: each slice gets its own split table and scale, and only one slice
+is held in float32 at a time. The tree is a nested dict of tensors laid
+out like ``models.transformer.init_params``; its leaves may also be
+zero-argument callables that make them (``init_params(..., lazy=True)``),
+drawn one at a time in the tree's order.
 """
 from __future__ import annotations
 
@@ -83,13 +86,16 @@ def _is_quantizable(path: str, leaf, recipe: QuantRecipe) -> bool:
 
 
 def _quant_linear_stacked(w: torch.Tensor, recipe: QuantRecipe) -> OCSQuantLinear:
-    """Build a (possibly stacked) OCSQuantLinear from [..., Cin, Cout]."""
-    w = w.to(torch.float32)
+    """Build a (possibly stacked) OCSQuantLinear from [..., Cin, Cout], one
+    slice at a time (each converted to float32 on its own): the slices'
+    results are written into stacks allocated at the first, whose shapes
+    every slice shares (the split count follows from Cin)."""
     lead = tuple(w.shape[:-2])
     flat = w.reshape((-1,) + tuple(w.shape[-2:]))
-    lins = [
-        make_ocs_quant_linear(
-            flat[i],
+
+    def one(i):
+        return make_ocs_quant_linear(
+            flat[i].to(torch.float32),
             recipe.ocs_ratio,
             recipe.w_bits,
             qa=recipe.qa_split,
@@ -97,31 +103,31 @@ def _quant_linear_stacked(w: torch.Tensor, recipe: QuantRecipe) -> OCSQuantLinea
             per_channel=recipe.per_channel,
             pad_to=recipe.pad_to,
         )
-        for i in range(flat.shape[0])
-    ]
+
     if not lead:
-        return lins[0]
+        return one(0)
 
-    # Restack: values/scales/specs get the leading dims back. Scales are
-    # stored broadcast-ready against the values.
-    def stack(get):
-        return torch.stack([get(l) for l in lins]).reshape(
-            lead + tuple(get(lins[0]).shape)
-        )
-
-    values = stack(lambda l: l.weight.values)
-    if lins[0].weight.channel_axis == 1:  # per-channel: [Cout] -> [..., 1, Cout]
-        scale = stack(lambda l: l.weight.scale[None, :])
-    else:  # per-tensor: scalar -> [..., 1, 1]
-        scale = stack(lambda l: l.weight.scale[None, None])
+    # Stacks with the leading dims back. Scales are stored broadcast-ready
+    # against the values: per-channel [Cout] -> [..., 1, Cout], per-tensor
+    # scalar -> [..., 1, 1].
+    parts = None
+    for i in range(flat.shape[0]):
+        lin = one(i)
+        per_channel = lin.weight.channel_axis == 1
+        got = (lin.weight.values,
+               lin.weight.scale[None, :] if per_channel else lin.weight.scale[None, None],
+               lin.spec.src, lin.spec.mult, lin.spec.bias)
+        if parts is None:
+            parts = [torch.empty((flat.shape[0],) + tuple(t.shape), dtype=t.dtype,
+                                 device=t.device) for t in got]
+        for dst, t in zip(parts, got):
+            dst[i] = t
+        del lin, got
+    values, scale, src, mult, bias = (t.reshape(lead + tuple(t.shape[1:])) for t in parts)
     qp = QuantParams(values=values, scale=scale, bits=recipe.w_bits, channel_axis=None)
-    spec = OCSSpec(
-        src=stack(lambda l: l.spec.src),
-        mult=stack(lambda l: l.spec.mult),
-        bias=stack(lambda l: l.spec.bias),
-    )
     return OCSQuantLinear(
-        weight=qp, spec=spec, n_orig=int(w.shape[-2]), a_bits=recipe.a_bits
+        weight=qp, spec=OCSSpec(src=src, mult=mult, bias=bias), n_orig=int(w.shape[-2]),
+        a_bits=recipe.a_bits,
     )
 
 
@@ -129,13 +135,17 @@ def quantize_params(params, recipe: QuantRecipe, *, device=None):
     """Replace quantizable weights with OCSQuantLinear integer leaves.
 
     Runs on ``device`` (``None`` = the card; raises without one unless
-    ``device="cpu"``); leaves are moved there first.
+    ``device="cpu"``); leaves are moved there first. A callable leaf is
+    called once, in the tree's order, and its result quantized (or kept);
+    nothing holds it afterwards.
     """
     dev = resolve_device(device)
     if not recipe.wants_weight_quant():
-        return params
+        return map_with_path(lambda _p, leaf: leaf() if callable(leaf) else leaf, params)
 
     def visit(path, leaf):
+        if callable(leaf):  # a lazy leaf: drawn here, dropped once quantized
+            leaf = leaf()
         if isinstance(leaf, torch.Tensor):
             leaf = leaf.to(dev)
         p = path_str(path)

@@ -197,7 +197,10 @@ class OCSQuantLinear:
         return packed
 
     def layer(self, i: int) -> "OCSQuantLinear":
-        """Slice one layer of a stacked leaf (views, no copy)."""
+        """Slice one layer of a stacked leaf (views, no copy): a MoE layer's
+        ``[L, E, ...]`` expert leaf gives its ``[E, ...]`` stack, which
+        ``layers.dense`` takes whole, and that stack's ``layer(e)`` one
+        expert."""
         out = OCSQuantLinear(
             weight=QuantParams(
                 values=self.weight.values[i],
@@ -289,7 +292,8 @@ class W4A8Linear:
     a_bits: int = 8
 
     def layer(self, i: int) -> "W4A8Linear":
-        """Slice one layer of a stacked leaf (views, no copy)."""
+        """Slice one layer of a stacked leaf (views, no copy); as
+        :meth:`OCSQuantLinear.layer` for ``[L, E, ...]`` expert leaves."""
         return W4A8Linear(
             w4=self.w4[i], s4=self.s4[i], w8=self.w8[i], s8=self.s8[i],
             outlier_idx=self.outlier_idx[i],
@@ -353,8 +357,9 @@ def to_w4a8(lin: OCSQuantLinear, ratio: float) -> W4A8Linear:
     input channels, ranked by ``max|W[k, :]|``, keep int8 rows; the rest
     drop to packed int4. ``ratio == 0`` keeps no outlier rows. An odd
     ``K_exp`` gets one zero weight row and a dead spec entry (src 0, mult
-    0, bias 0). Stacked leaves keep their leading layer dims (one layer is
-    dequantized at a time, which bounds the float32 copy).
+    0, bias 0). Stacked leaves keep their leading dims, ``[L]`` or a MoE
+    layer's ``[L, E]`` experts (one slice is dequantized at a time, which
+    bounds the float32 copy).
     """
     if not 0.0 <= ratio <= 1.0:
         raise ValueError(f"outlier ratio must be in [0, 1], got {ratio}")

@@ -31,10 +31,10 @@ extern "C" int dynamic_quant_launch(const void* x, int x_bf16, int M, int K, flo
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_bf16) {
     row_quant_kernel<__nv_bfloat16><<<M, kQuantThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), K, 0, K, nullptr, qmax, inv_qmax, q, scale);
+        static_cast<const __nv_bfloat16*>(x), K, 0, K, nullptr, M, qmax, inv_qmax, q, scale);
   } else {
     row_quant_kernel<float><<<M, kQuantThreads, 0, st>>>(
-        static_cast<const float*>(x), K, 0, K, nullptr, qmax, inv_qmax, q, scale);
+        static_cast<const float*>(x), K, 0, K, nullptr, M, qmax, inv_qmax, q, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -40,20 +40,20 @@
 namespace rtq {
 namespace {
 
-// B1's GEMM launcher. `tile` (the host's choice from M,
-// kernels/fused_qmatmul.py's plan): 0 = 256 columns x 8 tokens a block
-// (decode, M <= 8); 1 = 128 columns x 64 tokens (M > 8), as
-// i8_tc_gemm.cuh's launch_i8_tile describes them.
-inline int i8_tc_launch(int tile, const int8_t* q, int M, int Kp, const int8_t* w, int Ke,
+// B1's GEMM launcher over E experts (E = 1: a 2-D call). `tile` (the host's
+// choice from the rows an expert, kernels/fused_qmatmul.py's plan): 0 = 256
+// columns x 8 tokens a block (decode, M <= 8); 1 = 128 columns x 64 tokens
+// (M > 8), as i8_tc_gemm.cuh's launch_i8_tile describes them.
+inline int i8_tc_launch(int tile, const int8_t* q, int E, int M, int Kp, const int8_t* w, int Ke,
                         int N, int stages_per_split, int nsplit, const float* xs,
                         const float* ws, int* acc_ws, int* counters, void* out, int out_bf16,
                         cudaStream_t st) {
   switch (tile) {
     case 0:
-      return launch_i8_tile<4, 1, 1, 1>(q, M, Kp, w, Ke, N, stages_per_split, nsplit, xs, ws,
+      return launch_i8_tile<4, 1, 1, 1>(q, E, M, Kp, w, Ke, N, stages_per_split, nsplit, xs, ws,
                                         acc_ws, counters, out, out_bf16, st);
     case 1:
-      return launch_i8_tile<2, 2, 4, 2>(q, M, Kp, w, Ke, N, stages_per_split, nsplit, xs, ws,
+      return launch_i8_tile<2, 2, 4, 2>(q, E, M, Kp, w, Ke, N, stages_per_split, nsplit, xs, ws,
                                         acc_ws, counters, out, out_bf16, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -64,14 +64,19 @@ inline int i8_tc_launch(int tile, const int8_t* q, int M, int Kp, const int8_t* 
 }  // namespace rtq
 
 // x_bf16: 1 if x is bfloat16, 0 if float32; out_bf16 likewise for out.
-// w8 [K+S, N] with N % 16 == 0, 16-byte aligned (else cudaErrorInvalidValue).
-// Scratch from the caller: q_exp [M, Kp] int8 (16-byte aligned), scale [M]
-// f32, and with nsplit > 1 acc_ws [M, N] int32 and counters (one int per
-// token tile and column tile), both zero at rest. tile, stages_per_split and
-// nsplit: the host's plan (i8_tc_launch). Returns cudaGetLastError() of the
-// first failing step (0 = ok).
+// Over E experts of M rows each (E = 1: a 2-D call; E > 1: a MoE layer's
+// stacked matrix in one call, the vmapped call of the reference): x [E, M,
+// K], src_tail [E, S], w8 [E, K+S, N] with N % 16 == 0, 16-byte aligned
+// (else cudaErrorInvalidValue), w_scale [E, N], out [E, M, N]. Scratch from
+// the caller: q_exp [E, M, Kp] int8 (16-byte aligned), scale [E, M] f32, and
+// with nsplit > 1 acc_ws [E, M, N] int32 and counters (one int per expert,
+// token tile and column tile), both zero at rest. tile, stages_per_split
+// and nsplit: the host's plan of one expert's shapes (i8_tc_launch), so
+// each expert's output is bitwise the 2-D call on it. Two launches, the
+// prologue (one block a row of all E experts' rows) and the GEMM. Returns
+// cudaGetLastError() of the first failing step (0 = ok).
 extern "C" int fused_qmatmul_launch(
-    const void* x, int x_bf16, int M, int K, int S, int Kp,
+    const void* x, int x_bf16, int E, int M, int K, int S, int Kp,
     const int* src_tail, const int8_t* w8, const float* w_scale, int N,
     float qmax, float inv_qmax, int8_t* q_exp, float* scale,
     int tile, int stages_per_split, int nsplit, int* acc_ws, int* counters,
@@ -79,16 +84,16 @@ extern "C" int fused_qmatmul_launch(
   using namespace rtq;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_bf16) {
-    row_quant_kernel<__nv_bfloat16><<<M, kQuantThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), K, S, Kp, src_tail, qmax, inv_qmax,
+    row_quant_kernel<__nv_bfloat16><<<E * M, kQuantThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), K, S, Kp, src_tail, M, qmax, inv_qmax,
         q_exp, scale);
   } else {
-    row_quant_kernel<float><<<M, kQuantThreads, 0, st>>>(
-        static_cast<const float*>(x), K, S, Kp, src_tail, qmax, inv_qmax, q_exp,
+    row_quant_kernel<float><<<E * M, kQuantThreads, 0, st>>>(
+        static_cast<const float*>(x), K, S, Kp, src_tail, M, qmax, inv_qmax, q_exp,
         scale);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return i8_tc_launch(tile, q_exp, M, Kp, w8, K + S, N, stages_per_split, nsplit, scale,
+  return i8_tc_launch(tile, q_exp, E, M, Kp, w8, K + S, N, stages_per_split, nsplit, scale,
                       w_scale, acc_ws, counters, out, out_bf16, st);
 }

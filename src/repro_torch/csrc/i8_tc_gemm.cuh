@@ -81,6 +81,16 @@
 // The TMA needs N % 16 == 0 and 16-byte aligned weights; the launchers
 // refuse anything else (cudaErrorInvalidValue), and a caller with a ragged
 // N (hymba-1.5b's 32001-column lm_head) zero-pads the weights' columns.
+//
+// The expert axis. Both kernels compute E products at once, one per matrix
+// of a stack (a MoE layer's experts; every operand gains a leading [E],
+// q [E, M, Kp], w [E, Ke, N], ...; a 2-D call is E = 1). In the STACK
+// instantiation expert e is blockIdx.z / nsplit, its split blockIdx.z %
+// nsplit; its boxes come from matrix e of 3-D TMA maps (zero-filled past
+// its own rows and columns), its scales, outputs, accumulator and counters
+// from its offsets; a 2-D call runs the instantiation without the offsets.
+// Its blocks do a 2-D launch's work on its slice, so each expert's output
+// is bitwise that launch's.
 
 #pragma once
 
@@ -160,16 +170,16 @@ __device__ __forceinline__ void i8_group_mmas(int (&acc)[4][4], const uint32_t (
     mma_16832_s8(acc[j], a[0][2 * j], a[0][2 * j + 1], a[1][2 * j], a[1][2 * j + 1], b0, b1);
 }
 
-template <int WC, int WT, int TG, int MINB, typename TO>
+template <int WC, int WT, int TG, int MINB, bool STACK, typename TO>
 __global__ void __launch_bounds__(I8Tile<WC, WT, TG>::kThreads, MINB) i8_tc_gemm_kernel(
-    const __grid_constant__ CUtensorMap wmap,  // w [Ke, N], boxes 128 x 32
-    const __grid_constant__ CUtensorMap qmap,  // q [M, Kp], boxes 32 x kToks
+    const __grid_constant__ CUtensorMap wmap,  // w [E, Ke, N], boxes 128 x 32
+    const __grid_constant__ CUtensorMap qmap,  // q [E, M, Kp], boxes 32 x kToks
     int M, int Kp, int N, int stages_per_split, int nsplit,
-    const float* __restrict__ xs,  // [M] or null (= 1)
-    const float* __restrict__ ws,  // [N]
-    int* __restrict__ acc_ws,      // [M, N] when nsplit > 1, zero at rest
-    int* __restrict__ counters,    // [gridDim.x * gridDim.y], zero at rest
-    TO* __restrict__ out) {        // [M, N]
+    const float* __restrict__ xs,  // [E, M] or null (= 1)
+    const float* __restrict__ ws,  // [E, N]
+    int* __restrict__ acc_ws,      // [E, M, N] when nsplit > 1, zero at rest
+    int* __restrict__ counters,    // [E, gridDim.x * gridDim.y], zero at rest
+    TO* __restrict__ out) {        // [E, M, N]
   using T = I8Tile<WC, WT, TG>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kI8Stages];
@@ -180,8 +190,20 @@ __global__ void __launch_bounds__(I8Tile<WC, WT, TG>::kThreads, MINB) i8_tc_gemm
   const int g = lane >> 2, t = lane & 3;
   const int m0 = blockIdx.x * T::kToks;
   const int n0 = blockIdx.y * T::kCols;
+  // The block's expert and split, and (STACK) the expert's operands.
+  const int ex = STACK ? (int)blockIdx.z / nsplit : 0;
+  const int zs = STACK ? (int)blockIdx.z - ex * nsplit : (int)blockIdx.z;
+  if (STACK) {
+    if (xs != nullptr) xs += (size_t)ex * M;
+    ws += (size_t)ex * N;
+    out += (size_t)ex * M * N;
+    if (nsplit > 1) {
+      acc_ws += (size_t)ex * M * N;
+      counters += (size_t)ex * gridDim.x * gridDim.y;
+    }
+  }
   const int nst = (Kp + kI8StageK - 1) / kI8StageK;
-  const int s0 = blockIdx.z * stages_per_split;
+  const int s0 = zs * stages_per_split;
   const int mine = max(0, min(nst, s0 + stages_per_split) - s0);
   const int wc = warp % WC, wt = warp / WC;  // a consumer warp's column and token slot
   // Its token groups holding a token.
@@ -218,9 +240,9 @@ __global__ void __launch_bounds__(I8Tile<WC, WT, TG>::kThreads, MINB) i8_tc_gemm
         mbar_arrive_expect_tx(&full[slot], T::kWStage + T::kXStage);
 #pragma unroll
         for (int b = 0; b < T::kCols / kI8BoxCols; ++b)
-          tma_load_2d(wring + slot * T::kWStage + b * kI8StageK * kI8BoxCols, &wmap,
-                      n0 + b * kI8BoxCols, k0, &full[slot]);
-        tma_load_2d(xring + slot * T::kXStage, &qmap, k0, m0, &full[slot]);
+          tma_load_3d(wring + slot * T::kWStage + b * kI8StageK * kI8BoxCols, &wmap,
+                      n0 + b * kI8BoxCols, k0, ex, &full[slot]);
+        tma_load_3d(xring + slot * T::kXStage, &qmap, k0, m0, ex, &full[slot]);
       }
   } else {
     // A consumer: its 8 columns of the weight box lie in 16-byte chunk
@@ -329,38 +351,54 @@ __global__ void __launch_bounds__(I8Tile<WC, WT, TG>::kThreads, MINB) i8_tc_gemm
   if (tid == 0) *count = 0;
 }
 
-template <int WC, int WT, int TG, int MINB, typename TO>
-int launch_i8(const int8_t* q, int M, int Kp, const int8_t* w, int Ke, int N,
+// A weight map ([E, rows, N] bytes, boxes 128 x 32, 128-byte swizzle) and a
+// token map ([E, M, cols] bytes, boxes 32 x toks, 32-byte swizzle): B1's and
+// B6's.
+inline bool i8_weight_map(CUtensorMap* map, const void* w, int E, int rows, int N) {
+  return stack_map(map, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, E, rows, N, kI8BoxCols, kI8StageK,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+}
+inline bool i8_token_map(CUtensorMap* map, const void* q, int E, int M, int cols, int toks) {
+  return stack_map(map, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, E, M, cols, kI8StageK, toks,
+                   CU_TENSOR_MAP_SWIZZLE_32B);
+}
+
+template <int WC, int WT, int TG, int MINB, bool STACK, typename TO>
+int launch_i8(const int8_t* q, int E, int M, int Kp, const int8_t* w, int Ke, int N,
               int stages_per_split, int nsplit, const float* xs, const float* ws, int* acc_ws,
               int* counters, void* out, cudaStream_t st) {
   using T = I8Tile<WC, WT, TG>;
   // The largest dynamic shared memory set for this instantiation, per device.
   static std::atomic<int> smem_set[kMaxDevices];
   CUtensorMap wmap{}, qmap{};
-  if (N % 16 != 0 ||
-      !(tensor_map(&wmap, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, Ke, N, kI8BoxCols, kI8StageK,
-                   CU_TENSOR_MAP_SWIZZLE_128B) &&
-        tensor_map(&qmap, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, M, Kp, kI8StageK, T::kToks,
-                   CU_TENSOR_MAP_SWIZZLE_32B)))
+  if (N % 16 != 0 || !(i8_weight_map(&wmap, w, E, Ke, N) &&
+                       i8_token_map(&qmap, q, E, M, Kp, T::kToks)))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = i8_tc_gemm_kernel<WC, WT, TG, MINB, TO>;
+  auto kern = i8_tc_gemm_kernel<WC, WT, TG, MINB, STACK, TO>;
   cudaError_t err = ensure_dynamic_smem(kern, smem_set, T::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((M + T::kToks - 1) / T::kToks, (N + T::kCols - 1) / T::kCols, nsplit);
+  const dim3 grid((M + T::kToks - 1) / T::kToks, (N + T::kCols - 1) / T::kCols, E * nsplit);
   kern<<<grid, T::kThreads, T::kSmem, st>>>(wmap, qmap, M, Kp, N, stages_per_split, nsplit, xs,
                                             ws, acc_ws, counters, static_cast<TO*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int WC, int WT, int TG, int MINB>
-int launch_i8_tile(const int8_t* q, int M, int Kp, const int8_t* w, int Ke, int N,
+int launch_i8_tile(const int8_t* q, int E, int M, int Kp, const int8_t* w, int Ke, int N,
                    int stages_per_split, int nsplit, const float* xs, const float* ws,
                    int* acc_ws, int* counters, void* out, int out_bf16, cudaStream_t st) {
+  if (E > 1) {
+    if (out_bf16)
+      return launch_i8<WC, WT, TG, MINB, true, __nv_bfloat16>(
+          q, E, M, Kp, w, Ke, N, stages_per_split, nsplit, xs, ws, acc_ws, counters, out, st);
+    return launch_i8<WC, WT, TG, MINB, true, float>(q, E, M, Kp, w, Ke, N, stages_per_split,
+                                                    nsplit, xs, ws, acc_ws, counters, out, st);
+  }
   if (out_bf16)
-    return launch_i8<WC, WT, TG, MINB, __nv_bfloat16>(q, M, Kp, w, Ke, N, stages_per_split,
-                                                      nsplit, xs, ws, acc_ws, counters, out, st);
-  return launch_i8<WC, WT, TG, MINB, float>(q, M, Kp, w, Ke, N, stages_per_split, nsplit, xs,
-                                            ws, acc_ws, counters, out, st);
+    return launch_i8<WC, WT, TG, MINB, false, __nv_bfloat16>(
+        q, 1, M, Kp, w, Ke, N, stages_per_split, nsplit, xs, ws, acc_ws, counters, out, st);
+  return launch_i8<WC, WT, TG, MINB, false, float>(q, 1, M, Kp, w, Ke, N, stages_per_split,
+                                                   nsplit, xs, ws, acc_ws, counters, out, st);
 }
 
 // Every token group's B fragment from a token box (zeros past M), loaded at
@@ -412,19 +450,19 @@ __device__ __forceinline__ float w4a8_out(int a4, int a8, bool outliers, const f
 // B6's GEMM: i8_tc_gemm_kernel's tile, ring, fragments and split-K
 // epilogue over nst4 int4 stages (w4map, q2map) and then ceil(T / 32)
 // outlier stages (w8map, q8map); two sums, acc4 and acc8.
-template <int WC, int WT, int TG, int MINB, typename TO>
+template <int WC, int WT, int TG, int MINB, bool STACK, typename TO>
 __global__ void __launch_bounds__(I8Tile<WC, WT, TG>::kThreads, MINB) w4_tc_gemm_kernel(
-    const __grid_constant__ CUtensorMap w4map,  // w4 [H, N], boxes 128 x 32
-    const __grid_constant__ CUtensorMap q2map,  // q2 [M, 2 Hp], boxes 32 x kToks
-    const __grid_constant__ CUtensorMap w8map,  // w8 [T, N], boxes 128 x 32 (unset when T == 0)
-    const __grid_constant__ CUtensorMap q8map,  // q8 [M, Tp], boxes 32 x kToks (unset when T == 0)
+    const __grid_constant__ CUtensorMap w4map,  // w4 [E, H, N], boxes 128 x 32
+    const __grid_constant__ CUtensorMap q2map,  // q2 [E, M, 2 Hp], boxes 32 x kToks
+    const __grid_constant__ CUtensorMap w8map,  // w8 [E, T, N], boxes 128 x 32 (unset when T == 0)
+    const __grid_constant__ CUtensorMap q8map,  // q8 [E, M, Tp], boxes 32 x kToks (unset when T == 0)
     int M, int nst4, int nst, int hp, int N, int stages_per_split, int nsplit,
-    const float* __restrict__ xs,  // [M]
-    const float* __restrict__ s4,  // [N]
-    const float* __restrict__ s8,  // [N]
-    int* __restrict__ acc_ws,      // [T > 0 ? 2 : 1, M, N] when nsplit > 1, zero at rest
-    int* __restrict__ counters,    // [gridDim.x * gridDim.y], zero at rest
-    TO* __restrict__ out) {        // [M, N]
+    const float* __restrict__ xs,  // [E, M]
+    const float* __restrict__ s4,  // [E, N]
+    const float* __restrict__ s8,  // [E, N]
+    int* __restrict__ acc_ws,      // [E, T > 0 ? 2 : 1, M, N] when nsplit > 1, zero at rest
+    int* __restrict__ counters,    // [E, gridDim.x * gridDim.y], zero at rest
+    TO* __restrict__ out) {        // [E, M, N]
   using T = I8Tile<WC, WT, TG, true>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kI8Stages];
@@ -435,7 +473,20 @@ __global__ void __launch_bounds__(I8Tile<WC, WT, TG>::kThreads, MINB) w4_tc_gemm
   const int g = lane >> 2, t = lane & 3;
   const int m0 = blockIdx.x * T::kToks;
   const int n0 = blockIdx.y * T::kCols;
-  const int s0 = blockIdx.z * stages_per_split;
+  // The block's expert and split, and (STACK) the expert's operands.
+  const int ex = STACK ? (int)blockIdx.z / nsplit : 0;
+  const int zs = STACK ? (int)blockIdx.z - ex * nsplit : (int)blockIdx.z;
+  if (STACK) {
+    xs += (size_t)ex * M;
+    s4 += (size_t)ex * N;
+    s8 += (size_t)ex * N;
+    out += (size_t)ex * M * N;
+    if (nsplit > 1) {
+      acc_ws += (size_t)ex * (nst > nst4 ? 2 : 1) * M * N;
+      counters += (size_t)ex * gridDim.x * gridDim.y;
+    }
+  }
+  const int s0 = zs * stages_per_split;
   const int mine = max(0, min(nst, s0 + stages_per_split) - s0);
   const int wc = warp % WC, wt = warp / WC;  // a consumer warp's column and token slot
   // Its token groups holding a token.
@@ -481,10 +532,10 @@ __global__ void __launch_bounds__(I8Tile<WC, WT, TG>::kThreads, MINB) w4_tc_gemm
         mbar_arrive_expect_tx(&full[slot], T::kWStage + (four ? 2 : 1) * T::kXStage);
 #pragma unroll
         for (int b = 0; b < T::kCols / kI8BoxCols; ++b)
-          tma_load_2d(wring + slot * T::kWStage + b * kI8StageK * kI8BoxCols, wm,
-                      n0 + b * kI8BoxCols, k0, &full[slot]);
-        tma_load_2d(xdst, qm, k0, m0, &full[slot]);
-        if (four) tma_load_2d(xdst + T::kXStage, qm, hp + k0, m0, &full[slot]);
+          tma_load_3d(wring + slot * T::kWStage + b * kI8StageK * kI8BoxCols, wm,
+                      n0 + b * kI8BoxCols, k0, ex, &full[slot]);
+        tma_load_3d(xdst, qm, k0, m0, ex, &full[slot]);
+        if (four) tma_load_3d(xdst + T::kXStage, qm, hp + k0, m0, ex, &full[slot]);
       }
   } else {
     // A consumer: its 8 columns of the weight box lie in 16-byte chunk
@@ -613,53 +664,36 @@ __global__ void __launch_bounds__(I8Tile<WC, WT, TG>::kThreads, MINB) w4_tc_gemm
   if (tid == 0) *count = 0;
 }
 
-// A weight map ([rows, N] bytes, boxes 128 x 32, 128-byte swizzle) and a
-// token map ([M, cols] bytes, boxes 32 x toks, 32-byte swizzle), as B1's.
-inline bool i8_weight_map(CUtensorMap* map, const void* w, int rows, int N) {
-  return tensor_map(map, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, rows, N, kI8BoxCols, kI8StageK,
-                    CU_TENSOR_MAP_SWIZZLE_128B);
-}
-inline bool i8_token_map(CUtensorMap* map, const void* q, int M, int cols, int toks) {
-  return tensor_map(map, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, M, cols, kI8StageK, toks,
-                    CU_TENSOR_MAP_SWIZZLE_32B);
-}
-
-// B6's launcher of one block tile (B1's tiles: <4, 1, 1, 1> at decode, <2,
-// 2, 4, 2> above M = 8). q2 [M, 2 * Hp] int8 (Hp % 32 == 0, Hp >= H), w4
-// [H, N] uint8; q8 [M, Tp] int8 (Tp % 16 == 0, Tp >= Tn) and w8 [Tn, N]
-// int8, both unused when Tn == 0; N % 16 == 0, 16-byte aligned weights;
-// stages_per_split * nsplit stages cover the Hp / 32 int4 stages and the
-// ceil(Tn / 32) outlier stages; acc_ws [Tn > 0 ? 2 : 1, M, N] int32 and
-// counters (one int per token tile and column tile), both zero at rest and
-// left zero by the kernel, unused when nsplit == 1. Returns
-// cudaGetLastError() (0 = ok).
-template <int WC, int WT, int TG, int MINB>
-int launch_w4_tile(const int8_t* q2, int Hp, const uint8_t* w4, int H, const int8_t* q8, int Tp,
-                   const int8_t* w8, int Tn, int M, int N, int stages_per_split, int nsplit,
-                   const float* xs, const float* s4, const float* s8, int* acc_ws,
-                   int* counters, void* out, int out_bf16, cudaStream_t st) {
+// B6's GEMM of one block tile and one instantiation (STACK: E > 1), as
+// launch_w4_tile describes it.
+template <int WC, int WT, int TG, int MINB, bool STACK>
+int launch_w4(const int8_t* q2, int Hp, const uint8_t* w4, int H, const int8_t* q8, int Tp,
+              const int8_t* w8, int Tn, int E, int M, int N, int stages_per_split, int nsplit,
+              const float* xs, const float* s4, const float* s8, int* acc_ws, int* counters,
+              void* out, int out_bf16, cudaStream_t st) {
   using T = I8Tile<WC, WT, TG, true>;
   // The largest dynamic shared memory set for each output type, per device.
   static std::atomic<int> smem_set[2][kMaxDevices];
   CUtensorMap w4map{}, q2map{}, w8map{}, q8map{};
   if (N % 16 != 0 || Hp % kI8StageK != 0 || Hp < H || Tp < Tn ||
-      !(i8_weight_map(&w4map, w4, H, N) && i8_token_map(&q2map, q2, M, 2 * Hp, T::kToks)) ||
-      (Tn > 0 && !(i8_weight_map(&w8map, w8, Tn, N) &&
-                   i8_token_map(&q8map, q8, M, Tp, T::kToks))))
+      !(i8_weight_map(&w4map, w4, E, H, N) &&
+        i8_token_map(&q2map, q2, E, M, 2 * Hp, T::kToks)) ||
+      (Tn > 0 && !(i8_weight_map(&w8map, w8, E, Tn, N) &&
+                   i8_token_map(&q8map, q8, E, M, Tp, T::kToks))))
     return static_cast<int>(cudaErrorInvalidValue);
   const int nst4 = Hp / kI8StageK;
   const int nst = nst4 + (Tn + kI8StageK - 1) / kI8StageK;
-  const dim3 grid((M + T::kToks - 1) / T::kToks, (N + T::kCols - 1) / T::kCols, nsplit);
+  const dim3 grid((M + T::kToks - 1) / T::kToks, (N + T::kCols - 1) / T::kCols, E * nsplit);
   cudaError_t err;
   if (out_bf16) {
-    auto kern = w4_tc_gemm_kernel<WC, WT, TG, MINB, __nv_bfloat16>;
+    auto kern = w4_tc_gemm_kernel<WC, WT, TG, MINB, STACK, __nv_bfloat16>;
     err = ensure_dynamic_smem(kern, smem_set[1], T::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     kern<<<grid, T::kThreads, T::kSmem, st>>>(w4map, q2map, w8map, q8map, M, nst4, nst, Hp, N,
                                               stages_per_split, nsplit, xs, s4, s8, acc_ws,
                                               counters, static_cast<__nv_bfloat16*>(out));
   } else {
-    auto kern = w4_tc_gemm_kernel<WC, WT, TG, MINB, float>;
+    auto kern = w4_tc_gemm_kernel<WC, WT, TG, MINB, STACK, float>;
     err = ensure_dynamic_smem(kern, smem_set[0], T::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     kern<<<grid, T::kThreads, T::kSmem, st>>>(w4map, q2map, w8map, q8map, M, nst4, nst, Hp, N,
@@ -667,6 +701,30 @@ int launch_w4_tile(const int8_t* q2, int Hp, const uint8_t* w4, int H, const int
                                               counters, static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// B6's launcher of one block tile (B1's tiles: <4, 1, 1, 1> at decode, <2,
+// 2, 4, 2> above M = 8), over E experts (E = 1: a 2-D call). q2 [E, M, 2 *
+// Hp] int8 (Hp % 32 == 0, Hp >= H), w4 [E, H, N] uint8; q8 [E, M, Tp] int8
+// (Tp % 16 == 0, Tp >= Tn) and w8 [E, Tn, N] int8, both unused when Tn ==
+// 0; N % 16 == 0, 16-byte aligned weights; stages_per_split * nsplit stages
+// cover the Hp / 32 int4 stages and the ceil(Tn / 32) outlier stages; xs
+// [E, M], s4 and s8 [E, N]; acc_ws [E, Tn > 0 ? 2 : 1, M, N] int32 and
+// counters (one int per expert, token tile and column tile), both zero at
+// rest and left zero by the kernel, unused when nsplit == 1. Returns
+// cudaGetLastError() (0 = ok).
+template <int WC, int WT, int TG, int MINB>
+int launch_w4_tile(const int8_t* q2, int Hp, const uint8_t* w4, int H, const int8_t* q8, int Tp,
+                   const int8_t* w8, int Tn, int E, int M, int N, int stages_per_split, int nsplit,
+                   const float* xs, const float* s4, const float* s8, int* acc_ws,
+                   int* counters, void* out, int out_bf16, cudaStream_t st) {
+  if (E > 1)
+    return launch_w4<WC, WT, TG, MINB, true>(q2, Hp, w4, H, q8, Tp, w8, Tn, E, M, N,
+                                             stages_per_split, nsplit, xs, s4, s8, acc_ws,
+                                             counters, out, out_bf16, st);
+  return launch_w4<WC, WT, TG, MINB, false>(q2, Hp, w4, H, q8, Tp, w8, Tn, 1, M, N,
+                                            stages_per_split, nsplit, xs, s4, s8, acc_ws,
+                                            counters, out, out_bf16, st);
 }
 
 }  // namespace

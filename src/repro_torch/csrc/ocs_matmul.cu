@@ -43,20 +43,25 @@
 
 #include "wo_tc_prefill.cuh"
 
-// Weight-only, bf16 x, on the tensor cores: tile 0 is wo_tc_gemm.cuh's
-// decode tile, 1 and 2 wo_tc_prefill.cuh's prefill tile with its splits in
-// space or in time (the wrapper's tc_plan). tail_mult [S] f32 holding only
-// 0 and 1, or null (= 1); xs [M] f32 or null (= 1), ws [N] f32; k_chunk %
-// 32 == 0 with k_chunk * nsplit >= Kb + S (Kb = K rounded up to 32); part
-// [nsplit, M, N] f32 scratch (unused with one split, or splits in time);
-// counters: one int per (token tile, column tile) of the launch, zero at
-// rest. Returns cudaGetLastError() (0 = ok).
+// Weight-only, bf16 x, on the tensor cores, over E experts of M rows each
+// (E = 1: a 2-D call; E > 1: a MoE layer's stacked matrix in one launch, the
+// vmapped call of the reference): tile 0 is wo_tc_gemm.cuh's decode tile, 1
+// wo_tc_prefill.cuh's prefill tile (the wrapper's tc_plan of one expert's
+// shapes, so each expert's output is bitwise the 2-D call on it). x [E, M,
+// K], w8 [E, K + S, N], src_tail [E, S], tail_mult [E, S] f32 holding only 0
+// and 1, or null (= 1); xs [E, M] f32 or null (= 1), ws [E, N] f32, out [E,
+// M, N]; k_chunk % 32 == 0 with k_chunk * nsplit >= Kb + S (Kb = K rounded
+// up to 32); part [E, nsplit, M, N] f32 scratch (unused with one split, or
+// the prefill tile); counters: one int per (expert, token tile, column
+// tile) of the launch, zero at rest. A stack needs N % 16 == 0 and K % 8 ==
+// 0. Returns cudaGetLastError() (0 = ok).
 extern "C" int ocs_matmul_tc_launch(
-    const void* x, int M, int K, int S, const int* src_tail, const float* tail_mult,
+    const void* x, int E, int M, int K, int S, const int* src_tail, const float* tail_mult,
     const int8_t* w8, const float* xs, const float* ws, int N, int k_chunk, int nsplit,
     int tile, float* part, int* counters, void* out, int out_bf16, void* stream) {
-  return rtq::wo_tc_tile_launch<true>(x, M, K, S, src_tail, tail_mult, w8, xs, ws, N, k_chunk,
-                                      nsplit, tile, part, counters, out, out_bf16, stream);
+  return rtq::wo_tc_tile_launch<true>(x, E, M, K, S, src_tail, tail_mult, w8, xs, ws, N,
+                                      k_chunk, nsplit, tile, part, counters, out, out_bf16,
+                                      stream);
 }
 
 // Weight-only on the CUDA cores. x_bf16: 1 if x is bfloat16, 0 if float32.

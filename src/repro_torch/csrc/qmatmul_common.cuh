@@ -173,14 +173,17 @@ __device__ __forceinline__ float byte_f32(uint32_t word, int j) {
 // One block per row of x [M, K]: row abs-max, scale, the int8 row into
 // q [M, Kp] (K originals, then the S duplicates q[src_tail], then zero
 // padding up to Kp) and scale[M]. With S = 0 and Kp = K it is plain per-row
-// dynamic quantization (B3).
+// dynamic quantization (B3). A stack of experts' rows (B1 over E experts:
+// x [E, rows_per_src, K]) gathers row r's tail through src_tail [E, S] row
+// r / rows_per_src.
 template <typename T>
 __global__ void __launch_bounds__(kQuantThreads) row_quant_kernel(
     const T* __restrict__ x, int K, int S, int Kp,
-    const int* __restrict__ src_tail, float qmax, float inv_qmax,
+    const int* __restrict__ src_tail, int rows_per_src, float qmax, float inv_qmax,
     int8_t* __restrict__ q, float* __restrict__ scale_out) {
   __shared__ float red[kQuantThreads / 32];
   const size_t row = blockIdx.x;
+  if (S > 0) src_tail += (row / rows_per_src) * (size_t)S;
   const T* xr = x + row * (size_t)K;
   const float sc = row_absmax_scale(xr, K, inv_qmax, red);
   if (threadIdx.x == 0) scale_out[row] = sc;

@@ -22,18 +22,22 @@
 
 #include "wo_tc_prefill.cuh"
 
-// Weight-only, bf16 x, on the tensor cores (no OCS tail): tile 0 is
-// wo_tc_gemm.cuh's decode tile, 1 and 2 wo_tc_prefill.cuh's prefill tile
-// with its splits in space or in time (the wrapper's tc_plan). xs [M] f32 or
-// null (= 1), ws [N] f32; k_chunk % 32 == 0 with k_chunk * nsplit >= K;
-// part [nsplit, M, N] f32 scratch (unused with one split, or splits in
-// time); counters: one int per (token tile, column tile) of the launch, zero
-// at rest (the kernels leave them zero). Returns cudaGetLastError() (0 = ok).
+// Weight-only, bf16 x, on the tensor cores (no OCS tail), over E experts
+// of M rows each (E = 1: a 2-D call; E > 1: a MoE layer's stacked matrix in
+// one launch, the vmapped call of the reference): tile 0 is wo_tc_gemm.cuh's
+// decode tile, 1 wo_tc_prefill.cuh's prefill tile (the wrapper's tc_plan of
+// one expert's shapes, so each expert's output is bitwise the 2-D call on
+// it). x [E, M, K], w8 [E, K, N], xs [E, M] f32 or null (= 1), ws [E, N]
+// f32, out [E, M, N]; k_chunk % 32 == 0 with k_chunk * nsplit >= K; part [E,
+// nsplit, M, N] f32 scratch (unused with one split, or the prefill tile);
+// counters: one int per (expert, token tile, column tile) of the launch,
+// zero at rest (the kernels leave them zero). A stack needs N % 16 == 0 and
+// K % 8 == 0. Returns cudaGetLastError() (0 = ok).
 extern "C" int quant_matmul_tc_launch(
-    const void* x, int M, int K, const int8_t* w8, const float* xs, const float* ws, int N,
-    int k_chunk, int nsplit, int tile, float* part, int* counters, void* out, int out_bf16,
-    void* stream) {
-  return rtq::wo_tc_tile_launch<false>(x, M, K, 0, nullptr, nullptr, w8, xs, ws, N, k_chunk,
+    const void* x, int E, int M, int K, const int8_t* w8, const float* xs, const float* ws,
+    int N, int k_chunk, int nsplit, int tile, float* part, int* counters, void* out,
+    int out_bf16, void* stream) {
+  return rtq::wo_tc_tile_launch<false>(x, E, M, K, 0, nullptr, nullptr, w8, xs, ws, N, k_chunk,
                                        nsplit, tile, part, counters, out, out_bf16, stream);
 }
 

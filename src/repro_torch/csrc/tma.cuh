@@ -1,7 +1,11 @@
 // The Tensor Memory Accelerator (TMA) and mbarrier pieces the tensor-core
-// GEMMs share (wo_tc_gemm.cuh: B4/B5; i8_tc_gemm.cuh: B1/B6): 2-D tensor maps
-// built on the host, box loads into shared memory counted on an mbarrier,
-// and the mbarrier operations of a ring of shared-memory stages.
+// GEMMs share (wo_tc_gemm.cuh: B4/B5; i8_tc_gemm.cuh: B1/B6): tensor maps of
+// a stack of row-major matrices built on the host, box loads into shared
+// memory counted on an mbarrier, and the mbarrier operations of a ring of
+// shared-memory stages. A GEMM's operands are [E, rows, cols] stacks (one
+// matrix a MoE expert; E = 1 for a plain 2-D operand): a box never spans
+// two matrices, and the TMA zero-fills past each matrix's rows and columns
+// as it does past a lone matrix's.
 
 #pragma once
 
@@ -16,14 +20,15 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// A 2-D tensor tile global -> shared through the TMA, counted on mbarrier
-// `bar`; (c0, c1) = (inner, outer) element coordinates of the box.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            uint64_t* bar) {
+// A box of matrix c2 of a stack (stack_map) global -> shared through the
+// TMA, counted on mbarrier `bar`; (c0, c1) = (column, row) element
+// coordinates of the box within the matrix.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -69,18 +74,19 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A row-major [rows, cols] matrix of `elem`-byte elements as a TMA tensor
-// map with boxes of box_cols x box_rows. Returns false if it cannot.
-bool tensor_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int elem,
-                uint64_t rows, uint64_t cols, uint32_t box_cols, uint32_t box_rows,
-                CUtensorMapSwizzle swizzle) {
+// A row-major stack [depth, rows, cols] of `elem`-byte elements as a 3-D
+// TMA map whose boxes are box_cols x box_rows of one matrix, loaded with
+// tma_load_3d (depth 1: a lone matrix). Returns false if it cannot.
+bool stack_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int elem,
+               uint64_t depth, uint64_t rows, uint64_t cols, uint32_t box_cols,
+               uint32_t box_rows, CUtensorMapSwizzle swizzle) {
   EncodeTiled enc = encoder();
   if (enc == nullptr) return false;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * elem};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t estr[2] = {1, 1};
-  return enc(map, type, 2, const_cast<void*>(base), dims, strides, box, estr,
+  const cuuint64_t dims[3] = {cols, rows, depth};
+  const cuuint64_t strides[2] = {cols * elem, rows * cols * elem};
+  const cuuint32_t box[3] = {box_cols, box_rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return enc(map, type, 3, const_cast<void*>(base), dims, strides, box, estr,
              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -113,15 +113,20 @@ constexpr int kPrologueWords = 1024;
 // expanded int8 values in q2's two halves, the last part the outlier
 // activations in q8 too; 4 bytes a thread and store (2 * Hp and Tp are
 // multiples of 32). At decode a call has few rows, and a row's parts run
-// side by side.
+// side by side. A stack of experts' rows (x [E, rows_per_src, K]) reads
+// row r's tail and outlier rows from src_tail [E, S] and oidx [E, Tn] row
+// r / rows_per_src.
 template <typename T>
 __global__ void __launch_bounds__(kQuantThreads) w4a8_prologue_kernel(
     const T* __restrict__ x, int K, int S, const int* __restrict__ src_tail,
-    const int* __restrict__ oidx, int Tn, float qmax, float inv_qmax,
+    const int* __restrict__ oidx, int Tn, int rows_per_src, float qmax, float inv_qmax,
     int8_t* __restrict__ q2, int Hp, int8_t* __restrict__ q8, int Tp,
     float* __restrict__ scale_out) {
   __shared__ float red[kQuantThreads / 32];
   const size_t row = blockIdx.x;
+  const size_t ex = row / rows_per_src;
+  if (S > 0) src_tail += ex * S;
+  if (Tn > 0) oidx += ex * Tn;
   const bool last = blockIdx.y == gridDim.y - 1;
   const T* xr = x + row * (size_t)K;
   const float sc = row_absmax_scale16(xr, K, inv_qmax, red);
@@ -166,21 +171,22 @@ __global__ void __launch_bounds__(kQuantThreads) w4a8_prologue_kernel(
   }
 }
 
-// B6's GEMM launcher. `tile` (the host's choice from M,
-// kernels/w4a8_qmatmul.py's plan, B1's tiles): 0 = 256 columns x 8 tokens a
-// block (decode, M <= 8); 1 = 128 columns x 64 tokens (M > 8), as
-// i8_tc_gemm.cuh's launch_w4_tile describes them.
+// B6's GEMM launcher over E experts (E = 1: a 2-D call). `tile` (the host's
+// choice from the rows an expert, kernels/w4a8_qmatmul.py's plan, B1's
+// tiles): 0 = 256 columns x 8 tokens a block (decode, M <= 8); 1 = 128
+// columns x 64 tokens (M > 8), as i8_tc_gemm.cuh's launch_w4_tile describes
+// them.
 inline int w4_tc_launch(int tile, const int8_t* q2, int Hp, const uint8_t* w4, int H,
-                        const int8_t* q8, int Tp, const int8_t* w8, int Tn, int M, int N,
+                        const int8_t* q8, int Tp, const int8_t* w8, int Tn, int E, int M, int N,
                         int stages_per_split, int nsplit, const float* xs, const float* s4,
                         const float* s8, int* acc_ws, int* counters, void* out, int out_bf16,
                         cudaStream_t st) {
   switch (tile) {
     case 0:
-      return launch_w4_tile<4, 1, 1, 1>(q2, Hp, w4, H, q8, Tp, w8, Tn, M, N, stages_per_split,
+      return launch_w4_tile<4, 1, 1, 1>(q2, Hp, w4, H, q8, Tp, w8, Tn, E, M, N, stages_per_split,
                                         nsplit, xs, s4, s8, acc_ws, counters, out, out_bf16, st);
     case 1:
-      return launch_w4_tile<2, 2, 4, 2>(q2, Hp, w4, H, q8, Tp, w8, Tn, M, N, stages_per_split,
+      return launch_w4_tile<2, 2, 4, 2>(q2, Hp, w4, H, q8, Tp, w8, Tn, E, M, N, stages_per_split,
                                         nsplit, xs, s4, s8, acc_ws, counters, out, out_bf16, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -191,34 +197,39 @@ inline int w4_tc_launch(int tile, const int8_t* q2, int Hp, const uint8_t* w4, i
 }  // namespace rtq
 
 // x_bf16: 1 if x is bfloat16, 0 if float32; out_bf16 likewise for out.
-// w4 [H, N] uint8 and w8 [T, N] int8 with N % 16 == 0, 16-byte aligned
-// (else cudaErrorInvalidValue). Scratch from the caller: q2 [M, 2*Hp] int8
-// (Hp = H rounded up to 32), q8 [M, Tp] int8 (Tp = T rounded up to 32;
-// unused when T == 0), scale [M] f32, and with nsplit > 1 acc_ws [T > 0 ?
-// 2 : 1, M, N] int32 and counters (one int per token tile and column
-// tile), both zero at rest. tile, stages_per_split and nsplit: the host's
-// plan (w4_tc_launch). Returns cudaGetLastError() of the first failing step
-// (0 = ok).
+// Over E experts of M rows each (E = 1: a 2-D call; E > 1: a MoE layer's
+// stacked matrix in one call, the vmapped call of the reference): x [E, M,
+// K], src_tail [E, S], outlier_idx [E, T], w4 [E, H, N] uint8 and w8 [E, T,
+// N] int8 with N % 16 == 0, 16-byte aligned (else cudaErrorInvalidValue),
+// s4 and s8 [E, N], out [E, M, N]. Scratch from the caller: q2 [E, M, 2*Hp]
+// int8 (Hp = H rounded up to 32), q8 [E, M, Tp] int8 (Tp = T rounded up to
+// 32; unused when T == 0), scale [E, M] f32, and with nsplit > 1 acc_ws [E,
+// T > 0 ? 2 : 1, M, N] int32 and counters (one int per expert, token tile
+// and column tile), both zero at rest. tile, stages_per_split and nsplit:
+// the host's plan of one expert's shapes (w4_tc_launch), so each expert's
+// output is bitwise the 2-D call on it. Two launches, the prologue (blocks
+// over all E experts' rows) and the GEMM. Returns cudaGetLastError() of the
+// first failing step (0 = ok).
 extern "C" int w4a8_qmatmul_launch(
-    const void* x, int x_bf16, int M, int K, int S, const int* src_tail,
+    const void* x, int x_bf16, int E, int M, int K, int S, const int* src_tail,
     const int* outlier_idx, int Tn, const uint8_t* w4, const float* s4, const int8_t* w8,
     const float* s8, int N, float qmax, float inv_qmax, int8_t* q2, int Hp, int8_t* q8,
     int Tp, float* scale, int tile, int stages_per_split, int nsplit, int* acc_ws,
     int* counters, void* out, int out_bf16, void* stream) {
   using namespace rtq;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 parts(M, ((2 * Hp) / 4 + kPrologueWords - 1) / kPrologueWords);
+  const dim3 parts(E * M, ((2 * Hp) / 4 + kPrologueWords - 1) / kPrologueWords);
   if (x_bf16) {
     w4a8_prologue_kernel<__nv_bfloat16><<<parts, kQuantThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), K, S, src_tail, outlier_idx, Tn, qmax,
+        static_cast<const __nv_bfloat16*>(x), K, S, src_tail, outlier_idx, Tn, M, qmax,
         inv_qmax, q2, Hp, q8, Tp, scale);
   } else {
     w4a8_prologue_kernel<float><<<parts, kQuantThreads, 0, st>>>(
-        static_cast<const float*>(x), K, S, src_tail, outlier_idx, Tn, qmax, inv_qmax, q2,
+        static_cast<const float*>(x), K, S, src_tail, outlier_idx, Tn, M, qmax, inv_qmax, q2,
         Hp, q8, Tp, scale);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return w4_tc_launch(tile, q2, Hp, w4, (K + S) / 2, q8, Tp, w8, Tn, M, N, stages_per_split,
+  return w4_tc_launch(tile, q2, Hp, w4, (K + S) / 2, q8, Tp, w8, Tn, E, M, N, stages_per_split,
                       nsplit, scale, s4, s8, acc_ws, counters, out, out_bf16, st);
 }

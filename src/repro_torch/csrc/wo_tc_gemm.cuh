@@ -7,6 +7,19 @@
 // keeps the one copy of the kernel and its launcher, wo_tc_launch<TAIL>
 // (TAIL = false is B5's instantiation, TAIL = true B4's).
 //
+// The expert axis. A launch computes E such products at once, one per
+// matrix of a stack (a MoE layer's experts: x [E, M, K], w8 [E, K + S, N],
+// src_tail and tail_mult [E, S], xs [E, M], ws [E, N], out [E, M, N]); a
+// plain 2-D call is E = 1. In the STACK instantiation, expert e is
+// blockIdx.z / nsplit (its split blockIdx.z % nsplit), its operands are
+// read at their offsets (the TMA boxes at matrix e of 3-D maps, which
+// zero-fill past its own rows and columns), and it has its own partials
+// and counters; a 2-D call runs the instantiation without those offsets,
+// whose code is the 2-D kernel's (its registers, its speed). A block's work
+// is that of a 2-D launch on expert e's slice, so each expert's output is
+// bitwise that launch's. Stacks take the TMA path only (N % 16 == 0, K % 8
+// == 0; every MoE expert shape).
+//
 // Why tensor cores keep the contract. Every int8 weight converts exactly to
 // bf16, a bf16 activation times a multiplier of 0 or 1 is the activation or
 // zero (exact), and a bf16 x bf16 product is exact in f32, so
@@ -84,8 +97,8 @@ constexpr int kTcWTile = kTcStageK * kTcCols;  // a stage's weight tile (4 KB)
 constexpr int kTcRedStride = kTcCols + 4;      // padded row of the warps' sums
 
 // Largest dynamic shared memory set per instantiation (G 1/2/4 x TMA x
-// output type) and device.
-std::atomic<int> g_tc_smem_set[12][kMaxDevices];
+// STACK x output type) and device.
+std::atomic<int> g_tc_smem_set[24][kMaxDevices];
 
 __device__ __forceinline__ uint32_t i8_f32_bits(uint32_t wx, int byte) {
   // wx holds the bytes XOR 0x80: 0x4B0000uu is 2^23 + uu, uu = v + 128.
@@ -186,22 +199,22 @@ __device__ __forceinline__ void tail_fragments(uint32_t (&bf)[G][2],
   }
 }
 
-template <int G, bool TMA, bool TAIL, typename TO>
+template <int G, bool TMA, bool TAIL, bool STACK, typename TO>
 __global__ void __launch_bounds__(kTcThreads) wo_tc_gemm_kernel(
-    const __grid_constant__ CUtensorMap wmap,  // w [K + S, N] int8, boxes 128 x 32 (TMA)
-    const __grid_constant__ CUtensorMap xmap,  // x [M, K] bf16, boxes 32 x 8G (TMA)
-    const __nv_bfloat16* __restrict__ x,  // [M, K]; K % 8 == 0 when TMA
+    const __grid_constant__ CUtensorMap wmap,  // w [E, K + S, N] int8, boxes 128 x 32 (TMA)
+    const __grid_constant__ CUtensorMap xmap,  // x [E, M, K] bf16, boxes 32 x 8G (TMA)
+    const __nv_bfloat16* __restrict__ x,  // [E, M, K]; K % 8 == 0 when TMA
     int M, int K,
     int S, int Kb,                        // TAIL: tail rows; K rounded up to a stage
-    const int* __restrict__ src_tail,     // [S] (TAIL)
-    const float* __restrict__ tail_mult,  // [S] of 0 and 1, or null (= 1) (TAIL)
-    const int8_t* __restrict__ w,         // [K + S, N], N % 4 == 0; N % 16 == 0 when TMA
+    const int* __restrict__ src_tail,     // [E, S] (TAIL)
+    const float* __restrict__ tail_mult,  // [E, S] of 0 and 1, or null (= 1) (TAIL)
+    const int8_t* __restrict__ w,         // [E, K + S, N], N % 4 == 0; N % 16 == 0 when TMA
     int N, int k_chunk, int nsplit,
-    const float* __restrict__ xs,         // [M] or null (= 1)
-    const float* __restrict__ ws,         // [N]
-    float* __restrict__ part,             // [nsplit, M, N] when nsplit > 1
-    int* __restrict__ counters,           // [gridDim.x * gridDim.y], zero at rest
-    TO* __restrict__ out) {               // [M, N]
+    const float* __restrict__ xs,         // [E, M] or null (= 1)
+    const float* __restrict__ ws,         // [E, N]
+    float* __restrict__ part,             // [E, nsplit, M, N] when nsplit > 1
+    int* __restrict__ counters,           // [E, gridDim.x * gridDim.y], zero at rest
+    TO* __restrict__ out) {               // [E, M, N]
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[kTcWarps][kTcStages];
   __shared__ int s_last;
@@ -211,8 +224,26 @@ __global__ void __launch_bounds__(kTcThreads) wo_tc_gemm_kernel(
   const int g = lane >> 2, t = lane & 3;
   const int m0 = blockIdx.x * 8 * G;
   const int n0 = blockIdx.y * kTcCols;
+  // The block's expert and split, and (STACK) the expert's operands.
+  const int ex = STACK ? (int)blockIdx.z / nsplit : 0;
+  const int zs = STACK ? (int)blockIdx.z - ex * nsplit : (int)blockIdx.z;
+  if (STACK) {
+    x += (size_t)ex * M * K;
+    w += (size_t)ex * (K + S) * N;
+    if (TAIL) {
+      src_tail += (size_t)ex * S;
+      if (tail_mult != nullptr) tail_mult += (size_t)ex * S;
+    }
+    if (xs != nullptr) xs += (size_t)ex * M;
+    ws += (size_t)ex * N;
+    out += (size_t)ex * M * N;
+    if (nsplit > 1) {
+      part += (size_t)ex * nsplit * M * N;
+      counters += (size_t)ex * gridDim.x * gridDim.y;
+    }
+  }
   const int kv = TAIL ? Kb + S : K;  // rows of the contraction (virtual with TAIL)
-  const int kz0 = blockIdx.z * k_chunk;
+  const int kz0 = zs * k_chunk;
   const int kz1 = min(kv, kz0 + k_chunk);
   const int nstage = (kz1 - kz0 + kTcStageK - 1) / kTcStageK;
   const int mine = nstage > warp ? (nstage - warp + kTcWarps - 1) / kTcWarps : 0;
@@ -253,8 +284,10 @@ __global__ void __launch_bounds__(kTcThreads) wo_tc_gemm_kernel(
                          smem_addr(bar + slot)),
                      "r"(kTcWTile + (tail ? 0 : tc_xtile_bytes(G)))
                      : "memory");
-        tma_load_2d(wring + slot * kTcWTile, &wmap, n0, tail ? K + (k0 - Kb) : k0, bar + slot);
-        if (!tail) tma_load_2d(xring + slot * tc_xtile_bytes(G), &xmap, k0, m0, bar + slot);
+        tma_load_3d(wring + slot * kTcWTile, &wmap, n0, tail ? K + (k0 - Kb) : k0, ex,
+                    bar + slot);
+        if (!tail)
+          tma_load_3d(xring + slot * tc_xtile_bytes(G), &xmap, k0, m0, ex, bar + slot);
       }
     };
 #pragma unroll
@@ -395,7 +428,7 @@ __global__ void __launch_bounds__(kTcThreads) wo_tc_gemm_kernel(
 #pragma unroll
       for (int v = 1; v < kTcWarps; ++v)
         a = __fadd_rn(a, red[(v * 8 * G + tok) * kTcRedStride + tid]);
-      part[((size_t)blockIdx.z * M + m0 + tok) * N + n] = a;
+      part[((size_t)zs * M + m0 + tok) * N + n] = a;
     }
   // The last block of this (token tile, column tile) adds the partials.
   __threadfence();
@@ -435,31 +468,33 @@ __global__ void __launch_bounds__(kTcThreads) wo_tc_gemm_kernel(
   if (tid == 0) *count = 0;
 }
 
-template <int G, bool TMA, bool TAIL>
-int launch_tc(const __nv_bfloat16* x, int M, int K, int S, const int* src_tail,
+template <int G, bool TMA, bool TAIL, bool STACK>
+int launch_tc(const __nv_bfloat16* x, int E, int M, int K, int S, const int* src_tail,
               const float* tail_mult, const int8_t* w8, const float* xs, const float* ws, int N,
               int k_chunk, int nsplit, float* part, int* counters, void* out, int out_bf16,
               cudaStream_t st) {
   constexpr int smem = tc_smem_bytes(G, TMA);
-  const dim3 grid((M + 8 * G - 1) / (8 * G), (N + kTcCols - 1) / kTcCols, nsplit);
-  const int slot = ((G == 1 ? 0 : G == 2 ? 1 : 2) * 2 + (TMA ? 1 : 0)) * 2 + (out_bf16 ? 1 : 0);
+  const dim3 grid((M + 8 * G - 1) / (8 * G), (N + kTcCols - 1) / kTcCols, E * nsplit);
+  const int slot =
+      (((G == 1 ? 0 : G == 2 ? 1 : 2) * 2 + (TMA ? 1 : 0)) * 2 + (STACK ? 1 : 0)) * 2 +
+      (out_bf16 ? 1 : 0);
   const int Kb = (K + kTcStageK - 1) / kTcStageK * kTcStageK;
   CUtensorMap wmap{}, xmap{};
-  if (TMA && !(tensor_map(&wmap, w8, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K + S, N, kTcCols,
-                          kTcStageK, CU_TENSOR_MAP_SWIZZLE_128B) &&
-               tensor_map(&xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, kTcStageK,
-                          8 * G, CU_TENSOR_MAP_SWIZZLE_NONE)))
+  if (TMA && !(stack_map(&wmap, w8, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, E, K + S, N, kTcCols,
+                         kTcStageK, CU_TENSOR_MAP_SWIZZLE_128B) &&
+               stack_map(&xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, E, M, K, kTcStageK,
+                         8 * G, CU_TENSOR_MAP_SWIZZLE_NONE)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (out_bf16) {
-    auto kern = wo_tc_gemm_kernel<G, TMA, TAIL, __nv_bfloat16>;
+    auto kern = wo_tc_gemm_kernel<G, TMA, TAIL, STACK, __nv_bfloat16>;
     err = ensure_dynamic_smem(kern, g_tc_smem_set[slot], smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     kern<<<grid, kTcThreads, smem, st>>>(wmap, xmap, x, M, K, S, Kb, src_tail, tail_mult, w8, N,
                                          k_chunk, nsplit, xs, ws, part, counters,
                                          static_cast<__nv_bfloat16*>(out));
   } else {
-    auto kern = wo_tc_gemm_kernel<G, TMA, TAIL, float>;
+    auto kern = wo_tc_gemm_kernel<G, TMA, TAIL, STACK, float>;
     err = ensure_dynamic_smem(kern, g_tc_smem_set[slot], smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     kern<<<grid, kTcThreads, smem, st>>>(wmap, xmap, x, M, K, S, Kb, src_tail, tail_mult, w8, N,
@@ -470,39 +505,46 @@ int launch_tc(const __nv_bfloat16* x, int M, int K, int S, const int* src_tail,
 }
 
 template <int G, bool TAIL>
-int launch_tc_g(const __nv_bfloat16* x, int M, int K, int S, const int* src_tail,
+int launch_tc_g(const __nv_bfloat16* x, int E, int M, int K, int S, const int* src_tail,
                 const float* tail_mult, const int8_t* w8, const float* xs, const float* ws,
                 int N, int k_chunk, int nsplit, float* part, int* counters, void* out,
                 int out_bf16, cudaStream_t st) {
-  if (N % 16 == 0 && K % 8 == 0)
-    return launch_tc<G, true, TAIL>(x, M, K, S, src_tail, tail_mult, w8, xs, ws, N, k_chunk,
-                                    nsplit, part, counters, out, out_bf16, st);
-  return launch_tc<G, false, TAIL>(x, M, K, S, src_tail, tail_mult, w8, xs, ws, N, k_chunk,
-                                   nsplit, part, counters, out, out_bf16, st);
+  if (N % 16 == 0 && K % 8 == 0) {
+    if (E > 1)
+      return launch_tc<G, true, TAIL, true>(x, E, M, K, S, src_tail, tail_mult, w8, xs, ws, N,
+                                            k_chunk, nsplit, part, counters, out, out_bf16, st);
+    return launch_tc<G, true, TAIL, false>(x, 1, M, K, S, src_tail, tail_mult, w8, xs, ws, N,
+                                           k_chunk, nsplit, part, counters, out, out_bf16, st);
+  }
+  if (E > 1) return static_cast<int>(cudaErrorInvalidValue);  // stacks take the TMA path
+  return launch_tc<G, false, TAIL, false>(x, 1, M, K, S, src_tail, tail_mult, w8, xs, ws, N,
+                                          k_chunk, nsplit, part, counters, out, out_bf16, st);
 }
 
-// The launcher of both entry points. x [M, K] bf16; w8 [K + S, N] int8 (S =
-// 0, no tail, without TAIL); src_tail [S] int32, tail_mult [S] f32 of 0 and
-// 1, or null (= 1); xs [M] f32 or null (= 1), ws [N] f32; k_chunk % 32 == 0
-// with k_chunk * nsplit >= K (B5) or Kb + S (B4, Kb = K rounded up to 32);
-// part [nsplit, M, N] f32 scratch (unused when nsplit == 1); counters: one
-// int per (token tile, column tile) of the launch, zero at rest (the kernel
+// The launcher of both entry points, over E experts (E = 1: a 2-D call).
+// x [E, M, K] bf16; w8 [E, K + S, N] int8 (S = 0, no tail, without TAIL);
+// src_tail [E, S] int32, tail_mult [E, S] f32 of 0 and 1, or null (= 1); xs
+// [E, M] f32 or null (= 1), ws [E, N] f32; k_chunk % 32 == 0 with k_chunk *
+// nsplit >= K (B5) or Kb + S (B4, Kb = K rounded up to 32); part [E, nsplit,
+// M, N] f32 scratch (unused when nsplit == 1); counters: one int per
+// (expert, token tile, column tile) of the launch, zero at rest (the kernel
 // leaves them zero). Tokens a block: 8 for M <= 8, 16 for M <= 16, else 32
-// (the bits do not depend on it). Returns cudaGetLastError() (0 = ok).
+// (the bits do not depend on it). A stack (E > 1) needs N % 16 == 0 and K %
+// 8 == 0, else cudaErrorInvalidValue. Returns cudaGetLastError() (0 = ok).
 template <bool TAIL>
-int wo_tc_launch(const void* x, int M, int K, int S, const int* src_tail,
+int wo_tc_launch(const void* x, int E, int M, int K, int S, const int* src_tail,
                  const float* tail_mult, const int8_t* w8, const float* xs, const float* ws,
                  int N, int k_chunk, int nsplit, float* part, int* counters, void* out,
                  int out_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   if (M <= 8)
-    return launch_tc_g<1, TAIL>(xb, M, K, S, src_tail, tail_mult, w8, xs, ws, N, k_chunk,
+    return launch_tc_g<1, TAIL>(xb, E, M, K, S, src_tail, tail_mult, w8, xs, ws, N, k_chunk,
                                 nsplit, part, counters, out, out_bf16, st);
   if (M <= 16)
-    return launch_tc_g<2, TAIL>(xb, M, K, S, src_tail, tail_mult, w8, xs, ws, N, k_chunk,
+    return launch_tc_g<2, TAIL>(xb, E, M, K, S, src_tail, tail_mult, w8, xs, ws, N, k_chunk,
                                 nsplit, part, counters, out, out_bf16, st);
-  return launch_tc_g<4, TAIL>(xb, M, K, S, src_tail, tail_mult, w8, xs, ws, N, k_chunk,
+  return launch_tc_g<4, TAIL>(xb, E, M, K, S, src_tail, tail_mult, w8, xs, ws, N, k_chunk,
                               nsplit, part, counters, out, out_bf16, st);
 }
 

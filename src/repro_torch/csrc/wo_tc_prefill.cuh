@@ -86,6 +86,12 @@
 // Shapes the TMA cannot take (N % 16 != 0 or K % 8 != 0) are never planned
 // here: they stay on the decode tile's non-TMA branch, and this launcher
 // refuses them.
+//
+// The expert axis, as the decode tile's (wo_tc_gemm.cuh): in the STACK
+// instantiation expert e of a stacked launch is blockIdx.z, its operands
+// are read at their offsets and at matrix e of the TMA maps, so each
+// expert's output is bitwise a 2-D launch's on its slice; a 2-D call runs
+// the instantiation without the offsets.
 
 #pragma once
 
@@ -161,19 +167,19 @@ struct PfChainCursor {
   }
 };
 
-template <bool TAIL, typename TO>
+template <bool TAIL, bool STACK, typename TO>
 __global__ void __launch_bounds__(kPfThreads, 1) wo_tc_prefill_kernel(
-    const __grid_constant__ CUtensorMap wmap,  // w [K + S, N] int8, boxes 128 x 32
-    const __grid_constant__ CUtensorMap xmap,  // x [M, K] bf16, boxes 32 x 64
-    const __nv_bfloat16* __restrict__ x,       // [M, K], K % 8 == 0
+    const __grid_constant__ CUtensorMap wmap,  // w [E, K + S, N] int8, boxes 128 x 32
+    const __grid_constant__ CUtensorMap xmap,  // x [E, M, K] bf16, boxes 32 x 64
+    const __nv_bfloat16* __restrict__ x,       // [E, M, K], K % 8 == 0
     int M, int K,
     int S, int Kb,                             // TAIL: tail rows; K rounded up to a stage
-    const int* __restrict__ src_tail,          // [S] (TAIL)
-    const float* __restrict__ tail_mult,       // [S] of 0 and 1, or null (= 1) (TAIL)
+    const int* __restrict__ src_tail,          // [E, S] (TAIL)
+    const float* __restrict__ tail_mult,       // [E, S] of 0 and 1, or null (= 1) (TAIL)
     int N, int k_chunk, int nsplit,            // N % 16 == 0
-    const float* __restrict__ xs,              // [M] or null (= 1)
-    const float* __restrict__ ws,              // [N]
-    TO* __restrict__ out) {                    // [M, N]
+    const float* __restrict__ xs,              // [E, M] or null (= 1)
+    const float* __restrict__ ws,              // [E, N]
+    TO* __restrict__ out) {                    // [E, M, N]
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[4][kPfRing];
   __shared__ __align__(8) uint64_t empty[4][kPfRing];
@@ -187,6 +193,18 @@ __global__ void __launch_bounds__(kPfThreads, 1) wo_tc_prefill_kernel(
   const int g = lane >> 2, t = lane & 3;
   const int m0 = blockIdx.x * kPfToks;
   const int n0 = blockIdx.y * kTcCols;
+  // The block's expert and (STACK) its operands.
+  const int ex = STACK ? (int)blockIdx.z : 0;
+  if (STACK) {
+    x += (size_t)ex * M * K;
+    if (TAIL) {
+      src_tail += (size_t)ex * S;
+      if (tail_mult != nullptr) tail_mult += (size_t)ex * S;
+    }
+    if (xs != nullptr) xs += (size_t)ex * M;
+    ws += (size_t)ex * N;
+    out += (size_t)ex * M * N;
+  }
   const int kv = TAIL ? Kb + S : K;  // rows of the contraction (virtual with TAIL)
 
   if (tid == 0) {
@@ -211,10 +229,10 @@ __global__ void __launch_bounds__(kPfThreads, 1) wo_tc_prefill_kernel(
     const bool tail = TAIL && k0 >= Kb;
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     mbar_arrive_expect_tx(&full[c][slot], kTcWTile + (tail ? 0 : kPfXTile));
-    tma_load_2d(wring + (c * kPfRing + slot) * kTcWTile, &wmap, n0,
-                tail ? K + (k0 - Kb) : k0, &full[c][slot]);
+    tma_load_3d(wring + (c * kPfRing + slot) * kTcWTile, &wmap, n0,
+                tail ? K + (k0 - Kb) : k0, ex, &full[c][slot]);
     if (!tail)
-      tma_load_2d(xring + (c * kPfRing + slot) * kPfXTile, &xmap, k0, m0, &full[c][slot]);
+      tma_load_3d(xring + (c * kPfRing + slot) * kPfXTile, &xmap, k0, m0, ex, &full[c][slot]);
   };
   if (issuer)
     for (int j = 0; j < kPfRing - 1 && ahead.ok; ++j) {
@@ -382,60 +400,64 @@ __global__ void __launch_bounds__(kPfThreads, 1) wo_tc_prefill_kernel(
   }
 }
 
-// The prefill tile's launcher, with wo_tc_launch's operands and its
-// contract (k_chunk % 32 == 0 with k_chunk * nsplit >= K, or Kb + S with
-// TAIL), less the workspace and counters it needs no more. N % 16 == 0 and
-// K % 8 == 0 (the TMA's), else cudaErrorInvalidValue. Returns
+// The prefill tile's launcher, with wo_tc_launch's operands (E experts) and
+// its contract (k_chunk % 32 == 0 with k_chunk * nsplit >= K, or Kb + S
+// with TAIL), less the workspace and counters it needs no more. N % 16 == 0
+// and K % 8 == 0 (the TMA's), else cudaErrorInvalidValue. Returns
 // cudaGetLastError() (0 = ok).
 template <bool TAIL>
-int wo_tc_prefill_launch(const void* x, int M, int K, int S, const int* src_tail,
+int wo_tc_prefill_launch(const void* x, int E, int M, int K, int S, const int* src_tail,
                          const float* tail_mult, const int8_t* w8, const float* xs,
                          const float* ws, int N, int k_chunk, int nsplit, void* out,
                          int out_bf16, void* stream) {
-  // The largest dynamic shared memory set for this instantiation, per output
-  // type and device.
-  static std::atomic<int> smem_set[2][kMaxDevices];
+  // The largest dynamic shared memory set for this instantiation, per
+  // STACK, output type and device.
+  static std::atomic<int> smem_set[4][kMaxDevices];
   if (N % 16 != 0 || K % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   const int Kb = (K + kTcStageK - 1) / kTcStageK * kTcStageK;
   CUtensorMap wmap{}, xmap{};
-  if (!(tensor_map(&wmap, w8, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K + S, N, kTcCols, kTcStageK,
-                   CU_TENSOR_MAP_SWIZZLE_128B) &&
-        tensor_map(&xmap, xb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, kTcStageK, kPfToks,
-                   CU_TENSOR_MAP_SWIZZLE_64B)))
+  if (!(stack_map(&wmap, w8, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, E, K + S, N, kTcCols, kTcStageK,
+                  CU_TENSOR_MAP_SWIZZLE_128B) &&
+        stack_map(&xmap, xb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, E, M, K, kTcStageK, kPfToks,
+                  CU_TENSOR_MAP_SWIZZLE_64B)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((M + kPfToks - 1) / kPfToks, (N + kTcCols - 1) / kTcCols);
+  const dim3 grid((M + kPfToks - 1) / kPfToks, (N + kTcCols - 1) / kTcCols, E);
   cudaError_t err;
+  auto run = [&](auto kern, std::atomic<int>* set, auto* o) {
+    err = ensure_dynamic_smem(kern, set, kPfSmem);
+    if (err != cudaSuccess) return;
+    kern<<<grid, kPfThreads, kPfSmem, st>>>(wmap, xmap, xb, M, K, S, Kb, src_tail, tail_mult, N,
+                                         k_chunk, nsplit, xs, ws, o);
+  };
   if (out_bf16) {
-    auto kern = wo_tc_prefill_kernel<TAIL, __nv_bfloat16>;
-    err = ensure_dynamic_smem(kern, smem_set[1], kPfSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kern<<<grid, kPfThreads, kPfSmem, st>>>(wmap, xmap, xb, M, K, S, Kb, src_tail, tail_mult, N,
-                                         k_chunk, nsplit, xs, ws, static_cast<__nv_bfloat16*>(out));
+    auto* o = static_cast<__nv_bfloat16*>(out);
+    if (E > 1) run(wo_tc_prefill_kernel<TAIL, true, __nv_bfloat16>, smem_set[3], o);
+    else run(wo_tc_prefill_kernel<TAIL, false, __nv_bfloat16>, smem_set[1], o);
   } else {
-    auto kern = wo_tc_prefill_kernel<TAIL, float>;
-    err = ensure_dynamic_smem(kern, smem_set[0], kPfSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kern<<<grid, kPfThreads, kPfSmem, st>>>(wmap, xmap, xb, M, K, S, Kb, src_tail, tail_mult, N,
-                                         k_chunk, nsplit, xs, ws, static_cast<float*>(out));
+    auto* o = static_cast<float*>(out);
+    if (E > 1) run(wo_tc_prefill_kernel<TAIL, true, float>, smem_set[2], o);
+    else run(wo_tc_prefill_kernel<TAIL, false, float>, smem_set[0], o);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The entry points' dispatch: tile 0 is the decode tile (wo_tc_launch, its
-// token groups chosen from M), 1 the prefill tile (the wrapper's tc_plan;
+// The entry points' dispatch (E experts, E = 1 for a 2-D call): tile 0 is
+// the decode tile (wo_tc_launch, its token groups chosen from M), 1 the
+// prefill tile (the wrapper's tc_plan;
 // part and counters unused). Any other tile is cudaErrorInvalidValue.
 template <bool TAIL>
-int wo_tc_tile_launch(const void* x, int M, int K, int S, const int* src_tail,
+int wo_tc_tile_launch(const void* x, int E, int M, int K, int S, const int* src_tail,
                       const float* tail_mult, const int8_t* w8, const float* xs, const float* ws,
                       int N, int k_chunk, int nsplit, int tile, float* part, int* counters,
                       void* out, int out_bf16, void* stream) {
   if (tile == 0)
-    return wo_tc_launch<TAIL>(x, M, K, S, src_tail, tail_mult, w8, xs, ws, N, k_chunk, nsplit,
+    return wo_tc_launch<TAIL>(x, E, M, K, S, src_tail, tail_mult, w8, xs, ws, N, k_chunk, nsplit,
                               part, counters, out, out_bf16, stream);
   if (tile != 1) return static_cast<int>(cudaErrorInvalidValue);
-  return wo_tc_prefill_launch<TAIL>(x, M, K, S, src_tail, tail_mult, w8, xs, ws, N, k_chunk,
+  return wo_tc_prefill_launch<TAIL>(x, E, M, K, S, src_tail, tail_mult, w8, xs, ws, N, k_chunk,
                                     nsplit, out, out_bf16, stream);
 }
 

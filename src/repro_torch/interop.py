@@ -9,7 +9,9 @@ and becomes an :class:`~repro_torch.core.ocs.OCSQuantLinear`; a W4A8 leaf
 is a dict ``{w4, s4, w8, s8, outlier_idx, src, mult, bias, n_orig,
 a_bits}`` and becomes a :class:`~repro_torch.core.ocs.W4A8Linear`. It takes
 numpy, not JAX, so it lives in the package; the JAX -> numpy flattening
-lives with the tests.
+lives with the tests. A MoE tree's ``moe`` subtree (the float ``router``,
+the ``[L, E, ...]`` quantized ``experts`` stacks, the ``shared`` experts)
+converts leaf by leaf like the rest.
 """
 from __future__ import annotations
 

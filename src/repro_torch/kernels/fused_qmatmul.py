@@ -28,6 +28,14 @@ weight matrix ``[K + S, N]`` (duplicated channels after the K originals,
 multipliers folded in, padding rows zero); the per-row activation scale
 covers the K original channels only; outputs are bitwise
 :func:`repro_torch.kernels.ref.fused_quant_matmul_ref`.
+
+**The expert axis.** x ``[E, M, K]`` against a stack ``w8 [E, K + S, N]``
+(``w_scale [E, N]``, ``src_tail [E, S]``: a MoE layer's experts, M = the
+capacity) is one call over all E experts (:func:`launch`: the prologue
+over every expert's rows, then one GEMM launch), with the plan of one
+expert's shapes and the workspaces sized for the stack; each expert's
+slice is bitwise the 2-D call on it, which is the stack of one. Its plain
+version loops over the 2-D one.
 """
 from __future__ import annotations
 
@@ -40,7 +48,7 @@ import torch
 
 from . import ref, scratch
 from .build import load
-from .quant_matmul import pad_cols, padded_cols
+from .quant_matmul import pad_cols, padded_cols, stack_scales
 
 __all__ = [
     "fused_quant_matmul_plain",
@@ -48,6 +56,7 @@ __all__ = [
     "launch",
     "launch_plan",
     "launches",
+    "launches_stack",
     "split_plan",
     "reset_launches",
 ]
@@ -55,6 +64,8 @@ __all__ = [
 # Wrapper calls that launched the CUDA kernel (one per call: the prologue
 # and the GEMM of one call count once).
 launches = 0
+# Of ``launches``, those over an expert stack (one call a stacked matrix).
+launches_stack = 0
 
 # The int8 tensor-core GEMM's block tiles (csrc/i8_tc_gemm.cuh), as (tokens,
 # columns, blocks wanted): tile 0 for decode (M <= 8) at one block an SM of
@@ -72,8 +83,9 @@ _lib = None
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, launches_stack
     launches = 0
+    launches_stack = 0
 
 
 def _bind():
@@ -83,7 +95,7 @@ def _bind():
         fn = lib.fused_qmatmul_launch
         c_int, c_float, c_void_p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
         fn.argtypes = [
-            c_void_p, c_int, c_int, c_int, c_int, c_int,  # x, x_bf16, M, K, S, Kp
+            c_void_p, c_int, c_int, c_int, c_int, c_int, c_int,  # x, x_bf16, E, M, K, S, Kp
             c_void_p, c_void_p, c_void_p, c_int,  # src_tail, w8, w_scale, N
             c_float, c_float,  # qmax, inv_qmax
             c_void_p, c_void_p,  # q_exp, scale scratch
@@ -142,7 +154,12 @@ def fused_quant_matmul_plain(
     bits: int = 8,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """The plain PyTorch version (CPU path; the card's correctness oracle)."""
+    """The plain PyTorch version (CPU path; the card's correctness oracle).
+    An expert stack (x ``[E, M, K]``, w8 ``[E, K+S, N]``, w_scale ``[E,
+    N]``, src_tail ``[E, S]``) runs the 2-D version on each expert."""
+    if x.ndim == 3:
+        return ref.over_experts(fused_quant_matmul_plain, x, (w8, w_scale, src_tail),
+                                bits=bits, out_dtype=out_dtype)
     return ref.fused_quant_matmul_ref(
         x, w8, w_scale.reshape(-1), src_tail, bits, out_dtype or torch.float32
     )
@@ -187,45 +204,72 @@ def fused_quant_matmul_cuda(
 ) -> torch.Tensor:
     """Launch the CUDA kernel. x: [M, K] f32/bf16; w8: [K+S, N] int8;
     w_scale: [N] f32; src_tail: [S] int32 -> [M, N] ``out_dtype`` (default
-    f32; f32 or bf16). Raises on anything the kernel does not take."""
-    global launches
-    w_scale = w_scale.reshape(-1)
-    _check(x, w8, w_scale, src_tail, bits)
+    f32; f32 or bf16). An expert stack (x [E, M, K], w8 [E, K+S, N],
+    w_scale [E, N], src_tail [E, S]) is one call -> [E, M, N]; a 2-D call
+    runs as the stack of one. Raises on anything the kernel does not
+    take."""
+    global launches, launches_stack
+    stacked = x.ndim == 3
+    if stacked:
+        if w8.ndim != 3 or src_tail.ndim != 2:
+            raise ValueError(f"want w8 [E, K+S, N] and src_tail [E, S], got "
+                             f"{tuple(w8.shape)}, {tuple(src_tail.shape)}")
+        e = x.shape[0]
+        ws = stack_scales(w_scale, e, w8.shape[2], x.device)
+        src_tail = src_tail.contiguous()
+        if e == 0 or w8.shape[0] != e or src_tail.shape[0] != e:
+            raise ValueError(f"fused_quant_matmul_cuda: x, w8 and src_tail have {e}, "
+                             f"{w8.shape[0]} and {src_tail.shape[0]} experts")
+        for t in (x, w8):
+            if not t.is_contiguous():
+                raise ValueError("fused_quant_matmul_cuda: x and w8 must be contiguous")
+        _check(x[0], w8[0], ws[0], src_tail[0], bits)  # the 2-D checks, on one slice
+    else:
+        ws = w_scale.reshape(-1)
+        _check(x, w8, ws, src_tail, bits)
+        x, w8, ws, src_tail = x[None], w8[None], ws[None], src_tail[None]
     out_dtype = out_dtype or torch.float32
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
-    m, n_out = x.shape[0], w8.shape[1]
+    e, m = x.shape[:2]
+    n_out = w8.shape[2]
     n = padded_cols(n_out, 16)  # a ragged N runs zero columns up to n
-    w8, w_scale = pad_cols(w8, n), pad_cols(w_scale, n)
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    err = launch(_bind(), x, w8, w_scale, src_tail, out, float((1 << (bits - 1)) - 1))
+    w8, ws = pad_cols(w8, n), pad_cols(ws, n)
+    out = torch.empty((e, m, n), dtype=out_dtype, device=x.device)
+    err = launch(_bind(), x, w8, ws, src_tail, out, float((1 << (bits - 1)) - 1))
     if err != 0:
         raise RuntimeError(f"fused_qmatmul launch failed: cudaError {err}")
     launches += 1
-    return out if n == n_out else out[:, :n_out].contiguous()
+    launches_stack += stacked
+    out = out if n == n_out else out[..., :n_out].contiguous()
+    return out if stacked else out[0]
 
 
 def launch(fn, x, w8, w_scale, src_tail, out, qmax: float) -> int:
-    """Run B1's entry point ``fn`` (the prologue and the GEMM) into ``out``
-    with :func:`launch_plan`'s tile and split, the row scratch (``q_exp``
-    [M, Kp] int8, ``scale`` [M] f32) and, with a split, the int32
-    accumulator and its counters (zero at rest: the kernel leaves them
-    zero), all kept per device (``scratch``; reuse relies on stream order).
-    Returns the entry point's cudaError (0 = ok)."""
-    m, k = x.shape
-    ke, n = w8.shape
+    """Run B1's entry point ``fn`` (the prologue and the GEMM) once over
+    ``x`` ``[M, K]`` or an expert stack ``[E, M, K]`` (E = 1 for 2-D x) into
+    ``out`` with :func:`launch_plan`'s tile and split of one expert's
+    shapes, the row scratch (``q_exp`` [E, M, Kp] int8, ``scale`` [E, M]
+    f32) and, with a split, the int32 accumulator ``[E, M, N]`` and E sets
+    of counters (zero at rest: the kernel leaves them zero), all kept per
+    device (``scratch``; reuse relies on stream order). Returns the entry
+    point's cudaError (0 = ok)."""
+    e = x.shape[0] if x.ndim == 3 else 1
+    m, k = x.shape[-2:]
+    ke, n = w8.shape[-2:]
     kp = ke + (-ke) % 16
     dev = x.device
     tile, per, nsplit, acc_bytes, count_bytes = launch_plan(m, kp, n)
-    q_exp = scratch.buffer("b1_q_exp", dev, m * kp)
-    scale = scratch.buffer("b1_scale", dev, 4 * m)
+    q_exp = scratch.buffer("b1_q_exp", dev, e * m * kp)
+    scale = scratch.buffer("b1_scale", dev, 4 * e * m)
     acc = counters = None
     if nsplit > 1:
-        acc = scratch.buffer("b1_acc", dev, acc_bytes, zeroed=True).data_ptr()
-        counters = scratch.buffer("split_k_counters", dev, count_bytes, zeroed=True).data_ptr()
+        acc = scratch.buffer("b1_acc", dev, e * acc_bytes, zeroed=True).data_ptr()
+        counters = scratch.buffer("split_k_counters", dev, e * count_bytes,
+                                  zeroed=True).data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     return fn(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), m, k, ke - k, kp,
+        x.data_ptr(), int(x.dtype == torch.bfloat16), e, m, k, ke - k, kp,
         src_tail.data_ptr(), w8.data_ptr(), w_scale.data_ptr(), n,
         qmax, ref.inv_qmax(qmax),
         q_exp.data_ptr(), scale.data_ptr(), tile, per, nsplit, acc, counters,

@@ -35,6 +35,14 @@ routes to B5 (:mod:`repro_torch.kernels.quant_matmul`), as in the
 reference. The int8 path is bitwise
 :func:`repro_torch.kernels.ref.ocs_quant_matmul_ref`; the weight-only path
 equals it up to the order of the float32 sums.
+
+**The expert axis.** bf16 x ``[E, M, K]`` against a stack ``w8 [E, K + S,
+N]`` (``w_scale [E, N]``, ``src_tail`` and ``tail_mult`` ``[E, S]``: a MoE
+layer's experts, M = the capacity) is one launch of the tensor-core route
+over all E experts, each expert's slice bitwise the 2-D call on it
+(:func:`repro_torch.kernels.quant_matmul.launch_tc_stack`); the other
+routes take no stack. S == 0 runs B5's stacked launch. Its plain version
+loops over the 2-D one.
 """
 from __future__ import annotations
 
@@ -53,6 +61,7 @@ __all__ = [
     "tc_route",
     "launches",
     "launches_cuda_cores",
+    "launches_stack",
     "reset_launches",
 ]
 
@@ -62,14 +71,17 @@ __all__ = [
 # cores.
 launches = 0
 launches_cuda_cores = 0
+# Of ``launches``, those over an expert stack (one launch a stacked matrix).
+launches_stack = 0
 
 _lib = {}
 
 
 def reset_launches() -> None:
-    global launches, launches_cuda_cores
+    global launches, launches_cuda_cores, launches_stack
     launches = 0
     launches_cuda_cores = 0
+    launches_stack = 0
 
 
 def _bind():
@@ -87,7 +99,7 @@ def _bind():
         wo.restype = c_int
         tc = lib.ocs_matmul_tc_launch
         tc.argtypes = [
-            c_void_p, c_int, c_int, c_int,  # x, M, K, S
+            c_void_p, c_int, c_int, c_int, c_int,  # x, E, M, K, S
             c_void_p, c_void_p,  # src_tail, tail_mult
             c_void_p, c_void_p, c_void_p, c_int,  # w8, xs, ws, N
             c_int, c_int, c_int,  # k_chunk, nsplit, tile
@@ -161,7 +173,17 @@ def ocs_quant_matmul_plain(
     tail_is_mask: bool = False,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """The plain PyTorch version (CPU path; the card's correctness oracle)."""
+    """The plain PyTorch version (CPU path; the card's correctness oracle).
+    An expert stack (x ``[E, M, K]``, w8 ``[E, K+S, N]``, w_scale ``[E, N]``,
+    src_tail and tail_mult ``[E, S]``, x_scale None) runs the 2-D version
+    on each expert."""
+    if x.ndim == 3:
+        if x_scale is not None:
+            raise ValueError("ocs_quant_matmul_plain: an expert stack takes no x_scale")
+        return ref.over_experts(
+            lambda xe, we, se, te, me: ocs_quant_matmul_plain(
+                xe, we, se, te, None, me, tail_is_mask=tail_is_mask, out_dtype=out_dtype),
+            x, (w8, w_scale, src_tail, tail_mult))
     s = _split(x, w8, src_tail)
     mult = _tail_mult(x, tail_mult, tail_is_mask)
     if s == 0:  # no splits: the plain matmul (B5)
@@ -185,8 +207,13 @@ def ocs_quant_matmul_cuda(
     """Launch the CUDA kernel. x: [M, K] f32/bf16 (weight-only) or int8;
     w8: [K+S, N] int8; src_tail: [S] int32 -> [M, N] ``out_dtype`` (f32 or
     bf16). S == 0 launches B5; the weight-only route is :func:`tc_route`'s.
-    Raises on anything the kernels do not take."""
+    An expert stack (x [E, M, K] bf16, w8 [E, K+S, N], w_scale [E, N],
+    src_tail and tail_mult [E, S]) is one launch on the tensor cores -> [E,
+    M, N]. Raises on anything the kernels do not take."""
     global launches, launches_cuda_cores
+    if x.ndim == 3:
+        return _ocs_stack_cuda(x, w8, w_scale, src_tail, x_scale, tail_mult, tail_is_mask,
+                               out_dtype)
     s = _split(x, w8, src_tail)
     mult = _tail_mult(x, tail_mult, tail_is_mask)
     if s == 0:
@@ -231,3 +258,50 @@ def ocs_quant_matmul_cuda(
     launches += 1
     launches_cuda_cores += cuda_cores
     return out if n == n_out else out[:, :n_out].contiguous()
+
+
+def _ocs_stack_cuda(x, w8, w_scale, src_tail, x_scale, tail_mult, tail_is_mask,
+                    out_dtype) -> torch.Tensor:
+    """:func:`ocs_quant_matmul_cuda` of an expert stack: one launch of the
+    tensor-core entry point over all E experts (B5's with no tail)."""
+    global launches, launches_stack
+    if x_scale is not None:
+        raise ValueError("ocs_quant_matmul_cuda: an expert stack takes no x_scale")
+    if w8.ndim != 3 or src_tail.ndim != 2:
+        raise ValueError(f"ocs_quant_matmul_cuda: want w8 [E, K+S, N] and src_tail [E, S], got "
+                         f"{tuple(w8.shape)}, {tuple(src_tail.shape)}")
+    e, m, k = x.shape
+    s = w8.shape[1] - k
+    if s < 0 or s != src_tail.shape[1]:
+        raise ValueError(f"ocs_quant_matmul_cuda: w8 rows {w8.shape[1]} != K {k} + S "
+                         f"{src_tail.shape[1]}")
+    if s == 0:
+        return _qm.quant_matmul_cuda(x, w8, w_scale, None, out_dtype=out_dtype)
+    mult = None
+    if tail_mult is not None:
+        mult = torch.as_tensor(tail_mult, device=x.device).to(torch.float32).reshape(e, -1)
+        mult = mult.contiguous()
+    if not tc_route(x, mult, tail_is_mask):
+        raise ValueError("ocs_quant_matmul_cuda: an expert stack runs the tensor-core route "
+                         "only (bf16 x; tail multipliers absent or declared a 0/1 mask)")
+    out_dtype = _qm.out_dtype_for(x, out_dtype)
+    if w8.dtype != torch.int8 or src_tail.dtype != torch.int32:
+        raise ValueError("ocs_quant_matmul_cuda: want int8 w8 and int32 src_tail")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"ocs_quant_matmul_cuda: out_dtype must be float32 or bfloat16, got "
+                         f"{out_dtype}")
+    n_out = w8.shape[2]
+    ws = _qm.stack_scales(w_scale, e, n_out, x.device)
+    src_tail = src_tail.contiguous()
+    _qm.check_stack("ocs_quant_matmul_cuda", x, w8, ws, (src_tail, mult))
+    n = _qm.padded_cols(n_out, 16)  # the stacked launch's TMA reads rows of 16 bytes
+    w8, ws = _qm.pad_cols(w8, n), _qm.pad_cols(ws, n)
+    out = torch.empty((e, m, n), dtype=out_dtype, device=x.device)
+    err = _qm.launch_tc_stack(_bind()["tc"], x, out, None, ws, _qm.tc_rows(k, s), s,
+                              src_tail.data_ptr(), None if mult is None else mult.data_ptr(),
+                              w8.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"ocs_matmul launch failed: cudaError {err}")
+    launches += 1
+    launches_stack += 1
+    return out if n == n_out else out[..., :n_out].contiguous()

@@ -23,6 +23,13 @@ and to ``x.dtype`` otherwise. The int8 path is bitwise
 :func:`repro_torch.kernels.ref.quant_matmul_ref`; the weight-only path
 equals it up to the order of the float32 sums (the kernel's order is fixed,
 so its output does not change from run to run).
+
+**The expert axis.** x ``[E, M, K]`` bf16 against a stack ``w8 [E, K, N]``
+(``w_scale [E, N]``; a MoE layer's experts, M = the capacity) is one
+launch over all E experts (:func:`launch_tc_stack`), each expert's slice
+bitwise the 2-D call on it: the tile and split are the plan of one
+expert's shapes, so either tile may serve. Its plain version loops over
+the 2-D one (:func:`repro_torch.kernels.ref.over_experts`).
 """
 from __future__ import annotations
 
@@ -44,15 +51,22 @@ __all__ = [
     "tc_rows",
     "tc_split_plan",
     "tc_plan",
+    "tc_stack_plan",
+    "launch_tc_stack",
+    "stack_scales",
+    "check_stack",
     "TC_DECODE",
     "TC_PREFILL",
     "TC_TILE_NAMES",
     "launches",
+    "launches_stack",
     "reset_launches",
 ]
 
 # Wrapper calls that launched the CUDA kernel.
 launches = 0
+# Of ``launches``, those over an expert stack (one call a stacked matrix).
+launches_stack = 0
 
 _lib = {}
 
@@ -98,8 +112,9 @@ _TC_PREFILL_MIN_TILES = 96
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, launches_stack
     launches = 0
+    launches_stack = 0
 
 
 def _bind():
@@ -116,7 +131,7 @@ def _bind():
         wo.restype = c_int
         tc = lib.quant_matmul_tc_launch
         tc.argtypes = [
-            c_void_p, c_int, c_int,  # x, M, K
+            c_void_p, c_int, c_int, c_int,  # x, E, M, K
             c_void_p, c_void_p, c_void_p, c_int,  # w8, xs, ws, N
             c_int, c_int, c_int,  # k_chunk, nsplit, tile
             c_void_p, c_void_p,  # part, counters
@@ -297,6 +312,78 @@ def tc_plan(m: int, k: int, kv: int, n: int,
     return (TC_DECODE, *_tc_launch_plan(m, kv, n, max_part))
 
 
+def tc_stack_plan(e: int, m: int, k: int, kv: int,
+                  n: int) -> Tuple[int, int, int, int, int]:
+    """``(tile, k_chunk, nsplit, workspace bytes, counter bytes)`` of a
+    stacked call over ``e`` experts of ``m`` rows each: :func:`tc_plan`'s
+    tile and split of one expert's shapes (so every slice sums as the 2-D
+    call on it), in one launch (no row chunks): with the decode tile's
+    splits, ``e`` workspaces ``[nsplit, m, n]`` and ``e`` sets of
+    counters."""
+    tile, k_chunk, nsplit = tc_plan(m, k, kv, n, _MAX_PART_BYTES)[:3]
+    if tile == TC_PREFILL or nsplit == 1:
+        return tile, k_chunk, nsplit, 0, 0
+    return (tile, k_chunk, nsplit, 4 * e * nsplit * m * n,
+            4 * e * math.ceil(m / 8) * math.ceil(n / _TC_COLS))
+
+
+def launch_tc_stack(fn, x, out, xs, ws, kv: int, *args) -> int:
+    """Run a bf16 tensor-core entry point (B5's, or B4's with its OCS tail)
+    once over ``x [E, M, K]`` into ``out [E, M, N]`` with
+    :func:`tc_stack_plan`'s plan, its workspace and counters kept per
+    device. ``ws`` is ``[E, N]``, ``xs`` ``[E, M]`` or None (= 1); ``args``
+    are the entry point's arguments between ``K`` and ``xs``. Returns the
+    cudaError (0 = ok)."""
+    e, m, k = x.shape
+    n = out.shape[-1]
+    tile, k_chunk, nsplit, part_bytes, count_bytes = tc_stack_plan(e, m, k, kv, n)
+    part = counters = None
+    if part_bytes:
+        part = scratch.buffer("split_k", x.device, part_bytes).data_ptr()
+        counters = scratch.buffer("split_k_counters", x.device, count_bytes,
+                                  zeroed=True).data_ptr()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    return fn(x.data_ptr(), e, m, k, *args, _ptr(xs), ws.data_ptr(), n, k_chunk, nsplit, tile,
+              part, counters, out.data_ptr(), int(out.dtype == torch.bfloat16), stream)
+
+
+def stack_scales(w_scale, e: int, n: int, dev) -> torch.Tensor:
+    """An expert stack's per-column scales as a contiguous float32 ``[E,
+    N]`` on ``dev``: ``[E, N]`` (or ``[E, 1, N]``) as it is, a per-tensor
+    ``[E, 1, 1]`` broadcast over the columns."""
+    ws = torch.as_tensor(w_scale, dtype=torch.float32, device=dev).reshape(e, -1)
+    if ws.shape[1] == 1 and n != 1:
+        ws = ws.expand(e, n)
+    return ws.contiguous()
+
+
+def check_stack(what: str, x, w, ws, others=()) -> None:
+    """The checks of an expert-stacked call: x ``[E, M, K]`` bf16 on the
+    card with K % 8 == 0 (the stacked launch reads x through the TMA only),
+    ``w`` ``[E, rows, N]``, ``ws`` ``[E, N]`` float32 and every other
+    stacked operand with the same E, all contiguous on x's device."""
+    if x.ndim != 3 or w.ndim != 3 or x.shape[0] != w.shape[0]:
+        raise ValueError(f"{what}: want x [E, M, K] and weights [E, rows, N], got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}")
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"{what}: an expert stack takes bfloat16 x, got {x.dtype}")
+    if x.shape[2] % 8:
+        raise ValueError(f"{what}: an expert stack takes K % 8 == 0, got K = {x.shape[2]}")
+    e, n = x.shape[0], w.shape[-1]
+    if ws.shape != (e, n) or ws.dtype != torch.float32:
+        raise ValueError(f"{what}: want float32 scales [E, N] = [{e}, {n}], got "
+                         f"{ws.dtype} {tuple(ws.shape)}")
+    for t in (x, w, ws) + tuple(t for t in others if t is not None):
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"{what}: every operand must be on x's CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: operands must be contiguous")
+        if t.shape[0] != e:
+            raise ValueError(f"{what}: an operand has {t.shape[0]} experts, want {e}")
+    if x.shape[1] == 0 or x.shape[2] == 0 or n == 0:
+        raise ValueError(f"{what}: empty operand")
+
+
 def launch_tc(fn, x, out, xs, ws, kv: int, *args) -> int:
     """Run a bf16 tensor-core entry point (B5's, or B4's with its OCS tail)
     over ``x``'s rows with :func:`tc_plan`'s tile and :func:`tc_split_plan`'s
@@ -319,7 +406,7 @@ def launch_tc(fn, x, out, xs, ws, kv: int, *args) -> int:
     for r in range(0, m, rows):
         xr, outr = (x, out) if rows == m else (x[r:r + rows], out[r:r + rows])
         xsr = xs if xs is None or rows == m else xs[r:r + rows]
-        err = fn(xr.data_ptr(), xr.shape[0], k, *args, _ptr(xsr), ws.data_ptr(), n,
+        err = fn(xr.data_ptr(), 1, xr.shape[0], k, *args, _ptr(xsr), ws.data_ptr(), n,
                  k_chunk, nsplit, tile, part, counters, outr.data_ptr(), out_bf16, stream)
         if err != 0:
             return err
@@ -361,7 +448,13 @@ def quant_matmul_plain(
     *,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """The plain PyTorch version (CPU path; the card's correctness oracle)."""
+    """The plain PyTorch version (CPU path; the card's correctness oracle).
+    An expert stack (x ``[E, M, K]``, w8 ``[E, K, N]``, w_scale ``[E, N]``,
+    x_scale None) runs the 2-D version on each expert."""
+    if x.ndim == 3:
+        if x_scale is not None:
+            raise ValueError("quant_matmul_plain: an expert stack takes no x_scale")
+        return ref.over_experts(quant_matmul_plain, x, (w8, w_scale), out_dtype=out_dtype)
     xs, ws = scales(x, w_scale, x_scale, w8.shape[1])
     return ref.quant_matmul_ref(x, w8, xs, ws, out_dtype_for(x, out_dtype))
 
@@ -376,9 +469,12 @@ def quant_matmul_cuda(
 ) -> torch.Tensor:
     """Launch the CUDA kernel. x: [M, K] bf16 (weight-only, tensor cores),
     f32 (weight-only, CUDA cores) or int8; w8: [K, N] int8 -> [M, N]
-    ``out_dtype`` (f32 or bf16). Raises on anything the kernel does not
-    take."""
+    ``out_dtype`` (f32 or bf16). An expert stack, x [E, M, K] bf16 against
+    w8 [E, K, N] and w_scale [E, N], is one launch -> [E, M, N]. Raises on
+    anything the kernel does not take."""
     global launches
+    if x.ndim == 3:
+        return _quant_matmul_stack_cuda(x, w8, w_scale, x_scale, out_dtype)
     out_dtype = out_dtype_for(x, out_dtype)
     check_cuda_operands("quant_matmul_cuda", x, w8, 0, out_dtype)
     m, k = x.shape
@@ -407,3 +503,31 @@ def quant_matmul_cuda(
         raise RuntimeError(f"quant_matmul launch failed: cudaError {err}")
     launches += 1
     return out if n == n_out else out[:, :n_out].contiguous()
+
+
+def _quant_matmul_stack_cuda(x, w8, w_scale, x_scale, out_dtype) -> torch.Tensor:
+    """:func:`quant_matmul_cuda` of an expert stack: one launch of the
+    tensor-core entry point over all E experts."""
+    global launches, launches_stack
+    if x_scale is not None:
+        raise ValueError("quant_matmul_cuda: an expert stack takes no x_scale")
+    out_dtype = out_dtype_for(x, out_dtype)
+    ws = stack_scales(w_scale, w8.shape[0], w8.shape[2], x.device)
+    check_stack("quant_matmul_cuda", x, w8, ws)
+    if w8.dtype != torch.int8 or w8.shape[1] != x.shape[2]:
+        raise ValueError(f"quant_matmul_cuda: want int8 w8 [E, K, N], got {w8.dtype} "
+                         f"{tuple(w8.shape)}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"quant_matmul_cuda: out_dtype must be float32 or bfloat16, got "
+                         f"{out_dtype}")
+    e, m, k = x.shape
+    n_out = w8.shape[2]
+    n = padded_cols(n_out, 16)  # the stacked launch's TMA reads rows of 16 bytes
+    w8, ws = pad_cols(w8, n), pad_cols(ws, n)
+    out = torch.empty((e, m, n), dtype=out_dtype, device=x.device)
+    err = launch_tc_stack(_bind()["tc"], x, out, None, ws, k, w8.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"quant_matmul launch failed: cudaError {err}")
+    launches += 1
+    launches_stack += 1
+    return out if n == n_out else out[..., :n_out].contiguous()

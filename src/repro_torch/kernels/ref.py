@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 __all__ = [
+    "over_experts",
     "inv_qmax",
     "dynamic_quant_ref",
     "int8_matmul",
@@ -47,6 +48,17 @@ __all__ = [
 # in float64 on the card, and blocking bounds the [K, block] float copy of
 # w8 (float64 there, float32 for the weight-only products).
 _F64_BLOCK_N = 16384
+
+
+def over_experts(fn, x: torch.Tensor, stacked, **kw) -> torch.Tensor:
+    """The plain version of an expert-stacked call: ``fn`` (a 2-D plain
+    version) on each expert's slice, ``fn(x[e], *(a[e] for a in stacked),
+    **kw)``, stacked to ``[E, M, N]``. An entry of ``stacked`` may be None
+    (passed as None)."""
+    return torch.stack([
+        fn(x[e], *(None if a is None else a[e] for a in stacked), **kw)
+        for e in range(x.shape[0])
+    ])
 
 
 def inv_qmax(qmax: float) -> float:

@@ -31,6 +31,14 @@ nibble) and ``j + (K+S)/2`` (high nibble), outlier rows zero; ``w8`` is
 is sliced: :func:`repro_torch.kernels.quant_matmul.padded_cols`); outputs
 are bitwise
 :func:`repro_torch.kernels.ref.w4a8_matmul_ref`.
+
+**The expert axis.** x ``[E, M, K]`` against a stack of W4A8 leaves (every
+operand with a leading ``[E]``: a MoE layer's experts, M = the capacity)
+is one call over all E experts (:func:`launch`: the prologue over every
+expert's rows, then one GEMM launch), with the plan of one expert's shapes
+and the workspaces sized for the stack; each expert's slice is bitwise the
+2-D call on it, which is the stack of one. Its plain version loops over
+the 2-D one.
 """
 from __future__ import annotations
 
@@ -43,7 +51,7 @@ import torch
 from . import ref, scratch
 from .build import load
 from .fused_qmatmul import split_plan, tile_for
-from .quant_matmul import pad_cols, padded_cols
+from .quant_matmul import pad_cols, padded_cols, stack_scales
 
 __all__ = [
     "w4a8_matmul_plain",
@@ -51,6 +59,7 @@ __all__ = [
     "launch",
     "launch_plan",
     "launches",
+    "launches_stack",
     "reset_launches",
     "row_layout",
 ]
@@ -58,6 +67,8 @@ __all__ = [
 # Wrapper calls that launched the CUDA kernel (one per call: the prologue
 # and the GEMM of one call count once).
 launches = 0
+# Of ``launches``, those over an expert stack (one call a stacked matrix).
+launches_stack = 0
 
 # Rows of the contraction a GEMM stage (csrc/i8_tc_gemm.cuh). Each half of
 # q2 and q8 are padded to whole stages, so no token box of a stage reads
@@ -71,8 +82,9 @@ _lib = None
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, launches_stack
     launches = 0
+    launches_stack = 0
 
 
 def _bind():
@@ -81,7 +93,8 @@ def _bind():
         fn = load("w4a8_qmatmul").w4a8_qmatmul_launch
         c_int, c_float, c_void_p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
         fn.argtypes = [
-            c_void_p, c_int, c_int, c_int, c_int,  # x, x_bf16, M, K, S
+            c_void_p, c_int, c_int,  # x, x_bf16, E
+            c_int, c_int, c_int,  # M, K, S
             c_void_p, c_void_p, c_int,  # src_tail, outlier_idx, T
             c_void_p, c_void_p, c_void_p, c_void_p, c_int,  # w4, s4, w8, s8, N
             c_float, c_float,  # qmax, inv_qmax
@@ -90,7 +103,7 @@ def _bind():
             c_int, c_int, c_int, c_void_p, c_void_p,  # tile, stages, nsplit, acc, counters
             c_void_p, c_int, c_void_p,  # out, out_bf16, stream
         ]
-        fn.restype = c_int
+        fn.restype = ctypes.c_int
         _lib = fn
     return _lib
 
@@ -129,7 +142,12 @@ def w4a8_matmul_plain(
     bits: int = 8,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """The plain PyTorch version (CPU path; the card's correctness oracle)."""
+    """The plain PyTorch version (CPU path; the card's correctness oracle).
+    An expert stack (x ``[E, M, K]`` and every other operand with a leading
+    ``[E]``) runs the 2-D version on each expert."""
+    if x.ndim == 3:
+        return ref.over_experts(w4a8_matmul_plain, x, (w4, s4, w8, s8, src_tail, outlier_idx),
+                                bits=bits, out_dtype=out_dtype)
     return ref.w4a8_matmul_ref(
         x, w4, s4.reshape(-1), w8, s8.reshape(-1), src_tail, outlier_idx, bits,
         out_dtype or torch.float32,
@@ -192,50 +210,80 @@ def w4a8_matmul_cuda(
     s4, s8: [N] f32; w8: [T, N] int8; src_tail: [S] int32; outlier_idx: [T]
     int32 -> [M, N] ``out_dtype`` (default f32; f32 or bf16). Raises on
     anything the kernel does not take. ``outlier_idx`` entries must lie in
-    ``[0, K+S)`` (the layout :func:`repro_torch.core.ocs.to_w4a8` makes)."""
-    global launches
-    s4, s8 = s4.reshape(-1), s8.reshape(-1)
-    _check(x, w4, s4, w8, s8, src_tail, outlier_idx, bits)
+    ``[0, K+S)`` (the layout :func:`repro_torch.core.ocs.to_w4a8` makes).
+    An expert stack (x [E, M, K], every other operand with a leading [E])
+    is one call -> [E, M, N]; a 2-D call runs as the stack of one."""
+    global launches, launches_stack
+    stacked = x.ndim == 3
+    if stacked:
+        e = x.shape[0]
+        if w4.ndim != 3 or w8.ndim != 3 or src_tail.ndim != 2 or outlier_idx.ndim != 2:
+            raise ValueError(f"want w4 [E, (K+S)/2, N], w8 [E, T, N], src_tail [E, S], "
+                             f"outlier_idx [E, T], got {tuple(w4.shape)}, {tuple(w8.shape)}, "
+                             f"{tuple(src_tail.shape)}, {tuple(outlier_idx.shape)}")
+        s4 = stack_scales(s4, e, w4.shape[2], x.device)
+        s8 = stack_scales(s8, e, w4.shape[2], x.device)
+        src_tail, outlier_idx = src_tail.contiguous(), outlier_idx.contiguous()
+        for name, t in (("x", x), ("w4", w4), ("w8", w8), ("src_tail", src_tail),
+                        ("outlier_idx", outlier_idx)):
+            if t.shape[0] != e:
+                raise ValueError(f"w4a8_matmul_cuda: {name} has {t.shape[0]} experts, want {e}")
+            if not t.is_contiguous():
+                raise ValueError(f"w4a8_matmul_cuda: {name} must be contiguous")
+        if e == 0:
+            raise ValueError("w4a8_matmul_cuda: no experts")
+        _check(x[0], w4[0], s4[0], w8[0], s8[0], src_tail[0], outlier_idx[0], bits)  # one slice
+    else:
+        s4, s8 = s4.reshape(-1), s8.reshape(-1)
+        _check(x, w4, s4, w8, s8, src_tail, outlier_idx, bits)
+        x, w4, s4, w8, s8, src_tail, outlier_idx = (
+            t[None] for t in (x, w4, s4, w8, s8, src_tail, outlier_idx))
     out_dtype = out_dtype or torch.float32
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
-    n_out = w4.shape[1]
+    n_out = w4.shape[2]
     n = padded_cols(n_out, 16)  # a ragged N runs zero columns up to n
     w4, s4, w8, s8 = pad_cols(w4, n), pad_cols(s4, n), pad_cols(w8, n), pad_cols(s8, n)
-    out = torch.empty((x.shape[0], n), dtype=out_dtype, device=x.device)
+    out = torch.empty((x.shape[0], x.shape[1], n), dtype=out_dtype, device=x.device)
     err = launch(_bind(), x, w4, s4, w8, s8, src_tail, outlier_idx, out,
                  float((1 << (bits - 1)) - 1))
     if err != 0:
         raise RuntimeError(f"w4a8_qmatmul launch failed: cudaError {err}")
     launches += 1
-    return out if n == n_out else out[:, :n_out].contiguous()
+    launches_stack += stacked
+    out = out if n == n_out else out[..., :n_out].contiguous()
+    return out if stacked else out[0]
 
 
 def launch(fn, x, w4, s4, w8, s8, src_tail, outlier_idx, out, qmax: float) -> int:
-    """Run B6's entry point ``fn`` (the prologue and the GEMM) into ``out``
-    with :func:`launch_plan`'s tile and split, the row scratch (``q2`` [M,
-    2 * Hp] int8, ``q8`` [M, Tp] int8 when T > 0, ``scale`` [M] f32:
-    :func:`row_layout`) and, with a split, the int32 accumulator and its
-    counters (zero at rest: the kernel leaves them zero), all kept per
-    device (``scratch``; reuse relies on stream order). Returns the entry
-    point's cudaError (0 = ok)."""
-    m, k = x.shape
-    h, n = w4.shape
-    t = outlier_idx.shape[0]
+    """Run B6's entry point ``fn`` (the prologue and the GEMM) once over
+    ``x`` ``[M, K]`` or an expert stack ``[E, M, K]`` (E = 1 for 2-D x) into
+    ``out`` with :func:`launch_plan`'s tile and split of one expert's
+    shapes, the row scratch (``q2`` [E, M, 2 * Hp] int8, ``q8`` [E, M, Tp]
+    int8 when T > 0, ``scale`` [E, M] f32: :func:`row_layout`) and, with a
+    split, the int32 accumulator ``[E, sums, M, N]`` and E sets of counters
+    (zero at rest: the kernel leaves them zero), all kept per device
+    (``scratch``; reuse relies on stream order). Returns the entry point's
+    cudaError (0 = ok)."""
+    e = x.shape[0] if x.ndim == 3 else 1
+    m, k = x.shape[-2:]
+    h, n = w4.shape[-2:]
+    t = outlier_idx.shape[-1]
     hp, tp = row_layout(h, t)
     dev = x.device
     tile, per, nsplit, acc_bytes, count_bytes = launch_plan(
         m, hp // _STAGE_K, tp // _STAGE_K, n)
-    q2 = scratch.buffer("b6_q2", dev, m * 2 * hp)
-    q8 = scratch.buffer("b6_q8", dev, m * tp).data_ptr() if t else None
-    scale = scratch.buffer("b6_scale", dev, 4 * m)
+    q2 = scratch.buffer("b6_q2", dev, e * m * 2 * hp)
+    q8 = scratch.buffer("b6_q8", dev, e * m * tp).data_ptr() if t else None
+    scale = scratch.buffer("b6_scale", dev, 4 * e * m)
     acc = counters = None
     if nsplit > 1:
-        acc = scratch.buffer("b6_acc", dev, acc_bytes, zeroed=True).data_ptr()
-        counters = scratch.buffer("split_k_counters", dev, count_bytes, zeroed=True).data_ptr()
+        acc = scratch.buffer("b6_acc", dev, e * acc_bytes, zeroed=True).data_ptr()
+        counters = scratch.buffer("split_k_counters", dev, e * count_bytes,
+                                  zeroed=True).data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     return fn(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), m, k, 2 * h - k,
+        x.data_ptr(), int(x.dtype == torch.bfloat16), e, m, k, 2 * h - k,
         src_tail.data_ptr(), outlier_idx.data_ptr(), t,
         w4.data_ptr(), s4.data_ptr(), w8.data_ptr(), s8.data_ptr(), n,
         qmax, ref.inv_qmax(qmax),

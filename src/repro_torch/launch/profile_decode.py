@@ -1,22 +1,25 @@
 """Where a decode step's time goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \
-        [--layers 40] [--matmul-mode dequant|w8a8|w4a8]
+        [--arch glm4-9b] [--layers N] [--matmul-mode {dequant,w8a8,w4a8} ...]
 
-Builds glm4-9b at full width (``--layers`` deep; random weights from
-``--seed``), quantizes it with the serving launcher's recipe and serves 8
-requests (16-256-token prompts) with ``EngineConfig(max_batch=8,
-max_len=512, matmul_mode=--matmul-mode)``: ``dequant`` (the default) on
-float32 KV pages, ``w8a8`` on int8 pages, ``w4a8`` (the engine converts the
-tree to W4A8 leaves) on int4 pages. The first engine step
-(admission, 8 prefills, one decode) runs unprofiled; the next ``--steps``
-decode steps run under ``torch.profiler`` (CPU + CUDA activity). Prints
-the device time and the device operations (kernel launches, memsets) per
-kernel family (the hand-written kernels' launches and every other kernel)
-and the device busy share of the profiled wall time;
-writes the same as JSON to ``--out``.
-Profiling adds host overhead: its step time is not the serving number
-(``chip_smoke.py`` measures that unprofiled).
+Builds ``--arch`` (glm4-9b by default; deepseek-moe-16b and the other
+registry archs too) at full width (``--layers`` deep, the arch's published
+depth by default; random weights from ``--seed``, each leaf drawn and
+quantized before the next), quantizes it with the serving launcher's recipe
+and serves 8 requests (16-256-token prompts) with
+``EngineConfig(max_batch=8, max_len=512, matmul_mode=--matmul-mode)``:
+``dequant`` (the default) on float32 KV pages, ``w8a8`` on int8 pages,
+``w4a8`` (the engine converts the tree to W4A8 leaves) on int4 pages;
+several modes are profiled in turn on the one quantized tree. The
+first engine step (admission, 8 prefills, one decode) runs unprofiled; the
+next ``--steps`` decode steps run under ``torch.profiler`` (CPU + CUDA
+activity). Prints the device time and the device operations (kernel
+launches, memsets) per kernel family (the hand-written kernels' launches
+and every other kernel) and the device busy share of the profiled wall
+time; writes the same as JSON to ``--out``. Profiling adds host overhead:
+its step time is not the serving number (``chip_smoke.py`` measures that
+unprofiled).
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..configs import get_config
+from ..configs import get_config, list_archs
 from ..core.apply import quantize_params
 from ..core.recipe import QuantRecipe
 from ..device import resolve_device
@@ -64,37 +67,15 @@ def _self_device_us(evt) -> float:
     return 0.0
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", type=int, default=40)
-    ap.add_argument("--steps", type=int, default=8)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--matmul-mode", default="dequant", choices=["dequant", "w8a8", "w4a8"])
-    ap.add_argument("--out", default="chiprun_out/profile_decode.json")
-    args = ap.parse_args(argv)
-    dev = resolve_device(None)
-
-    cfg = dataclasses.replace(get_config("glm4-9b"), n_layers=args.layers)
-    params = T.init_params(cfg, seed=args.seed, device=dev)
-    q = quantize_params(params, QuantRecipe(w_bits=8, w_clip="mse", ocs_ratio=0.02,
-                                            per_channel=True, pad_to=1), device=dev)
-    del params
-    kv_bits = {"dequant": None, "w8a8": 8, "w4a8": 4}[args.matmul_mode]
-    eng = ServingEngine(cfg, q, EngineConfig(max_batch=8, max_len=512,
-                                             matmul_mode=args.matmul_mode,
-                                             kv_bits=kv_bits, page_size=16), device=dev)
-    rng = np.random.default_rng(args.seed)
-    for i in range(8):
-        plen = int(rng.integers(16, 257))
-        eng.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab, plen).tolist(),
-                           max_new_tokens=args.steps + 2))
-    eng.step()  # admission + prefills + the first decode, unprofiled
-    torch.cuda.synchronize()
-
+def profile_steps(eng, steps: int) -> dict:
+    """Profile ``steps`` engine steps of ``eng`` (already past its first
+    step) under ``torch.profiler``: wall ms a step, device ms and device
+    operations a step per kernel family, the busy share, the largest other
+    kernels."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.steps):
+        for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -118,36 +99,85 @@ def main(argv=None):
             other_ops += e.count
             other_top.append((us, e.key))
     device_us = sum(fam.values()) + other
-    steps = args.steps
-    print(f"profiled {steps} decode steps ({args.matmul_mode}), {cfg.n_layers} layers, "
-          f"8 lanes: wall "
-          f"{wall_us / steps / 1e3:.2f} ms/step (profiler on)")
-    if device_us == 0:
-        print("device time: not measured (the profiler recorded no device activity)")
-    else:
-        for name, us, n in ([(k, fam[k], ops[k]) for k in fam]
-                            + [("other kernels", other, other_ops)]):
-            print(f"  {name}: {us / steps / 1e3:.3f} ms/step "
-                  f"({100 * us / device_us:.1f}% of device time; {n / steps:.0f} ops/step)")
-        print(f"device busy {device_us / steps / 1e3:.2f} ms/step = "
-              f"{100 * device_us / wall_us:.1f}% of wall; idle "
-              f"{100 * (1 - device_us / wall_us):.1f}%; "
-              f"{(sum(ops.values()) + other_ops) / steps:.0f} device operations a step")
-        for us, key in sorted(other_top, reverse=True)[:8]:
-            print(f"    other: {key[:90]}: {us / steps / 1e3:.3f} ms/step")
-    out = dict(layers=cfg.n_layers, steps=steps, matmul_mode=args.matmul_mode,
-               wall_ms_per_step=wall_us / steps / 1e3,
-               device_ms_per_step={k: v / steps / 1e3 for k, v in fam.items()},
-               other_ms_per_step=other / steps / 1e3,
-               device_ops_per_step={k: v / steps for k, v in ops.items()},
-               other_ops_per_step=other_ops / steps,
-               busy_share=(device_us / wall_us) if wall_us else None,
-               other_top=[(k, us / steps / 1e3) for us, k in sorted(other_top, reverse=True)[:20]],
-               card=torch.cuda.get_device_name(0))
-    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    Path(args.out).write_text(json.dumps(out, indent=1))
-    return out
+    return dict(steps=steps, wall_ms_per_step=wall_us / steps / 1e3,
+                device_ms_per_step={k: v / steps / 1e3 for k, v in fam.items()},
+                other_ms_per_step=other / steps / 1e3,
+                device_ops_per_step={k: v / steps for k, v in ops.items()},
+                other_ops_per_step=other_ops / steps,
+                ops_per_step=(sum(ops.values()) + other_ops) / steps,
+                busy_ms_per_step=device_us / steps / 1e3,
+                busy_share=(device_us / wall_us) if wall_us else None,
+                other_top=[(k, us / steps / 1e3)
+                           for us, k in sorted(other_top, reverse=True)[:20]])
 
+
+def report(prof: dict, label: str) -> None:
+    """Print :func:`profile_steps`' result."""
+    steps = prof["steps"]
+    print(f"profiled {steps} decode steps ({label}): wall "
+          f"{prof['wall_ms_per_step']:.2f} ms/step (profiler on)")
+    busy = prof["busy_ms_per_step"]
+    if busy == 0:
+        print("device time: not measured (the profiler recorded no device activity)")
+        return
+    rows = [(k, prof["device_ms_per_step"][k], prof["device_ops_per_step"][k])
+            for k in prof["device_ms_per_step"]]
+    rows.append(("other kernels", prof["other_ms_per_step"], prof["other_ops_per_step"]))
+    for name, ms, n in rows:
+        print(f"  {name}: {ms:.3f} ms/step ({100 * ms / busy:.1f}% of device time; "
+              f"{n:.0f} ops/step)")
+    print(f"device busy {busy:.2f} ms/step = {100 * prof['busy_share']:.1f}% of wall; idle "
+          f"{100 * (1 - prof['busy_share']):.1f}%; {prof['ops_per_step']:.0f} device "
+          "operations a step")
+    for key, ms in prof["other_top"][:8]:
+        print(f"    other: {key[:90]}: {ms:.3f} ms/step")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="glm4-9b", choices=list_archs())
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth (default: the arch's published depth)")
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--matmul-mode", nargs="+", default=["dequant"],
+                    choices=["dequant", "w8a8", "w4a8"],
+                    help="one or more modes, each profiled in turn on the one quantized tree "
+                         "(the output file of each named after its mode when several)")
+    ap.add_argument("--out", default="chiprun_out/profile_decode.json")
+    args = ap.parse_args(argv)
+    dev = resolve_device(None)
+
+    base = get_config(args.arch)
+    cfg = dataclasses.replace(base, n_layers=args.layers or base.n_layers)
+    params = T.init_params(cfg, seed=args.seed, device=dev, lazy=True)
+    q = quantize_params(params, QuantRecipe(w_bits=8, w_clip="mse", ocs_ratio=0.02,
+                                            per_channel=True, pad_to=1), device=dev)
+    del params
+    outs = []
+    for mode in args.matmul_mode:
+        kv_bits = {"dequant": None, "w8a8": 8, "w4a8": 4}[mode]
+        eng = ServingEngine(cfg, q, EngineConfig(max_batch=8, max_len=512, matmul_mode=mode,
+                                                 kv_bits=kv_bits, page_size=16), device=dev)
+        rng = np.random.default_rng(args.seed)
+        for i in range(8):
+            plen = int(rng.integers(16, 257))
+            eng.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab, plen).tolist(),
+                               max_new_tokens=args.steps + 2))
+        eng.step()  # admission + prefills + the first decode, unprofiled
+        torch.cuda.synchronize()
+        prof = profile_steps(eng, args.steps)
+        del eng
+        report(prof, f"{args.arch}, {mode}, {cfg.n_layers} layers, 8 lanes")
+        out = dict(arch=args.arch, layers=cfg.n_layers, matmul_mode=mode,
+                   card=torch.cuda.get_device_name(0), **prof)
+        path = Path(args.out)
+        if len(args.matmul_mode) > 1:
+            path = path.with_name(f"{path.stem}_{mode}{path.suffix}")
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(out, indent=1))
+        outs.append(out)
+    return outs[0] if len(outs) == 1 else outs
 
 if __name__ == "__main__":
     main()

@@ -1,7 +1,9 @@
 """Serving launcher: random model -> OCS PTQ -> batched serving.
 
 The port of ``repro.launch.serve`` for the path the port has: a freshly
-initialized dense model (weights from ``--seed``), quantized once with the
+initialized dense or MoE model (weights from ``--seed``, ``--arch`` any of
+the registry's: ``deepseek-moe-16b`` and ``phi3.5-moe-42b-a6.6b`` among
+them; each leaf is drawn and quantized before the next), quantized once with the
 reference launcher's recipe (``QuantRecipe(w_bits=--bits, w_clip=--clip,
 ocs_ratio=--ocs-ratio, per_channel=True, pad_to=1)``), then served through
 :class:`repro_torch.serving.ServingEngine`. Engine flags are generated from
@@ -44,6 +46,8 @@ around the run; progress is logged at ``--log-level``.
         --trace --trace-out trace.json --metrics-out metrics.prom --drift-every 2
     python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu \
         --replicas 2 --placement round_robin
+    python -m repro_torch.launch.serve --arch deepseek-moe-16b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch deepseek-moe-16b   # the card, full size
 """
 from __future__ import annotations
 
@@ -202,7 +206,9 @@ def main(argv=None):
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     rng = np.random.default_rng(args.seed)
 
-    params = T.init_params(cfg, seed=args.seed, device=dev)
+    # Drawn leaf by leaf and quantized as drawn: a full-size MoE tree never
+    # holds all of its float32 weights (deepseek-moe-16b: 67.5 GB).
+    params = T.init_params(cfg, seed=args.seed, device=dev, lazy=True)
     recipe = QuantRecipe(
         w_bits=args.bits, w_clip=args.clip, ocs_ratio=args.ocs_ratio,
         per_channel=True, pad_to=1,

@@ -26,6 +26,14 @@ the card, its plain version on the CPU):
   through the W4A8 kernel ``ops.w4a8_matmul`` (B6). An ``OCSQuantLinear``
   in this mode, or a ``W4A8Linear`` in another, raises ``ValueError``.
 
+An **expert stack** (a MoE layer's ``[E, ...]`` leaf: ``values [E, K+S,
+N]`` with ``[E, ...]`` scales and split tables, or the same for
+``W4A8Linear``) takes ``x [E, C, K]``, each expert's C rows (its capacity
+slots), and makes one kernel call for the stack: on the card one launch
+covers all E experts, each expert's slice bitwise the 2-D call on it; on
+the CPU the plain version loops over the experts. Any other stacked
+weight, or a stack with ``x`` of another shape, raises.
+
 The mode is an argument, never a module global. Calibrated activation grids
 (``a_scale``) have no producer on the serving path and are not ported.
 Activations stay bfloat16 between layers, as in the reference (``embed``
@@ -43,6 +51,7 @@ import torch
 from ..core import tap
 from ..core.ocs import OCSQuantLinear, W4A8Linear
 from ..kernels import ops as kops
+from ..kernels.quant_matmul import stack_scales
 
 __all__ = ["MODES", "dense", "rms_norm", "embed", "swiglu"]
 
@@ -91,6 +100,30 @@ def _ocs_dequant(w: OCSQuantLinear, x: torch.Tensor) -> torch.Tensor:
     return y.reshape(lead + (y.shape[-1],))
 
 
+def _is_expert_stack(values: torch.Tensor, mult: torch.Tensor, x: torch.Tensor) -> bool:
+    """A ``[E, K(+S), N]`` leaf with ``[E, ...]`` split tables applied to
+    ``x [E, C, K]`` (the same E)."""
+    return (values.ndim == 3 and mult.ndim == 2 and x.ndim == 3
+            and x.shape[0] == values.shape[0] == mult.shape[0])
+
+
+def _ocs_dequant_stack(w: OCSQuantLinear, x: torch.Tensor) -> torch.Tensor:
+    e, n = w.weight.values.shape[0], w.weight.values.shape[-1]
+    return kops.ocs_quant_matmul(
+        x.contiguous(), w.weight.values, stack_scales(w.weight.scale, e, n, x.device),
+        w.spec.src[:, w.n_orig:], tail_mult=w.spec.mult[:, w.n_orig:],
+        tail_is_mask=w.is_packed(), out_dtype=x.dtype,
+    )
+
+
+def _fused_w8a8_stack(w: OCSQuantLinear, x: torch.Tensor, bits: int) -> torch.Tensor:
+    e, n = w.weight.values.shape[0], w.weight.values.shape[-1]
+    return kops.fused_quant_matmul(
+        x.contiguous(), w.weight.values, stack_scales(w.weight.scale, e, n, x.device),
+        w.spec.src[:, w.n_orig:].contiguous(), bits=bits, out_dtype=x.dtype,
+    )
+
+
 def _w4a8(w: W4A8Linear, x: torch.Tensor) -> torch.Tensor:
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
@@ -112,9 +145,15 @@ def dense(w, x: torch.Tensor, *, mode: str, name: str = "") -> torch.Tensor:
             raise ValueError(
                 f"{what}: W4A8Linear weights serve in matmul mode 'w4a8', got {mode!r}"
             )
+        if w.w4.ndim == 3 and _is_expert_stack(w.w4, w.spec.mult, x):
+            return kops.w4a8_matmul(
+                x.contiguous(), w.w4, w.s4, w.w8, w.s8, w.spec.src[:, w.n_orig:].contiguous(),
+                w.outlier_idx, bits=w.a_bits, out_dtype=x.dtype,
+            )
         if w.w4.ndim != 2:
             raise ValueError(
-                f"{what}: slice stacked quantized weights per layer before the matmul"
+                f"{what}: slice stacked quantized weights per layer before the matmul "
+                "(an expert stack takes x [E, C, K])"
             )
         return _w4a8(w, x)
     if isinstance(w, OCSQuantLinear):
@@ -131,14 +170,21 @@ def dense(w, x: torch.Tensor, *, mode: str, name: str = "") -> torch.Tensor:
                 f"{what}: static calibrated activation grids (a_scale) are not "
                 "ported (ROADMAP A14)"
             )
+        bits = w.a_bits if w.a_bits is not None else 8
+        if _is_expert_stack(w.weight.values, w.spec.mult, x):
+            if mode == "dequant":
+                return _ocs_dequant_stack(w, x)
+            _check_packed(w)
+            return _fused_w8a8_stack(w, x, bits)
         if w.weight.values.ndim != 2 or w.spec.mult.ndim != 1:
             raise ValueError(
-                f"{what}: slice stacked quantized weights per layer before the matmul"
+                f"{what}: slice stacked quantized weights per layer before the matmul "
+                "(an expert stack takes x [E, C, K])"
             )
         if mode == "dequant":
             return _ocs_dequant(w, x)
         _check_packed(w)
-        return _fused_w8a8(w, x, w.a_bits if w.a_bits is not None else 8)
+        return _fused_w8a8(w, x, bits)
     return x @ w.to(x.dtype)
 
 

@@ -1,4 +1,5 @@
-"""Dense decoder LM (the port of ``repro.models.transformer``, dense block).
+"""Decoder LM (the port of ``repro.models.transformer``, dense and MoE
+blocks).
 
 Parameters are a nested dict of tensors laid out like the reference's
 ``init_params``: per-layer leaves are stacked ``[L, ...]`` under
@@ -17,10 +18,14 @@ runs two functions:
 
 All take ``mode``, the quantized-matmul mode every ``layers.dense`` call
 of the model runs (``"dequant"``, the reference's default, ``"w8a8"`` or
-``"w4a8"``).
+``"w4a8"``). A ``moe`` block (:mod:`repro_torch.models.moe`) replaces the
+dense block's MLP where the reference's does; it routes all the rows of
+its call (every lane of a decode or verify step, a prefill's whole
+bucket), as the reference's does.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional
 
@@ -33,6 +38,7 @@ from ..device import resolve_device
 from .attention import attention, attention_decode, attention_params_shape
 from .layers import dense, embed, rms_norm
 from .mlp import mlp, mlp_params_shape
+from .moe import moe, moe_params_shape
 
 __all__ = [
     "init_params",
@@ -46,9 +52,9 @@ __all__ = [
 
 
 def _check_block(cfg: ModelConfig) -> None:
-    if cfg.block != "dense" or cfg.norm != "rms" or not cfg.causal:
+    if cfg.block not in ("dense", "moe") or cfg.norm != "rms" or not cfg.causal:
         raise NotImplementedError(
-            f"{cfg.name}: the port has the dense causal RMSNorm decoder "
+            f"{cfg.name}: the port has the dense and MoE causal RMSNorm decoders "
             "(other blocks: ROADMAP A13)"
         )
     if cfg.mrope_sections is not None:
@@ -61,12 +67,16 @@ def _is_shape(x) -> bool:
 
 def layer_params_shape(cfg: ModelConfig) -> Dict:
     d = cfg.d_model
-    return {
+    shapes = {
         "norm1": {"scale": (d,)},
         "attn": attention_params_shape(cfg),
         "norm2": {"scale": (d,)},
-        "mlp": mlp_params_shape(cfg),
     }
+    if cfg.block == "moe":
+        shapes["moe"] = moe_params_shape(cfg)
+    else:
+        shapes["mlp"] = mlp_params_shape(cfg)
+    return shapes
 
 
 def model_params_shape(cfg: ModelConfig) -> Dict:
@@ -92,11 +102,18 @@ def init_params(
     seed: int = 0,
     dtype: torch.dtype = torch.float32,
     device=None,
+    lazy: bool = False,
 ):
     """Random parameters (same layout and scales as the reference: norms 1,
     embeddings N(0, 0.02^2), matrices N(0, 1/fan_in)). ``generator``
     defaults to ``torch.Generator(device).manual_seed(seed)``; leaves are
-    drawn in the tree's order."""
+    drawn in the tree's order.
+
+    With ``lazy`` every leaf is a zero-argument callable that draws it:
+    :func:`repro_torch.core.apply.quantize_params` draws, quantizes and
+    drops one leaf at a time in the tree's order, so the full float tree
+    (67.5 GB for deepseek-moe-16b in float32) is never held, and the leaves
+    are those an eager call draws."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
@@ -110,8 +127,11 @@ def init_params(
             return torch.zeros(shape, dtype=dtype, device=dev)
         std = 0.02 if "embed" in p else 1.0 / math.sqrt(shape[-2])
         w = torch.randn(shape, generator=generator, dtype=torch.float32, device=dev)
-        return (w * std).to(dtype)
+        return w.mul_(std).to(dtype)
 
+    if lazy:
+        return map_with_path(lambda path, shape: functools.partial(init_one, path, shape),
+                             model_params_shape(cfg), is_leaf=_is_shape)
     return map_with_path(init_one, model_params_shape(cfg), is_leaf=_is_shape)
 
 
@@ -139,7 +159,15 @@ def _block(cfg: ModelConfig, p, x, positions, *, mode: str, kv_prefix=None):
     )
     x = x + a
     h = rms_norm(p["norm2"]["scale"], x, cfg.norm_eps)
-    return x + mlp(p["mlp"], h, cfg, mode=mode), kv
+    return x + _ffn(cfg, p, h, mode), kv
+
+
+def _ffn(cfg: ModelConfig, p, h, mode: str):
+    """The block's feed-forward half: the MoE block (routing over all of
+    ``h``'s rows) or the dense MLP."""
+    if cfg.block == "moe":
+        return moe(p["moe"], h, cfg, mode=mode)
+    return mlp(p["mlp"], h, cfg, mode=mode)
 
 
 def decode_tokens(params, tokens: torch.Tensor, caches, cfg: ModelConfig, *,
@@ -174,7 +202,7 @@ def decode_tokens(params, tokens: torch.Tensor, caches, cfg: ModelConfig, *,
         )
         x = x + a
         h = rms_norm(p["norm2"]["scale"], x, cfg.norm_eps)
-        x = x + mlp(p["mlp"], h, cfg, mode=mode)
+        x = x + _ffn(cfg, p, h, mode)
         new_layers.append({"attn": pool})
     x = rms_norm(params["final_norm"]["scale"], x, cfg.norm_eps)
     logits = dense(_head(params, cfg), x, mode=mode, name="lm_head")

@@ -88,8 +88,9 @@ Every linear layer of prefill and decode runs in ``EngineConfig.matmul_mode``
 
 ``EngineConfig.kv_bits`` picks the page pools: float32 (unset), int8 (8)
 or packed int4 (4; B2's int4 branch). The engine runs on the card unless
-built with ``device="cpu"``. The unpaged engine (ROADMAP A16) and the
-other architectures (A13) are later slices.
+built with ``device="cpu"``. It serves the dense and the MoE decoders
+(deepseek-moe-16b, phi3.5-moe-42b-a6.6b). The unpaged engine (ROADMAP
+A16) and the other architectures (A13) are later slices.
 """
 from __future__ import annotations
 
@@ -348,9 +349,9 @@ class ServingEngine:
     ):
         self.device = resolve_device(device)
         config = config if config is not None else EngineConfig()
-        if cfg.block != "dense" or not cfg.causal:
+        if cfg.block not in ("dense", "moe") or not cfg.causal:
             raise NotImplementedError(
-                f"{cfg.name}: the port serves dense decoders (ROADMAP A13)"
+                f"{cfg.name}: the port serves dense and MoE decoders (ROADMAP A13)"
             )
         if self.device.type == "cuda":  # refuse up front, not at the first decode
             check_layout(cfg.hd, config.page_size)
@@ -434,7 +435,7 @@ class ServingEngine:
         self.done: List[Request] = []
         self.tokens = torch.zeros((self.max_batch, 1), dtype=torch.int32, device=self.device)
         self.admission = config.admission
-        self.replay_lengths: List[int] = []  # each resume replay's token count
+        self.replay_lengths: List[int] = []  # each resume replay's rows (its tail, padded on MoE)
         self._install_seq = 0  # monotonic install stamp (victim selection)
         # The step scheduler orders admission for every engine and plans
         # the chunks of budgeted prefill when prefill_budget > 0.
@@ -566,17 +567,32 @@ class ServingEngine:
         committed token). Every kernel gives a row what its one-token call
         gives it (the verify contract), so each row written is bitwise the
         row the uninterrupted run's decode step wrote. The port runs
-        eagerly: the call takes exactly the tail, no bucket. Booked as
-        decode time, as the reference books it."""
+        eagerly, so a dense model's call takes exactly the tail. A MoE
+        model's capacity follows the call's row count, so its call routes
+        the reference's rows: the tail zero-padded to the reference's
+        bucket (8, doubled until it holds the tail, at most ``max_len``).
+        The pad rows write K/V past the committed position, invisible to
+        every read and overwritten later, and rank after the tail in every
+        expert, so they take no slot from it. Booked as decode time, as the
+        reference books it; ``replay_lengths`` gets the rows the call
+        ran."""
         if len(tokens) == 0:
             return
+        rows = len(tokens)
+        if self.cfg.block == "moe":
+            rows = 8
+            while rows < len(tokens):
+                rows *= 2
+            rows = min(rows, self.max_len)
         dev = self.device
         caches = {
             "layers": self.caches["layers"],
             "table": self.caches["table"][slot_idx:slot_idx + 1],
             "pos": torch.tensor([start], dtype=torch.int32, device=dev),
         }
-        toks = torch.as_tensor(np.asarray(tokens, np.int32)[None, :], device=dev)
+        toks = np.zeros((1, rows), np.int32)
+        toks[0, :len(tokens)] = tokens
+        toks = torch.as_tensor(toks, device=dev)
         t0 = time.perf_counter()
         with torch.no_grad(), self._scope("serving_replay"):
             _, new_caches = T.decode_tokens(self.params, toks, caches, self.cfg,
@@ -585,7 +601,7 @@ class ServingEngine:
             torch.cuda.synchronize(dev)  # the replay's time is decode time
         self.decode_time_s += time.perf_counter() - t0
         self.caches["layers"] = new_caches["layers"]
-        self.replay_lengths.append(len(tokens))
+        self.replay_lengths.append(rows)
 
     def _finish_first_token(self, req: Request, first: int) -> bool:
         """Book the prefill-produced token; True if the request is already

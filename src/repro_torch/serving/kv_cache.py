@@ -96,8 +96,9 @@ def init_paged_cache(
 ) -> Dict:
     """Engine cache tree: ``layers[i]["attn"]`` is layer i's page pool;
     ``table`` and ``pos`` are shared across layers."""
-    if cfg.block != "dense":
-        raise NotImplementedError(f"paged KV cache: dense archs only, got {cfg.block}")
+    if cfg.block not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"paged KV cache: dense and MoE archs only, got {cfg.block} (ROADMAP A13)")
     return {
         "layers": [
             {"attn": init_page_pool(cfg, n_pages, page_size, device=device)}

@@ -115,7 +115,7 @@ class SpecDecoder:
     """Draft/verify rounds and acceptance bookkeeping for one engine."""
 
     def __init__(self, cfg: ModelConfig, spec: SpecConfig, matmul_mode: str):
-        if cfg.block != "dense":
+        if cfg.block not in ("dense", "moe"):
             raise ValueError(
                 f"speculative decoding: attention decoders only, got {cfg.block} "
                 "(SSM/hybrid decode states cannot roll back a rejected tail)"

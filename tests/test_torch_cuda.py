@@ -980,15 +980,15 @@ def test_engine_refuses_pages_the_kernel_cannot_copy_cuda(page_size):
         ServingEngine(cfg, params, ecfg, device="cuda")
 
 
-def _smoke_tree(matmul_mode):
-    """The smoke glm4-9b quantized on the CPU with the serving recipe (the
+def _smoke_tree(matmul_mode, arch="glm4-9b"):
+    """The smoke ``arch`` quantized on the CPU with the serving recipe (the
     W4A8 tier converted as the engine converts it)."""
     from repro_torch.configs import smoke_config
     from repro_torch.core.apply import map_with_path
     from repro_torch.core.ocs import OCSQuantLinear
     from repro_torch.models.transformer import init_params
 
-    cfg = smoke_config("glm4-9b")
+    cfg = smoke_config(arch)
     q = quantize_params(init_params(cfg, seed=0, device="cpu"),
                         QuantRecipe(w_bits=8, w_clip="mse", ocs_ratio=0.02, per_channel=True,
                                     pad_to=1), device="cpu")
@@ -1434,8 +1434,8 @@ def test_wo_prefill_tile_refuses_what_it_cannot_take_cuda(tile, n, k):
     ws = torch.ones(n, device="cuda")
     out = torch.full((64, n), 7.0, device="cuda")
     k_chunk, nsplit = tqm.tc_split_plan(k, n)
-    err = tqm._bind()["tc"](x.data_ptr(), 64, k, w8.data_ptr(), None, ws.data_ptr(), n, k_chunk,
-                            nsplit, tile, None, None, out.data_ptr(), 0,
+    err = tqm._bind()["tc"](x.data_ptr(), 1, 64, k, w8.data_ptr(), None, ws.data_ptr(), n,
+                            k_chunk, nsplit, tile, None, None, out.data_ptr(), 0,
                             torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert err == 1
@@ -1632,3 +1632,227 @@ def test_router_kill_migrate_exact_cuda():
     for rep in router.replicas:
         a = rep.engine.allocator
         assert a.in_use() + a.available() == a.capacity
+
+
+# The expert axis: a MoE layer's stacked matrices, one launch over all E
+# experts. deepseek-moe-16b's expert shapes (K, N) = (2048, 1408) and
+# (1408, 2048) with S as the serving recipe leaves it (r = 0.02), E = 64 at
+# C = 8 (decode) and E = 8 at larger capacities (verify 40, a prefill bucket
+# of 72 rows: the 64-token tiles and a ragged last tile), and a small stack
+# whose N = 72 runs zero-padded to 80.
+STACK_CASES = [(64, 8, 2048, 41, 1408), (64, 8, 1408, 29, 2048), (8, 32, 2048, 41, 1408),
+               (8, 72, 1408, 29, 2048), (4, 40, 296, 7, 72)]
+
+
+def _stack_case(e, c, k, s, n, seed, *, w4a8=False):
+    """Random stacked operands: x [E, C, K] bf16 with its last rows zero
+    (empty capacity slots) and expert 1 all zero; int8 weights [E, K+S, N]
+    with [E, N] scales and [E, S] tails whose last entry is a pad row (src
+    0, mult 0, zero weights); or W4A8 operands with [E, T] outlier rows."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn((e, c, k), generator=g, device="cuda") * 2.0).to(torch.bfloat16)
+    x[:, c - 3:] = 0
+    x[1] = 0
+    src = torch.randint(0, k, (e, s), generator=g, device="cuda", dtype=torch.int32)
+    src[:, -1] = 0
+    if w4a8:
+        ke = k + s + (k + s) % 2
+        if ke > k + s:
+            src = torch.cat([src, torch.zeros((e, 1), dtype=torch.int32, device="cuda")], 1)
+        t = max(1, (ke * 5) // 100)
+        w4 = torch.randint(0, 256, (e, ke // 2, n), generator=g, device="cuda",
+                           dtype=torch.int32).to(torch.uint8)
+        s4 = torch.rand((e, n), generator=g, device="cuda") * 0.01 + 1e-4
+        w8 = torch.randint(-127, 128, (e, t, n), generator=g, device="cuda", dtype=torch.int8)
+        s8 = torch.rand((e, n), generator=g, device="cuda") * 0.001 + 1e-5
+        oidx = torch.stack([torch.sort(torch.randperm(ke, generator=g, device="cuda")[:t]).values
+                            for _ in range(e)]).to(torch.int32)
+        return x, (w4, s4, w8, s8, src, oidx)
+    w8 = torch.randint(-127, 128, (e, k + s, n), generator=g, device="cuda", dtype=torch.int8)
+    w8[:, -1] = 0
+    ws = torch.rand((e, n), generator=g, device="cuda") * 0.01 + 1e-4
+    mult = torch.ones((e, s), device="cuda")
+    mult[:, -1] = 0
+    return x, (w8, ws, src, mult)
+
+
+def _stack_calls(kind, x, ops, out_dtype):
+    """``(stacked call, [2-D call of expert e], plain stacked call)`` of one
+    kernel on one stack."""
+    if kind == "b1":
+        w8, ws, src, _ = ops
+        return (lambda: tfq.fused_quant_matmul_cuda(x, w8, ws, src, out_dtype=out_dtype),
+                [lambda i=i: tfq.fused_quant_matmul_cuda(x[i], w8[i], ws[i], src[i],
+                                                         out_dtype=out_dtype)
+                 for i in range(x.shape[0])],
+                lambda: tfq.fused_quant_matmul_plain(x, w8, ws, src, out_dtype=out_dtype))
+    if kind == "b6":
+        return (lambda: tw4.w4a8_matmul_cuda(x, *ops, out_dtype=out_dtype),
+                [lambda i=i: tw4.w4a8_matmul_cuda(x[i], *(o[i] for o in ops),
+                                                  out_dtype=out_dtype)
+                 for i in range(x.shape[0])],
+                lambda: tw4.w4a8_matmul_plain(x, *ops, out_dtype=out_dtype))
+    w8, ws, src, mult = ops
+    k = x.shape[2]
+    if kind == "b5":
+        w8 = w8[:, :k].contiguous()
+        return (lambda: tqm.quant_matmul_cuda(x, w8, ws, out_dtype=out_dtype),
+                [lambda i=i: tqm.quant_matmul_cuda(x[i], w8[i], ws[i], out_dtype=out_dtype)
+                 for i in range(x.shape[0])],
+                lambda: tqm.quant_matmul_plain(x, w8, ws, out_dtype=out_dtype))
+    return (lambda: tom.ocs_quant_matmul_cuda(x, w8, ws, src, tail_mult=mult, tail_is_mask=True,
+                                              out_dtype=out_dtype),
+            [lambda i=i: tom.ocs_quant_matmul_cuda(x[i], w8[i], ws[i], src[i],
+                                                   tail_mult=mult[i], tail_is_mask=True,
+                                                   out_dtype=out_dtype)
+             for i in range(x.shape[0])],
+            lambda: tom.ocs_quant_matmul_plain(x, w8, ws, src, tail_mult=mult, tail_is_mask=True,
+                                               out_dtype=out_dtype))
+
+
+def _force_tile(monkeypatch, tile):
+    """Make ``quant_matmul.tc_plan`` give ``tile`` (None: its own choice);
+    operands the prefill tile's TMA cannot take stay on the decode tile."""
+    if tile is None:
+        return
+    plan = tqm.tc_plan
+
+    def forced(m, k, kv, n, max_part):
+        if tile == tqm.TC_PREFILL and n % 16 == 0 and k % 8 == 0:  # what its TMA takes
+            return (tqm.TC_PREFILL, *tqm.tc_split_plan(kv, n), m, 0, 0)
+        return (tqm.TC_DECODE, *tqm._tc_launch_plan(m, kv, n, max_part))
+
+    monkeypatch.setattr(tqm, "tc_plan", forced)
+    assert plan(8, 2048, 2048, 1408, tqm._MAX_PART_BYTES)[0] == tqm.TC_DECODE
+
+
+# (kernel, tile): B1 and B6 have one plan (their integer sums are exact in
+# any order); B4 and B5 run planned and on each of their two tiles.
+STACK_KINDS = [("b4", None), ("b4", 0), ("b4", 1), ("b5", None), ("b5", 0), ("b5", 1),
+               ("b1", None), ("b6", None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STACK_CASES, ids=lambda c: "E{}-C{}-K{}-N{}".format(*c[:3], c[4]))
+@pytest.mark.parametrize("kind,tile", STACK_KINDS,
+                         ids=lambda v: {None: "planned", 0: "decode-tile",
+                                        1: "prefill-tile"}.get(v, v))
+def test_expert_stack_bitwise_per_slice_cuda(kind, tile, case, monkeypatch):
+    """One launch over an expert stack (one count) is, expert by expert,
+    bitwise the 2-D launch on that expert's slice, f32 and bf16 outputs,
+    zero rows and an all-zero expert included (finite, and zero); against
+    the plain stacked call bitwise for B1 and B6, within the weight-only
+    bound for B4 and B5 (both of their tiles)."""
+    cuda_or_skip()
+    _force_tile(monkeypatch, tile)
+    e, c, k, s, n = case
+    x, ops = _stack_case(e, c, k, s, n, e * 1000 + c + k, w4a8=kind == "b6")
+    mod = {"b4": tom, "b5": tqm, "b1": tfq, "b6": tw4}[kind]
+    for out_dtype in (torch.float32, torch.bfloat16):
+        stacked, per_expert, plain = _stack_calls(kind, x, ops, out_dtype)
+        n0, s0 = mod.launches, mod.launches_stack
+        got = stacked()
+        torch.cuda.synchronize()
+        assert (mod.launches, mod.launches_stack) == (n0 + 1, s0 + 1)
+        assert got.shape == (e, c, n) and bool(torch.isfinite(got).all())
+        assert bool((got[:, c - 3:] == 0).all()) and bool((got[1] == 0).all())
+        for i, one in enumerate(per_expert):
+            assert _same_bits(got[i], one()), (out_dtype, i)
+        want = plain()
+        if kind in ("b1", "b6"):
+            assert _same_bits(got, want)
+        else:
+            w8 = ops[0] if kind == "b4" else ops[0][:, :k]
+            ws = ops[1]
+            xe = x.float()
+            if kind == "b4":
+                tail = torch.gather(xe, 2, ops[2].long()[:, None, :].expand(e, c, s))
+                xe = torch.cat([xe, tail * ops[3][:, None, :]], 2)
+            bound = WO_TOL_FACTOR * (xe.shape[2] + 2) * 2.0 ** -24 * torch.stack(
+                [tref.float_matmul(xe[i].abs(), w8[i].abs()) for i in range(e)]) * ws[:, None, :]
+            if out_dtype == torch.bfloat16:
+                bound = bound + _bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))
+            assert bool(((got.float() - want.float()).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+def test_expert_stack_refuses_cuda():
+    """A stacked call the kernels do not take raises before any launch: f32
+    x on B4/B5 (their CUDA-core route has no stack), K % 8 != 0 on B4/B5
+    (the stacked launch reads x through the TMA only), mismatched expert
+    counts, undeclared tail multipliers."""
+    cuda_or_skip()
+    x, (w8, ws, src, mult) = _stack_case(4, 8, 296, 7, 72, 0)
+    xr, (w8r, wsr, srcr, multr) = _stack_case(4, 8, 300, 7, 72, 0)
+    n0 = (tom.launches, tqm.launches, tfq.launches)
+    with pytest.raises(ValueError):
+        tom.ocs_quant_matmul_cuda(x.float(), w8, ws, src, tail_mult=mult, tail_is_mask=True)
+    with pytest.raises(ValueError):
+        tom.ocs_quant_matmul_cuda(x, w8, ws, src, tail_mult=mult)  # not declared a mask
+    with pytest.raises(ValueError, match="K % 8"):
+        tom.ocs_quant_matmul_cuda(xr, w8r, wsr, srcr, tail_mult=multr, tail_is_mask=True)
+    with pytest.raises(ValueError, match="K % 8"):
+        tqm.quant_matmul_cuda(xr, w8r[:, :300].contiguous(), wsr)
+    with pytest.raises(ValueError):
+        tfq.fused_quant_matmul_cuda(x[:3], w8, ws, src)
+    with pytest.raises(ValueError):
+        tqm.quant_matmul_cuda(x, w8[:, :296].contiguous(), ws[:2])
+    assert (tom.launches, tqm.launches, tfq.launches) == n0
+
+
+# A MoE replay's K/V rows on the card against the CPU's, of the largest.
+MOE_KV_RTOL = 0.01
+
+
+@pytest.mark.cuda
+def test_moe_replay_routes_the_bucket_cuda(monkeypatch):
+    """A MoE resume replay on the card (the phi3.5-moe smoke config,
+    dequant, float32 pages), every token forced onto the first k experts
+    so capacity decides the drops: a 40-token tail runs as the reference's
+    64-row bucket with that bucket's capacity, one stacked launch per
+    expert matrix and layer, and writes the tail's K/V rows as the CPU
+    engine's replay does, within ``MOE_KV_RTOL``."""
+    cuda_or_skip()
+    from repro_torch.models import moe
+    from repro_torch.serving import EngineConfig, ServingEngine
+
+    cfg, q = _smoke_tree("dequant", "phi3.5-moe-42b-a6.6b")
+    L = cfg.n_layers
+    own_dispatch = moe.dispatch
+    rows = []
+
+    def forced(router_w, xf, k):
+        probs = torch.softmax(xf.float() @ router_w.float(), -1)
+        gate = probs[:, :k]
+        idx = torch.arange(k, device=xf.device).expand(xf.shape[0], k)
+        return gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9), idx
+
+    def counting(top_idx, n_experts, cap):
+        rows.append((top_idx.shape[0], cap))
+        return own_dispatch(top_idx, n_experts, cap)
+
+    monkeypatch.setattr(moe, "route", forced)
+    monkeypatch.setattr(moe, "dispatch", counting)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, 40).astype(np.int32)
+    pages = list(range(1, 9))
+    kv = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, q, EngineConfig(max_batch=2, max_len=128, page_size=16,
+                                                 matmul_mode="dequant", kv_bits=None),
+                            device=dev)
+        eng._set_row(0, pages)
+        for m in (tom, tqm):
+            m.reset_launches()
+        eng._run_replay(0, toks, 0)
+        assert eng.replay_lengths == [64]
+        kv[dev] = [torch.stack([lay["attn"][name][pages].float().cpu() for name in ("k", "v")])
+                   for lay in eng.caches["layers"]]
+    assert tom.launches_stack + tqm.launches_stack == 3 * L
+    cap = moe.capacity(64, cfg.moe.top_k, cfg.moe.capacity_factor, cfg.moe.n_experts)
+    assert rows == [(64, cap)] * (2 * L)
+    for want, got in zip(kv["cpu"], kv["cuda"]):
+        # [2, pages, KV, ps, hd] -> [2, positions, KV, hd], the tail's rows
+        want = want.transpose(2, 3).reshape(2, -1, *want.shape[2:3], want.shape[-1])[:, :40]
+        got = got.transpose(2, 3).reshape(2, -1, *got.shape[2:3], got.shape[-1])[:, :40]
+        err = (got - want).abs().max().item()
+        assert torch.isfinite(got).all() and err <= MOE_KV_RTOL * want.abs().max().item(), err

@@ -53,7 +53,8 @@ def test_imports_without_jax_or_repro():
               "repro_torch.runtime.health", "repro_torch.obs", "repro_torch.obs.log",
               "repro_torch.obs.metrics", "repro_torch.obs.trace", "repro_torch.obs.drift",
               "repro_torch.core.tap", "repro_torch.serving.router",
-              "repro_torch.serving.chaos"):
+              "repro_torch.serving.chaos", "repro_torch.models.moe",
+              "repro_torch.configs.deepseek_moe_16b", "repro_torch.configs.phi35_moe_42b"):
         assert m in mods
     code = (
         "import sys, importlib, importlib.util\n"
@@ -249,7 +250,7 @@ def test_unported_modes_raise_at_engine_construction():
         assert r.finish_reason == "length" and len(r.output) == 3
         assert eng.stats()["kv_pages_in_use"] == 0.0
     with pytest.raises(NotImplementedError, match="A13"):
-        ServingEngine(dataclasses.replace(cfg, block="moe"), params,
+        ServingEngine(dataclasses.replace(cfg, block="mamba2"), params,
                       EngineConfig(max_len=64), device="cpu")
     q = quantize_params(params, QuantRecipe(w_bits=8, ocs_ratio=0.02, per_channel=True),
                         device="cpu")

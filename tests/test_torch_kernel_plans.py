@@ -271,11 +271,12 @@ def test_b4_launch_tc_takes_the_plan_of_its_virtual_rows(monkeypatch):
     err = tqm.launch_tc(lambda *a: calls.append(a) or 0, x, out, None, ws,
                         tqm.tc_rows(4096, 82), 82, 111, 222, 333)
     assert err == 0
-    assert [c[1] for c in calls] == [12, 12, 12, 4]  # rows a launch
+    assert [c[2] for c in calls] == [12, 12, 12, 4]  # rows a launch
     for c in calls:
-        assert c[2:7] == (4096, 82, 111, 222, 333)  # K, S, src_tail, tail_mult, w8
-        assert c[7] is None and c[8] == ws.data_ptr()
-        assert c[9:12] == (256, 288, 15)  # N, k_chunk, nsplit
+        assert c[1] == 1  # one expert: a 2-D call
+        assert c[3:8] == (4096, 82, 111, 222, 333)  # K, S, src_tail, tail_mult, w8
+        assert c[8] is None and c[9] == ws.data_ptr()
+        assert c[10:13] == (256, 288, 15)  # N, k_chunk, nsplit
         assert c[-2:] == (1, 7)  # bf16 out, the stream
     scratch.clear()
 
@@ -514,18 +515,18 @@ def test_b1_launch_hands_the_plan_and_kept_scratch_to_the_kernel(monkeypatch):
 
     a, b = calls_of(8, 4096, 2)
     assert a == b
-    assert a[2:6] == (8, 4096, 82, 4192)  # M, K, S, Kp
-    assert a[10:12] == (127.0, tfq.ref.inv_qmax(127.0))
-    assert a[14:17] == (0, 15, 9)  # tile, stages a split, splits
-    assert a[12] == scratch.buffer("b1_q_exp", dev, 0).data_ptr()
-    assert a[13] == scratch.buffer("b1_scale", dev, 0).data_ptr()
+    assert a[2:7] == (1, 8, 4096, 82, 4192)  # E (a 2-D call), M, K, S, Kp
+    assert a[11:13] == (127.0, tfq.ref.inv_qmax(127.0))
+    assert a[15:18] == (0, 15, 9)  # tile, stages a split, splits
+    assert a[13] == scratch.buffer("b1_q_exp", dev, 0).data_ptr()
+    assert a[14] == scratch.buffer("b1_scale", dev, 0).data_ptr()
     acc = scratch.buffer("b1_acc", dev, 0)
     counters = scratch.buffer("split_k_counters", dev, 0)
-    assert (a[17], a[18]) == (acc.data_ptr(), counters.data_ptr())
+    assert (a[18], a[19]) == (acc.data_ptr(), counters.data_ptr())
     assert acc.numel() >= 4 * 8 * 4096 and counters.numel() >= 4 * 16
     assert int(acc.count_nonzero()) == 0 and int(counters.count_nonzero()) == 0
     (c,) = calls_of(256, 151552, 1)
-    assert c[14:19] == (1, 131, 1, None, None) and c[-2:] == (1, 7)
+    assert c[15:20] == (1, 131, 1, None, None) and c[-2:] == (1, 7)
     assert scratch.buffer("b1_q_exp", dev, 0).numel() >= 256 * 4192
     scratch.clear()
 
@@ -667,25 +668,25 @@ def test_b6_launch_hands_the_plan_and_kept_scratch_to_the_kernel(monkeypatch):
 
     a, b = calls_of(8, 4096, 209, 2)
     assert a == b
-    assert a[2:5] == (8, 4096, 82) and a[7] == 209 and a[12] == 4096  # M, K, S; T; N
-    assert a[13:15] == (127.0, tref.inv_qmax(127.0))
-    assert (a[16], a[18]) == (2112, 224)  # Hp, Tp
-    assert a[20:23] == (0, 10, 8)  # tile, stages a split, splits
-    assert a[15] == scratch.buffer("b6_q2", dev, 0).data_ptr()
-    assert a[17] == scratch.buffer("b6_q8", dev, 0).data_ptr()
-    assert a[19] == scratch.buffer("b6_scale", dev, 0).data_ptr()
+    assert a[2:6] == (1, 8, 4096, 82) and a[8] == 209 and a[13] == 4096  # E, M, K, S; T; N
+    assert a[14:16] == (127.0, tref.inv_qmax(127.0))
+    assert (a[17], a[19]) == (2112, 224)  # Hp, Tp
+    assert a[21:24] == (0, 10, 8)  # tile, stages a split, splits
+    assert a[16] == scratch.buffer("b6_q2", dev, 0).data_ptr()
+    assert a[18] == scratch.buffer("b6_q8", dev, 0).data_ptr()
+    assert a[20] == scratch.buffer("b6_scale", dev, 0).data_ptr()
     acc = scratch.buffer("b6_acc", dev, 0)
     counters = scratch.buffer("split_k_counters", dev, 0)
-    assert (a[23], a[24]) == (acc.data_ptr(), counters.data_ptr())
+    assert (a[24], a[25]) == (acc.data_ptr(), counters.data_ptr())
     assert acc.numel() >= 2 * 4 * 8 * 4096 and counters.numel() >= 4 * 16
     assert int(acc.count_nonzero()) == 0 and int(counters.count_nonzero()) == 0
     assert scratch.buffer("b6_q2", dev, 0).numel() >= 8 * 2 * 2112
     (c,) = calls_of(256, 151552, 209, 1)
-    assert c[20:25] == (1, 73, 1, None, None) and c[-2:] == (1, 7)
+    assert c[21:26] == (1, 73, 1, None, None) and c[-2:] == (1, 7)
     assert scratch.buffer("b6_q2", dev, 0).numel() >= 256 * 2 * 2112
     (d,) = calls_of(8, 4096, 0, 1)
-    assert d[7] == 0 and d[17] is None and d[18] == 0
-    assert d[20:23] == tfq.split_plan(8, 66, 4096, 1, one_wave=True)[:3]
+    assert d[8] == 0 and d[18] is None and d[19] == 0
+    assert d[21:24] == tfq.split_plan(8, 66, 4096, 1, one_wave=True)[:3]
     scratch.clear()
 
 
@@ -838,15 +839,15 @@ def test_tc_launch_hands_the_plan_and_kept_scratch_to_the_kernel(monkeypatch):
         calls = []
         assert tqm.launch_tc(lambda *a: calls.append(a) or 0, x, out, None, ws,
                              tqm.tc_rows(4096, s), *args) == 0
-        return calls, 3 + len(args) + 2  # the index of N
+        return calls, 4 + len(args) + 2  # the index of N
 
     # B5 wq/wo at M = 256: the prefill tile, its 9 splits in one launch.
     (c,), at = calls_of(256, 4096, 0)
-    assert c[1:4] == (256, 4096, 333) and c[4] is None
+    assert c[1:5] == (1, 256, 4096, 333) and c[5] is None
     assert c[at:] == (4096, 480, 9, tqm.TC_PREFILL, None, None, c[-3], 1, 7)
     # B4 w_gate/w_up at a prefill of 64 rows: the prefill tile.
     (c,), at = calls_of(64, 13696, 82)
-    assert c[3:7] == (82, 111, 222, 333)
+    assert c[4:8] == (82, 111, 222, 333)
     assert c[at:at + 6] == (13696, 1408, 3, tqm.TC_PREFILL, None, None)
     # B5's lm_head, one split: the prefill tile too.
     (c,), at = calls_of(64, 151552, 0)
@@ -861,11 +862,11 @@ def test_tc_launch_hands_the_plan_and_kept_scratch_to_the_kernel(monkeypatch):
     # A smaller workspace bound: the decode tile's row chunks, one buffer.
     monkeypatch.setattr(tqm, "_MAX_PART_BYTES", 4 * 15 * 100 * 256)
     calls, at = calls_of(256, 256, 82)
-    assert [a[1] for a in calls] == [100, 100, 56]
+    assert [a[2] for a in calls] == [100, 100, 56]
     assert {a[at + 3:at + 6] for a in calls} == {
         (tqm.TC_DECODE, scratch.buffer("split_k", dev, 0).data_ptr(),
          scratch.buffer("split_k_counters", dev, 0).data_ptr())}
     # The prefill tile's calls do not chunk: no workspace bounds them.
     (c,), at = calls_of(512, 4096, 82)
-    assert c[1] == 512 and c[at + 3:at + 6] == (tqm.TC_PREFILL, None, None)
+    assert c[2] == 512 and c[at + 3:at + 6] == (tqm.TC_PREFILL, None, None)
     scratch.clear()

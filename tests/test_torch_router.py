@@ -11,7 +11,7 @@ migration offset); random interleavings of the router lifecycle never
 leak pages on any replica; one FaultPlan replayed twice gives the same
 outputs. Migration resumes through the engine's bit-exact resume (prompt
 re-prefill, committed tokens replayed through the decode path). The
-reference's MoE parametrisations wait for the MoE port (ROADMAP A13), and
+reference's MoE parametrisations are not ported yet (ROADMAP A13), and
 its unpaged-replica case is held with a stand-in engine (the port has no
 unpaged engine, A16).
 """
