@@ -3,6 +3,15 @@
 
     python3 chip_smoke.py [--layers N] [--short-layers N] [--phi-layers N] [--out DIR]
 
+Cuts, each logged where it is made: glm4-9b's depth (``--layers``, default
+its published 40), the clip-only trees, the k=16 spec phase, the chaos
+phase and hymba-1.5b's w4a8 phase at ``--short-layers`` (default 10),
+deepseek-moe-16b at ``MOE_LAYERS`` (16 of 28), phi3.5-moe at
+``--phi-layers`` (default 4 of 32); the SSM and hybrid serve
+phases' prompts: 16-20 tokens (8 requests on 8 lanes, 32 new tokens each;
+their prompts replay through the decode step, one full step a token, as
+the reference's do).
+
 Phases (any failure raises, and the script exits non-zero with no result):
 
 1. Print the card's name and power limit (``nvidia-smi``), build every CUDA
@@ -115,8 +124,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
 6. MoE serving: the glm4-9b trees are freed; deepseek-moe-16b at its
    published width (d_model 2048, 16/16 heads, hd 128, 64 routed experts
    top-6 of expert_ff 1408, 2 shared experts fused to width 2816,
-   capacity factor 1.25, vocab 102400) and 28 layers deep (the published
-   depth, never cut), its seeded weights drawn leaf by leaf on the
+   capacity factor 1.25, vocab 102400) and ``MOE_LAYERS`` deep (16 of
+   its published 28, a cut that keeps the script near half its time
+   limit), its seeded weights drawn leaf by leaf on the
    card and quantized as drawn (``init_params(lazy=True)`` through
    ``quantize_params``, the serving recipe; quantize seconds and peak
    device memory printed). Served as in 4 in (n) w8a8 (int8 pages), (o)
@@ -143,6 +153,31 @@ Phases (any failure raises, and the script exits non-zero with no result):
    bound. (s) phi3.5-moe-42b-a6.6b (16 experts top-2, no shared, GQA 32/8,
    expert_ff 6400, vocab 32064) at ``--phi-layers`` (default 4 of 32, a
    cut: its float32 tree is ~168 GB) in w8a8.
+6b. The unpaged engine (ROADMAP A16) and the SSM and hybrid decoders
+   (A13). Between the lifecycle phases and the traced phase, (d) glm4-9b
+   at ``--layers`` on the unpaged engine (``paged=False``: dense per-lane
+   float32 caches, a b = 1 scratch cache adopted after each prefill), the
+   plain phases' requests in dequant, monolithic and chunked
+   (``prefill_budget=128, chunk_size=64``), each held against the paged
+   plain dequant phase up to near-ties (``TIE_MARGIN``). After the MoE
+   phases: (a) mamba2-1.3b at its published width (d_model 2048, 64 SSM
+   heads of 64, d_state 128, d_inner 4096, vocab 50280, the lm_head the
+   tied float embedding) and depth (48, never cut), and (b) hymba-1.5b
+   (d_model 1600, 25/5 heads of 64, d_ff 5504, 50 SSM heads, d_state 16,
+   128 meta tokens, window 1024, global layers 0/15/31, vocab 32001: its
+   in_proj's 6482 and lm_head's 32001 columns stored padded to 6496 and
+   32016 once) at its 32 layers, each drawn leaf by leaf and quantized on
+   the card. (c) B1, B4 and B6 at each of their linear shapes (the
+   layer-0 and lm_head leaves; M in {1, 8, 256}, B4 also 64) and B5 on a
+   one-layer clip-only tree's, against their plain versions to the bounds
+   above (bitwise for B1, B6 and the int8 paths). Served on the unpaged
+   engine (``max_batch=8, max_len=64``, 8 requests of 16-20-token prompts,
+   32 new tokens: every decode step M = 8): mamba2-1.3b in dequant, w8a8 and w4a8, hymba-1.5b in
+   dequant and w8a8 on int8 caches, and in w4a8 at ``--short-layers`` (a
+   cut); each phase twice, the second token for token the first; the
+   mode's kernel 96 times a step and a prompt token (mamba2: in_proj and
+   out_proj of 48 layers) or 289 (hymba: 9 x 32 + lm_head), B2 never.
+   One decode step of each profiled (device operations, busy share).
 7. Reference check: a smoke-size glm4-9b run through prefill and
    teacher-forced decode on the card (kernels) and on the CPU (plain
    versions) from the same weights, in w8a8 (int8 pages), dequant (float
@@ -151,11 +186,16 @@ Phases (any failure raises, and the script exits non-zero with no result):
    within ``MODEL_RTOL`` of the largest logit. The same for the MoE smoke
    configs (deepseek-moe-16b in the three tiers, phi3.5-moe in w8a8), the
    card routing as the CPU did: its own expert set may differ only at a
-   near-tie (``ROUTE_TIE``).
+   near-tie (``ROUTE_TIE``). The smoke mamba2-1.3b and hymba-1.5b in the
+   three modes (hymba's w8a8 on int8 caches): 40 teacher-forced decode
+   steps of 2 lanes from fresh dense caches (past hymba's smoke window of
+   32), logits within ``SSM_CARD_RTOL`` of the mode.
 
 Output: a ``time:`` line at the end of each phase (seconds since the
 start), a ``kernels`` JSON line (every kernel's launches on its path,
-error, times and bound), the ``nvidia-smi`` line, and last
+``launches_by_path`` for the matmul kernels and B2 on every serving path,
+the SSM and hybrid models' GEMMs as entries of their own; error, times and
+bound), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Per-shape detail goes to
 ``<out>/chip_smoke.json``.
 """
@@ -616,16 +656,25 @@ def kernel_phase_b2v(gen, iters):
 
 
 def layer_weights(qparams):
-    """The layer-0 linear weights and the ``lm_head`` of a quantized tree."""
+    """The layer-0 quantized linear weights of a dense, Mamba2 or hymba tree,
+    named by their leaf's key (``wq`` ... ``w_down``, ``in_proj``,
+    ``out_proj``), and the ``lm_head`` where it is quantized (a tied
+    embedding is not)."""
+    from repro_torch.core.apply import map_with_path
+    from repro_torch.core.ocs import OCSQuantLinear
     from repro_torch.models.transformer import layer_params
 
-    lp = layer_params(qparams, 0)
-    return {
-        "wq": lp["attn"]["wq"], "wk": lp["attn"]["wk"], "wv": lp["attn"]["wv"],
-        "wo": lp["attn"]["wo"], "w_gate": lp["mlp"]["w_gate"],
-        "w_up": lp["mlp"]["w_up"], "w_down": lp["mlp"]["w_down"],
-        "lm_head": qparams["lm_head"],
-    }
+    out = {}
+
+    def visit(path, leaf):
+        if isinstance(leaf, OCSQuantLinear):
+            out[path[-1]] = leaf
+        return leaf
+
+    map_with_path(visit, layer_params(qparams, 0))
+    if isinstance(qparams.get("lm_head"), OCSQuantLinear):
+        out["lm_head"] = qparams["lm_head"]
+    return out
 
 
 def cycled(t):
@@ -1015,7 +1064,8 @@ def stacked_head(lin, n):
     return OCSQuantLinear(
         weight=QuantParams(w.values[:n], w.scale[:n], w.bits, w.channel_axis),
         spec=OCSSpec(sp.src[:n], sp.mult[:n], sp.bias[:n]), n_orig=lin.n_orig,
-        a_bits=lin.a_bits, a_scale=None if lin.a_scale is None else lin.a_scale[:n])
+        a_bits=lin.a_bits, a_scale=None if lin.a_scale is None else lin.a_scale[:n],
+        n_out=lin.n_out)
 
 
 def b6_times(run_kern, x, w4, s4, w8, s8, src, oidx, iters):
@@ -1072,10 +1122,10 @@ def kernel_phase_b6(qparams, gen, iters):
     weights = layer_weights(qparams)
     t0 = time.perf_counter()
     converted = {name: to_w4a8_checked(name, w) for name, w in weights.items()}
-    to_w4a8_checked("w_down layers 0-1 (stacked)",
-                    stacked_head(qparams["layers"]["mlp"]["w_down"], 2))
+    part, key = ("mlp", "w_down") if "mlp" in qparams["layers"] else ("ssm", "out_proj")
+    to_w4a8_checked(f"{key} layers 0-1 (stacked)", stacked_head(qparams["layers"][part][key], 2))
     log(f"to_w4a8 on the card: bitwise the CPU's conversion (w4, s4, w8, s8, outlier_idx, "
-        f"spec) for {', '.join(weights)} and a stacked two-layer w_down "
+        f"spec) for {', '.join(weights)} and a stacked two-layer {key} "
         f"({time.perf_counter() - t0:.1f} s with the CPU side)")
     groups = {}
     for name, w in weights.items():
@@ -1923,6 +1973,10 @@ def reference_check(seed):
 # lanes route 48 assignments to 64 experts: C = 8) and a prefill's (C = 32:
 # a 256-token bucket).
 STACK_CS = (8, 32)
+# deepseek-moe-16b's depth (of its published 28): a cut, since its
+# quantization takes ~4.4 s a layer on an H100 80GB HBM3 and the script
+# aims at half its time limit.
+MOE_LAYERS = 16
 # Card vs CPU at the MoE smoke sizes: the card routes as the CPU did, and
 # where its own router picks another expert set the k-th and (k+1)-th
 # probabilities must be this close (a flipped near-tie; the CPU test's
@@ -1945,10 +1999,21 @@ STACK_KERNELS = {
 def matmuls_per_layer(cfg) -> int:
     """``dense`` calls of a quantized weight a layer: attention's 4, and the
     MLP's 3 (dense) or the experts' 3 stacked calls plus the shared
-    experts' 3 (MoE)."""
+    experts' 3 (MoE); a Mamba2 layer's in_proj and out_proj; a hymba
+    layer's attention, SSM and MLP (9)."""
     if cfg.block == "moe":
         return 4 + 3 + (3 if cfg.moe.n_shared else 0)
+    if cfg.block == "mamba2":
+        return 2
+    if cfg.block == "hymba":
+        return 4 + 2 + 3
     return 7
+
+
+def matmuls_per_step(cfg) -> int:
+    """Quantized ``dense`` calls of one decode step: every layer's, and the
+    lm_head's unless it is the tied float embedding (mamba2-1.3b's)."""
+    return matmuls_per_layer(cfg) * cfg.n_layers + (0 if cfg.tie_embeddings else 1)
 
 
 def moe_model(arch, layers):
@@ -2327,23 +2392,25 @@ class RoutingCounts:
                         assigned=self.assigned[k]) for k in self.calls}
 
 
-def moe_step_profile(label, cfg, params, ecfg, seed, steps=2):
-    """The MoE decode step's device operations and busy share: a fresh
-    engine on the served tree, the phase's requests, one unprofiled step
-    (admission, prefills, a decode), then ``steps`` decode steps under
-    ``torch.profiler`` (``launch/profile_decode.py``'s reckoning)."""
+def moe_step_profile(label, cfg, params, ecfg, seed, steps=2, reqs=None):
+    """A decode step's device operations and busy share (a MoE model's, or
+    with ``reqs`` another's): a fresh engine on the served tree, the
+    phase's requests, one unprofiled step (admission, prefills, a decode),
+    then ``steps`` decode steps under ``torch.profiler``
+    (``launch/profile_decode.py``'s reckoning)."""
     import torch
     from repro_torch.launch.profile_decode import profile_steps
     from repro_torch.serving import ServingEngine
 
     eng = ServingEngine(cfg, params, ecfg, device="cuda")
-    for r in seeded_requests(cfg, seed):
+    for r in reqs if reqs is not None else seeded_requests(cfg, seed):
         eng.submit(r)
     eng.step()
     torch.cuda.synchronize()
     prof = profile_steps(eng, steps)
     ops = {k: v for k, v in prof["device_ops_per_step"].items() if v}
-    log(f"profile {label} ({cfg.n_layers} layers, 8 lanes, {steps} decode steps, profiler on): "
+    log(f"profile {label} ({cfg.n_layers} layers, {ecfg.max_batch} lanes, {steps} decode steps, "
+        f"profiler on): "
         f"{prof['ops_per_step']:.0f} device operations a step; device busy "
         f"{prof['busy_ms_per_step']:.2f} ms of {prof['wall_ms_per_step']:.2f} ms a step "
         f"({100 * (1 - prof['busy_share']):.1f}% idle); hand-written families {ops}")
@@ -2352,7 +2419,7 @@ def moe_step_profile(label, cfg, params, ecfg, seed, steps=2):
 
 
 def moe_phases(args, card, serve_cfg, gen):
-    """deepseek-moe-16b at its published depth (28, no cut): quantized leaf
+    """deepseek-moe-16b at ``MOE_LAYERS`` (16 of 28): quantized leaf
     by leaf on the card; served in w8a8 (int8 pages), dequant (float32
     pages) and w4a8 (int4 pages); each step profiled once; a spec w8a8
     phase; its clip-only tree at --short-layers (a cut) served in dequant
@@ -2364,7 +2431,7 @@ def moe_phases(args, card, serve_cfg, gen):
     from repro_torch.serving.spec_decode import SpecConfig
 
     out = {"serves": {}, "profiles": {}, "drops": {}}
-    cfg = moe_model("deepseek-moe-16b", None)
+    cfg = moe_model("deepseek-moe-16b", MOE_LAYERS)
     q, t_q, peak_q = moe_quantized(cfg, args.seed, 0.02)
     out.update(quantize_s=t_q, quantize_peak_gib=peak_q)
     phases = (("w8a8", serve_cfg.replace(matmul_mode="w8a8", kv_bits=8), "fused_qmatmul"),
@@ -2568,7 +2635,7 @@ def step_sum(rows, L, mode=None, m=8):
     once per layer (the lm_head once); ms, plain_ms, library_ms and
     bound_ms summed, and the bound's kind by its larger share."""
     per_step = {"wq": L, "wk": L, "wv": L, "wo": L, "w_gate": L, "w_up": L,
-                "w_down": L, "lm_head": 1}
+                "w_down": L, "in_proj": L, "out_proj": L, "lm_head": 1}
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms", "library_device_ms")
     tot = {k: 0.0 for k in keys}
     by_ops = 0.0
@@ -2585,6 +2652,287 @@ def step_sum(rows, L, mode=None, m=8):
             del tot[key]
     tot["bound_by"] = "operations" if by_ops > tot["bound_ms"] / 2 else "bytes"
     return tot
+
+
+# ---------------------------------------------------------------------------
+# The unpaged engine (EngineConfig.paged=False) and the SSM and hybrid
+# decoders it serves: mamba2-1.3b and hymba-1.5b.
+
+# The SSM and hybrid serve phases' requests: SSM_REQUESTS prompts of 16-20
+# seeded tokens (a cut: those prompts replay through the decode step, one
+# full b = 1 step a token, as the reference's engine replays them: ~0.1 s
+# a token for mamba2-1.3b, ~0.2 s for hymba-1.5b with an H100 80GB HBM3),
+# SSM_NEW_TOKENS new tokens each, greedy, on as many lanes (every decode
+# step's GEMMs at M = 8, as the kernel checks and the step sums take
+# them); max_len 64, below hymba's window of 1024: the full-size ring never
+# wraps (the smoke reference check passes its window of 32).
+SSM_REQUESTS = 8
+SSM_NEW_TOKENS = 32
+SSM_MAX_LEN = 64
+# Card (kernels) vs CPU (plain versions) logits of the SSM and hybrid smoke
+# models, relative to the largest logit, by matmul mode. B1 and B6 are
+# bitwise their plain versions and the recurrence, the conv and the
+# dense-cache attention gave the CPU's bits on the card (0 in w8a8 and
+# w4a8, int8 caches included, H100 80GB HBM3); B4 sums in another float32
+# order (0.0015 and 0.0019 of the largest logit in dequant).
+SSM_CARD_RTOL = {"dequant": 0.01, "w8a8": 0.0, "w4a8": 0.0}
+
+
+def ssm_requests(cfg, seed, prompt_len=None):
+    """The SSM and hybrid serve phases' requests (fresh ones on each call);
+    ``prompt_len`` cuts every prompt to that many tokens (the profiles)."""
+    import numpy as np
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(seed)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, int(rng.integers(16, 21))).tolist(),
+                    max_new_tokens=SSM_NEW_TOKENS) for i in range(SSM_REQUESTS)]
+    if prompt_len:
+        for r in reqs:
+            r.prompt = r.prompt[:prompt_len]
+    return reqs
+
+
+def unpaged_serve_phase(label, cfg, qparams, card, ecfg, matmul_kernel, reqs, plain=None):
+    """Serve ``reqs`` on an unpaged engine (``ecfg.paged`` False, or an SSM
+    or hybrid model); every launch count is set to 0 just before and read
+    just after. The mode's kernel must run ``matmuls_per_step`` times per
+    decode step and per prefill call (a replayed prompt token is one, as
+    the reference counts it), every other kernel not at all: B2 neither,
+    the dense caches' attention being torch ops. Every request must end by
+    length; parameters and every cache tensor lie on the card, attention
+    caches float32 or int8 as the phase asks. With ``plain`` (an earlier
+    phase's result) every request must be token for token its."""
+    import torch
+    from repro_torch.core.apply import map_with_path
+    from repro_torch.core.ocs import OCSQuantLinear, W4A8Linear
+    from repro_torch.serving import ServingEngine
+
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, qparams, ecfg, device="cuda")
+    torch.cuda.synchronize()
+    t_construct = time.perf_counter() - t0
+    if eng.paged or eng.admission != "reserve":
+        raise AssertionError(f"{label}: the engine is not an unpaged reserve engine")
+    new_tokens = reqs[0].max_new_tokens
+    for r in reqs:
+        eng.submit(r)
+    mods = counters()
+    for mod, _ in mods.values():
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: getattr(mod, attr) for name, (mod, attr) in mods.items()}
+    stats = eng.stats()
+    if len(done) != len(reqs) or any(r.finish_reason != "length" for r in done):
+        raise AssertionError(f"{label}: finish reasons {[r.finish_reason for r in done]}")
+    if any(len(r.output) != new_tokens for r in done):
+        raise AssertionError(f"{label}: a request did not produce {new_tokens} tokens")
+
+    def on_card(path, leaf):
+        ts = [leaf] if isinstance(leaf, torch.Tensor) else (
+            [leaf.weight.values, leaf.weight.scale, leaf.spec.src] if isinstance(
+                leaf, OCSQuantLinear) else [leaf.w4, leaf.w8, leaf.s4, leaf.s8]
+            if isinstance(leaf, W4A8Linear) else [])
+        if any(not t.is_cuda for t in ts):
+            raise AssertionError(f"{label}: {'/'.join(map(str, path))} not on the card")
+        if (ecfg.matmul_mode == "w4a8") != isinstance(leaf, W4A8Linear) and isinstance(
+                leaf, (OCSQuantLinear, W4A8Linear)):
+            raise AssertionError(f"{label}: {'/'.join(map(str, path))} in the wrong tier")
+        return leaf
+
+    map_with_path(on_card, eng.params)
+    map_with_path(on_card, eng.caches)
+    want_kv = torch.int8 if eng.kv_bits == 8 else torch.float32
+    for layer in eng.caches["layers"]:
+        if "attn" in layer and layer["attn"]["k"].dtype != want_kv:
+            raise AssertionError(f"{label}: attention cache of {layer['attn']['k'].dtype}")
+    steps, calls = stats["decode_steps"], stats["prefill_calls"]
+    want = {name: 0 for name in counts}
+    want[matmul_kernel] = matmuls_per_step(cfg) * (steps + calls)
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts}, want {want}")
+    outputs = {r.uid: list(r.output) for r in done}
+    prompts = {r.uid: list(r.prompt) for r in done}
+    if plain is not None:
+        bad = sorted(uid for uid in outputs if outputs[uid] != plain["outputs"][uid])
+        if bad:
+            raise AssertionError(f"{label}: requests {bad} differ from {plain['label']}'s tokens")
+    kv = "int8" if eng.kv_bits == 8 else "float32"
+    log(f"serve {label}: engine built in {t_construct:.2f} s; {len(done)} requests, "
+        f"{stats['prefill_tokens']} prompt tokens over {calls} prefill calls, {steps} decode "
+        f"steps, {stats['decoded_tokens']} decoded tokens, {kv} dense caches, wall {wall:.2f} s")
+    log(f"serve {label} on {card}: prefill {stats['prefill_tok_per_s']:.1f} tok/s | decode "
+        f"{stats['decode_tok_per_s']:.1f} tok/s | ttft p50 {stats['ttft_p50_s'] * 1e3:.1f} ms "
+        f"p95 {stats['ttft_p95_s'] * 1e3:.1f} ms | itl p50 {stats['itl_p50_s'] * 1e3:.2f} ms "
+        f"p95 {stats['itl_p95_s'] * 1e3:.2f} ms")
+    log(f"serve {label}: {matmul_kernel} wrapper calls {counts[matmul_kernel]} = "
+        f"{matmuls_per_step(cfg)} x ({steps} decode steps + {calls} prefill calls); others 0"
+        + (f"; every request token for token {plain['label']}'s" if plain else ""))
+    return dict(label=label, stats=stats, wall_s=wall, launches=counts, n_layers=cfg.n_layers,
+                construct_s=t_construct, outputs=outputs, prompts=prompts, kv=kv)
+
+
+def glm_unpaged_phases(cfg, qparams, seed, card, serve_cfg, serves):
+    """Phase (d): glm4-9b on the unpaged engine (``paged=False``), the plain
+    dequant phase's requests, monolithic and chunked (``prefill_budget=128,
+    chunk_size=64``), each held against the paged plain dequant phase up to
+    its near-ties (the prefill's key count and the decode attention's sums
+    differ between the two caches)."""
+    out = {}
+    for label, extra in (("unpaged dequant", {}),
+                         ("unpaged chunked dequant", dict(prefill_budget=128, chunk_size=64))):
+        ph = unpaged_serve_phase(label, cfg, qparams, card,
+                                 serve_cfg.replace(paged=False, **extra), "ocs_matmul",
+                                 seeded_requests(cfg, seed))
+        if extra:
+            need = sum(-(-len(p) // 64) for p in ph["prompts"].values())
+            if ph["stats"]["sched_chunks"] < need:
+                raise AssertionError(f"{label}: {ph['stats']['sched_chunks']} chunks, the "
+                                     f"prompts need {need}")
+        else:
+            if ph["stats"]["prefill_calls"] != 8:
+                raise AssertionError(f"{label}: {ph['stats']['prefill_calls']} prefill calls")
+        ph["partings"] = hold_near_ties(label, cfg, qparams, ph, serves["dequant"], "dequant")
+        out[label] = ph
+    return out
+
+
+def ssm_model(arch, layers):
+    """``arch`` (mamba2-1.3b or hymba-1.5b) at full width, ``layers`` deep
+    (None: its published depth), the cut logged."""
+    from repro_torch.configs import get_config
+
+    base = get_config(arch)
+    layers = base.n_layers if layers is None else layers
+    cfg = dataclasses.replace(base, n_layers=layers)
+    cut = "no cut" if layers == base.n_layers else f"cut: n_layers {layers} of {base.n_layers}"
+    if cfg.hymba is not None and layers < base.n_layers:
+        # The first layers of the full model: its global layers among them.
+        glob = tuple(i for i in base.hymba.global_layers if i < layers)
+        cfg = dataclasses.replace(cfg, hymba=dataclasses.replace(cfg.hymba, global_layers=glob))
+        cut += f", global layers {glob} of {base.hymba.global_layers}"
+    s = cfg.ssm
+    extra = ""
+    if cfg.hymba is not None:
+        extra = (f", attention {cfg.n_heads}/{cfg.n_kv_heads} heads hd {cfg.hd}, d_ff "
+                 f"{cfg.d_ff}, {cfg.hymba.n_meta_tokens} meta tokens, window "
+                 f"{cfg.hymba.swa_window}, global layers {cfg.hymba.global_layers}")
+    log(f"model: {arch} at full width (d_model {cfg.d_model}, {cfg.ssm_heads} SSM heads of "
+        f"{s.head_dim}, d_state {s.d_state}, d_inner {cfg.d_inner}{extra}, vocab {cfg.vocab}"
+        f"{', tied lm_head' if cfg.tie_embeddings else ''}), {layers} layers ({cut})")
+    return cfg
+
+
+def ssm_phases(args, card, gen):
+    """(a) mamba2-1.3b at 48 layers (never cut) in dequant, w8a8 and w4a8,
+    and (b) hymba-1.5b at 32 layers in dequant and w8a8 on int8 caches and,
+    at ``--short-layers`` (a cut), w4a8: each quantized leaf by leaf on the
+    card, served on the unpaged engine twice (the second token for token
+    the first), and one decode step of each profiled. (c) B1, B4 and B6 at
+    each of their linear shapes on the layer-0 and lm_head leaves, B5 on a
+    one-layer clip-only tree's, against their plain versions."""
+    import torch
+    from repro_torch.serving import EngineConfig
+
+    out = {"serves": {}, "profiles": {}, "kernels": {}, "quantize": {}}
+    base = EngineConfig(max_batch=SSM_REQUESTS, max_len=SSM_MAX_LEN)
+    iters = max(5, args.iters // 2)
+    for arch, modes in (("mamba2-1.3b", (("dequant", None, None), ("w8a8", None, None),
+                                         ("w4a8", None, None))),
+                        ("hymba-1.5b", (("dequant", None, None), ("w8a8", 8, None),
+                                        ("w4a8", None, args.short_layers)))):
+        cfg = ssm_model(arch, None)
+        q, t_q, peak_q = moe_quantized(cfg, args.seed, 0.02)
+        out["quantize"][arch] = dict(seconds=t_q, peak_gib=peak_q, layers=cfg.n_layers)
+        kern = {"B1": kernel_phase_b1(q, cfg, gen, iters),
+                "B4": kernel_phase_wo("B4", q, gen, iters),
+                "B6": kernel_phase_b6(q, gen, iters)}
+        qc, _, _ = moe_quantized(dataclasses.replace(cfg, n_layers=1), args.seed, 0.0)
+        kern["B5"] = kernel_phase_wo("B5", qc, gen, iters)
+        del qc
+        out["kernels"][arch] = kern
+        for mode, kv_bits, layers in modes:
+            c, qm = cfg, q
+            if layers is not None and layers < cfg.n_layers:
+                c = ssm_model(arch, layers)
+                qm = head_layers(q, layers)
+            ecfg = base.replace(matmul_mode=mode, kv_bits=kv_bits)
+            label = f"{arch} {mode}" + (" int8 caches" if kv_bits else "") + (
+                f" ({c.n_layers} layers)" if c is not cfg else "")
+            first = unpaged_serve_phase(label, c, qm, card, ecfg, MODE_KERNEL[mode],
+                                        ssm_requests(c, args.seed))
+            again = unpaged_serve_phase(label + ", again", c, qm, card, ecfg, MODE_KERNEL[mode],
+                                        ssm_requests(c, args.seed), plain=first)
+            out["serves"][label] = first
+            out["serves"][label + ", again"] = again
+            out["profiles"][label] = moe_step_profile(
+                label, c, qm, ecfg, args.seed, reqs=ssm_requests(c, args.seed, prompt_len=4))
+        del q
+        torch.cuda.empty_cache()
+    return out
+
+
+def ssm_smoke_logits(qp, cfg, seed, dev, mode):
+    """40 teacher-forced decode steps of 2 lanes from fresh dense caches
+    (past hymba's smoke window of 32): logits [40, 2, V] f32."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab, (40, 2))
+    caches = T.init_cache(cfg, 2, 64, device=dev)
+    out = []
+    with torch.no_grad():
+        for row in toks:
+            lg, caches = T.decode_step(qp, torch.as_tensor(row[:, None], device=dev), caches,
+                                       cfg, mode=mode)
+            out.append(lg.float().cpu())
+    return torch.stack(out)
+
+
+def ssm_reference_check(seed):
+    """The smoke mamba2-1.3b and hymba-1.5b, card kernels vs CPU plain
+    versions from the same tree (quantized on the CPU, the SSM in_proj
+    stored padded), in each matmul mode (hymba's w8a8 on int8 caches):
+    logits within ``SSM_CARD_RTOL`` of the mode of the largest."""
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.apply import map_with_path, quantize_params, tree_to
+    from repro_torch.core.ocs import OCSQuantLinear, to_w4a8
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.models import transformer as T
+
+    out = {}
+    for arch in ("mamba2-1.3b", "hymba-1.5b"):
+        base = smoke_config(arch)
+        q = quantize_params(T.init_params(base, seed=seed, device="cpu"),
+                            QuantRecipe(w_bits=8, w_clip="mse", ocs_ratio=0.02,
+                                        per_channel=True, pad_to=1), device="cpu")
+        for mode in ("dequant", "w8a8", "w4a8"):
+            kv_bits = 8 if (mode == "w8a8" and arch == "hymba-1.5b") else None
+            cfg = dataclasses.replace(base, kv_bits=kv_bits)
+            qp = q if mode != "w4a8" else map_with_path(
+                lambda _p, leaf: to_w4a8(leaf, W4A8_RATIO)
+                if isinstance(leaf, OCSQuantLinear) else leaf, q)
+            cpu = ssm_smoke_logits(qp, cfg, seed, "cpu", mode)
+            card = ssm_smoke_logits(tree_to(qp, torch.device("cuda")), cfg, seed, "cuda", mode)
+            scale = cpu.abs().max().item()
+            err = (card - cpu).abs().max().item()
+            label = f"{arch} {mode}" + (" int8 caches" if kv_bits else "")
+            rtol = SSM_CARD_RTOL[mode]
+            if not torch.isfinite(card).all() or err > rtol * scale:
+                raise AssertionError(f"reference check ({label}): max |d logits| {err} > "
+                                     f"{rtol} x {scale}")
+            agree = float((card.argmax(-1) == cpu.argmax(-1)).float().mean())
+            log(f"reference check ({label}; smoke size, 40 teacher-forced decode steps of 2 "
+                f"lanes, card kernels vs CPU plain): max |d logits| {err:.6g} of max |logit| "
+                f"{scale:.6g} ({err / scale:.3g}; limit {rtol}); argmax agreement "
+                f"{agree:.4f}")
+            out[label] = dict(max_abs_err=err, logit_scale=scale, argmax_agreement=agree)
+    return out
 
 
 def main(argv=None) -> int:
@@ -2731,6 +3079,8 @@ def main(argv=None) -> int:
     mark("spec serves")
     serves.update(lifecycle_phases(cfg, qparams, args.seed, card, serve_cfg, serves))
     mark("lifecycle serves")
+    serves.update(glm_unpaged_phases(cfg, qparams, args.seed, card, serve_cfg, serves))
+    mark("unpaged glm4-9b serves")
     serves["traced dequant"] = traced_phase(cfg, qparams, args.seed, card, serve_cfg, serves,
                                             args.out)
     serves["router w8a8"] = router_phase(cfg, qparams, args.seed, serve_cfg, serves)
@@ -2773,8 +3123,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     moe = moe_phases(args, card, serve_cfg, gen_k)
     mark("MoE phases")
+    ssm = ssm_phases(args, card, gen_k)
+    mark("SSM and hybrid phases")
     refc = reference_check(args.seed)
     refc.update(moe_reference_check(args.seed))
+    refc.update(ssm_reference_check(args.seed))
     mark("reference check")
 
     L = cfg.n_layers
@@ -2867,6 +3220,59 @@ def main(argv=None) -> int:
         kernels.append(entry(name, replaces,
                              moe["serves"][stack_serve[base]]["launches"][base + "_experts"],
                              t["max_abs_err"], t, source=source))
+    # The SSM and hybrid models' decode steps (M = 8): mamba2-1.3b's 2 x 48
+    # calls (its lm_head is the tied float embedding), hymba-1.5b's 9 x L +
+    # lm_head at the depth each mode was served (w4a8 at --short-layers);
+    # launches from the first serve of each mode.
+    ssm_serve = {("mamba2-1.3b", "dequant"): "mamba2-1.3b dequant",
+                 ("mamba2-1.3b", "w8a8"): "mamba2-1.3b w8a8",
+                 ("mamba2-1.3b", "w4a8"): "mamba2-1.3b w4a8",
+                 ("hymba-1.5b", "dequant"): "hymba-1.5b dequant",
+                 ("hymba-1.5b", "w8a8"): "hymba-1.5b w8a8 int8 caches",
+                 ("hymba-1.5b", "w4a8"): next(k for k in ssm["serves"]
+                                              if k.startswith("hymba-1.5b w4a8")
+                                              and not k.endswith("again"))}
+    ssm_kind = {"dequant": ("ocs_matmul", "B4", "src/repro/kernels/ocs_matmul.py:44"),
+                "w8a8": ("fused_qmatmul", "B1", "src/repro/kernels/fused_qmatmul.py:60"),
+                "w4a8": ("w4a8_qmatmul", "B6", "src/repro/kernels/fused_qmatmul.py:220")}
+    ssm_what = {}
+    for (arch, mode), label in ssm_serve.items():
+        base, kind, replaces = ssm_kind[mode]
+        rows = ssm["kernels"][arch][kind]
+        depth = ssm["serves"][label]["n_layers"]
+        t = step_sum(rows, depth, "weight-only" if kind == "B4" else None)
+        err = wo_err(rows) if kind == "B4" else 0.0
+        name = f"{base}_{arch.split('-')[0]}"
+        kernels.append(entry(name, replaces,
+                             ssm["serves"][label]["launches"][base], err, t,
+                             source=f"src/repro_torch/csrc/{base}.cu"))
+        ssm_what[name] = (f"one {depth}-layer {arch} decode step's "
+                          f"calls, M=8; launches from the {label} serve (unpaged engine)")
+    # Every kernel's launches on every serving path (the first serve of each
+    # path in the mode that runs it; B2 runs on none of the unpaged paths).
+    paths = {
+        "glm4-9b paged": {"fused_qmatmul": serves["w8a8"], "ocs_matmul": serves["dequant"],
+                          "quant_matmul": serves["clip-only"], "w4a8_qmatmul": serves["w4a8"],
+                          "paged_attention": serves["w8a8"]},
+        "glm4-9b unpaged": {"ocs_matmul": serves["unpaged dequant"],
+                            "paged_attention": serves["unpaged dequant"]},
+        "deepseek-moe-16b paged": {"fused_qmatmul": moe["serves"]["w8a8"],
+                                   "ocs_matmul": moe["serves"]["dequant"],
+                                   "quant_matmul": moe["serves"]["clip-only dequant"],
+                                   "w4a8_qmatmul": moe["serves"]["w4a8"],
+                                   "paged_attention": moe["serves"]["w8a8"]},
+    }
+    for arch in ("mamba2-1.3b", "hymba-1.5b"):
+        paths[f"{arch} unpaged"] = {
+            ssm_kind[mode][0]: ssm["serves"][ssm_serve[(arch, mode)]]
+            for mode in ("dequant", "w8a8", "w4a8")}
+        paths[f"{arch} unpaged"]["paged_attention"] = ssm["serves"][ssm_serve[(arch, "w8a8")]]
+    for k in kernels:
+        base = k["name"]
+        if base in ("fused_qmatmul", "ocs_matmul", "quant_matmul", "w4a8_qmatmul",
+                    "paged_attention"):
+            k["launches_by_path"] = {path: runs[base]["launches"][base]
+                                     for path, runs in paths.items() if base in runs}
     tiles = {"ocs_matmul": wo_tiles(b4), "quant_matmul": wo_tiles(b5)}
     for k in kernels:
         if k["name"] in tiles:
@@ -2885,6 +3291,7 @@ def main(argv=None) -> int:
         what[name] = (f"one {Lm}-layer deepseek-moe-16b decode step's expert-stacked calls "
                       f"(E=64, C=8: w_gate, w_up, w_down a layer); launches from the "
                       f"{stack_serve[base]} MoE serve phase")
+    what.update(ssm_what)
     for k in kernels:
         lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
         dev = (f" device_ms={k['device_ms']:.4f}" if "device_ms" in k else "") + (
@@ -2900,14 +3307,16 @@ def main(argv=None) -> int:
                   quantize_s=t_quant, quantize_clip_s=t_quant_clip, total_s=total,
                   peak_mem_gib=peak_gb, b1=b1, b2=b2, b2v=b2v, b2v_replay=b2v_replay, b3=b3,
                   b4=b4, b5=b5, b6=b6,
-                  verify_check=verify, serve=serves, phase_end_s=marks, moe=moe,
+                  verify_check=verify, serve=serves, phase_end_s=marks, moe=moe, ssm=ssm,
                   reference_check=refc, kernels=kernels)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(detail, indent=1, default=str))
     log(f"total: {total:.1f} s (build {t_build:.1f} s, quantize {t_quant:.1f} + "
         f"{t_quant_clip:.1f} s, deepseek-moe-16b {moe['quantize_s']:.1f} + "
-        f"{moe['quantize_clip_s']:.1f} s, phi3.5-moe {moe['phi_quantize_s']:.1f} s), depth {L} "
+        f"{moe['quantize_clip_s']:.1f} s, phi3.5-moe {moe['phi_quantize_s']:.1f} s, mamba2-1.3b "
+        f"{ssm['quantize']['mamba2-1.3b']['seconds']:.1f} s, hymba-1.5b "
+        f"{ssm['quantize']['hymba-1.5b']['seconds']:.1f} s), depth {L} "
         f"layers (clip-only tree {cfg_clip.n_layers}; deepseek-moe-16b {Lm}, its clip-only "
         f"tree {moe['clip_layers']}; phi3.5-moe {moe['phi_layers']}), peak device memory "
         f"{peak_gb:.1f} GiB")

@@ -1,16 +1,26 @@
 """Architecture registry: --arch <id> lookup + reduced smoke variants.
 
-The port serves the dense and MoE attention archs; the other families of
-``repro.configs`` (SSM, hybrid, encoder) arrive with their model code.
+The port serves the dense and MoE attention archs, the SSM decoder
+(mamba2-1.3b) and the hybrid one (hymba-1.5b); the other configs of
+``repro.configs`` (M-RoPE, the encoder, a non-swiglu MLP) arrive with
+their model code.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import List
 
-from .base import ModelConfig, MoEConfig
+from .base import HymbaConfig, ModelConfig, MoEConfig, SSMConfig
 
-from . import deepseek_7b, deepseek_moe_16b, glm4_9b, phi35_moe_42b, qwen3_14b
+from . import (
+    deepseek_7b,
+    deepseek_moe_16b,
+    glm4_9b,
+    hymba_1p5b,
+    mamba2_1p3b,
+    phi35_moe_42b,
+    qwen3_14b,
+)
 
 ARCHS = {
     "glm4-9b": glm4_9b.CONFIG,
@@ -18,6 +28,8 @@ ARCHS = {
     "qwen3-14b": qwen3_14b.CONFIG,
     "deepseek-moe-16b": deepseek_moe_16b.CONFIG,
     "phi3.5-moe-42b-a6.6b": phi35_moe_42b.CONFIG,
+    "mamba2-1.3b": mamba2_1p3b.CONFIG,
+    "hymba-1.5b": hymba_1p5b.CONFIG,
 }
 
 
@@ -33,9 +45,10 @@ def get_config(name: str) -> ModelConfig:
 
 def smoke_config(name: str) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests (the same reduction as
-    ``repro.configs.registry.smoke_config`` for the dense and MoE archs:
-    GQA ratio, qk-norm and top-k routing kept, width/depth/vocab and the
-    expert count shrunk)."""
+    ``repro.configs.registry.smoke_config``: GQA ratio, qk-norm, top-k
+    routing, the SSD recurrence, meta tokens and the sliding window kept,
+    width/depth/vocab, the expert count, the SSM state and the window
+    shrunk)."""
     cfg = get_config(name)
     kw = dict(
         name=cfg.name + "-smoke",
@@ -57,4 +70,10 @@ def smoke_config(name: str) -> ModelConfig:
             n_shared=min(cfg.moe.n_shared, 1),
         )
         kw["d_ff"] = 32
+    if cfg.ssm is not None:
+        kw["ssm"] = SSMConfig(
+            d_state=16, conv_width=4, expansion=2, head_dim=16, n_groups=1, chunk=16
+        )
+    if cfg.hymba is not None:
+        kw["hymba"] = HymbaConfig(n_meta_tokens=8, swa_window=32, global_layers=(0,))
     return dataclasses.replace(cfg, **kw)

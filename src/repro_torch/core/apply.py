@@ -18,7 +18,7 @@ from typing import Callable
 import torch
 
 from ..device import resolve_device
-from .ocs import OCSQuantLinear, OCSSpec, W4A8Linear, make_ocs_quant_linear
+from .ocs import OCSQuantLinear, OCSSpec, W4A8Linear, make_ocs_quant_linear, pad_out_cols
 from .quantizer import QuantParams
 from .recipe import QuantRecipe
 
@@ -63,6 +63,7 @@ def tree_to(tree, device):
                 n_orig=leaf.n_orig,
                 a_bits=leaf.a_bits,
                 a_scale=None if leaf.a_scale is None else leaf.a_scale.to(dev),
+                n_out=leaf.n_out,
             )
         if isinstance(leaf, W4A8Linear):
             sp = leaf.spec
@@ -70,7 +71,7 @@ def tree_to(tree, device):
                 w4=leaf.w4.to(dev), s4=leaf.s4.to(dev), w8=leaf.w8.to(dev),
                 s8=leaf.s8.to(dev), outlier_idx=leaf.outlier_idx.to(dev),
                 spec=OCSSpec(sp.src.to(dev), sp.mult.to(dev), sp.bias.to(dev)),
-                n_orig=leaf.n_orig, a_bits=leaf.a_bits,
+                n_orig=leaf.n_orig, a_bits=leaf.a_bits, n_out=leaf.n_out,
             )
         return leaf
 
@@ -132,7 +133,9 @@ def _quant_linear_stacked(w: torch.Tensor, recipe: QuantRecipe) -> OCSQuantLinea
 
 
 def quantize_params(params, recipe: QuantRecipe, *, device=None):
-    """Replace quantizable weights with OCSQuantLinear integer leaves.
+    """Replace quantizable weights with OCSQuantLinear integer leaves (their
+    output columns zero-padded to a multiple of ``ocs.PAD_N``, the true
+    count in ``n_out``: :func:`repro_torch.core.ocs.pad_out_cols`).
 
     Runs on ``device`` (``None`` = the card; raises without one unless
     ``device="cpu"``); leaves are moved there first. A callable leaf is
@@ -151,6 +154,6 @@ def quantize_params(params, recipe: QuantRecipe, *, device=None):
         p = path_str(path)
         if not _is_quantizable(p, leaf, recipe):
             return leaf
-        return _quant_linear_stacked(leaf, recipe)
+        return pad_out_cols(_quant_linear_stacked(leaf, recipe))
 
     return map_with_path(visit, params)

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..kernels.paged_attention import pack_int4
+from ..kernels.quant_matmul import pad_cols
 from .clipping import find_clip
 from .quantizer import QuantParams, div_exact, qmax, quantize_tensor
 
@@ -43,7 +44,15 @@ __all__ = [
     "make_ocs_quant_linear",
     "W4A8Linear",
     "to_w4a8",
+    "PAD_N",
+    "pad_out_cols",
 ]
+
+# Output columns of a quantized leaf are stored zero-padded to a multiple of
+# PAD_N: the card's GEMMs read rows of a multiple of 16 bytes (B1's and B6's
+# TMA) or 4-column words (B4/B5), so a ragged N is padded once, when the
+# tree is built, not on every call.
+PAD_N = 16
 
 
 @dataclasses.dataclass
@@ -177,11 +186,18 @@ class OCSQuantLinear:
     :meth:`layer`.
     """
 
-    weight: QuantParams  # int values [C_exp(+pad), Cout]
+    weight: QuantParams  # int values [C_exp(+pad), Cout(+pad)]
     spec: OCSSpec
     n_orig: int = 0
     a_bits: Optional[int] = None
     a_scale: Optional[torch.Tensor] = None  # activation scale from calibration
+    # The true output columns when the stored ones are zero-padded
+    # (:func:`pad_out_cols`); None when they are not.
+    n_out: Optional[int] = None
+
+    @property
+    def out_features(self) -> int:
+        return self.n_out if self.n_out is not None else int(self.weight.values.shape[-1])
 
     def is_packed(self) -> bool:
         """True if the expansion is pure duplication (mult 1, or 0 on pad
@@ -214,6 +230,7 @@ class OCSQuantLinear:
             n_orig=self.n_orig,
             a_bits=self.a_bits,
             a_scale=None if self.a_scale is None else self.a_scale[i],
+            n_out=self.n_out,
         )
         out._packed = self.is_packed()
         return out
@@ -290,6 +307,11 @@ class W4A8Linear:
     spec: OCSSpec
     n_orig: int = 0
     a_bits: int = 8
+    n_out: Optional[int] = None  # as OCSQuantLinear.n_out
+
+    @property
+    def out_features(self) -> int:
+        return self.n_out if self.n_out is not None else int(self.w4.shape[-1])
 
     def layer(self, i: int) -> "W4A8Linear":
         """Slice one layer of a stacked leaf (views, no copy); as
@@ -302,7 +324,39 @@ class W4A8Linear:
             ),
             n_orig=self.n_orig,
             a_bits=self.a_bits,
+            n_out=self.n_out,
         )
+
+
+def pad_out_cols(lin):
+    """An :class:`OCSQuantLinear` or :class:`W4A8Linear` whose output columns
+    are zero-padded to a multiple of :data:`PAD_N` (values and per-column
+    scales; a per-tensor scale stays), with ``n_out`` the true count. A
+    leaf already aligned, or already padded, comes back as it is.
+    ``layers.dense`` slices the padded columns off every output, so the
+    card's GEMMs take the leaf as stored and copy no weight per call."""
+    if isinstance(lin, W4A8Linear):
+        n = lin.w4.shape[-1]
+        if n % PAD_N == 0:
+            return lin
+        cols = n + (-n) % PAD_N
+        return dataclasses.replace(
+            lin, w4=pad_cols(lin.w4, cols), s4=pad_cols(lin.s4, cols),
+            w8=pad_cols(lin.w8, cols), s8=pad_cols(lin.s8, cols), n_out=lin.out_features)
+    qp = lin.weight
+    n = qp.values.shape[-1]
+    if n % PAD_N == 0:
+        return lin
+    cols = n + (-n) % PAD_N
+    scale = qp.scale
+    if scale.ndim and scale.shape[-1] == n:  # per-channel ([N] or [..., 1, N])
+        scale = pad_cols(scale, cols)
+    out = dataclasses.replace(
+        lin, weight=QuantParams(pad_cols(qp.values, cols), scale, qp.bits, qp.channel_axis),
+        n_out=lin.out_features)
+    if "_packed" in lin.__dict__:
+        out._packed = lin._packed
+    return out
 
 
 def _abs_max(w: torch.Tensor, dim: int) -> torch.Tensor:
@@ -359,7 +413,10 @@ def to_w4a8(lin: OCSQuantLinear, ratio: float) -> W4A8Linear:
     ``K_exp`` gets one zero weight row and a dead spec entry (src 0, mult
     0, bias 0). Stacked leaves keep their leading dims, ``[L]`` or a MoE
     layer's ``[L, E]`` experts (one slice is dequantized at a time, which
-    bounds the float32 copy).
+    bounds the float32 copy). A leaf whose output columns are padded
+    (:func:`pad_out_cols`, as ``quantize_params`` stores them) converts
+    them too (zero columns stay zero) and keeps its ``n_out``, so the
+    result is padded alike.
     """
     if not 0.0 <= ratio <= 1.0:
         raise ValueError(f"outlier ratio must be in [0, 1], got {ratio}")
@@ -398,5 +455,5 @@ def to_w4a8(lin: OCSQuantLinear, ratio: float) -> W4A8Linear:
         w4, s4, q8, s8, oidx = parts[0]
     return W4A8Linear(
         w4=w4, s4=s4, w8=q8, s8=s8, outlier_idx=oidx, spec=spec, n_orig=lin.n_orig,
-        a_bits=lin.a_bits if lin.a_bits is not None else 8,
+        a_bits=lin.a_bits if lin.a_bits is not None else 8, n_out=lin.n_out,
     )

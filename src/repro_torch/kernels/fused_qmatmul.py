@@ -10,10 +10,10 @@ two launches a call; the TPU kernel's resident [bm, K] row tile does not
 fit a block's shared memory at K = 4096 or 13696. What bounds it on the
 card: the int8 weight bytes at decode (M <= 8), the int8 multiply-adds at
 prefill. It takes every K (the reference's VMEM-budget fallback to XLA has
-no counterpart here) and every N: the TMA reads weight rows of a multiple
-of 16 bytes, so a ragged N runs zero-padded to one and is sliced, as the
-reference's wrapper pads N to its tile
-(:func:`repro_torch.kernels.quant_matmul.padded_cols`).
+no counterpart here) and an N that is a multiple of 16: the TMA reads
+weight rows of a multiple of 16 bytes, and a quantized leaf stores a
+ragged N's columns zero-padded to one (``core.ocs.pad_out_cols``, where
+the reference's wrapper pads N to its tile on every call).
 
 **Plan** (:func:`launch_plan`, from (M, Kp, N) on the host): the block tile
 (8 tokens x 256 columns up to M = 8, else 64 x 128) and the split
@@ -48,7 +48,7 @@ import torch
 
 from . import ref, scratch
 from .build import load
-from .quant_matmul import pad_cols, padded_cols, stack_scales
+from .quant_matmul import check_cols, stack_scales
 
 __all__ = [
     "fused_quant_matmul_plain",
@@ -233,15 +233,13 @@ def fused_quant_matmul_cuda(
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     e, m = x.shape[:2]
     n_out = w8.shape[2]
-    n = padded_cols(n_out, 16)  # a ragged N runs zero columns up to n
-    w8, ws = pad_cols(w8, n), pad_cols(ws, n)
-    out = torch.empty((e, m, n), dtype=out_dtype, device=x.device)
+    check_cols("fused_quant_matmul_cuda", n_out, 16)  # the TMA reads rows of 16 bytes
+    out = torch.empty((e, m, n_out), dtype=out_dtype, device=x.device)
     err = launch(_bind(), x, w8, ws, src_tail, out, float((1 << (bits - 1)) - 1))
     if err != 0:
         raise RuntimeError(f"fused_qmatmul launch failed: cudaError {err}")
     launches += 1
     launches_stack += stacked
-    out = out if n == n_out else out[..., :n_out].contiguous()
     return out if stacked else out[0]
 
 

@@ -22,8 +22,8 @@ the CUDA-core weight-only GEMM (counted in ``launches_cuda_cores``); int8 x
 the dp4a GEMM. The split of K follows from (K, S, N) alone on every route.
 
 **Contract** (the reference wrapper's): ``w8`` is ``[K + S, N]`` with the S
-OCS duplicate rows after the K originals, any N (a ragged N runs
-zero-padded, as in B5: :func:`repro_torch.kernels.quant_matmul.padded_cols`); ``x_scale`` ([M], a scalar, or
+OCS duplicate rows after the K originals, N a multiple of 4 (16 for an
+expert stack; a leaf stores a ragged N padded, as in B5); ``x_scale`` ([M], a scalar, or
 None = 1) and ``w_scale`` ([N] or a scalar) broadcast; ``out_dtype``
 defaults to f32 on the int8 path and to ``x.dtype`` otherwise. On the int8
 path ``tail_mult`` must be a 0/1 mask (checked, or declared with
@@ -228,8 +228,8 @@ def ocs_quant_matmul_cuda(
     m, k = x.shape
     n_out = w8.shape[1]
     xs, ws = _qm.scales(x, w_scale, x_scale, n_out)
-    n = _qm.padded_cols(n_out)  # a ragged N runs zero columns up to n
-    w8, ws = _qm.pad_cols(w8, n), _qm.pad_cols(ws, n)
+    _qm.check_cols("ocs_quant_matmul_cuda", n_out)
+    n = n_out
     dev = x.device
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     fns = _bind()
@@ -257,7 +257,7 @@ def ocs_quant_matmul_cuda(
         raise RuntimeError(f"ocs_matmul launch failed: cudaError {err}")
     launches += 1
     launches_cuda_cores += cuda_cores
-    return out if n == n_out else out[:, :n_out].contiguous()
+    return out
 
 
 def _ocs_stack_cuda(x, w8, w_scale, src_tail, x_scale, tail_mult, tail_is_mask,
@@ -294,9 +294,8 @@ def _ocs_stack_cuda(x, w8, w_scale, src_tail, x_scale, tail_mult, tail_is_mask,
     ws = _qm.stack_scales(w_scale, e, n_out, x.device)
     src_tail = src_tail.contiguous()
     _qm.check_stack("ocs_quant_matmul_cuda", x, w8, ws, (src_tail, mult))
-    n = _qm.padded_cols(n_out, 16)  # the stacked launch's TMA reads rows of 16 bytes
-    w8, ws = _qm.pad_cols(w8, n), _qm.pad_cols(ws, n)
-    out = torch.empty((e, m, n), dtype=out_dtype, device=x.device)
+    _qm.check_cols("ocs_quant_matmul_cuda", n_out, 16)  # the stacked TMA reads rows of 16 bytes
+    out = torch.empty((e, m, n_out), dtype=out_dtype, device=x.device)
     err = _qm.launch_tc_stack(_bind()["tc"], x, out, None, ws, _qm.tc_rows(k, s), s,
                               src_tail.data_ptr(), None if mult is None else mult.data_ptr(),
                               w8.data_ptr())
@@ -304,4 +303,4 @@ def _ocs_stack_cuda(x, w8, w_scale, src_tail, x_scale, tail_mult, tail_is_mask,
         raise RuntimeError(f"ocs_matmul launch failed: cudaError {err}")
     launches += 1
     launches_stack += 1
-    return out if n == n_out else out[..., :n_out].contiguous()
+    return out

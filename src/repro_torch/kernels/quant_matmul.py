@@ -15,10 +15,12 @@ CUDA cores); what bounds it on the card is the int8 weight bytes at decode and
 the multiply-adds at prefill.
 
 **Contract**: ``x_scale`` ([M], a scalar, or None = 1) and ``w_scale``
-([N] or a scalar) broadcast; any N (the kernels read weights in 4-column
-words, so a ragged N runs zero-padded to a multiple of 16, the TMA's row
-alignment, and the result is sliced, as the reference's wrapper pads N to
-its tile: :func:`padded_cols`); ``out_dtype`` defaults to f32 on the int8 path
+([N] or a scalar) broadcast; N a multiple of 4, the kernels' weight
+words (16 for an expert stack, the TMA's row alignment): a quantized leaf
+stores a ragged N's columns zero-padded to a multiple of 16 once
+(``core.ocs.pad_out_cols``), where the reference's wrapper pads N to its
+tile on every call, and :func:`check_cols` refuses an unpadded one;
+``out_dtype`` defaults to f32 on the int8 path
 and to ``x.dtype`` otherwise. The int8 path is bitwise
 :func:`repro_torch.kernels.ref.quant_matmul_ref`; the weight-only path
 equals it up to the order of the float32 sums (the kernel's order is fixed,
@@ -48,6 +50,7 @@ __all__ = [
     "quant_matmul_cuda",
     "padded_cols",
     "pad_cols",
+    "check_cols",
     "tc_rows",
     "tc_split_plan",
     "tc_plan",
@@ -184,10 +187,11 @@ def padded_cols(n: int, align: int = 4) -> int:
     ``n % align == 0``, else ``n`` rounded up to 16. B4 and B5 read
     weights in 4-column words, B1's and B6's TMA in rows of a multiple of
     16 bytes (``align=16``); rows of 16 bytes also keep B4/B5 on their TMA
-    path. The
-    rounding never crosses a 128- or 256-column tile, so the split of K,
-    and every column below ``n``, is what an aligned call of the same
-    columns gives."""
+    path. The rounding never crosses a 128- or 256-column tile, so the
+    split of K, and every column below ``n``, is what an aligned call of
+    the same columns gives. A quantized leaf stores its columns padded to a
+    multiple of 16 (``core.ocs.pad_out_cols``), which every GEMM takes as
+    it is."""
     return n if n % align == 0 else n + (-n) % 16
 
 
@@ -195,6 +199,16 @@ def pad_cols(t: torch.Tensor, cols: int) -> torch.Tensor:
     """``t`` with its last dimension zero-padded to ``cols`` (contiguous)."""
     pad = cols - t.shape[-1]
     return t if pad == 0 else torch.nn.functional.pad(t, (0, pad)).contiguous()
+
+
+def check_cols(what: str, n: int, align: int = 4) -> None:
+    """Refuse an ``n`` the card's GEMM does not take as it is (see
+    :func:`padded_cols`): its weights are padded once, when the tree is
+    built (``core.ocs.pad_out_cols``), never per call."""
+    if n % align:
+        raise ValueError(
+            f"{what}: N = {n} is not a multiple of {align}; pad the weight's columns "
+            f"when the tree is built (repro_torch.core.ocs.pad_out_cols)")
 
 
 def out_dtype_for(x: torch.Tensor, out_dtype) -> torch.dtype:
@@ -350,8 +364,12 @@ def launch_tc_stack(fn, x, out, xs, ws, kv: int, *args) -> int:
 def stack_scales(w_scale, e: int, n: int, dev) -> torch.Tensor:
     """An expert stack's per-column scales as a contiguous float32 ``[E,
     N]`` on ``dev``: ``[E, N]`` (or ``[E, 1, N]``) as it is, a per-tensor
-    ``[E, 1, 1]`` broadcast over the columns."""
-    ws = torch.as_tensor(w_scale, dtype=torch.float32, device=dev).reshape(e, -1)
+    ``[E, 1, 1]`` broadcast over the columns. Scales of another expert
+    count raise ``ValueError``."""
+    ws = torch.as_tensor(w_scale, dtype=torch.float32, device=dev)
+    if ws.numel() not in (e, e * n) or (ws.ndim and ws.shape[0] != e):
+        raise ValueError(f"scales of shape {tuple(ws.shape)} for {e} experts of {n} columns")
+    ws = ws.reshape(e, -1)
     if ws.shape[1] == 1 and n != 1:
         ws = ws.expand(e, n)
     return ws.contiguous()
@@ -480,8 +498,8 @@ def quant_matmul_cuda(
     m, k = x.shape
     n_out = w8.shape[1]
     xs, ws = scales(x, w_scale, x_scale, n_out)
-    n = padded_cols(n_out)  # a ragged N runs zero columns up to n
-    w8, ws = pad_cols(w8, n), pad_cols(ws, n)
+    check_cols("quant_matmul_cuda", n_out)
+    n = n_out
     dev = x.device
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     fns = _bind()
@@ -502,7 +520,7 @@ def quant_matmul_cuda(
     if err != 0:
         raise RuntimeError(f"quant_matmul launch failed: cudaError {err}")
     launches += 1
-    return out if n == n_out else out[:, :n_out].contiguous()
+    return out
 
 
 def _quant_matmul_stack_cuda(x, w8, w_scale, x_scale, out_dtype) -> torch.Tensor:
@@ -522,12 +540,11 @@ def _quant_matmul_stack_cuda(x, w8, w_scale, x_scale, out_dtype) -> torch.Tensor
                          f"{out_dtype}")
     e, m, k = x.shape
     n_out = w8.shape[2]
-    n = padded_cols(n_out, 16)  # the stacked launch's TMA reads rows of 16 bytes
-    w8, ws = pad_cols(w8, n), pad_cols(ws, n)
-    out = torch.empty((e, m, n), dtype=out_dtype, device=x.device)
+    check_cols("quant_matmul_cuda", n_out, 16)  # the stacked TMA reads rows of 16 bytes
+    out = torch.empty((e, m, n_out), dtype=out_dtype, device=x.device)
     err = launch_tc_stack(_bind()["tc"], x, out, None, ws, k, w8.data_ptr())
     if err != 0:
         raise RuntimeError(f"quant_matmul launch failed: cudaError {err}")
     launches += 1
     launches_stack += 1
-    return out if n == n_out else out[..., :n_out].contiguous()
+    return out

@@ -27,8 +27,8 @@ allocates only the output.
 **Contract** (``repro_torch.core.ocs.W4A8Linear`` layout): ``w4`` is
 ``[(K+S)/2, N]`` uint8, byte row ``j`` holding expanded rows ``j`` (low
 nibble) and ``j + (K+S)/2`` (high nibble), outlier rows zero; ``w8`` is
-``[T, N]`` int8; any N (a ragged N runs zero-padded to a multiple of 16 and
-is sliced: :func:`repro_torch.kernels.quant_matmul.padded_cols`); outputs
+``[T, N]`` int8; N a multiple of 16 (a leaf stores a ragged N's columns
+zero-padded: ``core.ocs.pad_out_cols``); outputs
 are bitwise
 :func:`repro_torch.kernels.ref.w4a8_matmul_ref`.
 
@@ -51,7 +51,7 @@ import torch
 from . import ref, scratch
 from .build import load
 from .fused_qmatmul import split_plan, tile_for
-from .quant_matmul import pad_cols, padded_cols, stack_scales
+from .quant_matmul import check_cols, stack_scales
 
 __all__ = [
     "w4a8_matmul_plain",
@@ -242,16 +242,14 @@ def w4a8_matmul_cuda(
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     n_out = w4.shape[2]
-    n = padded_cols(n_out, 16)  # a ragged N runs zero columns up to n
-    w4, s4, w8, s8 = pad_cols(w4, n), pad_cols(s4, n), pad_cols(w8, n), pad_cols(s8, n)
-    out = torch.empty((x.shape[0], x.shape[1], n), dtype=out_dtype, device=x.device)
+    check_cols("w4a8_matmul_cuda", n_out, 16)  # the TMA reads rows of 16 bytes
+    out = torch.empty((x.shape[0], x.shape[1], n_out), dtype=out_dtype, device=x.device)
     err = launch(_bind(), x, w4, s4, w8, s8, src_tail, outlier_idx, out,
                  float((1 << (bits - 1)) - 1))
     if err != 0:
         raise RuntimeError(f"w4a8_qmatmul launch failed: cudaError {err}")
     launches += 1
     launches_stack += stacked
-    out = out if n == n_out else out[..., :n_out].contiguous()
     return out if stacked else out[0]
 
 

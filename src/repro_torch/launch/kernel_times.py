@@ -54,10 +54,11 @@ Cases, at glm4-9b's shapes (random data from ``--seed``):
   L2. Yardstick: ``torch._int_mm`` x 2 (the int4 weights unpacked to int8
   before the timing, and the outlier rows) + the epilogue
   (``chip_smoke.b6_times``).
-- With ``--ragged`` (wrappers that take a ragged N only): B1, B4, B5 and
-  B6 at hymba-1.5b's lm_head, N = 32001, against the same calls on
-  weights zero-padded to 32016 columns before the timing
-  (:func:`ragged_rows`).
+- With ``--ragged``: B1, B4, B5 and B6 at hymba-1.5b's lm_head, N =
+  32001, on weights stored zero-padded to 32016 columns (as
+  ``quantize_params`` stores them) against the same calls padding the
+  weights on every call and slicing the output, as the wrappers did
+  before the padding moved to the tree (:func:`ragged_rows`).
 - With ``--tiles`` (wrappers with a prefill tile only): B5 and B4 at each
   shape and M in ``TILE_MS``, device ms with the decode tile and with the
   prefill tile (``quant_matmul.tc_plan`` overridden for the timing), beside
@@ -262,11 +263,13 @@ def b1_rows(gen, calls: int):
 
 
 def ragged_rows(gen, calls: int):
-    """What a ragged N costs: B1, B4, B5 and B6 at hymba-1.5b's lm_head (K
-    1600, an OCS tail of 32 rows for B1, B4 and B6, N 32001), M = 8, bf16
-    x and out, against the same calls on weights zero-padded to 32016
-    columns before the timing; the difference is the wrappers' per-call
-    padding and slicing."""
+    """What padding a ragged N per call costs: B1, B4, B5 and B6 at
+    hymba-1.5b's lm_head (K 1600, an OCS tail of 32 rows for B1, B4 and B6,
+    N 32001), M = 8, bf16 x and out, on weights stored padded to 32016
+    columns ("stored") against the same calls zero-padding the unpadded
+    weights and scales on every call and slicing the output ("per call"),
+    the work the wrappers did before ``core.ocs.pad_out_cols``. Weights
+    cycled past the L2 either way."""
     import torch
     import chip_smoke as cs
     from repro_torch.kernels import fused_qmatmul as fq
@@ -275,6 +278,7 @@ def ragged_rows(gen, calls: int):
     from repro_torch.kernels import w4a8_qmatmul as w4q
 
     k, s, t, n, m = 1600, 32, 16, 32001, 8
+    cols = qm.padded_cols(n, 16)
     bf16 = torch.bfloat16
     w8 = torch.randint(-127, 128, (k + s, n), generator=gen, device="cuda", dtype=torch.int8)
     w4 = torch.randint(0, 256, ((k + s) // 2, n), generator=gen, device="cuda",
@@ -284,26 +288,34 @@ def ragged_rows(gen, calls: int):
     idx = torch.randperm(k + s, generator=gen, device="cuda")[:t].to(torch.int32)
     mult = torch.ones((s,), device="cuda")
     x = (torch.randn((m, k), generator=gen, device="cuda") * 2.0).to(bf16)
+    calls_of = {
+        "B1": lambda w, w4_, sc: fq.fused_quant_matmul_cuda(x, w, sc, src, out_dtype=bf16),
+        "B4": lambda w, w4_, sc: om.ocs_quant_matmul_cuda(
+            x, w, sc, src, tail_mult=mult, tail_is_mask=True, out_dtype=bf16),
+        "B5": lambda w, w4_, sc: qm.quant_matmul_cuda(x, w[:k], sc, out_dtype=bf16),
+        "B6": lambda w, w4_, sc: w4q.w4a8_matmul_cuda(x, w4_, sc, w[:t], sc, src, idx,
+                                                      out_dtype=bf16),
+    }
     rows = []
-    for cols in (n, qm.padded_cols(n, 16)):
-        w8c, w4c, wsc = (qm.pad_cols(a, cols) for a in (w8, w4, ws))
-        w8s, w4s, w8t = cs.cycled(w8c), cs.cycled(w4c), w8c[:t]  # w8t: B6's outlier rows
-        runs = {
-            "B1": cs.cycling(lambda w: fq.fused_quant_matmul_cuda(
-                x, w, wsc, src, out_dtype=bf16), w8s),
-            "B4": cs.cycling(lambda w: om.ocs_quant_matmul_cuda(
-                x, w, wsc, src, tail_mult=mult, tail_is_mask=True, out_dtype=bf16), w8s),
-            "B5": cs.cycling(lambda w: qm.quant_matmul_cuda(x, w[:k], wsc, out_dtype=bf16), w8s),
-            "B6": cs.cycling(lambda v: w4q.w4a8_matmul_cuda(
-                x, v, wsc, w8t, wsc, src, idx, out_dtype=bf16), w4s),
-        }
-        for kernel, run in runs.items():
+    for how in ("stored", "per call"):
+        if how == "stored":
+            w8c, w4c, wsc = (qm.pad_cols(a, cols) for a in (w8, w4, ws))
+        else:
+            w8c, w4c, wsc = w8, w4, ws
+        pairs = list(zip(cs.cycled(w8c), cs.cycled(w4c)))
+        for kernel, call in calls_of.items():
+            if how == "stored":
+                run = cs.cycling(lambda p, f=call: f(p[0], p[1], wsc)[:, :n], pairs)
+            else:
+                run = cs.cycling(lambda p, f=call: f(
+                    qm.pad_cols(p[0], cols), qm.pad_cols(p[1], cols),
+                    qm.pad_cols(wsc, cols))[:, :n].contiguous(), pairs)
             ms, dev = cs.time_ms(run, calls), cs.graph_ms(run, calls)
-            rows.append(dict(kernel=kernel, M=m, K=k, N=n, weight_cols=cols, ms=ms,
-                             device_ms=dev))
-            print(f"ragged N: {kernel} M={m} K={k} N={n} on weights of {cols} columns: "
+            rows.append(dict(kernel=kernel, M=m, K=k, N=n, weight_cols=cols, padded=how,
+                             ms=ms, device_ms=dev))
+            print(f"ragged N: {kernel} M={m} K={k} N={n}, weights padded {how}: "
                   f"ms={ms:.4f} device_ms={dev:.4f}", flush=True)
-        del w8s, w4s, runs
+        del pairs
     return rows
 
 
@@ -375,7 +387,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="kernel_times.json")
     ap.add_argument("--ragged", action="store_true",
-                    help="also time the GEMMs at a ragged N (this tree's wrappers only)")
+                    help="also time the GEMMs at a ragged N, weights padded once against "
+                         "padded per call")
     ap.add_argument("--tiles", action="store_true",
                     help="also time B5 and B4 on each of their two tiles (this tree's only)")
     args = ap.parse_args(argv)

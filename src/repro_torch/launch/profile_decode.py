@@ -1,17 +1,21 @@
 """Where a decode step's time goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \
-        [--arch glm4-9b] [--layers N] [--matmul-mode {dequant,w8a8,w4a8} ...]
+        [--arch glm4-9b] [--layers N] [--matmul-mode {dequant,w8a8,w4a8} ...] \
+        [--paged {auto,on,off}]
 
-Builds ``--arch`` (glm4-9b by default; deepseek-moe-16b and the other
-registry archs too) at full width (``--layers`` deep, the arch's published
-depth by default; random weights from ``--seed``, each leaf drawn and
-quantized before the next), quantizes it with the serving launcher's recipe
-and serves 8 requests (16-256-token prompts) with
-``EngineConfig(max_batch=8, max_len=512, matmul_mode=--matmul-mode)``:
-``dequant`` (the default) on float32 KV pages, ``w8a8`` on int8 pages,
-``w4a8`` (the engine converts the tree to W4A8 leaves) on int4 pages;
-several modes are profiled in turn on the one quantized tree. The
+Builds ``--arch`` (glm4-9b by default; deepseek-moe-16b, mamba2-1.3b,
+hymba-1.5b and the other registry archs too) at full width (``--layers``
+deep, the arch's published depth by default; random weights from
+``--seed``, each leaf drawn and quantized before the next), quantizes it
+with the serving launcher's recipe and serves 8 requests (16-256-token
+prompts; 16-64 on a Mamba2 or hymba model, whose prompts replay through
+the decode step a token at a time) with ``EngineConfig(max_batch=8,
+max_len=512, matmul_mode=--matmul-mode, paged=--paged)``: ``dequant`` (the
+default) on float32 KV, ``w8a8`` on int8 KV, ``w4a8`` (the engine converts
+the tree to W4A8 leaves) on int4 pages, or on float32 KV when the engine is
+unpaged (the dense cache has no int4 layout); several modes are profiled
+in turn on the one quantized tree. The
 first engine step (admission, 8 prefills, one decode) runs unprofiled; the
 next ``--steps`` decode steps run under ``torch.profiler`` (CPU + CUDA
 activity). Prints the device time and the device operations (kernel
@@ -144,6 +148,8 @@ def main(argv=None):
                     choices=["dequant", "w8a8", "w4a8"],
                     help="one or more modes, each profiled in turn on the one quantized tree "
                          "(the output file of each named after its mode when several)")
+    ap.add_argument("--paged", default="auto", choices=["auto", "on", "off"],
+                    help="the engine's KV cache (auto = paged on attention archs)")
     ap.add_argument("--out", default="chiprun_out/profile_decode.json")
     args = ap.parse_args(argv)
     dev = resolve_device(None)
@@ -154,14 +160,18 @@ def main(argv=None):
     q = quantize_params(params, QuantRecipe(w_bits=8, w_clip="mse", ocs_ratio=0.02,
                                             per_channel=True, pad_to=1), device=dev)
     del params
+    paged = {"auto": None, "on": True, "off": False}[args.paged]
+    unpaged = paged is False or (paged is None and cfg.block not in T.ATTN_BLOCKS)
+    prompt_max = 256 if cfg.block in T.ATTN_BLOCKS else 64
     outs = []
     for mode in args.matmul_mode:
-        kv_bits = {"dequant": None, "w8a8": 8, "w4a8": 4}[mode]
+        kv_bits = {"dequant": None, "w8a8": 8, "w4a8": None if unpaged else 4}[mode]
         eng = ServingEngine(cfg, q, EngineConfig(max_batch=8, max_len=512, matmul_mode=mode,
-                                                 kv_bits=kv_bits, page_size=16), device=dev)
+                                                 kv_bits=kv_bits, page_size=16, paged=paged),
+                            device=dev)
         rng = np.random.default_rng(args.seed)
         for i in range(8):
-            plen = int(rng.integers(16, 257))
+            plen = int(rng.integers(16, prompt_max + 1))
             eng.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab, plen).tolist(),
                                max_new_tokens=args.steps + 2))
         eng.step()  # admission + prefills + the first decode, unprofiled
@@ -169,7 +179,7 @@ def main(argv=None):
         prof = profile_steps(eng, args.steps)
         del eng
         report(prof, f"{args.arch}, {mode}, {cfg.n_layers} layers, 8 lanes")
-        out = dict(arch=args.arch, layers=cfg.n_layers, matmul_mode=mode,
+        out = dict(arch=args.arch, layers=cfg.n_layers, matmul_mode=mode, paged=not unpaged,
                    card=torch.cuda.get_device_name(0), **prof)
         path = Path(args.out)
         if len(args.matmul_mode) > 1:

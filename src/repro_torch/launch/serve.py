@@ -1,9 +1,10 @@
 """Serving launcher: random model -> OCS PTQ -> batched serving.
 
 The port of ``repro.launch.serve`` for the path the port has: a freshly
-initialized dense or MoE model (weights from ``--seed``, ``--arch`` any of
-the registry's: ``deepseek-moe-16b`` and ``phi3.5-moe-42b-a6.6b`` among
-them; each leaf is drawn and quantized before the next), quantized once with the
+initialized dense, MoE, Mamba2 or hymba model (weights from ``--seed``,
+``--arch`` any of the registry's: ``deepseek-moe-16b``,
+``phi3.5-moe-42b-a6.6b``, ``mamba2-1.3b`` and ``hymba-1.5b`` among them;
+each leaf is drawn and quantized before the next), quantized once with the
 reference launcher's recipe (``QuantRecipe(w_bits=--bits, w_clip=--clip,
 ocs_ratio=--ocs-ratio, per_channel=True, pad_to=1)``), then served through
 :class:`repro_torch.serving.ServingEngine`. Engine flags are generated from
@@ -20,8 +21,12 @@ its output is token-identical to plain greedy. ``--temperature T``
 ``--seed``. The scheduler and overload flags come from ``EngineConfig``
 too: ``--prefill-budget B --chunk-size C`` chunks prefill, ``--admission
 optimistic`` admits on prompt pages and preempts under pool pressure,
-``--max-queue``, ``--sched-policy``, ``--heartbeat-path``. Runs on the
-card; ``--device cpu`` runs the plain PyTorch path at smoke size.
+``--max-queue``, ``--sched-policy``, ``--heartbeat-path``. ``--paged
+{auto,on,off}`` picks the KV cache: ``auto`` pages dense and MoE models and
+serves Mamba2 and hymba on the unpaged engine's dense caches (their prompts
+replay through the decode step, one call a token), ``off`` serves a dense
+or MoE model unpaged too. Runs on the card; ``--device cpu`` runs the
+plain PyTorch path at smoke size.
 
 ``--replicas N`` serves through N engine replicas (one shared quantized
 tree) behind the fault-tolerant router (``--placement``). Observability:
@@ -47,6 +52,9 @@ around the run; progress is logged at ``--log-level``.
     python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu \
         --replicas 2 --placement round_robin
     python -m repro_torch.launch.serve --arch deepseek-moe-16b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch hymba-1.5b --smoke --device cpu \
+        --matmul-mode w8a8 --kv-bits 8
+    python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu --paged off
     python -m repro_torch.launch.serve --arch deepseek-moe-16b   # the card, full size
 """
 from __future__ import annotations

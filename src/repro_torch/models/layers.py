@@ -53,7 +53,7 @@ from ..core.ocs import OCSQuantLinear, W4A8Linear
 from ..kernels import ops as kops
 from ..kernels.quant_matmul import stack_scales
 
-__all__ = ["MODES", "dense", "rms_norm", "embed", "swiglu"]
+__all__ = ["MODES", "dense", "rms_norm", "embed", "silu", "swiglu"]
 
 MODES = ("dequant", "w8a8", "w4a8")
 
@@ -137,8 +137,15 @@ def _w4a8(w: W4A8Linear, x: torch.Tensor) -> torch.Tensor:
 def dense(w, x: torch.Tensor, *, mode: str, name: str = "") -> torch.Tensor:
     """y = x @ w with quantization-aware dispatch. x: [..., Cin]; ``mode``
     is one of :data:`MODES` (ignored for float weights); ``name`` labels
-    errors and is the tap site's name."""
+    errors and is the tap site's name. A quantized leaf's padded output
+    columns (``n_out``, see ``core.ocs.pad_out_cols``) are sliced off."""
     tap.tag(name, x)
+    y = _dense(w, x, mode, name)
+    n_out = getattr(w, "n_out", None)
+    return y if n_out is None else y[..., :n_out]
+
+
+def _dense(w, x: torch.Tensor, mode: str, name: str) -> torch.Tensor:
     what = name or "dense"
     if isinstance(w, W4A8Linear):
         if mode != "w4a8":
@@ -211,10 +218,14 @@ def embed(table: torch.Tensor, ids: torch.Tensor, dtype=torch.bfloat16) -> torch
     return table[ids.long()].to(dtype)
 
 
-def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
-    """silu(gate) * up, spelled ``gate * (1 / (1 + exp(-gate))) * up`` op by
-    op: on bfloat16 each op rounds its result, as the reference's compiled
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)``, spelled ``x * (1 / (1 + exp(-x)))`` op by op: on
+    bfloat16 each op rounds its result, as the reference's compiled
     ``jax.nn.silu`` does (``F.silu`` rounds once and differs in ~40% of the
     bf16 outputs)."""
-    sig = 1.0 / (1.0 + torch.exp(-gate))
-    return gate * sig * up
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """``silu(gate) * up``."""
+    return silu(gate) * up

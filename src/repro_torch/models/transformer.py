@@ -1,27 +1,36 @@
-"""Decoder LM (the port of ``repro.models.transformer``, dense and MoE
-blocks).
+"""Decoder LM (the port of ``repro.models.transformer``: the dense, MoE,
+Mamba2 and hymba blocks).
 
 Parameters are a nested dict of tensors laid out like the reference's
 ``init_params``: per-layer leaves are stacked ``[L, ...]`` under
 ``params["layers"]``, quantized leaves are ``OCSQuantLinear`` (or
-``W4A8Linear`` in the ``w4a8`` tier). Serving
-runs two functions:
+``W4A8Linear`` in the ``w4a8`` tier). Serving runs these functions:
 
 * :func:`prefill_into_pages` — one request's prompt suffix through the
-  full-sequence block, its K/V written straight into the page pools;
+  full-sequence block, its K/V written straight into the page pools (the
+  paged engine; dense and MoE);
+* :func:`prefill_with_cache` / :func:`prefill_chunk_with_cache` — a
+  prompt, or one budgeted chunk of it, into a b = 1 dense cache of
+  :func:`init_cache` (the unpaged engine; dense and MoE: SSM and hybrid
+  prompts replay through :func:`decode_step`, as the reference's do);
 * :func:`decode_step` — one token per lane against the paged caches
   (``layers_limit`` runs only the first layers: the early-exit drafter of
-  self-speculative decoding);
+  self-speculative decoding) or against the dense caches of
+  :func:`init_cache` (every block kind; a ``mamba2`` layer carries its SSM
+  state and conv window, a ``hymba`` layer its attention cache, a ring
+  buffer on a sliding-window layer, its meta K/V and its SSM state);
 * :func:`verify_step` — the k + 1 tokens of a speculative window per lane
-  in one call, each token's logits bitwise those of sequential
-  :func:`decode_step` calls.
+  in one call on the paged caches, each token's logits bitwise those of
+  sequential :func:`decode_step` calls.
 
 All take ``mode``, the quantized-matmul mode every ``layers.dense`` call
 of the model runs (``"dequant"``, the reference's default, ``"w8a8"`` or
 ``"w4a8"``). A ``moe`` block (:mod:`repro_torch.models.moe`) replaces the
 dense block's MLP where the reference's does; it routes all the rows of
 its call (every lane of a decode or verify step, a prefill's whole
-bucket), as the reference's does.
+bucket), as the reference's does. A ``hymba`` layer runs attention and the
+SSM heads on one input and fuses them as ``0.5 * (rms_norm(a) +
+rms_norm(s))``.
 """
 from __future__ import annotations
 
@@ -29,36 +38,51 @@ import functools
 import math
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
 from ..core.apply import map_with_path, path_str
 from ..core.ocs import OCSQuantLinear, W4A8Linear
 from ..device import resolve_device
-from .attention import attention, attention_decode, attention_params_shape
+from ..kernels.paged_attention import quant_rows
+from .attention import attention, attention_decode, attention_params_shape, init_kv_cache
 from .layers import dense, embed, rms_norm
 from .mlp import mlp, mlp_params_shape
 from .moe import moe, moe_params_shape
+from .ssm import init_ssm_cache, mamba2_decode, ssm_params_shape
 
 __all__ = [
     "init_params",
     "model_params_shape",
     "layer_params",
+    "init_cache",
     "decode_tokens",
     "decode_step",
     "verify_step",
     "prefill_into_pages",
+    "prefill_with_cache",
+    "prefill_chunk_with_cache",
 ]
 
+ATTN_BLOCKS = ("dense", "moe")  # blocks whose caches page and whose prompts prefill
 
-def _check_block(cfg: ModelConfig) -> None:
-    if cfg.block not in ("dense", "moe") or cfg.norm != "rms" or not cfg.causal:
+
+def check_block(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` (naming ROADMAP A13) for a model the
+    port has not reached: a block other than dense, MoE, Mamba2 and hymba,
+    an encoder, LayerNorm, a non-SwiGLU MLP or M-RoPE."""
+    if (cfg.block not in ATTN_BLOCKS + ("mamba2", "hymba") or cfg.norm != "rms"
+            or not cfg.causal):
         raise NotImplementedError(
-            f"{cfg.name}: the port has the dense and MoE causal RMSNorm decoders "
-            "(other blocks: ROADMAP A13)"
+            f"{cfg.name}: the port has the dense, MoE, Mamba2 and hymba causal "
+            "RMSNorm decoders (other blocks: ROADMAP A13)"
         )
+    if cfg.act != "swiglu":
+        raise NotImplementedError(f"act {cfg.act!r}: the port has swiglu (ROADMAP A13)")
     if cfg.mrope_sections is not None:
         raise NotImplementedError("M-RoPE: ROADMAP A13")
+
 
 
 def _is_shape(x) -> bool:
@@ -67,11 +91,16 @@ def _is_shape(x) -> bool:
 
 def layer_params_shape(cfg: ModelConfig) -> Dict:
     d = cfg.d_model
-    shapes = {
-        "norm1": {"scale": (d,)},
-        "attn": attention_params_shape(cfg),
-        "norm2": {"scale": (d,)},
-    }
+    shapes: Dict[str, Any] = {"norm1": {"scale": (d,)}}
+    if cfg.block == "mamba2":
+        shapes["ssm"] = ssm_params_shape(cfg)
+        return shapes
+    shapes["attn"] = attention_params_shape(cfg)
+    if cfg.block == "hymba":
+        shapes["ssm"] = ssm_params_shape(cfg)
+        shapes["attn_fuse_norm"] = {"scale": (d,)}
+        shapes["ssm_fuse_norm"] = {"scale": (d,)}
+    shapes["norm2"] = {"scale": (d,)}
     if cfg.block == "moe":
         shapes["moe"] = moe_params_shape(cfg)
     else:
@@ -80,7 +109,7 @@ def layer_params_shape(cfg: ModelConfig) -> Dict:
 
 
 def model_params_shape(cfg: ModelConfig) -> Dict:
-    _check_block(cfg)
+    check_block(cfg)
     d = cfg.d_model
     shapes: Dict[str, Any] = {
         "embed": (cfg.vocab, d),
@@ -92,6 +121,8 @@ def model_params_shape(cfg: ModelConfig) -> Dict:
     }
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, cfg.vocab)
+    if cfg.block == "hymba":
+        shapes["meta_tokens"] = (cfg.hymba.n_meta_tokens, d)
     return shapes
 
 
@@ -105,7 +136,9 @@ def init_params(
     lazy: bool = False,
 ):
     """Random parameters (same layout and scales as the reference: norms 1,
-    embeddings N(0, 0.02^2), matrices N(0, 1/fan_in)). ``generator``
+    embeddings and meta tokens N(0, 0.02^2), matrices N(0, 1/fan_in); the
+    SSM's ``A_log`` ``log(linspace(1, 16, heads))``, ``dt_bias`` and
+    ``conv_b`` 0 and ``D`` 1, in float32). ``generator``
     defaults to ``torch.Generator(device).manual_seed(seed)``; leaves are
     drawn in the tree's order.
 
@@ -123,9 +156,17 @@ def init_params(
         vector = len(shape) == 1 or (len(shape) == 2 and shape[0] == cfg.n_layers)
         if "scale" in p or "norm" in p:
             return torch.ones(shape, dtype=dtype, device=dev)
+        if "a_log" in p:
+            base = torch.log(torch.linspace(1.0, 16.0, shape[-1], dtype=torch.float32,
+                                            device=dev))
+            return base.expand(shape).contiguous()
+        if "dt_bias" in p or p.endswith("conv_b"):
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+        if p.endswith("/d"):
+            return torch.ones(shape, dtype=torch.float32, device=dev)
         if vector:
             return torch.zeros(shape, dtype=dtype, device=dev)
-        std = 0.02 if "embed" in p else 1.0 / math.sqrt(shape[-2])
+        std = 0.02 if ("embed" in p or "meta_tokens" in p) else 1.0 / math.sqrt(shape[-2])
         w = torch.randn(shape, generator=generator, dtype=torch.float32, device=dev)
         return w.mul_(std).to(dtype)
 
@@ -150,12 +191,13 @@ def _head(params, cfg: ModelConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def _block(cfg: ModelConfig, p, x, positions, *, mode: str, kv_prefix=None):
-    """One layer over a full sequence; returns (x, (k, v))."""
+def _block(cfg: ModelConfig, p, x, positions, *, mode: str, kv_prefix=None,
+           prefix_len=None):
+    """One dense or MoE layer over a full sequence; returns (x, (k, v))."""
     h = rms_norm(p["norm1"]["scale"], x, cfg.norm_eps)
     a, kv = attention(
         p["attn"], h, cfg, positions=positions, mode=mode, kv_prefix=kv_prefix,
-        return_kv=True,
+        prefix_len=prefix_len, return_kv=True,
     )
     x = x + a
     h = rms_norm(p["norm2"]["scale"], x, cfg.norm_eps)
@@ -170,32 +212,118 @@ def _ffn(cfg: ModelConfig, p, h, mode: str):
     return mlp(p["mlp"], h, cfg, mode=mode)
 
 
+def _hymba_flags(cfg: ModelConfig) -> np.ndarray:
+    """Per-layer is-global flags of a hymba model (its full-attention
+    layers; the rest attend over a sliding window)."""
+    flags = np.zeros(cfg.n_layers, dtype=bool)
+    for i in cfg.hymba.global_layers:
+        flags[i] = True
+    return flags
+
+
+def _hymba_window(cfg: ModelConfig, flags: np.ndarray, i: int) -> int:
+    return 0 if bool(flags[i]) else cfg.hymba.swa_window
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32, *,
+               device=None):
+    """The unpaged engine's per-layer decode caches, and the per-lane
+    position vector ``pos`` ``[batch]``: a list of per-layer trees (not
+    stacked), as the reference lays them out. A dense or MoE layer holds
+    ``{"attn"}`` (:func:`attention.init_kv_cache`, ``max_len`` rows), a
+    Mamba2 layer ``{"ssm"}`` (:func:`ssm.init_ssm_cache`), a hymba layer
+    ``{"attn", "meta_k", "meta_v", "ssm"}``: a ring buffer of
+    ``min(max_len, window)`` rows on a sliding-window layer, and meta K/V
+    ``[batch, n_meta, KV, hd]`` of zeros that serving never writes, as in
+    the reference."""
+    check_block(cfg)
+    dev = resolve_device(device)
+    if cfg.block in ATTN_BLOCKS:
+        layers = [{"attn": init_kv_cache(cfg, batch, max_len, dtype=dtype, device=dev)}
+                  for _ in range(cfg.n_layers)]
+    elif cfg.block == "mamba2":
+        layers = [{"ssm": init_ssm_cache(cfg, batch, dtype, device=dev)}
+                  for _ in range(cfg.n_layers)]
+    else:
+        flags = _hymba_flags(cfg)
+        meta = (batch, cfg.hymba.n_meta_tokens, cfg.n_kv_heads, cfg.hd)
+        layers = [
+            {
+                "attn": init_kv_cache(cfg, batch, max_len, window=_hymba_window(cfg, flags, i),
+                                      dtype=dtype, device=dev),
+                "meta_k": torch.zeros(meta, dtype=dtype, device=dev),
+                "meta_v": torch.zeros(meta, dtype=dtype, device=dev),
+                "ssm": init_ssm_cache(cfg, batch, dtype, device=dev),
+            }
+            for i in range(cfg.n_layers)
+        ]
+    return {"layers": layers, "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+
+def _decode_layer_unpaged(cfg: ModelConfig, p, x, cache, pos, window: int, mode: str):
+    """One layer, one token against the dense caches of :func:`init_cache`.
+    Returns (x, the layer's new cache tree)."""
+    h = rms_norm(p["norm1"]["scale"], x, cfg.norm_eps)
+    if cfg.block == "mamba2":
+        s_out, new_ssm = mamba2_decode(p["ssm"], h, cache["ssm"], cfg, mode=mode)
+        return x + s_out, {"ssm": new_ssm}
+    if cfg.block in ATTN_BLOCKS:
+        a, new_attn = attention_decode(p["attn"], h, cache["attn"], pos, cfg, mode=mode)
+        x = x + a
+        h = rms_norm(p["norm2"]["scale"], x, cfg.norm_eps)
+        return x + _ffn(cfg, p, h, mode), {"attn": new_attn}
+    a, new_attn = attention_decode(p["attn"], h, cache["attn"], pos, cfg, mode=mode,
+                                   window=window, kv_prefix=(cache["meta_k"], cache["meta_v"]))
+    s_out, new_ssm = mamba2_decode(p["ssm"], h, cache["ssm"], cfg, mode=mode)
+    fused = 0.5 * (rms_norm(p["attn_fuse_norm"]["scale"], a, cfg.norm_eps)
+                   + rms_norm(p["ssm_fuse_norm"]["scale"], s_out, cfg.norm_eps))
+    x = x + fused
+    h = rms_norm(p["norm2"]["scale"], x, cfg.norm_eps)
+    x = x + mlp(p["mlp"], h, cfg, mode=mode)
+    return x, {"attn": new_attn, "meta_k": cache["meta_k"], "meta_v": cache["meta_v"],
+               "ssm": new_ssm}
+
+
 def decode_tokens(params, tokens: torch.Tensor, caches, cfg: ModelConfig, *,
                   mode: str = "dequant", layers_limit: Optional[int] = None):
-    """Q tokens per lane ``[B, Q]`` against the paged caches -> (logits
-    ``[B, Q, V]``, caches with ``pos`` advanced by Q). ``caches`` holds
-    ``layers[i]["attn"]`` (page pools), ``table`` ``[B, T]`` and ``pos``
-    ``[B]``; on the card the pools are updated in place. The Q tokens take
-    positions ``pos .. pos + Q - 1``; query ``j`` attends over positions
-    ``<= pos + j``, so the logits equal Q sequential one-token calls.
+    """Q tokens per lane ``[B, Q]`` against the caches -> (logits ``[B, Q,
+    V]``, caches with ``pos`` advanced by Q).
 
-    ``layers_limit`` runs only the first L layers and projects their output
-    through the final norm and the lm_head (the speculative drafter); the
-    skipped layers' pools pass through untouched."""
-    _check_block(cfg)
+    Paged caches (dense and MoE) hold ``layers[i]["attn"]`` (page pools),
+    ``table`` ``[B, T]`` and ``pos`` ``[B]``; on the card the pools are
+    updated in place. The Q tokens take positions ``pos .. pos + Q - 1``;
+    query ``j`` attends over positions ``<= pos + j``, so the logits equal Q
+    sequential one-token calls. ``layers_limit`` runs only the first L
+    layers and projects their output through the final norm and the
+    lm_head (the speculative drafter); the skipped layers' pools pass
+    through untouched.
+
+    Dense caches (:func:`init_cache`, no ``table``) take Q = 1 and every
+    block kind; their attention rows are written in place."""
+    check_block(cfg)
     pos = caches["pos"]
-    table = caches["table"]
+    table = caches.get("table")
     qn = tokens.shape[1]
+    if table is None and (qn != 1 or layers_limit is not None):
+        raise NotImplementedError(
+            "multi-token decode and the early-exit drafter on the unpaged engine's "
+            "dense caches: ROADMAP A16")
     n_run = cfg.n_layers
     if layers_limit is not None:
         n_run = max(1, min(layers_limit, cfg.n_layers))
     x = embed(params["embed"], tokens)
+    flags = _hymba_flags(cfg) if cfg.block == "hymba" else None
     new_layers = []
     for i in range(cfg.n_layers):
         if i >= n_run:
             new_layers.append(caches["layers"][i])  # the drafter skips the tail
             continue
         p = layer_params(params, i)
+        if table is None:
+            window = _hymba_window(cfg, flags, i) if flags is not None else 0
+            x, nc = _decode_layer_unpaged(cfg, p, x, caches["layers"][i], pos, window, mode)
+            new_layers.append(nc)
+            continue
         h = rms_norm(p["norm1"]["scale"], x, cfg.norm_eps)
         a, pool = attention_decode(
             p["attn"], h, caches["layers"][i]["attn"], pos, cfg, table=table, mode=mode
@@ -206,14 +334,17 @@ def decode_tokens(params, tokens: torch.Tensor, caches, cfg: ModelConfig, *,
         new_layers.append({"attn": pool})
     x = rms_norm(params["final_norm"]["scale"], x, cfg.norm_eps)
     logits = dense(_head(params, cfg), x, mode=mode, name="lm_head")
-    return logits, {"layers": new_layers, "table": table, "pos": pos + qn}
+    new_caches = {"layers": new_layers, "pos": pos + qn}
+    if table is not None:
+        new_caches["table"] = table
+    return logits, new_caches
 
 
 def decode_step(params, token: torch.Tensor, caches, cfg: ModelConfig, *,
                 mode: str = "dequant", layers_limit: Optional[int] = None):
-    """serve_step: one new token ``[B, 1]`` -> (logits ``[B, V]``, caches);
-    ``layers_limit`` truncates to the first L layers (see
-    :func:`decode_tokens`)."""
+    """serve_step: one new token ``[B, 1]`` -> (logits ``[B, V]``, caches),
+    on the paged or the dense caches; ``layers_limit`` truncates to the
+    first L layers (see :func:`decode_tokens`)."""
     logits, new_caches = decode_tokens(params, token, caches, cfg, mode=mode,
                                        layers_limit=layers_limit)
     return logits[:, 0, :], new_caches
@@ -261,7 +392,7 @@ def prefill_into_pages(
     """
     from ..serving import kv_cache as _kvc  # serving builds on models
 
-    _check_block(cfg)
+    _check_attention_block(cfg, "paged prefill")
     b, s = tokens.shape
     if b != 1:
         raise ValueError("paged prefill is per-request (page_ids are per-seq)")
@@ -278,3 +409,123 @@ def prefill_into_pages(
     # Only the last real token goes through the lm_head (the widest matmul).
     last_h = x[:, length.long() - 1]  # [1, 1, d]
     return dense(_head(params, cfg), last_h, mode=mode, name="lm_head")[:, 0, :], new_pools
+
+
+def _check_attention_block(cfg: ModelConfig, what: str) -> None:
+    check_block(cfg)
+    if cfg.block not in ATTN_BLOCKS:
+        raise NotImplementedError(
+            f"{what}: attention archs only, got {cfg.block} (SSM and hybrid prompts "
+            "replay through decode_step)")
+
+
+def _last_logits(params, x, length, cfg: ModelConfig, mode: str):
+    """The final norm, then the lm_head on each sequence's last real token
+    only (the widest matmul): ``[B, V]``."""
+    x = rms_norm(params["final_norm"]["scale"], x, cfg.norm_eps)
+    rows = torch.arange(x.shape[0], device=x.device)
+    last_h = x[rows, length.long() - 1][:, None]  # [B, 1, d]
+    return dense(_head(params, cfg), last_h, mode=mode, name="lm_head")[:, 0, :]
+
+
+def _write_kv(cache, k, v, idx: torch.Tensor) -> None:
+    """Write K/V ``[B, S, KV, hd]`` into rows ``idx`` ``[S]`` of a dense
+    cache ``[B, KV, S_cache, hd]``, in place: int8-quantized per row (the
+    decode append's grid) on an int8 cache. Rows of ``idx`` past the
+    cache are dropped."""
+    keep = idx < cache["k"].shape[2]
+    idx = idx[keep].long()
+    k_t = k.transpose(1, 2)[:, :, keep]  # [B, KV, S', hd]
+    v_t = v.transpose(1, 2)[:, :, keep]
+    if cache["k"].dtype == torch.int8:
+        k_q, k_s = quant_rows(k_t)
+        v_q, v_s = quant_rows(v_t)
+        cache["k"][:, :, idx] = k_q
+        cache["v"][:, :, idx] = v_q
+        cache["k_scale"][:, :, idx] = k_s
+        cache["v_scale"][:, :, idx] = v_s
+    else:
+        cache["k"][:, :, idx] = k_t.to(cache["k"].dtype)
+        cache["v"][:, :, idx] = v_t.to(cache["v"].dtype)
+
+
+def prefill_with_cache(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int, *,
+                       length: Optional[torch.Tensor] = None, cache_dtype=torch.float32,
+                       mode: str = "dequant"):
+    """Prefill a padded prompt into a fresh dense cache (the unpaged engine;
+    dense and MoE): one full-sequence forward that also writes every
+    layer's K/V into :func:`init_cache` rows ``[0, S)``.
+
+    tokens: ``[B, S]``, zero-padded; ``length`` (``[B]``; default S): the
+    real prompt lengths, where the logits are taken and ``pos`` starts.
+    Rows past a prompt's length hold pad-token K/V, invisible to decode
+    (which masks on the lane's position) and overwritten as it goes.
+    Returns (last-real-token logits ``[B, V]``, caches)."""
+    _check_attention_block(cfg, "prefill_with_cache")
+    b, s = tokens.shape
+    dev = tokens.device
+    if length is None:
+        length = torch.full((b,), s, dtype=torch.int32, device=dev)
+    length = length.to(torch.int32).reshape(-1).expand(b)
+    positions = torch.arange(s, device=dev)[None, :].expand(b, s)
+    caches = init_cache(cfg, b, max_len, dtype=cache_dtype, device=dev)
+    x = embed(params["embed"], tokens)
+    idx = torch.arange(s, device=dev)
+    for i in range(cfg.n_layers):
+        x, (k, v) = _block(cfg, layer_params(params, i), x, positions, mode=mode)
+        _write_kv(caches["layers"][i]["attn"], k, v, idx)
+    caches["pos"] = length.clone()
+    return _last_logits(params, x, length, cfg, mode), caches
+
+
+def prefill_chunk_with_cache(params, tokens: torch.Tensor, cfg: ModelConfig, caches, *,
+                             start: int, length: torch.Tensor, prefix_pad: int,
+                             mode: str = "dequant"):
+    """One budgeted prefill chunk against a b = 1 dense cache (the unpaged
+    engine's chunked prefill; dense and MoE).
+
+    tokens: ``[1, S_bucket]``, the chunk's prompt tokens zero-padded;
+    ``start``: tokens already committed to ``caches`` (the chunk's offset);
+    ``length``: ``[1]`` the chunk's real length; ``prefix_pad``: cache rows
+    ``[0, prefix_pad)`` are attended as the chunk's prefix, rows at or past
+    ``start`` zero-selected and masked out (the reference's engine pads the
+    prefix to a power of two so that chunks share a trace; the port's
+    passes the same pad, so the key count, and with it the key chunk of
+    the sums, is the reference's). The chunk's K/V rows land at ``[start, start +
+    S_bucket)`` (rows past the cache dropped), written in place; pad rows
+    past the real length are overwritten before any read sees them.
+    Returns (last-real-token logits ``[1, V]``, caches with ``pos`` at
+    ``start + length``)."""
+    _check_attention_block(cfg, "prefill_chunk_with_cache")
+    b, s = tokens.shape
+    if b != 1:
+        raise ValueError("chunked prefill is per-request (b=1 scratch cache)")
+    dev = tokens.device
+    length = length.to(torch.int32).reshape(1)
+    positions = (torch.arange(s, device=dev) + start)[None, :]
+    idx = start + torch.arange(s, device=dev)
+    st = torch.tensor(start, device=dev)
+    row_ok = (torch.arange(prefix_pad, device=dev) < start)[None, :, None, None]
+    x = embed(params["embed"], tokens)
+    new_layers = []
+    for i in range(cfg.n_layers):
+        cache = caches["layers"][i]["attn"]
+        kv_prefix = None
+        if prefix_pad:
+            pk = cache["k"][:, :, :prefix_pad].transpose(1, 2)
+            pv = cache["v"][:, :, :prefix_pad].transpose(1, 2)
+            if cache["k"].dtype == torch.int8:
+                ks = cache["k_scale"][:, :, :prefix_pad].transpose(1, 2)
+                vs = cache["v_scale"][:, :, :prefix_pad].transpose(1, 2)
+                pk = pk.to(torch.float32) * ks[..., None]
+                pv = pv.to(torch.float32) * vs[..., None]
+            # Rows past the commit point are stale: zero-selected, so the
+            # masked softmax sees finite scores.
+            kv_prefix = (torch.where(row_ok, pk, 0.0), torch.where(row_ok, pv, 0.0))
+        x, (k, v) = _block(cfg, layer_params(params, i), x, positions, mode=mode,
+                           kv_prefix=kv_prefix, prefix_len=st if prefix_pad else None)
+        _write_kv(cache, k, v, idx)
+        new_layers.append({"attn": cache})
+    new_caches = {"layers": new_layers,
+                  "pos": torch.full((1,), start, dtype=torch.int32, device=dev) + length}
+    return _last_logits(params, x, length, cfg, mode), new_caches

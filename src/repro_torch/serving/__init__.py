@@ -1,4 +1,5 @@
 from .config import (  # noqa: F401
+    ConfigError,
     EngineConfig,
     SamplingParams,
     add_engine_config_args,

@@ -1,18 +1,18 @@
 """Typed serving configuration (the port of ``repro.serving.config``):
 per-request :class:`SamplingParams`, and ``EngineConfig`` with the fields
-the paged engine uses (speculation, admission, the step scheduler, the
-bounded queue, the watchdog, and the observability layer's span trace,
-profiler window and drift monitor), the same defaults, help texts and
-validation as the reference, and the argparse flags generated from it
-(``spec`` becomes ``--spec-k`` / ``--draft-layers``; ``trace`` a
-``store_true`` flag).
+the engine uses (the paged or unpaged cache, speculation, admission, the
+step scheduler, the bounded queue, the watchdog, and the observability
+layer's span trace, profiler window and drift monitor), the same defaults,
+help texts and validation as the reference, and the argparse flags
+generated from it (``spec`` becomes ``--spec-k`` / ``--draft-layers``;
+``trace`` a ``store_true`` flag; ``paged`` a three-state ``--paged
+{auto,on,off}``). Contradicting fields raise :class:`ConfigError`.
 
 There is no ``kernels`` field: the port dispatches by device (the CUDA
 kernels on the card, their plain versions on the CPU), not by a per-engine
-backend choice. Nor are there the unpaged engine's ``paged`` (ROADMAP
-A16) or the jit compile cache (nothing is compiled). ``profile_dir``
-opens a ``torch.profiler`` window where the reference opens a
-``jax.profiler`` one.
+backend choice. Nor is there the jit compile cache (nothing is compiled).
+``profile_dir`` opens a ``torch.profiler`` window where the reference
+opens a ``jax.profiler`` one.
 """
 from __future__ import annotations
 
@@ -23,11 +23,18 @@ from typing import Optional
 from .spec_decode import SpecConfig
 
 __all__ = [
+    "ConfigError",
     "SamplingParams",
     "EngineConfig",
     "add_engine_config_args",
     "engine_config_from_args",
 ]
+
+
+class ConfigError(ValueError):
+    """Individually valid settings that contradict each other (``kv_bits=4``
+    on an unpaged engine: the dense cache has no int4 layout). Still a
+    ``ValueError`` for existing handlers."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +100,13 @@ class EngineConfig:
         metadata={
             "help": "w4a8: fraction of input channels kept at int8 "
             "(OCS absmax ranking; 0 = naive all-int4 weights)",
+        },
+    )
+    paged: Optional[bool] = dataclasses.field(
+        default=None,
+        metadata={
+            "help": "paged KV cache (auto = paged on attention archs)",
+            "tri_state": True,
         },
     )
     page_size: int = dataclasses.field(
@@ -236,6 +250,11 @@ class EngineConfig:
             )
         if self.kv_bits is not None and self.kv_bits not in (4, 8):
             raise ValueError(f"kv_bits must be 4 or 8 (or unset), got {self.kv_bits}")
+        if self.kv_bits == 4 and self.paged is False:
+            raise ConfigError(
+                "kv_bits=4 packs nibbles into page pools; the dense cache "
+                "has no int4 layout -- drop paged=False or use kv_bits=8"
+            )
         if not 0.0 <= self.w4a8_outlier_ratio <= 1.0:
             raise ValueError(
                 f"w4a8_outlier_ratio must be in [0, 1], got {self.w4a8_outlier_ratio}"
@@ -275,10 +294,11 @@ class EngineConfig:
                     f"fit one chunk), got budget {self.prefill_budget} < "
                     f"chunk {self.chunk_size}"
                 )
-            if self.chunk_size % self.page_size:
+            if self.paged is not False and self.chunk_size % self.page_size:
                 raise ValueError(
-                    "chunk_size must be a multiple of page_size, got chunk "
-                    f"{self.chunk_size} / page {self.page_size}"
+                    "chunk_size must be a multiple of page_size for paged "
+                    f"engines, got chunk {self.chunk_size} / page "
+                    f"{self.page_size}"
                 )
         if self.sched_aging_steps < 1:
             raise ValueError(
@@ -317,6 +337,11 @@ class EngineConfig:
         return dataclasses.replace(self, **kw)
 
 
+# The three-state CLI vocabulary of an Optional[bool] field (``paged``):
+# "auto" defers to the engine's per-arch default.
+_TRI = {"auto": None, "on": True, "off": False}
+
+
 def _flag(name: str) -> str:
     return "--" + name.replace("_", "-")
 
@@ -343,6 +368,10 @@ def add_engine_config_args(
         elif meta.get("optional_int"):
             g.add_argument(_flag(f.name), type=int, default=default or 0,
                            help=meta.get("help"))
+        elif meta.get("tri_state"):
+            g.add_argument(_flag(f.name), choices=sorted(_TRI),
+                           default=next(k for k, v in _TRI.items() if v == default),
+                           help=meta.get("help"))
         else:
             g.add_argument(_flag(f.name), type=type(default), default=default,
                            choices=meta.get("choices"), help=meta.get("help"))
@@ -357,6 +386,9 @@ def engine_config_from_args(args: argparse.Namespace, **overrides) -> EngineConf
                           if args.spec_k else None)
             continue
         val = getattr(args, f.name)
-        kw[f.name] = (val or None) if f.metadata.get("optional_int") else val
+        if f.metadata.get("tri_state"):
+            kw[f.name] = _TRI[val]
+        else:
+            kw[f.name] = (val or None) if f.metadata.get("optional_int") else val
     kw.update(overrides)
     return EngineConfig(**kw)

@@ -1,5 +1,20 @@
-"""Continuous-batching paged serving engine (the port of
-``repro.serving.engine``, its paged engine and request lifecycle).
+"""Continuous-batching serving engine (the port of ``repro.serving.engine``:
+its paged and unpaged engines and the request lifecycle).
+
+* **caches** -- ``EngineConfig.paged`` (None: paged for dense and MoE
+  models, unpaged for the SSM and hybrid ones, as the reference resolves
+  it). A paged engine keeps K/V in page pools with block tables and a
+  prefix cache (below). An unpaged engine keeps the dense per-lane caches
+  of :func:`models.transformer.init_cache` (float32; int8 rows with
+  ``kv_bits=8``; no int4 layout): a b = 1 scratch cache takes each
+  request's prefill and is copied into the lane's row once the prompt is
+  done (:meth:`ServingEngine._adopt_scratch`). Dense and MoE prompts
+  prefill in one :func:`models.transformer.prefill_with_cache` call (or,
+  budgeted, :func:`models.transformer.prefill_chunk_with_cache` chunks);
+  Mamba2 and hymba prompts replay through the decode step, one call per
+  prompt token, as the reference's do. Admission is always *reserve*
+  (fixed slots never oversubscribe), nothing preempts, the page stats read
+  0, and speculation refuses (ROADMAP A16).
 
 * **request lifecycle** -- ``submit(Request)`` queues; per-request
   :class:`~repro_torch.serving.config.SamplingParams` select greedy (the
@@ -89,8 +104,9 @@ Every linear layer of prefill and decode runs in ``EngineConfig.matmul_mode``
 ``EngineConfig.kv_bits`` picks the page pools: float32 (unset), int8 (8)
 or packed int4 (4; B2's int4 branch). The engine runs on the card unless
 built with ``device="cpu"``. It serves the dense and the MoE decoders
-(deepseek-moe-16b, phi3.5-moe-42b-a6.6b). The unpaged engine (ROADMAP
-A16) and the other architectures (A13) are later slices.
+(deepseek-moe-16b, phi3.5-moe-42b-a6.6b) paged or unpaged, and the
+Mamba2 (mamba2-1.3b) and hymba (hymba-1.5b) decoders unpaged. The other
+architectures are later slices (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -117,7 +133,7 @@ from ..runtime.health import HeartbeatMonitor, StepTimer
 from . import kv_cache as kvc
 from . import sampling as sampling_mod
 from . import spec_decode as spec_mod
-from .config import EngineConfig, SamplingParams
+from .config import ConfigError, EngineConfig, SamplingParams
 from .scheduler import StepScheduler
 
 __all__ = [
@@ -298,6 +314,7 @@ class _Slot:
     prefill_pos: int = -1
     keys: List[bytes] = dataclasses.field(default_factory=list)  # prompt
     # chain keys: full pages register as their chunk completes
+    scratch: Optional[Dict] = None  # unpaged chunked prefill: the b=1 cache
 
     @property
     def prefilling(self) -> bool:
@@ -349,11 +366,21 @@ class ServingEngine:
     ):
         self.device = resolve_device(device)
         config = config if config is not None else EngineConfig()
-        if cfg.block not in ("dense", "moe") or not cfg.causal:
+        T.check_block(cfg)
+        # Paged KV cache: attention archs only (SSM and hybrid decode states
+        # are O(1) per lane: nothing to page).
+        self.paged = cfg.block in T.ATTN_BLOCKS if config.paged is None else config.paged
+        if self.paged and cfg.block not in T.ATTN_BLOCKS:
+            raise ValueError(f"paged KV cache: dense/moe only, got {cfg.block}")
+        if not self.paged and (config.kv_bits or cfg.kv_bits) == 4:
+            raise ConfigError(
+                "kv_bits=4 packs nibbles into page pools; this engine resolved to "
+                f"an unpaged cache (block={cfg.block!r}) -- the dense cache has no "
+                "int4 layout")
+        if not self.paged and config.spec is not None:
             raise NotImplementedError(
-                f"{cfg.name}: the port serves dense and MoE decoders (ROADMAP A13)"
-            )
-        if self.device.type == "cuda":  # refuse up front, not at the first decode
+                "speculative decoding on the unpaged engine: ROADMAP A16")
+        if self.device.type == "cuda" and self.paged:  # refuse up front
             check_layout(cfg.hd, config.page_size)
         if config.kv_bits is not None and config.kv_bits != cfg.kv_bits:
             cfg = dataclasses.replace(cfg, kv_bits=config.kv_bits)
@@ -406,35 +433,40 @@ class ServingEngine:
         self._drift_broken = False
         self._drift_last_step = -1
         self._profiler = None  # the torch.profiler window of profile_dir
-        # The router's view: every engine of the port is paged, and it has
-        # no automatic kernel fallback (dispatch is by device), so the
-        # breaker's fallback term always reads 0.
-        self.paged = True
+        # No automatic kernel fallback (dispatch is by device), so the
+        # router's breaker term for it always reads 0.
         self.kernel_fallbacks = 0
         self.max_batch = config.max_batch
         self.max_len = config.max_len
         self.matmul_mode = config.matmul_mode
         self.page_size = config.page_size
-        if self.max_len % self.page_size:
-            raise ValueError(
-                f"max_len {self.max_len} must be a multiple of page_size "
-                f"{self.page_size}"
+        if self.paged:
+            if self.max_len % self.page_size:
+                raise ValueError(
+                    f"max_len {self.max_len} must be a multiple of page_size "
+                    f"{self.page_size}"
+                )
+            self.max_pages_per_seq = self.max_len // self.page_size
+            n_pages = config.n_pages
+            if n_pages is None:
+                # The fixed-slot footprint plus the reserved trash page.
+                n_pages = self.max_batch * self.max_pages_per_seq + 1
+            self.allocator = kvc.PageAllocator(n_pages, self.page_size)
+            self.caches = kvc.init_paged_cache(
+                cfg, self.max_batch, n_pages, self.page_size, self.max_pages_per_seq,
+                device=self.device,
             )
-        self.max_pages_per_seq = self.max_len // self.page_size
-        n_pages = config.n_pages
-        if n_pages is None:
-            # The fixed-slot footprint plus the reserved trash page.
-            n_pages = self.max_batch * self.max_pages_per_seq + 1
-        self.allocator = kvc.PageAllocator(n_pages, self.page_size)
-        self.caches = kvc.init_paged_cache(
-            cfg, self.max_batch, n_pages, self.page_size, self.max_pages_per_seq,
-            device=self.device,
-        )
+        else:
+            self.allocator = None
+            self.caches = T.init_cache(cfg, self.max_batch, self.max_len, torch.float32,
+                                       device=self.device)
         self.slots = [_Slot() for _ in range(self.max_batch)]
         self.queue: Deque[Request] = deque()
         self.done: List[Request] = []
         self.tokens = torch.zeros((self.max_batch, 1), dtype=torch.int32, device=self.device)
-        self.admission = config.admission
+        # Optimistic admission means something only on a paged engine:
+        # fixed slots never oversubscribe, so an unpaged one reserves.
+        self.admission = config.admission if self.paged else "reserve"
         self.replay_lengths: List[int] = []  # each resume replay's rows (its tail, padded on MoE)
         self._install_seq = 0  # monotonic install stamp (victim selection)
         # The step scheduler orders admission for every engine and plans
@@ -497,7 +529,9 @@ class ServingEngine:
         b = 8
         while b < n:
             b *= 2
-        return min(max(b, self.page_size), self.max_len)
+        if self.paged:
+            b = max(b, self.page_size)  # page-granular writes
+        return min(b, self.max_len)
 
     def _scope(self, name: str):
         """A ``torch.profiler`` label while the profile_dir window is open
@@ -534,18 +568,23 @@ class ServingEngine:
                 prefix_ids=torch.as_tensor(prefix_ids, dtype=torch.int32, device=dev),
                 mode=self.matmul_mode,
             )
-            finite = bool(torch.isfinite(logits).all())
-            if sp.greedy:
-                first = int(torch.argmax(logits[0]))  # sync: the prefill has retired
-            else:
-                pos = torch.as_tensor([sample_pos], dtype=torch.int32, device=dev)
-                first = int(sampling_mod.sample_tokens(logits, self._samp_one(sp), pos)[0])
+            first, finite = self._first_token(logits, sp, sample_pos)
         elapsed = time.perf_counter() - t0
         self.prefill_time_s += elapsed
         self.prefill_calls += 1
         self.prefill_tokens += m
         self.caches["layers"] = [{"attn": p} for p in new_pools]
         return first, finite, t0, elapsed
+
+    def _first_token(self, logits: torch.Tensor, sp: SamplingParams,
+                     sample_pos: int) -> Tuple[int, bool]:
+        """A prefill's ``[1, V]`` logits -> (the next token, the argmax or
+        ``sp``'s draw at ``sample_pos``; whether the logits are finite)."""
+        finite = bool(torch.isfinite(logits).all())
+        if sp.greedy:
+            return int(torch.argmax(logits[0])), finite  # sync: the prefill has retired
+        pos = torch.as_tensor([sample_pos], dtype=torch.int32, device=self.device)
+        return int(sampling_mod.sample_tokens(logits, self._samp_one(sp), pos)[0]), finite
 
     def _prefill_request(self, tokens: np.ndarray, prefix_ids: List[int],
                          page_ids: List[int], sp: SamplingParams, sample_pos: int,
@@ -741,9 +780,15 @@ class ServingEngine:
         """Admit ``req`` into lane ``slot_idx``. Returns False -- leaving the
         request queued -- only when the pool cannot hold it."""
         if req.output:
+            if not self.paged:
+                raise NotImplementedError(
+                    f"request {req.uid} carries committed output: resuming it needs the "
+                    "paged engine's replay (ROADMAP A16)")
             return self._resume_paged(slot_idx, req)
         if self.chunked:
             return self._install_chunked(slot_idx, req)
+        if not self.paged:
+            return self._install_unpaged(slot_idx, req)
         prompt = np.asarray(req.prompt, np.int64)
         n = len(prompt)
         self._validate_prompt_len(n)
@@ -835,6 +880,151 @@ class ServingEngine:
         self._install_seq += 1
         return True
 
+    # ------------------------------------------------------ unpaged engine
+
+    def _prefill_scratch(self, tokens: np.ndarray, scratch, start: int,
+                         sp: SamplingParams, sample_pos: int):
+        """Run ``tokens`` (prompt positions ``start`` on) into a b = 1
+        scratch cache of :func:`models.transformer.init_cache`. Dense and
+        MoE: one :func:`models.transformer.prefill_chunk_with_cache` call
+        over the bucket-padded tokens, the cache's rows below ``start`` read
+        as the prefix (padded to the reference's power-of-two bucket), or
+        with no scratch one :func:`models.transformer.prefill_with_cache`
+        call that makes it. Mamba2 and hymba: one decode step per token, as
+        the reference replays them. Returns (the token after the last one,
+        drawn by ``sp`` at ``sample_pos``; the finite flag of its logits,
+        the last step's only on a replay, since an SSM NaN propagates
+        through the state; the scratch; the call's start and wall
+        seconds)."""
+        m = len(tokens)
+        dev = self.device
+        mode = self.matmul_mode
+        t0 = time.perf_counter()
+        with torch.no_grad(), self._scope("serving_prefill"):
+            if self.cfg.block in T.ATTN_BLOCKS:
+                bucket = self._prefill_bucket(m)
+                toks = np.zeros((1, bucket), np.int64)
+                toks[0, :m] = tokens
+                toks = torch.as_tensor(toks, device=dev)
+                length = torch.tensor([m], dtype=torch.int32, device=dev)
+                if scratch is None:
+                    logits, scratch = T.prefill_with_cache(
+                        self.params, toks, self.cfg, self.max_len, length=length, mode=mode)
+                else:
+                    prefix_pad = 0
+                    if start:
+                        prefix_pad = 8
+                        while prefix_pad < start:
+                            prefix_pad *= 2
+                        prefix_pad = min(prefix_pad, self.max_len)
+                    logits, scratch = T.prefill_chunk_with_cache(
+                        self.params, toks, self.cfg, scratch, start=start, length=length,
+                        prefix_pad=prefix_pad, mode=mode)
+                calls = 1
+            else:
+                if scratch is None:
+                    scratch = T.init_cache(self.cfg, 1, self.max_len, torch.float32,
+                                           device=dev)
+                toks = torch.as_tensor(np.asarray(tokens, np.int64), device=dev)[None, :]
+                for i in range(m):
+                    logits, scratch = T.decode_step(self.params, toks[:, i:i + 1], scratch,
+                                                    self.cfg, mode=mode)
+                calls = m
+            first, finite = self._first_token(logits, sp, sample_pos)
+        elapsed = time.perf_counter() - t0
+        self.prefill_time_s += elapsed
+        self.prefill_calls += calls
+        self.prefill_tokens += m
+        return first, finite, scratch, t0, elapsed
+
+    def _install_unpaged(self, slot_idx: int, req: Request) -> bool:
+        """Monolithic install on the unpaged engine: the whole prompt into a
+        fresh scratch cache (:meth:`_prefill_scratch`), adopted into the
+        lane's row unless the request ends at its first token."""
+        prompt = np.asarray(req.prompt, np.int64)
+        n = len(prompt)
+        self._validate_prompt_len(n)
+        sp = req.sampling or _GREEDY
+        self.prefill_requests += 1
+        first, finite, scratch, t0, elapsed = self._prefill_scratch(prompt, None, 0, sp, n - 1)
+        if self.trace is not None:
+            self.trace.emit("prefill", track=req.uid, ts=t0, dur=elapsed, step=self.steps,
+                            tokens=n)
+        if not finite:
+            self._quarantine(req)
+            return True
+        if self._finish_first_token(req, first):
+            return True
+        self._adopt_scratch(slot_idx, scratch)
+        self.tokens[slot_idx, 0] = first
+        self.slots[slot_idx] = _Slot(req=req, remaining=req.max_new_tokens - 1,
+                                     seq=self._install_seq)
+        self._install_seq += 1
+        self._set_lane_sampling(slot_idx, sp)
+        return True
+
+    def _adopt_scratch(self, slot_idx: int, scratch) -> None:
+        """Copy a b = 1 scratch cache into row ``slot_idx`` of the engine's
+        caches, every leaf of every layer, and the lane's position; the
+        other lanes are untouched."""
+        def put(dst, src):
+            if isinstance(dst, dict):
+                for key in dst:
+                    put(dst[key], src[key])
+            else:
+                dst[slot_idx:slot_idx + 1].copy_(src)
+
+        for eng_layer, scr_layer in zip(self.caches["layers"], scratch["layers"]):
+            put(eng_layer, scr_layer)
+        self.caches["pos"][slot_idx] = scratch["pos"][0]
+
+    def _run_chunk_scratch(self, slot_idx: int, grant: int) -> None:
+        """One chunk of lane ``slot_idx``'s prompt into its b = 1 scratch
+        (:meth:`_prefill_scratch`: a prefill chunk for dense and MoE, a
+        bounded run of the decode-step replay for Mamba2 and hymba). The
+        final chunk adopts the scratch (:meth:`_finalize_unpaged`)."""
+        slot = self.slots[slot_idx]
+        req = slot.req
+        prompt = np.asarray(req.prompt, np.int64)
+        n = len(prompt)
+        start = slot.prefill_pos
+        end = start + grant
+        sp = req.sampling or _GREEDY
+        first, finite, slot.scratch, t0, elapsed = self._prefill_scratch(
+            prompt[start:end], slot.scratch, start, sp, n - 1)
+        if self.trace is not None:
+            self.trace.emit("prefill_chunk", track=req.uid, ts=t0, dur=elapsed,
+                            step=self.steps, start=start, grant=grant, final=end >= n)
+        if end >= n:
+            self._finalize_unpaged(slot_idx, first, finite)
+        elif self.cfg.block in T.ATTN_BLOCKS and not finite:
+            # A replay's chunk checks nothing before the last (an SSM NaN
+            # propagates through the state), as the reference's does.
+            self.slots[slot_idx] = _Slot()
+            self._quarantine(req)
+        else:
+            slot.prefill_pos = end
+
+    def _finalize_unpaged(self, slot_idx: int, first: int, finite: bool) -> None:
+        """The last chunk is done: adopt the scratch into the engine's caches
+        and make the lane decode, or finish or quarantine the request
+        without its ever taking a decode lane (as the monolithic install)."""
+        slot = self.slots[slot_idx]
+        req = slot.req
+        if not finite:
+            self.slots[slot_idx] = _Slot()
+            self._quarantine(req)
+            return
+        if self._finish_first_token(req, first):
+            self.slots[slot_idx] = _Slot()
+            return
+        self._adopt_scratch(slot_idx, slot.scratch)
+        self.tokens[slot_idx, 0] = first
+        slot.scratch = None
+        slot.remaining = req.max_new_tokens - 1
+        slot.prefill_pos = -1
+        self._set_lane_sampling(slot_idx, req.sampling or _GREEDY)
+
     # ------------------------------------------------------ chunked prefill
 
     def _is_resume(self, req: Request) -> bool:
@@ -851,6 +1041,17 @@ class ServingEngine:
         prompt = np.asarray(req.prompt, np.int64)
         n = len(prompt)
         self._validate_prompt_len(n)
+        if not self.paged:
+            # The lane only: its prompt chunks run into a b=1 scratch cache.
+            self.slots[slot_idx] = _Slot(
+                req=req, remaining=req.max_new_tokens, seq=self._install_seq,
+                prefill_pos=0,
+                scratch=(T.init_cache(self.cfg, 1, self.max_len, torch.float32,
+                                      device=self.device)
+                         if self.cfg.block in T.ATTN_BLOCKS else None))
+            self._install_seq += 1
+            self.prefill_requests += 1
+            return True
         ps = self.page_size
         # The final chunk must keep >= 1 token.
         claim = self._claim_pages(prompt, n, self._need_total(req), (n - 1) // ps)
@@ -878,8 +1079,12 @@ class ServingEngine:
         if not lanes:
             return
         for slot_idx, grant in self._sched.plan_chunks(lanes):
-            if self.slots[slot_idx].prefilling:  # not quarantined this step
+            if not self.slots[slot_idx].prefilling:
+                continue  # quarantined by an earlier chunk this step
+            if self.paged:
                 self._run_chunk_paged(slot_idx, grant)
+            else:
+                self._run_chunk_scratch(slot_idx, grant)
 
     def _run_chunk_paged(self, slot_idx: int, grant: int) -> None:
         """One chunk of lane ``slot_idx``'s prompt straight into its pages.
@@ -934,12 +1139,14 @@ class ServingEngine:
             self._fault_streak = 0  # a healthy completion clears the streak
         self.done.append(slot.req)
         self._book_terminal(slot.req)
-        # Reclaim the pages (retirement is truncate to 0 tokens; cancel rides
-        # the same path) and point the lane at the trash page so its dead
-        # writes never land in a page the allocator hands out again.
-        self.allocator.truncate(slot.pages, 0)
-        self.caches["table"][slot_idx] = kvc.TRASH_PAGE
-        self.caches["pos"][slot_idx] = 0
+        if self.paged:
+            # Reclaim the pages (retirement is truncate to 0 tokens; cancel
+            # rides the same path) and point the lane at the trash page so
+            # its dead writes never land in a page the allocator hands out
+            # again. An unpaged lane's row is overwritten by its next adopt.
+            self.allocator.truncate(slot.pages, 0)
+            self.caches["table"][slot_idx] = kvc.TRASH_PAGE
+            self.caches["pos"][slot_idx] = 0
         self.slots[slot_idx] = _Slot()
         self._set_lane_sampling(slot_idx, _GREEDY)
 
@@ -1070,12 +1277,13 @@ class ServingEngine:
                 f"speculative engine: prompt ({len(req.prompt)}) + max_new_tokens "
                 f"({req.max_new_tokens}) must fit max_len ({self.max_len})"
             )
-        need = self._need_total(req)
-        if need > self.allocator.capacity:
-            raise ValueError(
-                f"request needs {need} pages; pool capacity is "
-                f"{self.allocator.capacity} (raise n_pages)"
-            )
+        if self.paged:
+            need = self._need_total(req)
+            if need > self.allocator.capacity:
+                raise ValueError(
+                    f"request needs {need} pages; pool capacity is "
+                    f"{self.allocator.capacity} (raise n_pages)"
+                )
         if isinstance(req.uid, int):  # generate()'s auto-uids stay unique
             self._auto_uid = max(self._auto_uid, req.uid + 1)
         req.t_submit = time.perf_counter()
@@ -1352,13 +1560,31 @@ class ServingEngine:
         feed the monitor. Its logits are discarded. On the card the step
         appends its K/V rows to the pools in place, so the rows it writes (one
         per lane and layer) are read before and written back after: every
-        pool byte and the lane positions are as they were. Runs after the
+        pool byte and the lane positions are as they were. An unpaged engine
+        runs the step on a copy of its caches. Runs after the
         watchdog's timed window; the first failure disables the monitor for
         the engine's lifetime."""
         if self._drift_broken:
             return
         if not any(s.req is not None and not s.prefilling for s in self.slots):
             return  # nothing decoding: the batch rows are all garbage
+        if not self.paged:
+            # The dense caches' rows are written in place: the monitoring
+            # step runs on a copy of them.
+            copy = {"layers": [_clone_tree(layer) for layer in self.caches["layers"]],
+                    "pos": self.caches["pos"].clone()}
+
+            def forward_copy():
+                with torch.no_grad():
+                    T.decode_step(self.params, self.tokens, copy, self.cfg,
+                                  mode=self.matmul_mode)
+
+            try:
+                self._drift.sample(forward_copy)
+            except Exception as e:  # telemetry never takes the serving loop down
+                self._drift_broken = True
+                _LOG.warning("quant-drift monitor disabled: %s", e)
+            return
         page, row = self._pool_rows()
         pools = [layer["attn"] for layer in self.caches["layers"]]
         saved = [{key: t[page, :, row].clone() for key, t in pool.items()} for pool in pools]
@@ -1514,19 +1740,22 @@ class ServingEngine:
             self._step_timer.percentile(95) * 1e3)
         m.gauge("engine_step_stalled", "watchdog straggler flag").set(
             1.0 if self._step_timer.is_straggling else 0.0)
-        m.gauge("kv_pages_capacity", "page-pool capacity").set(float(alloc.capacity))
+        m.gauge("kv_pages_capacity", "page-pool capacity").set(
+            float(alloc.capacity) if alloc else 0.0)
         m.gauge("kv_pages_in_use", "pages currently owned by lanes").set(
-            float(alloc.in_use()))
+            float(alloc.in_use()) if alloc else 0.0)
         m.gauge("kv_pages_cached", "prefix-cache pages (reclaimable)").set(
-            float(alloc.cached_pages()))
-        m.gauge("kv_pages_peak", "peak pages in use").set(float(alloc.peak_in_use))
+            float(alloc.cached_pages()) if alloc else 0.0)
+        m.gauge("kv_pages_peak", "peak pages in use").set(
+            float(alloc.peak_in_use) if alloc else 0.0)
         m.gauge("kv_pool_occupancy", "in-use fraction of the pool").set(
-            alloc.in_use() / alloc.capacity if alloc.capacity else 0.0)
+            alloc.in_use() / alloc.capacity if alloc else 0.0)
         m.gauge("kv_pool_peak_occupancy", "peak in-use fraction").set(
-            alloc.peak_in_use / alloc.capacity if alloc.capacity else 0.0)
-        m.gauge("prefix_hit_rate", "prefix-cache page hit rate").set(alloc.hit_rate())
+            alloc.peak_in_use / alloc.capacity if alloc else 0.0)
+        m.gauge("prefix_hit_rate", "prefix-cache page hit rate").set(
+            alloc.hit_rate() if alloc else 0.0)
         m.gauge("prefix_hit_pages", "prefix-cache pages reused").set(
-            float(alloc.prefix_hit_pages))
+            float(alloc.prefix_hit_pages) if alloc else 0.0)
         m.gauge("sched_chunks", "prefill chunk calls planned").set(float(self._sched.chunks))
         m.gauge("sched_budget_limited_steps", "steps where the prefill budget bound").set(
             float(self._sched.budget_limited_steps))
@@ -1543,9 +1772,9 @@ class ServingEngine:
             m.gauge("trace_dropped", "span events aged out of the bounded ring").set(
                 float(self.trace.dropped))
         m.gauge("kv_bytes_per_token", "per-token KV cache footprint across all layers").set(
-            float(kvc.kv_bytes_per_token(self.cfg)))
+            float(kvc.kv_bytes_per_token(self.cfg)) if self.paged else 0.0)
         m.gauge("kv_pool_capacity_tokens", "page-pool capacity expressed in tokens").set(
-            float(alloc.capacity * self.page_size))
+            float(alloc.capacity * self.page_size) if alloc else 0.0)
         if self._drift is not None:
             self._drift.publish(m)
 
@@ -1604,7 +1833,8 @@ class ServingEngine:
             prefill_calls_per_request=(
                 self.prefill_calls / self.prefill_requests if self.prefill_requests else 0.0
             ),
-            kv_page_size=float(self.page_size),
+            # Page-pool accounting: zeros when unpaged (the schema stays flat).
+            kv_page_size=float(self.page_size) if self.paged else 0.0,
             kv_pages_capacity=gv("kv_pages_capacity"),
             kv_pages_in_use=gv("kv_pages_in_use"),
             kv_pages_cached=gv("kv_pages_cached"),
@@ -1643,6 +1873,12 @@ class ServingEngine:
     def stats(self) -> Dict:
         """The dict view of :meth:`engine_stats`."""
         return self.engine_stats().as_dict()
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {key: _clone_tree(v) for key, v in tree.items()}
+    return tree.clone()
 
 
 def _install_counter_properties() -> None:

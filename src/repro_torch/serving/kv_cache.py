@@ -98,7 +98,8 @@ def init_paged_cache(
     ``table`` and ``pos`` are shared across layers."""
     if cfg.block not in ("dense", "moe"):
         raise NotImplementedError(
-            f"paged KV cache: dense and MoE archs only, got {cfg.block} (ROADMAP A13)")
+            f"paged KV cache: dense and MoE archs only, got {cfg.block} (SSM and hybrid "
+            "models serve on the unpaged engine)")
     return {
         "layers": [
             {"attn": init_page_pool(cfg, n_pages, page_size, device=device)}

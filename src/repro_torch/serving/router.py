@@ -29,8 +29,9 @@ that owns placement, liveness, and recovery:
   uncontended single-engine oracle token for token, and seeded sampling
   is reproducible because a draw depends on ``(seed, position)`` only —
   *where* a token is produced cannot change *which* token it is.
-  Migration needs the replay path, hence **paged replicas only** (every
-  engine of the port is paged).
+  Migration needs the replay path, hence **paged replicas only**, as in
+  the reference: an unpaged engine (``EngineConfig(paged=False)``, or an
+  SSM or hybrid model) is refused.
 * **precision-tier affinity** — replicas carry a tier identity
   ``(kv_bits, matmul_mode)``. A request with committed tokens resumes
   on its source tier ONLY: replaying an int8-cache prefix through an
@@ -181,7 +182,7 @@ class Replica:
                  config: RouterConfig):
         if not engine.paged:
             raise ValueError(
-                "router replicas must be paged engines: "
+                "router replicas must be paged engines (dense/moe archs): "
                 "cross-replica migration resumes through the paged replay "
                 f"path; replica {rid} is unpaged"
             )

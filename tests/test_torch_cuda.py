@@ -51,6 +51,10 @@ def _same_bits(a, b):
      (1, 256, 200, 6, True), (300, 4096, 512, 82, True)],
 )
 def test_fused_qmatmul_cuda_bitwise(m, k, n, s, bf16):
+    """B1 bitwise its plain version; an N that is not a multiple of 16 runs
+    on weights stored zero-padded to one (``core.ocs.pad_out_cols``, as a
+    quantized leaf stores them), its first N columns bitwise the plain
+    version's on the unpadded weights."""
     cuda_or_skip()
     g = torch.Generator(device="cuda").manual_seed(m * 31 + k)
     dt = torch.bfloat16 if bf16 else torch.float32
@@ -58,7 +62,9 @@ def test_fused_qmatmul_cuda_bitwise(m, k, n, s, bf16):
     w8 = torch.randint(-127, 128, (k + s, n), generator=g, device="cuda", dtype=torch.int8)
     ws = torch.rand((n,), generator=g, device="cuda") * 0.01 + 1e-4
     src = torch.randint(0, k, (s,), generator=g, device="cuda", dtype=torch.int32)
-    got = tfq.fused_quant_matmul_cuda(x, w8, ws, src, out_dtype=dt)
+    npad = tqm.padded_cols(n, 16)
+    got = tfq.fused_quant_matmul_cuda(x, tqm.pad_cols(w8, npad), tqm.pad_cols(ws, npad), src,
+                                      out_dtype=dt)[:, :n]
     want = tfq.fused_quant_matmul_plain(x, w8, ws, src, out_dtype=dt)
     assert torch.equal(got, want)
 
@@ -153,28 +159,37 @@ RAGGED_CASES = [(8, 1600, 32, 32001), (40, 1600, 32, 32001), (5, 300, 8, 37),
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,s,n", RAGGED_CASES)
 def test_gemms_take_a_ragged_n_cuda(m, k, s, n):
-    """Every card GEMM takes an N that is not a multiple of 4, and its
-    columns are, bit for bit, those of the same call on the weights
-    zero-padded to a multiple of 16: B1 and B6 bitwise their plain
-    versions; B4's and B5's int8
-    paths bitwise; their weight-only paths (tensor cores for bf16 x, CUDA
-    cores for f32 x) within the summation-order bound of the plain version,
-    bf16 outputs within it plus one bf16 ulp."""
+    """A ragged N (not a multiple of 4) runs on weights stored zero-padded
+    to a multiple of 16 (``core.ocs.pad_out_cols``: once, when the tree is
+    built; no wrapper pads per call), and its first N columns are, bit for
+    bit, what the plain versions give on the unpadded weights: B1 and B6
+    bitwise; B4's and B5's int8 paths bitwise; their weight-only paths (the
+    tensor cores for bf16 x, the CUDA cores for f32 x) within the
+    summation-order bound of the plain version, bf16 outputs within it
+    plus one bf16 ulp. Every wrapper refuses the unpadded weights before
+    any launch, naming the build-time pad."""
     cuda_or_skip()
     g, w8, ws, src = _b1_weights(k, s, n, m + k + s + n)
-    npad = tqm.padded_cols(n)
+    npad = tqm.padded_cols(n, 16)
     w8p, wsp = tqm.pad_cols(w8, npad), tqm.pad_cols(ws, npad)
     xb = (torch.randn((m, k), generator=g, device="cuda") * 2.0).to(torch.bfloat16)
-    for dt in (torch.float32, torch.bfloat16):
-        got = tfq.fused_quant_matmul_cuda(xb, w8, ws, src, out_dtype=dt)
-        assert got.shape == (m, n)
-        assert _same_bits(got, tfq.fused_quant_matmul_plain(xb, w8, ws, src, out_dtype=dt))
-        aligned = tfq.fused_quant_matmul_cuda(xb, w8p, wsp, src, out_dtype=dt)
-        assert _same_bits(got, aligned[:, :n].contiguous())
+    n0 = (tfq.launches, tom.launches, tqm.launches, tw4.launches)
     mult = torch.ones((s,), device="cuda")
+    with pytest.raises(ValueError, match="pad_out_cols"):
+        tfq.fused_quant_matmul_cuda(xb, w8, ws, src)
+    with pytest.raises(ValueError, match="pad_out_cols"):
+        tom.ocs_quant_matmul_cuda(xb, w8, ws, src, tail_mult=mult, tail_is_mask=True)
+    with pytest.raises(ValueError, match="pad_out_cols"):
+        tqm.quant_matmul_cuda(xb, w8[:k].contiguous(), ws)
+    assert (tfq.launches, tom.launches, tqm.launches, tw4.launches) == n0
+    for dt in (torch.float32, torch.bfloat16):
+        got = tfq.fused_quant_matmul_cuda(xb, w8p, wsp, src, out_dtype=dt)
+        assert got.shape == (m, npad) and not got[:, n:].any()
+        assert _same_bits(got[:, :n].contiguous(),
+                          tfq.fused_quant_matmul_plain(xb, w8, ws, src, out_dtype=dt))
     for x in (xb, xb.float()):
-        got = tom.ocs_quant_matmul_cuda(x, w8, ws, src, tail_mult=mult, tail_is_mask=True,
-                                        out_dtype=torch.float32)
+        got = tom.ocs_quant_matmul_cuda(x, w8p, wsp, src, tail_mult=mult, tail_is_mask=True,
+                                        out_dtype=torch.float32)[:, :n]
         want = tom.ocs_quant_matmul_plain(x, w8, ws, src, tail_mult=mult,
                                           out_dtype=torch.float32)
         xe = torch.cat([x.float(), x[:, src.long()].float()], 1)
@@ -182,25 +197,27 @@ def test_gemms_take_a_ragged_n_cuda(m, k, s, n):
                  * tref.float_matmul(xe.abs(), w8.abs()) * ws)
         assert got.shape == (m, n) and torch.isfinite(got).all()
         assert ((got - want).abs() <= bound).all(), x.dtype
-        aligned = tom.ocs_quant_matmul_cuda(x, w8p, wsp, src, tail_mult=mult,
-                                            tail_is_mask=True, out_dtype=torch.float32)
-        assert _same_bits(got, aligned[:, :n].contiguous()), x.dtype
-    g16 = tom.ocs_quant_matmul_cuda(xb, w8, ws, src, tail_mult=mult, tail_is_mask=True,
-                                    out_dtype=torch.bfloat16).float()
+    g16 = tom.ocs_quant_matmul_cuda(xb, w8p, wsp, src, tail_mult=mult, tail_is_mask=True,
+                                    out_dtype=torch.bfloat16)[:, :n].float()
     p16 = tom.ocs_quant_matmul_plain(xb, w8, ws, src, tail_mult=mult,
                                      out_dtype=torch.bfloat16).float()
     assert ((g16 - p16).abs() <= bound + _bf16_ulp(torch.maximum(g16.abs(), p16.abs()))).all()
     x8 = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
     xs = torch.rand((m,), generator=g, device="cuda") * 0.05 + 1e-3
     for dt in (torch.float32, torch.bfloat16):
-        got = tom.ocs_quant_matmul_cuda(x8, w8, ws, src, xs, mult, out_dtype=dt)
-        assert _same_bits(got, tom.ocs_quant_matmul_plain(x8, w8, ws, src, xs, mult,
-                                                          out_dtype=dt)), dt
-    w4a8 = _w4a8_case(m, k, n, s, 13, torch.bfloat16, m + n)
+        got = tom.ocs_quant_matmul_cuda(x8, w8p, wsp, src, xs, mult, out_dtype=dt)[:, :n]
+        assert _same_bits(got.contiguous(), tom.ocs_quant_matmul_plain(x8, w8, ws, src, xs,
+                                                                       mult, out_dtype=dt)), dt
+    x4, w4, s4, w48, s8, src4, oidx = _w4a8_case(m, k, n, s, 13, torch.bfloat16, m + n)
+    assert w4.shape[1] == npad  # stored as pad_out_cols stores a W4A8Linear
+    with pytest.raises(ValueError, match="pad_out_cols"):
+        tw4.w4a8_matmul_cuda(x4, w4[:, :n].contiguous(), s4[:n].contiguous(),
+                             w48[:, :n].contiguous(), s8[:n].contiguous(), src4, oidx)
     for dt in (torch.float32, torch.bfloat16):
-        got = tw4.w4a8_matmul_cuda(*w4a8, out_dtype=dt)
-        assert got.shape == (m, n)
-        assert _same_bits(got, tw4.w4a8_matmul_plain(*w4a8, out_dtype=dt)), dt
+        got = tw4.w4a8_matmul_cuda(x4, w4, s4, w48, s8, src4, oidx, out_dtype=dt)
+        want = tw4.w4a8_matmul_plain(x4, w4[:, :n], s4[:n], w48[:, :n], s8[:n], src4, oidx,
+                                     out_dtype=dt)
+        assert _same_bits(got[:, :n].contiguous(), want), dt
 
 
 @pytest.mark.cuda
@@ -409,7 +426,9 @@ W4A8_CASES = [
 def _w4a8_case(m, k, n, s, t, dt, seed):
     """Random W4A8 operands; an odd K+S gets what ``to_w4a8`` gives it: a
     dead tail entry (src 0) and a zero last expanded row (the high nibble
-    of the last byte row)."""
+    of the last byte row). An N that is not a multiple of 16 is stored as
+    ``core.ocs.pad_out_cols`` stores it: zero columns (weights and scales)
+    up to the next multiple of 16."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = (torch.randn((m, k), generator=g, device="cuda") * 2.0).to(dt)
     ke = k + s + (k + s) % 2
@@ -423,6 +442,8 @@ def _w4a8_case(m, k, n, s, t, dt, seed):
     if ke > k + s:
         src = torch.cat([src, torch.zeros((1,), dtype=torch.int32, device="cuda")])
         w4[-1] &= 0x0F
+    npad = tqm.padded_cols(n, 16)
+    w4, s4, w8, s8 = (tqm.pad_cols(a, npad) for a in (w4, s4, w8, s8))
     return x, w4, s4, w8, s8, src, oidx.to(torch.int32)
 
 
@@ -1639,7 +1660,8 @@ def test_router_kill_migrate_exact_cuda():
 # (1408, 2048) with S as the serving recipe leaves it (r = 0.02), E = 64 at
 # C = 8 (decode) and E = 8 at larger capacities (verify 40, a prefill bucket
 # of 72 rows: the 64-token tiles and a ragged last tile), and a small stack
-# whose N = 72 runs zero-padded to 80.
+# whose N = 72 is stored zero-padded to 80 (as ``core.ocs.pad_out_cols``
+# stores a leaf's columns).
 STACK_CASES = [(64, 8, 2048, 41, 1408), (64, 8, 1408, 29, 2048), (8, 32, 2048, 41, 1408),
                (8, 72, 1408, 29, 2048), (4, 40, 296, 7, 72)]
 
@@ -1648,8 +1670,11 @@ def _stack_case(e, c, k, s, n, seed, *, w4a8=False):
     """Random stacked operands: x [E, C, K] bf16 with its last rows zero
     (empty capacity slots) and expert 1 all zero; int8 weights [E, K+S, N]
     with [E, N] scales and [E, S] tails whose last entry is a pad row (src
-    0, mult 0, zero weights); or W4A8 operands with [E, T] outlier rows."""
+    0, mult 0, zero weights); or W4A8 operands with [E, T] outlier rows. An
+    N that is not a multiple of 16 is stored with zero columns (weights and
+    scales) up to the next one, as ``core.ocs.pad_out_cols`` stores it."""
     g = torch.Generator(device="cuda").manual_seed(seed)
+    npad = tqm.padded_cols(n, 16)
     x = (torch.randn((e, c, k), generator=g, device="cuda") * 2.0).to(torch.bfloat16)
     x[:, c - 3:] = 0
     x[1] = 0
@@ -1667,13 +1692,14 @@ def _stack_case(e, c, k, s, n, seed, *, w4a8=False):
         s8 = torch.rand((e, n), generator=g, device="cuda") * 0.001 + 1e-5
         oidx = torch.stack([torch.sort(torch.randperm(ke, generator=g, device="cuda")[:t]).values
                             for _ in range(e)]).to(torch.int32)
+        w4, s4, w8, s8 = (tqm.pad_cols(a, npad) for a in (w4, s4, w8, s8))
         return x, (w4, s4, w8, s8, src, oidx)
     w8 = torch.randint(-127, 128, (e, k + s, n), generator=g, device="cuda", dtype=torch.int8)
     w8[:, -1] = 0
     ws = torch.rand((e, n), generator=g, device="cuda") * 0.01 + 1e-4
     mult = torch.ones((e, s), device="cuda")
     mult[:, -1] = 0
-    return x, (w8, ws, src, mult)
+    return x, (tqm.pad_cols(w8, npad), tqm.pad_cols(ws, npad), src, mult)
 
 
 def _stack_calls(kind, x, ops, out_dtype):
@@ -1754,7 +1780,7 @@ def test_expert_stack_bitwise_per_slice_cuda(kind, tile, case, monkeypatch):
         got = stacked()
         torch.cuda.synchronize()
         assert (mod.launches, mod.launches_stack) == (n0 + 1, s0 + 1)
-        assert got.shape == (e, c, n) and bool(torch.isfinite(got).all())
+        assert got.shape == (e, c, tqm.padded_cols(n, 16)) and bool(torch.isfinite(got).all())
         assert bool((got[:, c - 3:] == 0).all()) and bool((got[1] == 0).all())
         for i, one in enumerate(per_expert):
             assert _same_bits(got[i], one()), (out_dtype, i)
@@ -1856,3 +1882,218 @@ def test_moe_replay_routes_the_bucket_cuda(monkeypatch):
         got = got.transpose(2, 3).reshape(2, -1, *got.shape[2:3], got.shape[-1])[:, :40]
         err = (got - want).abs().max().item()
         assert torch.isfinite(got).all() and err <= MOE_KV_RTOL * want.abs().max().item(), err
+
+
+# ---------------------------------------------------------------------------
+# The SSM and hybrid decoders (mamba2-1.3b, hymba-1.5b) and the unpaged
+# engine's dense caches.
+
+# mamba2-1.3b's and hymba-1.5b's linear shapes (K, S, N), S as the serving
+# recipe leaves it (r = 0.02): the SSM in_proj/out_proj of each, hymba's
+# attention, MLP and lm_head. hymba's in_proj (6482) and lm_head (32001)
+# are stored zero-padded to 6496 and 32016.
+SSM_SHAPES = {
+    "mamba2 in_proj": (2048, 41, 8512), "mamba2 out_proj": (4096, 82, 2048),
+    "hymba wq/wo": (1600, 32, 1600), "hymba wk/wv": (1600, 32, 320),
+    "hymba w_gate/w_up": (1600, 32, 5504), "hymba w_down": (5504, 111, 1600),
+    "hymba in_proj": (1600, 32, 6482), "hymba out_proj": (3200, 64, 1600),
+    "hymba lm_head": (1600, 32, 32001),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 64])
+@pytest.mark.parametrize("name", list(SSM_SHAPES))
+def test_gemms_at_the_ssm_and_hybrid_shapes_cuda(name, m):
+    """B1, B4, B5 and B6 at every mamba2-1.3b and hymba-1.5b linear shape,
+    a decode row, a decode step and a 64-row prefill call, on weights
+    stored as ``quantize_params`` and ``to_w4a8`` store them (zero columns
+    past a ragged N): B1 and B6 bitwise their plain versions, B4 and B5
+    within the weight-only bound (bf16 outputs plus one bf16 ulp); each one
+    launch."""
+    cuda_or_skip()
+    k, s, n = SSM_SHAPES[name]
+    npad = tqm.padded_cols(n, 16)
+    g, w8, ws, src = _b1_weights(k, s, n, m + k + n)
+    w8, ws = tqm.pad_cols(w8, npad), tqm.pad_cols(ws, npad)
+    x = (torch.randn((m, k), generator=g, device="cuda") * 2.0).to(torch.bfloat16)
+    mult = torch.ones((s,), device="cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        n0 = tfq.launches
+        got = tfq.fused_quant_matmul_cuda(x, w8, ws, src, out_dtype=dt)
+        assert tfq.launches == n0 + 1 and got.shape == (m, npad)
+        assert _same_bits(got, tfq.fused_quant_matmul_plain(x, w8, ws, src, out_dtype=dt))
+    xe = torch.cat([x.float(), x[:, src.long()].float()], 1)
+    for label, call, plain, xk, wk in (
+            ("B4", lambda dt: tom.ocs_quant_matmul_cuda(x, w8, ws, src, tail_mult=mult,
+                                                        tail_is_mask=True, out_dtype=dt),
+             lambda dt: tom.ocs_quant_matmul_plain(x, w8, ws, src, tail_mult=mult,
+                                                   out_dtype=dt), xe, w8),
+            ("B5", lambda dt: tqm.quant_matmul_cuda(x, w8[:k].contiguous(), ws, out_dtype=dt),
+             lambda dt: tqm.quant_matmul_plain(x, w8[:k].contiguous(), ws, out_dtype=dt),
+             x.float(), w8[:k])):
+        bound = (WO_TOL_FACTOR * (xk.shape[1] + 2) * 2.0 ** -24
+                 * tref.float_matmul(xk.abs(), wk.abs()) * ws)
+        n0 = tom.launches_cuda_cores
+        got, want = call(torch.float32), plain(torch.float32)
+        assert tom.launches_cuda_cores == n0  # the tensor-core route
+        assert torch.isfinite(got).all() and ((got - want).abs() <= bound).all(), label
+        g16, p16 = call(torch.bfloat16).float(), plain(torch.bfloat16).float()
+        ulp = _bf16_ulp(torch.maximum(g16.abs(), p16.abs()))
+        assert ((g16 - p16).abs() <= bound + ulp).all(), label
+    t = -(-(k + s) * 5 // 100)  # to_w4a8's outlier rows at its default ratio 0.05
+    args = _w4a8_case(m, k, n, s, t, torch.bfloat16, m * 7 + k + t)
+    for dt in (torch.float32, torch.bfloat16):
+        assert _same_bits(tw4.w4a8_matmul_cuda(*args, out_dtype=dt),
+                          tw4.w4a8_matmul_plain(*args, out_dtype=dt)), dt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dequant", "w8a8", "w4a8"])
+@pytest.mark.parametrize("leaf,k,n", [("lm_head", 1600, 32001), ("ssm in_proj", 1600, 6482)])
+def test_padded_leaf_bitwise_the_per_call_pad_cuda(leaf, k, n, mode):
+    """hymba-1.5b's two ragged leaves, quantized on the card (stored padded
+    once, ``n_out`` the true N): ``layers.dense`` in each matmul mode is
+    bitwise what the wrappers gave when they padded the weights on every
+    call (the unpadded leaf's arrays zero-padded to 16 columns, the kernel,
+    the output sliced), and the pad columns of the stored leaf, its w4a8
+    conversion included, are zero."""
+    cuda_or_skip()
+    from repro_torch.core.ocs import W4A8Linear
+    from repro_torch.models import layers
+
+    g = torch.Generator(device="cuda").manual_seed(n)
+    w = torch.randn((k, n), generator=g, device="cuda") / k ** 0.5
+    recipe = QuantRecipe(w_bits=8, w_clip="mse", ocs_ratio=0.02, per_channel=True, pad_to=1)
+    lin = quantize_params({"w": w}, recipe, device="cuda")["w"]
+    npad = tqm.padded_cols(n, 16)
+    assert lin.n_out == n and lin.weight.values.shape[1] == npad
+    assert not lin.weight.values[:, n:].any() and not lin.weight.scale[n:].any()
+    if mode == "w4a8":
+        lin = to_w4a8(lin, 0.05)
+        assert isinstance(lin, W4A8Linear) and lin.n_out == n and lin.w4.shape[1] == npad
+        assert not lin.w4[:, n:].any() and not lin.w8[:, n:].any()
+    x = (torch.randn((8, 1, k), generator=g, device="cuda") * 2.0).to(torch.bfloat16)
+    got = layers.dense(lin, x, mode=mode)
+    assert got.shape == (8, 1, n)
+    x2 = x.reshape(8, k)
+    pc = lambda t: tqm.pad_cols(t[..., :n].contiguous(), npad)  # noqa: E731
+    tail = lin.spec.src[lin.n_orig:]
+    if mode == "w4a8":
+        want = tw4.w4a8_matmul_cuda(x2, pc(lin.w4), pc(lin.s4), pc(lin.w8), pc(lin.s8), tail,
+                                    lin.outlier_idx, out_dtype=torch.bfloat16)
+    elif mode == "w8a8":
+        want = tfq.fused_quant_matmul_cuda(x2, pc(lin.weight.values), pc(lin.weight.scale),
+                                           tail, out_dtype=torch.bfloat16)
+    else:
+        want = tom.ocs_quant_matmul_cuda(x2, pc(lin.weight.values), pc(lin.weight.scale), tail,
+                                         tail_mult=lin.spec.mult[lin.n_orig:],
+                                         tail_is_mask=True, out_dtype=torch.bfloat16)
+    assert _same_bits(got.reshape(8, n), want[:, :n].contiguous())
+
+
+def _ssm_cases():
+    return [(a, m) for a in ("mamba2-1.3b", "hymba-1.5b") for m in ("dequant", "w8a8", "w4a8")]
+
+
+def _ssm_card_rtol(mode):
+    """``chip_smoke.SSM_CARD_RTOL``: the smoke SSM and hybrid models' card
+    vs CPU logits, of the largest logit, by matmul mode."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.SSM_CARD_RTOL[mode]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,mode", _ssm_cases())
+def test_ssm_and_hybrid_decode_card_vs_cpu_cuda(arch, mode):
+    """The smoke mamba2-1.3b and hymba-1.5b (its window 32 passed: 40
+    steps) decoded teacher-forced from fresh dense caches on the card and
+    on the CPU (int8 caches in w8a8): logits within the mode's
+    ``chip_smoke.SSM_CARD_RTOL`` at every step, the SSM states finite, and
+    one launch of the mode's kernel per quantized matrix a step (2 a mamba2
+    layer; 9 a hymba layer and the lm_head)."""
+    cuda_or_skip()
+    import dataclasses
+    from repro_torch.models import transformer as T
+
+    cfg, q = _smoke_tree(mode, arch)
+    if mode == "w8a8":
+        cfg = dataclasses.replace(cfg, kv_bits=8)
+    kernel = {"dequant": tom, "w8a8": tfq, "w4a8": tw4}[mode]
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, 40)
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_to(q, dev)
+        caches = T.init_cache(cfg, 2, 64, device=dev)
+        kernel.reset_launches()
+        out = []
+        with torch.no_grad():
+            for t in toks:
+                lg, caches = T.decode_step(params, torch.full((2, 1), int(t), device=dev),
+                                           caches, cfg, mode=mode)
+                out.append(lg.float().cpu())
+        if dev == "cuda":
+            per = 2 * cfg.n_layers if arch.startswith("mamba2") else 9 * cfg.n_layers + 1
+            assert kernel.launches == per * len(toks)
+        states = [layer["ssm"]["state"] for layer in caches["layers"]]
+        assert all(bool(torch.isfinite(s_).all()) for s_ in states)
+        logits[dev] = torch.stack(out)
+    err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+    top = logits["cpu"].abs().max().item()
+    print(f"{arch} {mode}: card vs CPU max |d logits| {err:.4g} of {top:.4g}")
+    assert err <= _ssm_card_rtol(mode) * top, (err, top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 32], ids=["full", "ring"])
+def test_dense_cache_int8_attention_card_vs_cpu_cuda(window):
+    """The unpaged engine's int8 cache attention on the card: its two dots
+    (``int_dot``, summed exactly) bitwise the CPU's on the same int8
+    operands, at a key count past float32's exact range; a decode step's
+    row writes bitwise the CPU's (B1 and the row quantizer are), the output
+    within 1% of the largest (softmax exp differs in float32 ulps on either
+    side, which can flip a quantized softmax weight)."""
+    cuda_or_skip()
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import attention as TA
+
+    g = torch.Generator().manual_seed(window)
+    q8 = torch.randint(-127, 128, (2, 1, 2, 3, 64), generator=g, dtype=torch.int8)
+    k8 = torch.randint(-127, 128, (2, 2, 2048, 64), generator=g, dtype=torch.int8)
+    p8 = torch.randint(-127, 128, (2, 1, 2, 3, 2048), generator=g, dtype=torch.int8)
+    for eq, a, b in (("bqgrd,bgsd->bqgrs", q8, k8), ("bqgrs,bgsd->bqgrd", p8, k8)):
+        assert torch.equal(TA.int_dot(eq, a.cuda(), b.cuda()).cpu(), TA.int_dot(eq, a, b))
+    arch = "hymba-1.5b" if window else "glm4-9b"
+    cfg, q = _smoke_tree("w8a8", arch)
+    cfg = dataclasses.replace(cfg, kv_bits=8)
+    p = {key: v.layer(0) for key, v in q["layers"]["attn"].items()}
+    x = (torch.randn((3, 1, cfg.d_model), generator=g) * 2.0).to(torch.bfloat16)
+    pos = torch.tensor([5, 31, 45], dtype=torch.int32)
+    cache = TA.init_kv_cache(cfg, 3, 48, window=window)
+    for key in ("k", "v"):
+        cache[key].copy_(torch.randint(-127, 128, cache[key].shape, generator=g,
+                                       dtype=torch.int8))
+        cache[key + "_scale"].copy_(torch.rand(cache[key + "_scale"].shape, generator=g) * 0.02)
+    meta = None
+    if window:
+        shape = (3, cfg.hymba.n_meta_tokens, cfg.n_kv_heads, cfg.hd)
+        meta = (torch.randn(shape, generator=g), torch.randn(shape, generator=g))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        c = {key: t.clone().to(dev) for key, t in cache.items()}
+        with torch.no_grad():
+            y, c = TA.attention_decode(
+                tree_to(p, dev), x.to(dev), c, pos.to(dev), cfg, mode="w8a8", window=window,
+                kv_prefix=None if meta is None else tuple(t.to(dev) for t in meta))
+        outs[dev] = (y.float().cpu(), {key: t.cpu() for key, t in c.items()})
+    for key in cache:
+        assert _same_bits(outs["cuda"][1][key], outs["cpu"][1][key]), key
+    err = (outs["cuda"][0] - outs["cpu"][0]).abs().max().item()
+    assert err <= 0.01 * outs["cpu"][0].abs().max().item(), err

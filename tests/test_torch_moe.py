@@ -559,15 +559,17 @@ def test_launch_serve_moe_smoke_on_cpu(mode):
 
 
 def test_engine_refuses_unreached_blocks():
-    """Blocks the port has not reached keep refusing and name A13."""
+    """Models the port has not reached keep refusing and name A13: qwen2-vl's
+    M-RoPE, a non-SwiGLU MLP (minitron's and hubert's ``act``), and the
+    encoder-only hubert (LayerNorm, not causal)."""
     cfg = t_smoke("deepseek-moe-16b")
     params = TT.init_params(cfg, seed=0, device="cpu")
-    for block in ("mamba2", "hymba"):
+    for change in (dict(mrope_sections=(2, 3, 3)), dict(act="gelu")):
         with pytest.raises(NotImplementedError, match="A13"):
-            ServingEngine(dataclasses.replace(cfg, block=block), params,
+            ServingEngine(dataclasses.replace(cfg, **change), params,
                           EngineConfig(max_len=64), device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):
-        ServingEngine(dataclasses.replace(cfg, causal=False), params,
+        ServingEngine(dataclasses.replace(cfg, causal=False, norm="ln"), params,
                       EngineConfig(max_len=64), device="cpu")
 
 

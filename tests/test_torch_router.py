@@ -11,9 +11,10 @@ migration offset); random interleavings of the router lifecycle never
 leak pages on any replica; one FaultPlan replayed twice gives the same
 outputs. Migration resumes through the engine's bit-exact resume (prompt
 re-prefill, committed tokens replayed through the decode path). The
-reference's MoE parametrisations are not ported yet (ROADMAP A13), and
-its unpaged-replica case is held with a stand-in engine (the port has no
-unpaged engine, A16).
+reference's MoE parametrisations are not ported yet (ROADMAP A13). Its
+unpaged-replica case runs on the port's unpaged engines: a dense one built
+with ``paged=False``, and the Mamba2 and hymba ones, which resolve to
+unpaged.
 """
 import time
 import types
@@ -226,14 +227,22 @@ def test_draining_and_dead_take_no_placements(dense_setup):
     assert all(r.finish_reason == "length" for r in reqs)
 
 
-def test_router_rejects_unpaged_replicas(dense_setup):
-    """An engine that is not paged is refused (every engine of the port is
-    paged; a stand-in with ``paged = False`` takes the unpaged engine's
-    place)."""
-    cfg, params = dense_setup
-    eng = _engine(cfg, params)
-    assert eng.paged is True and eng.kernel_fallbacks == 0
-    eng.paged = False
+@pytest.mark.parametrize("arch", ["glm4-9b", "mamba2-1.3b", "hymba-1.5b"])
+def test_router_rejects_unpaged_replicas(dense_setup, arch):
+    """An unpaged engine is refused as a replica (migration resumes through
+    the paged replay): the reference's case, a dense engine built with
+    ``paged=False``, and the SSM and hybrid engines, unpaged by default."""
+    if arch == "glm4-9b":
+        cfg, params = dense_setup
+        paged = _engine(cfg, params)
+        assert paged.paged is True and paged.kernel_fallbacks == 0
+        eng = ServingEngine(cfg, params, EngineConfig(max_batch=2, max_len=64, paged=False),
+                            device="cpu")
+    else:
+        cfg = smoke_config(arch)
+        eng = ServingEngine(cfg, T.init_params(cfg, seed=0, device="cpu"),
+                            EngineConfig(max_batch=2, max_len=64), device="cpu")
+    assert eng.paged is False
     with pytest.raises(ValueError, match="paged"):
         ReplicaSet([eng])
 

@@ -211,3 +211,37 @@ def test_reference_check_sees_w4a8_fault(smoke_w4a8, monkeypatch, module, name, 
     share = _w4a8_reading(cs, cfg, qp, base, monkeypatch, module, name, fault)
     print(f"w4a8, {fault.__name__}: {share:.4g} of the largest logit")
     assert share > cs.MODEL_RTOL
+
+
+def test_ssm_phase_helpers_on_cpu():
+    """The SSM and hybrid phases' reckoning: the quantized leaves of layer 0
+    and the lm_head each model runs (mamba2-1.3b's lm_head is the tied
+    float embedding), the launches of one decode step at full depth, a
+    cut hymba keeping only its global layers below the cut, and the
+    smoke-size reference forward giving the same logits twice on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core.apply import quantize_params
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.models import transformer as T
+
+    cs = _chip_smoke()
+    recipe = QuantRecipe(w_bits=8, w_clip="mse", ocs_ratio=0.02, per_channel=True, pad_to=1)
+    want = {"mamba2-1.3b": ["in_proj", "out_proj"],
+            "hymba-1.5b": ["wq", "wk", "wv", "wo", "in_proj", "out_proj", "w_gate", "w_up",
+                           "w_down", "lm_head"]}
+    steps = {"mamba2-1.3b": 96, "hymba-1.5b": 289, "glm4-9b": 281}
+    for arch, calls in steps.items():
+        assert cs.matmuls_per_step(get_config(arch)) == calls
+    for arch, names in want.items():
+        cfg = smoke_config(arch)
+        q = quantize_params(T.init_params(cfg, seed=0, device="cpu"), recipe, device="cpu")
+        assert sorted(cs.layer_weights(q)) == sorted(names)
+        a = cs.ssm_smoke_logits(q, cfg, 0, "cpu", "w8a8")
+        assert a.shape == (40, 2, cfg.vocab) and torch.isfinite(a).all()
+        assert torch.equal(cs.ssm_smoke_logits(q, cfg, 0, "cpu", "w8a8"), a)
+    cut = cs.ssm_model("hymba-1.5b", 10)
+    assert cut.n_layers == 10 and cut.hymba.global_layers == (0,)
+    full = cs.ssm_model("hymba-1.5b", None)
+    assert dataclasses.asdict(full) == dataclasses.asdict(get_config("hymba-1.5b"))
