@@ -4,13 +4,15 @@
     python3 chip_smoke.py [--layers N] [--short-layers N] [--phi-layers N] [--out DIR]
 
 Cuts, each logged where it is made: glm4-9b's depth (``--layers``, default
-its published 40), the clip-only trees, the k=16 spec phase, the chaos
-phase and hymba-1.5b's w4a8 phase at ``--short-layers`` (default 10),
-deepseek-moe-16b at ``MOE_LAYERS`` (16 of 28), phi3.5-moe at
-``--phi-layers`` (default 4 of 32); the SSM and hybrid serve
-phases' prompts: 16-20 tokens (8 requests on 8 lanes, 32 new tokens each;
-their prompts replay through the decode step, one full step a token, as
-the reference's do).
+its published 40); at ``--short-layers`` (default 10): the clip-only
+trees, glm4-9b's lifecycle, traced, router, k=16 spec, unpaged w8a8 and
+chaos phases, hymba-1.5b's and qwen2-vl-7b's w4a8 phases; the SSM and
+hybrid phases' repeats at ``SSM_REPEAT_LAYERS`` (4); deepseek-moe-16b at
+``MOE_LAYERS`` (12 of 28),
+phi3.5-moe at ``--phi-layers`` (default 4 of 32); the SSM and hybrid
+serve phases' prompts: 16-20 tokens (8 requests on 8 lanes, 32 new tokens
+each; their prompts replay through the decode step, one full step a
+token, as the reference's do).
 
 Phases (any failure raises, and the script exits non-zero with no result):
 
@@ -58,10 +60,11 @@ Phases (any failure raises, and the script exits non-zero with no result):
    leaves converted with ``to_w4a8(., 0.05)`` on the card, each conversion,
    and that of a stacked two-layer leaf, bitwise the same conversion on the
    CPU) with M in {1, 8, 256}: bitwise, f32 and bf16 outputs.
-   Verify check, in dequant (float32 pages), w8a8 (int8) and w4a8 (int4):
-   ``verify_step`` over 5 tokens of 8 lanes is bitwise 5 sequential
-   ``decode_step`` calls at the full model (logits, every layer's pools,
-   positions).
+   Verify check, in dequant (float32 pages), w8a8 (int8) and w4a8 (int4),
+   and on the unpaged engine's dense caches in dequant (float32) and w8a8
+   (int8): ``verify_step`` over 5 tokens of 8 lanes is bitwise 5
+   sequential ``decode_step`` calls at the full model (logits, every
+   layer's pools or caches, positions).
 4. Serve phases: every launch count set to 0 just before each and read just
    after. ``ServingEngine`` serves 8 seeded requests (prompts of 16-256
    tokens, 32 new tokens each, greedy) with ``EngineConfig(max_batch=8,
@@ -80,7 +83,12 @@ Phases (any failure raises, and the script exits non-zero with no result):
    in w4a8. Each is held token for token against the plain phase of its
    mode, its allocator state at retire against that phase's, and its
    launches against the count its rounds and draft steps give. Then the
-   request lifecycle on the same requests: (h) dequant with
+   unpaged phases of 6b at ``--layers``. Then, on the first
+   ``--short-layers`` layers of the same tree (default 10; the second cut;
+   the lifecycle, traced and router phases are cut to this depth),
+   plain w8a8 and dequant phases, and the request lifecycle on the same
+   requests, each held against the plain phase of its mode at this depth:
+   (h) dequant with
    ``prefill_budget=128, chunk_size=64`` (at least the chunks the prompts
    need, at most 128 prompt tokens a step), held against the plain dequant
    phase: a request may part from it only where one prefill of the plain
@@ -105,11 +113,10 @@ Phases (any failure raises, and the script exits non-zero with no result):
    Each chunk and each resume's prefill is one prefill call in the launch
    reckoning, each resume replay and drift sample a decode call (B2' when a
    replay's tail is longer than one token), and every serve phase ends with
-   no page in use. Then, on the first ``--short-layers`` layers of the same
-   tree (default 10; the second cut), a plain w8a8 phase and (g)
-   ``SpecConfig(k=16, adaptive=False)`` in w8a8 on int8 pages (verify Q =
-   17; the draft is the target: every draft accepted), held against it
-   likewise, and (m) one chaos ``FaultPlan`` (InjectNaN, StallSteps,
+   no page in use. Then (g) ``SpecConfig(k=16, adaptive=False)`` in w8a8
+   on int8 pages (verify Q = 17; the draft is the target: every draft
+   accepted), held against the plain w8a8 phase likewise, the unpaged w8a8
+   pair of 6b, and (m) one chaos ``FaultPlan`` (InjectNaN, StallSteps,
    PagePressure, KillReplica) run twice over two optimistic w8a8 replicas:
    each request's (finish_reason, tokens) identical across the runs, the
    poisoned request "error", the others bitwise the plain phase's, no page
@@ -124,8 +131,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
 6. MoE serving: the glm4-9b trees are freed; deepseek-moe-16b at its
    published width (d_model 2048, 16/16 heads, hd 128, 64 routed experts
    top-6 of expert_ff 1408, 2 shared experts fused to width 2816,
-   capacity factor 1.25, vocab 102400) and ``MOE_LAYERS`` deep (16 of
-   its published 28, a cut that keeps the script near half its time
+   capacity factor 1.25, vocab 102400) and ``MOE_LAYERS`` deep (12 of
+   its published 28, a cut that keeps the script within 60% of its time
    limit), its seeded weights drawn leaf by leaf on the
    card and quantized as drawn (``init_params(lazy=True)`` through
    ``quantize_params``, the serving recipe; quantize seconds and peak
@@ -153,31 +160,58 @@ Phases (any failure raises, and the script exits non-zero with no result):
    bound. (s) phi3.5-moe-42b-a6.6b (16 experts top-2, no shared, GQA 32/8,
    expert_ff 6400, vocab 32064) at ``--phi-layers`` (default 4 of 32, a
    cut: its float32 tree is ~168 GB) in w8a8.
-6b. The unpaged engine (ROADMAP A16) and the SSM and hybrid decoders
-   (A13). Between the lifecycle phases and the traced phase, (d) glm4-9b
-   at ``--layers`` on the unpaged engine (``paged=False``: dense per-lane
-   float32 caches, a b = 1 scratch cache adopted after each prefill), the
-   plain phases' requests in dequant, monolithic and chunked
-   (``prefill_budget=128, chunk_size=64``), each held against the paged
-   plain dequant phase up to near-ties (``TIE_MARGIN``). After the MoE
-   phases: (a) mamba2-1.3b at its published width (d_model 2048, 64 SSM
-   heads of 64, d_state 128, d_inner 4096, vocab 50280, the lm_head the
-   tied float embedding) and depth (48, never cut), and (b) hymba-1.5b
-   (d_model 1600, 25/5 heads of 64, d_ff 5504, 50 SSM heads, d_state 16,
-   128 meta tokens, window 1024, global layers 0/15/31, vocab 32001: its
-   in_proj's 6482 and lm_head's 32001 columns stored padded to 6496 and
-   32016 once) at its 32 layers, each drawn leaf by leaf and quantized on
-   the card. (c) B1, B4 and B6 at each of their linear shapes (the
-   layer-0 and lm_head leaves; M in {1, 8, 256}, B4 also 64) and B5 on a
-   one-layer clip-only tree's, against their plain versions to the bounds
-   above (bitwise for B1, B6 and the int8 paths). Served on the unpaged
-   engine (``max_batch=8, max_len=64``, 8 requests of 16-20-token prompts,
-   32 new tokens: every decode step M = 8): mamba2-1.3b in dequant, w8a8 and w4a8, hymba-1.5b in
-   dequant and w8a8 on int8 caches, and in w4a8 at ``--short-layers`` (a
-   cut); each phase twice, the second token for token the first; the
-   mode's kernel 96 times a step and a prompt token (mamba2: in_proj and
-   out_proj of 48 layers) or 289 (hymba: 9 x 32 + lm_head), B2 never.
+6b. The unpaged engine and the SSM and hybrid decoders. After the spec
+   phases, (d) glm4-9b at ``--layers`` on the unpaged engine
+   (``paged=False``: dense per-lane float32 caches, a b = 1 scratch cache
+   adopted after each prefill), the plain phases' requests in dequant,
+   monolithic and chunked (``prefill_budget=128, chunk_size=64``), each
+   held against the paged plain dequant phase up to near-ties
+   (``TIE_MARGIN``), and spec dequant on it (the default drafter: w8a8, k
+   <= 4; the verify writes its window's rows into the dense caches, a
+   rejected tail is rolled back by rewinding ``pos``) token for token the
+   unpaged dequant phase; at ``--short-layers``, a plain w8a8 phase on int8
+   dense caches and spec w8a8 on them drafting with all layers but the
+   last, token for token it. After the MoE phases: (a) mamba2-1.3b at
+   its published width (d_model 2048, 64 SSM heads of 64, d_state 128,
+   d_inner 4096, vocab 50280, the lm_head the tied float embedding) and
+   depth (48, never cut), and (b) hymba-1.5b (d_model 1600, 25/5 heads of
+   64, d_ff 5504, 50 SSM heads, d_state 16, 128 meta tokens, window 1024,
+   global layers 0/15/31, vocab 32001: its in_proj's 6482 and lm_head's
+   32001 columns stored padded to 6496 and 32016 once) at its 32 layers,
+   each drawn leaf by leaf and quantized on the card. (c) B1, B4 and B6 at
+   each of their linear shapes (the layer-0 and lm_head leaves; M in {1,
+   8, 256}, B4 also 64) and B5 on a one-layer clip-only tree's, against
+   their plain versions to the bounds above (bitwise for B1, B6 and the
+   int8 paths). Served on the unpaged engine (``max_batch=8,
+   max_len=64``, 8 requests of 16-20-token prompts, 32 new tokens: every
+   decode step M = 8): mamba2-1.3b in dequant, w8a8 and w4a8, hymba-1.5b
+   in dequant and w8a8 on int8 caches, and in w4a8 at ``--short-layers``
+   (a cut); each phase once, then twice at ``SSM_REPEAT_LAYERS`` (4; the
+   repeat's depth cut), the second token for token the first;
+   the mode's kernel 96 times a step and a prompt token (mamba2: in_proj
+   and out_proj of 48 layers) or 289 (hymba: 9 x 32 + lm_head), B2 never.
    One decode step of each profiled (device operations, busy share).
+6c. The last configs. qwen2-vl-7b at its published width (d_model 3584,
+   28/4 heads of 128, d_ff 18944, vocab 152064, M-RoPE sections (16, 24,
+   24); text tokens: one position in the three streams) and depth (28),
+   and minitron-8b (d_model 4096, 32/8 heads, d_ff 16384, vocab 256000: the
+   widest lm_head served) at 32, each drawn leaf by leaf and quantized on
+   the card; B1, B4, B5 and B6 at each of their linear shapes as in (c);
+   B2 at qwen2-vl's 28/4 heads (rep 7) on float32, int8 and int4 pools,
+   Q = 1 and Q = 5 (rows bitwise the sequential launches). qwen2-vl-7b is
+   served as in 4 in dequant, w8a8 (int8 pages), w4a8 (int4 pages) at
+   ``--short-layers`` (a cut) and spec dequant (token for token its plain
+   phase, allocator state equal); then ``transformer.forward`` over the 8
+   prompts in one call (M = 8 x the longest): finite, the kernel 7*L+1
+   times, each prompt's last-position argmax its request's first token up
+   to a near-tie (``TIE_MARGIN``). minitron-8b is served in dequant.
+   hubert-xlarge (the encoder: d_model 1280, 16 heads of 80, d_ff 5120,
+   LayerNorm, GELU, unmasked attention, vocab 504 stored padded to 512) at
+   its 48 layers: B1, B4, B5 and B6 at its shapes (M = 4000 too), then
+   ``forward`` and ``loss_fn`` on seeded frame embeddings ``[4, 1000,
+   1280]`` (20 s of audio at 50 Hz: M = 4000 a GEMM) and seeded labels in
+   dequant, w8a8 and w4a8: finite logits and loss, the mode's kernel
+   6*48+1 times a call and nothing else.
 7. Reference check: a smoke-size glm4-9b run through prefill and
    teacher-forced decode on the card (kernels) and on the CPU (plain
    versions) from the same weights, in w8a8 (int8 pages), dequant (float
@@ -189,12 +223,15 @@ Phases (any failure raises, and the script exits non-zero with no result):
    near-tie (``ROUTE_TIE``). The smoke mamba2-1.3b and hymba-1.5b in the
    three modes (hymba's w8a8 on int8 caches): 40 teacher-forced decode
    steps of 2 lanes from fresh dense caches (past hymba's smoke window of
-   32), logits within ``SSM_CARD_RTOL`` of the mode.
+   32), logits within ``SSM_CARD_RTOL`` of the mode. ``forward`` of the
+   smoke hubert-xlarge, qwen2-vl-7b and hymba-1.5b over 2 x 40 positions
+   in the three modes: logits within ``FORWARD_CARD_RTOL`` of the mode.
 
 Output: a ``time:`` line at the end of each phase (seconds since the
 start), a ``kernels`` JSON line (every kernel's launches on its path,
-``launches_by_path`` for the matmul kernels and B2 on every serving path,
-the SSM and hybrid models' GEMMs as entries of their own; error, times and
+``launches_by_path`` for the matmul kernels and B2 on every serving path
+and hubert-xlarge's forward, the SSM, hybrid, qwen2-vl-7b, minitron-8b
+and hubert-xlarge models' GEMMs as entries of their own; error, times and
 bound), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Per-shape detail goes to
 ``<out>/chip_smoke.json``.
@@ -356,8 +393,9 @@ def b1_times(run_kern, x, w8, ws, src, iters):
     return t
 
 
-def kernel_phase_b1(qparams, cfg, gen, iters):
-    """fused_qmatmul at every glm4-9b linear shape x M in {1, 8, 256}."""
+def kernel_phase_b1(qparams, cfg, gen, iters, m_rows=(1, 8, 256)):
+    """fused_qmatmul at every linear shape of the tree (glm4-9b's first) x
+    M in ``m_rows``."""
     import torch
     from repro_torch.kernels import fused_qmatmul as fq
 
@@ -377,7 +415,7 @@ def kernel_phase_b1(qparams, cfg, gen, iters):
         # Weight copies cycled so the timed calls read HBM, not L2, as the
         # serve loop does (each layer's weights are read once per step).
         copies = cycled(w8)
-        for m in (1, 8, 256):
+        for m in m_rows:
             x = (torch.randn((m, k), generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
             got = fq.fused_quant_matmul_cuda(x, w8, ws, src, out_dtype=torch.bfloat16)
             want = fq.fused_quant_matmul_plain(x, w8, ws, src, out_dtype=torch.bfloat16)
@@ -589,17 +627,18 @@ def kernel_phase_b2(gen, iters):
 B2V_QS = (2, 5, 17, 31)
 
 
-def b2v_check(gen, kind, qn):
+def b2v_check(gen, kind, qn, H=32, KV=2):
     """One B2 call with ``qn`` query tokens per lane on a ``kind`` pool
-    against its plain version and against ``qn`` sequential Q = 1 launches:
-    pools bitwise (the trash page, which several rows write and nothing
-    reads, aside), outputs finite and within ``B2_ATOL``, the all-trash lane
-    zeros, every row bitwise the sequential launches'. Returns (max |d|,
-    the case and the plain version's pool, for timing)."""
+    (``H``/``KV`` heads of 128) against its plain version and against
+    ``qn`` sequential Q = 1 launches: pools bitwise (the trash page, which
+    several rows write and nothing reads, aside), outputs finite and within
+    ``B2_ATOL``, the all-trash lane zeros, every row bitwise the sequential
+    launches'. Returns (max |d|, the case and the plain version's pool, for
+    timing)."""
     import torch
     from repro_torch.kernels import paged_attention as pa
 
-    pool, table, pos, q, kn, vn = b2_case(gen, kind, Q=qn, poison=True)
+    pool, table, pos, q, kn, vn = b2_case(gen, kind, Q=qn, H=H, KV=KV, poison=True)
     want_out, want_pool = pa.paged_attention_plain(pool, table, pos, q, kn, vn)
     work = {k: v.clone() for k, v in pool.items()}
     got_out, got_pool = pa.paged_attention_cuda(work, table, pos, q, kn, vn)
@@ -768,14 +807,15 @@ def matmul_bound_ms(m, k, s, n, *, x_bytes, out_bytes, peak_ops):
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
-def kernel_phase_wo(label, qparams, gen, iters):
+def kernel_phase_wo(label, qparams, gen, iters, m_rows=(1, 8, 64, 256)):
     """B4 (``ocs_matmul``, the OCS tree) or B5 (``quant_matmul``, the
-    clip-only tree) at every glm4-9b linear shape: weight-only at M in {1,
-    8, 64, 256} (f32 outputs within the summation-order bound, bf16 outputs
-    within it plus one bf16 ulp; at M >= 64 the first 8 rows bitwise an
-    8-row call's, the decode tile's, whichever tile the call took; timed with bf16
-    outputs, as ``dense`` calls it, wall and device; each row names the
-    tile ``quant_matmul.tc_plan`` gave the call), int8 at M in {8, 256}
+    clip-only tree) at every linear shape of the tree (glm4-9b's first):
+    weight-only at M in ``m_rows`` (f32 outputs within the summation-order
+    bound, bf16 outputs within it plus one bf16 ulp; at M >= 64 the first 8
+    rows bitwise an 8-row call's, the decode tile's, whichever tile the
+    call took; timed with bf16 outputs, as ``dense`` calls it, wall and
+    device; each row names the tile ``quant_matmul.tc_plan`` gave the
+    call), int8 at M in {8, 256}
     (bitwise). B4's bf16 calls must all take the tensor cores; its
     CUDA-core route (f32 x) is checked once a shape at M = 8, within the
     same bound."""
@@ -818,7 +858,7 @@ def kernel_phase_wo(label, qparams, gen, iters):
         copies = cycled(w8)
         wb_copies = cycled(w8.to(torch.bfloat16))
         n_cuda_cores = om.launches_cuda_cores
-        for m in (1, 8, 64, 256):
+        for m in m_rows:
             x = (torch.randn((m, k), generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
             xe = torch.cat([x.float(), x[:, src.long()].float() * mult], 1) if s else x.float()
             tile = qm.TC_TILE_NAMES[qm.tc_plan(m, k, qm.tc_rows(k, s), n, qm._MAX_PART_BYTES)[0]]
@@ -1109,8 +1149,9 @@ def b6_times(run_kern, x, w4, s4, w8, s8, src, oidx, iters):
                 library_ms=time_ms(run_lib, iters), library_device_ms=graph_ms(run_lib, iters))
 
 
-def kernel_phase_b6(qparams, gen, iters):
-    """w4a8_qmatmul at every glm4-9b linear shape x M in {1, 8, 256}: the
+def kernel_phase_b6(qparams, gen, iters, m_rows=(1, 8, 256)):
+    """w4a8_qmatmul at every linear shape of the tree (glm4-9b's first) x M
+    in ``m_rows``: the
     layer-0 and lm_head leaves converted with ``to_w4a8`` on the card (every
     one, and a stacked two-layer ``w_down``, bitwise the CPU's conversion);
     bitwise against the plain version with f32 and bf16 outputs; timed with
@@ -1122,7 +1163,8 @@ def kernel_phase_b6(qparams, gen, iters):
     weights = layer_weights(qparams)
     t0 = time.perf_counter()
     converted = {name: to_w4a8_checked(name, w) for name, w in weights.items()}
-    part, key = ("mlp", "w_down") if "mlp" in qparams["layers"] else ("ssm", "out_proj")
+    part = "mlp" if "mlp" in qparams["layers"] else "ssm"
+    key = next(k for k in ("w_down", "w_out2", "out_proj") if k in qparams["layers"][part])
     to_w4a8_checked(f"{key} layers 0-1 (stacked)", stacked_head(qparams["layers"][part][key], 2))
     log(f"to_w4a8 on the card: bitwise the CPU's conversion (w4, s4, w8, s8, outlier_idx, "
         f"spec) for {', '.join(weights)} and a stacked two-layer {key} "
@@ -1149,7 +1191,7 @@ def kernel_phase_b6(qparams, gen, iters):
         nbytes = w4.numel() + w8.numel()
         n_copies = max(1, math.ceil(2 * L2_BYTES / nbytes))
         copies = [(w4, w8)] + [(w4.clone(), w8.clone()) for _ in range(n_copies - 1)]
-        for m in (1, 8, 256):
+        for m in m_rows:
             x = (torch.randn((m, k), generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
             for out_dtype in (torch.float32, torch.bfloat16):
                 got, want = kern(x, (w4, w8), out_dtype), plain(x, out_dtype)
@@ -1819,10 +1861,11 @@ def b2v_replay_holds(gen, qs_by_kind):
     return rows
 
 
-def verify_check(label, cfg, params, mode, kv_bits, seed):
+def verify_check(label, cfg, params, mode, kv_bits, seed, paged=True):
     """``verify_step`` over 5 tokens is bitwise 5 sequential ``decode_step``
     calls on the card at the full model: 8 lanes at ragged positions, after
     4 teacher-forced decode steps of context; logits, every layer's pools
+    (with ``paged`` False, the unpaged engine's dense caches of 64 rows)
     and the positions compared."""
     import copy
 
@@ -1834,9 +1877,12 @@ def verify_check(label, cfg, params, mode, kv_bits, seed):
     t0 = time.perf_counter()
     cfg = dataclasses.replace(cfg, kv_bits=kv_bits)
     B, T_, ps, qn = 8, 4, 16, 5
-    caches = kvc.init_paged_cache(cfg, B, B * T_ + 1, ps, T_, device="cuda")
-    caches["table"] = torch.arange(1, B * T_ + 1, dtype=torch.int32,
-                                   device="cuda").reshape(B, T_)
+    if paged:
+        caches = kvc.init_paged_cache(cfg, B, B * T_ + 1, ps, T_, device="cuda")
+        caches["table"] = torch.arange(1, B * T_ + 1, dtype=torch.int32,
+                                       device="cuda").reshape(B, T_)
+    else:
+        caches = T.init_cache(cfg, B, T_ * ps, device="cuda")
     caches["pos"] = torch.tensor([0, 3, 17, 30, 8, 44, 21, 12], dtype=torch.int32,
                                  device="cuda")
     rng = np.random.default_rng(seed)
@@ -1867,10 +1913,11 @@ def verify_check(label, cfg, params, mode, kv_bits, seed):
             if not same_bits(val, seq["layers"][i]["attn"][key]):
                 raise AssertionError(f"verify check ({label}): layer {i} pool {key} differs")
     dt = time.perf_counter() - t0
+    what = "pools" if paged else "dense caches"
     log(f"verify check ({label}; {cfg.n_layers} layers, {B} lanes, Q={qn}): verify_step "
-        f"bitwise {qn} sequential decode_steps (logits, {cfg.n_layers} layers' pools, "
+        f"bitwise {qn} sequential decode_steps (logits, {cfg.n_layers} layers' {what}, "
         f"positions); {dt:.2f} s")
-    return dict(n_layers=cfg.n_layers, lanes=B, Q=qn, bitwise=True, seconds=dt)
+    return dict(n_layers=cfg.n_layers, lanes=B, Q=qn, bitwise=True, seconds=dt, paged=paged)
 
 
 def smoke_logits(qp, cfg, seed, dev, mode="w8a8"):
@@ -1975,8 +2022,8 @@ def reference_check(seed):
 STACK_CS = (8, 32)
 # deepseek-moe-16b's depth (of its published 28): a cut, since its
 # quantization takes ~4.4 s a layer on an H100 80GB HBM3 and the script
-# aims at half its time limit.
-MOE_LAYERS = 16
+# aims at 60% of its time limit.
+MOE_LAYERS = 12
 # Card vs CPU at the MoE smoke sizes: the card routes as the CPU did, and
 # where its own router picks another expert set the k-th and (k+1)-th
 # probabilities must be this close (a flipped near-tie; the CPU test's
@@ -1998,7 +2045,7 @@ STACK_KERNELS = {
 
 def matmuls_per_layer(cfg) -> int:
     """``dense`` calls of a quantized weight a layer: attention's 4, and the
-    MLP's 3 (dense) or the experts' 3 stacked calls plus the shared
+    MLP's 3 (SwiGLU; GELU's 2) or the experts' 3 stacked calls plus the shared
     experts' 3 (MoE); a Mamba2 layer's in_proj and out_proj; a hymba
     layer's attention, SSM and MLP (9)."""
     if cfg.block == "moe":
@@ -2007,7 +2054,7 @@ def matmuls_per_layer(cfg) -> int:
         return 2
     if cfg.block == "hymba":
         return 4 + 2 + 3
-    return 7
+    return 4 + (3 if cfg.act == "swiglu" else 2)  # GELU: w_in, w_out2
 
 
 def matmuls_per_step(cfg) -> int:
@@ -2419,10 +2466,11 @@ def moe_step_profile(label, cfg, params, ecfg, seed, steps=2, reqs=None):
 
 
 def moe_phases(args, card, serve_cfg, gen):
-    """deepseek-moe-16b at ``MOE_LAYERS`` (16 of 28): quantized leaf
+    """deepseek-moe-16b at ``MOE_LAYERS`` (12 of 28): quantized leaf
     by leaf on the card; served in w8a8 (int8 pages), dequant (float32
     pages) and w4a8 (int4 pages); each step profiled once; a spec w8a8
-    phase; its clip-only tree at --short-layers (a cut) served in dequant
+    phase; its clip-only tree at --short-layers or MOE_LAYERS, the
+    shallower (a cut), served in dequant
     (B5); phi3.5-moe-42b-a6.6b at --phi-layers (a cut) in w8a8. Then the
     stacked-launch kernel phase on the layer-0 experts."""
     import torch
@@ -2635,7 +2683,8 @@ def step_sum(rows, L, mode=None, m=8):
     once per layer (the lm_head once); ms, plain_ms, library_ms and
     bound_ms summed, and the bound's kind by its larger share."""
     per_step = {"wq": L, "wk": L, "wv": L, "wo": L, "w_gate": L, "w_up": L,
-                "w_down": L, "in_proj": L, "out_proj": L, "lm_head": 1}
+                "w_down": L, "w_in": L, "w_out2": L, "in_proj": L, "out_proj": L,
+                "lm_head": 1}
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms", "library_device_ms")
     tot = {k: 0.0 for k in keys}
     by_ops = 0.0
@@ -2669,6 +2718,11 @@ def step_sum(rows, L, mode=None, m=8):
 SSM_REQUESTS = 8
 SSM_NEW_TOKENS = 32
 SSM_MAX_LEN = 64
+# The depth of the SSM and hybrid phases' repeats (a cut: each phase is
+# served once at its depth, then twice at this one, the second token for
+# token the first), which keeps the script within 60% of its time limit:
+# a replayed prompt token costs a full step at any depth.
+SSM_REPEAT_LAYERS = 4
 # Card (kernels) vs CPU (plain versions) logits of the SSM and hybrid smoke
 # models, relative to the largest logit, by matmul mode. B1 and B6 are
 # bitwise their plain versions and the recurrence, the conv and the
@@ -2698,8 +2752,10 @@ def unpaged_serve_phase(label, cfg, qparams, card, ecfg, matmul_kernel, reqs, pl
     or hybrid model); every launch count is set to 0 just before and read
     just after. The mode's kernel must run ``matmuls_per_step`` times per
     decode step and per prefill call (a replayed prompt token is one, as
-    the reference counts it), every other kernel not at all: B2 neither,
-    the dense caches' attention being torch ops. Every request must end by
+    the reference counts it; with ``ecfg.spec`` a decode step is a round,
+    its verify one such call and its drafter's kernel ``matmuls_per_layer
+    * n + 1`` times a draft step over its n layers), every other kernel not
+    at all: B2 neither, the dense caches' attention being torch ops. Every request must end by
     length; parameters and every cache tensor lie on the card, attention
     caches float32 or int8 as the phase asks. With ``plain`` (an earlier
     phase's result) every request must be token for token its."""
@@ -2752,6 +2808,15 @@ def unpaged_serve_phase(label, cfg, qparams, card, ecfg, matmul_kernel, reqs, pl
     steps, calls = stats["decode_steps"], stats["prefill_calls"]
     want = {name: 0 for name in counts}
     want[matmul_kernel] = matmuls_per_step(cfg) * (steps + calls)
+    spec = ecfg.spec
+    if spec is not None:  # a round is a verify step plus its draft steps
+        dec = eng._spec
+        n = min(spec.draft_layers or cfg.n_layers, cfg.n_layers)
+        want[MODE_KERNEL[spec.draft_mode]] += (
+            matmuls_per_layer(cfg) * n + 1) * dec.draft_steps
+        if dec.rounds != steps or dec.rounds == dec.plain_rounds:
+            raise AssertionError(f"{label}: {dec.rounds} rounds ({dec.plain_rounds} of one "
+                                 f"token) in {steps} decode steps")
     if counts != want:
         raise AssertionError(f"{label}: launch counts {counts}, want {want}")
     outputs = {r.uid: list(r.output) for r in done}
@@ -2768,11 +2833,22 @@ def unpaged_serve_phase(label, cfg, qparams, card, ecfg, matmul_kernel, reqs, pl
         f"{stats['decode_tok_per_s']:.1f} tok/s | ttft p50 {stats['ttft_p50_s'] * 1e3:.1f} ms "
         f"p95 {stats['ttft_p95_s'] * 1e3:.1f} ms | itl p50 {stats['itl_p50_s'] * 1e3:.2f} ms "
         f"p95 {stats['itl_p95_s'] * 1e3:.2f} ms")
-    log(f"serve {label}: {matmul_kernel} wrapper calls {counts[matmul_kernel]} = "
-        f"{matmuls_per_step(cfg)} x ({steps} decode steps + {calls} prefill calls); others 0"
-        + (f"; every request token for token {plain['label']}'s" if plain else ""))
+    if spec is None:
+        log(f"serve {label}: {matmul_kernel} wrapper calls {counts[matmul_kernel]} = "
+            f"{matmuls_per_step(cfg)} x ({steps} decode steps + {calls} prefill calls); "
+            "others 0" + (f"; every request token for token {plain['label']}'s" if plain else ""))
+    else:
+        log(f"serve {label}: {spec}: {stats['spec_rounds']:.0f} rounds ({dec.plain_rounds} "
+            f"of one token), {dec.draft_steps} draft steps; acceptance "
+            f"{stats['spec_acceptance_rate']:.4f}, {stats['spec_tokens_per_target_step']:.4f} "
+            f"tokens per target step; draft {stats['spec_draft_time_s']:.3f} s, verify "
+            f"{stats['spec_verify_time_s']:.3f} s; launch counts "
+            f"{ {k: v for k, v in counts.items() if v} } as reckoned"
+            + (f"; every request token for token {plain['label']}'s" if plain else ""))
     return dict(label=label, stats=stats, wall_s=wall, launches=counts, n_layers=cfg.n_layers,
-                construct_s=t_construct, outputs=outputs, prompts=prompts, kv=kv)
+                construct_s=t_construct, outputs=outputs, prompts=prompts, kv=kv,
+                spec=None if spec is None else dataclasses.asdict(spec),
+                draft_steps=None if spec is None else dec.draft_steps)
 
 
 def glm_unpaged_phases(cfg, qparams, seed, card, serve_cfg, serves):
@@ -2830,8 +2906,9 @@ def ssm_phases(args, card, gen):
     """(a) mamba2-1.3b at 48 layers (never cut) in dequant, w8a8 and w4a8,
     and (b) hymba-1.5b at 32 layers in dequant and w8a8 on int8 caches and,
     at ``--short-layers`` (a cut), w4a8: each quantized leaf by leaf on the
-    card, served on the unpaged engine twice (the second token for token
-    the first), and one decode step of each profiled. (c) B1, B4 and B6 at
+    card, served on the unpaged engine, and served twice more at
+    ``SSM_REPEAT_LAYERS`` (the repeat's depth cut), the second token for
+    token the first; one decode step of each profiled. (c) B1, B4 and B6 at
     each of their linear shapes on the layer-0 and lm_head leaves, B5 on a
     one-layer clip-only tree's, against their plain versions."""
     import torch
@@ -2864,10 +2941,21 @@ def ssm_phases(args, card, gen):
                 f" ({c.n_layers} layers)" if c is not cfg else "")
             first = unpaged_serve_phase(label, c, qm, card, ecfg, MODE_KERNEL[mode],
                                         ssm_requests(c, args.seed))
-            again = unpaged_serve_phase(label + ", again", c, qm, card, ecfg, MODE_KERNEL[mode],
-                                        ssm_requests(c, args.seed), plain=first)
             out["serves"][label] = first
-            out["serves"][label + ", again"] = again
+            # The repeat (a depth cut): at SSM_REPEAT_LAYERS, served twice
+            # there, the second token for token the first (a phase already
+            # that short repeats itself).
+            rc, rq, rlabel, rfirst = c, qm, label, first
+            if c.n_layers > SSM_REPEAT_LAYERS:
+                rc, rq = ssm_model(arch, SSM_REPEAT_LAYERS), head_layers(q, SSM_REPEAT_LAYERS)
+                rlabel = f"{arch} {mode}" + (" int8 caches" if kv_bits else "") + (
+                    f" ({rc.n_layers} layers)")
+                rfirst = unpaged_serve_phase(rlabel, rc, rq, card, ecfg, MODE_KERNEL[mode],
+                                             ssm_requests(rc, args.seed))
+                out["serves"][rlabel] = rfirst
+            out["serves"][rlabel + ", again"] = unpaged_serve_phase(
+                rlabel + ", again", rc, rq, card, ecfg, MODE_KERNEL[mode],
+                ssm_requests(rc, args.seed), plain=rfirst)
             out["profiles"][label] = moe_step_profile(
                 label, c, qm, ecfg, args.seed, reqs=ssm_requests(c, args.seed, prompt_len=4))
         del q
@@ -2935,6 +3023,333 @@ def ssm_reference_check(seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Speculation on the unpaged engine, and the last configs: qwen2-vl-7b
+# (M-RoPE) and minitron-8b served at full width, hubert-xlarge (the
+# encoder: LayerNorm, GELU, unmasked attention) through forward.
+
+# hubert-xlarge's forward: HUBERT_BATCH clips of HUBERT_FRAMES frames each
+# (20 s of audio at its 50 Hz frame rate): every GEMM at M = 4000.
+HUBERT_BATCH = 4
+HUBERT_FRAMES = 1000
+# Card (kernels) vs CPU (plain versions) logits of forward on the smoke
+# hubert-xlarge, qwen2-vl-7b and hymba-1.5b, relative to the largest logit,
+# by matmul mode: MODEL_RTOL's allowance of about one bf16 ulp of the
+# largest logit in every mode (the full-sequence attention, LayerNorm and
+# GELU are torch ops on either side; their float32 sums may part in order).
+# tests/test_torch_cuda.py reads the same constant.
+FORWARD_CARD_RTOL = {"dequant": 0.01, "w8a8": 0.01, "w4a8": 0.01}
+
+
+def dense_model(arch, layers=None):
+    """A dense or encoder ``arch`` at full width, ``layers`` deep (None: its
+    published depth), the cut logged."""
+    from repro_torch.configs import get_config
+
+    base = get_config(arch)
+    layers = base.n_layers if layers is None else layers
+    cfg = dataclasses.replace(base, n_layers=layers)
+    cut = "no cut" if layers == base.n_layers else f"cut: n_layers {layers} of {base.n_layers}"
+    extra = (f", M-RoPE sections {cfg.mrope_sections}" if cfg.mrope_sections else "") + (
+        ", encoder (unmasked attention), LayerNorm, GELU" if not cfg.causal else "")
+    log(f"model: {arch} at full width (d_model {cfg.d_model}, heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads}, hd {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}{extra}), "
+        f"{layers} layers ({cut})")
+    return cfg
+
+
+def unpaged_spec_dequant_phase(cfg, qparams, seed, card, serve_cfg, plain):
+    """Spec dequant on the unpaged engine (float32 dense caches; the default
+    drafter: w8a8, k <= 4) at ``cfg``'s depth, token for token ``plain``,
+    the unpaged dequant phase."""
+    from repro_torch.serving.spec_decode import SpecConfig
+
+    return unpaged_serve_phase(
+        "unpaged spec dequant", cfg, qparams, card,
+        serve_cfg.replace(paged=False, spec=SpecConfig()), "ocs_matmul",
+        seeded_requests(cfg, seed), plain=plain)
+
+
+def unpaged_spec_w8a8_phases(cfg, qparams, seed, card, serve_cfg):
+    """A plain w8a8 phase on int8 dense caches at ``cfg``'s depth, then spec
+    w8a8 on them drafting with all layers but the last (an early exit of
+    random weights accepts little earlier), token for token it."""
+    from repro_torch.serving.spec_decode import SpecConfig
+
+    L = cfg.n_layers
+    ecfg = serve_cfg.replace(paged=False, matmul_mode="w8a8", kv_bits=8)
+    plain = unpaged_serve_phase(f"unpaged w8a8 int8 caches ({L} layers)", cfg, qparams, card,
+                                ecfg, "fused_qmatmul", seeded_requests(cfg, seed))
+    spec = unpaged_serve_phase(
+        f"unpaged spec w8a8 int8 caches ({L} layers)", cfg, qparams, card,
+        ecfg.replace(spec=SpecConfig(draft_layers=max(1, L - 1))), "fused_qmatmul",
+        seeded_requests(cfg, seed), plain=plain)
+    return {"unpaged w8a8 short": plain, "unpaged spec w8a8 short": spec}
+
+
+def forward_first_tokens(label, cfg, qparams, plain, mode):
+    """``forward`` over the plain serve phase's 8 prompts in one call
+    (zero-padded to the longest: M = 8 x its length a GEMM): finite logits,
+    the mode's kernel ``matmuls_per_step`` times and no other kernel; at
+    each prompt's last position the argmax is the request's first token, or
+    the forward's own top-2 margin there is below ``TIE_MARGIN`` (the
+    paged prefill sums its keys in other chunks)."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    prompts = plain["prompts"]
+    uids = sorted(prompts)
+    n = max(len(p) for p in prompts.values())
+    toks = torch.zeros((len(uids), n), dtype=torch.int64, device="cuda")
+    for i, uid in enumerate(uids):
+        toks[i, :len(prompts[uid])] = torch.as_tensor(prompts[uid], device="cuda")
+    mods = counters()
+    for mod, _ in mods.values():
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = T.forward(qparams, toks, cfg, mode=mode)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: getattr(mod, attr) for name, (mod, attr) in mods.items()}
+    want = {name: 0 for name in counts}
+    want[MODE_KERNEL[mode]] = matmuls_per_step(cfg)
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts}, want {want}")
+    if logits.shape != (len(uids), n, cfg.vocab) or not torch.isfinite(logits.float()).all():
+        raise AssertionError(f"{label}: logits {tuple(logits.shape)}, or nonfinite")
+    partings = []
+    for i, uid in enumerate(uids):
+        last = logits[i, len(prompts[uid]) - 1].float()
+        top = torch.topk(last, 2)
+        first = plain["outputs"][uid][0]
+        if int(top.indices[0]) != first:
+            margin = float(top.values[0] - top.values[1])
+            partings.append(dict(uid=uid, margin=margin))
+            log(f"{label}: request {uid}'s first token {first}, forward's argmax "
+                f"{int(top.indices[0])}, its top-2 margin {margin:.4f} (bound {TIE_MARGIN})")
+            if not margin < TIE_MARGIN:
+                raise AssertionError(f"{label}: request {uid}'s first token is no near-tie "
+                                     "of forward's last logits")
+    log(f"{label}: forward over {len(uids)} prompts x {n} positions (M = {len(uids) * n}) "
+        f"in {mode}, wall {wall:.2f} s; {MODE_KERNEL[mode]} {counts[MODE_KERNEL[mode]]} "
+        f"launches = {matmuls_per_step(cfg)}; last-position argmax the first served token "
+        f"for {len(uids) - len(partings)} of {len(uids)}, the rest near-ties")
+    return dict(wall_s=wall, launches=counts, rows=len(uids) * n, partings=partings)
+
+
+def slice_kernels(label, q, cfg, gen, iters, seed, m_rows=(1, 8, 256)):
+    """B1, B4 and B6 at each linear shape of the tree (its layer-0 and
+    lm_head leaves) and B5 on a one-layer clip-only tree's, at M in
+    ``m_rows`` (B4 and B5 also 64), against their plain versions to the
+    bounds of the glm4-9b kernel phase."""
+    wo_ms = tuple(sorted(set(m_rows) | {64}))
+    kern = {"B1": kernel_phase_b1(q, cfg, gen, iters, m_rows=m_rows),
+            "B4": kernel_phase_wo("B4", q, gen, iters, m_rows=wo_ms),
+            "B6": kernel_phase_b6(q, gen, iters, m_rows=m_rows)}
+    qc, _, _ = moe_quantized(dataclasses.replace(cfg, n_layers=1), seed, 0.0)
+    kern["B5"] = kernel_phase_wo("B5", qc, gen, iters, m_rows=wo_ms)
+    del qc
+    log(f"kernel checks at the {label} shapes: B1, B4, B5, B6 held at M in {wo_ms}")
+    return kern
+
+
+def slice_b2(arch, cfg, gen):
+    """B2 at ``cfg``'s heads on the three pool kinds: Q = 1 against its
+    plain version (:func:`b2_checked`) and Q = 5 against its plain version
+    and bitwise the sequential launches (:func:`b2v_check`)."""
+    rows = []
+    for kind in ("float32", "int8", "int4"):
+        pool, table, pos, qq, kn, vn = b2_case(gen, kind, H=cfg.n_heads, KV=cfg.n_kv_heads,
+                                               poison=True)
+        _, _, err = b2_checked(f"paged_attention {kind} ({arch} heads)", pool, table, pos, qq,
+                               kn, vn)
+        err_v, _ = b2v_check(gen, kind, 5, H=cfg.n_heads, KV=cfg.n_kv_heads)
+        rows.append(dict(arch=arch, pool=kind, H=cfg.n_heads, KV=cfg.n_kv_heads, Q1_err=err,
+                         Q5_err=err_v))
+        log(f"paged_attention at {arch}'s {cfg.n_heads}/{cfg.n_kv_heads} heads (rep "
+            f"{cfg.n_heads // cfg.n_kv_heads}), {kind} pool: Q=1 max |d| {err:.3g}, Q=5 "
+            f"max |d| {err_v:.3g} and its rows bitwise the sequential launches")
+    return rows
+
+
+def slice_phases(args, card, serve_cfg, gen):
+    """qwen2-vl-7b (28 layers; M-RoPE) and minitron-8b (32 layers) at their
+    published widths and depths, quantized leaf by leaf on the card, with
+    B1, B4, B5 and B6 held at each of their linear shapes and B2 at each
+    model's heads (qwen2-vl's 28/4, rep 7; minitron's 32/8, rep 4) on the
+    three pool kinds, Q = 1 and 5 (:func:`slice_b2`); served on the paged
+    engine: qwen2-vl in dequant, w8a8 (int8 pages), w4a8 (int4 pages) at
+    --short-layers (a cut) and spec dequant token for token its plain
+    phase, then ``forward`` over the 8 prompts; minitron in dequant.
+    hubert-xlarge at 48 layers: B1, B4, B5, B6 at its shapes (M = 4000
+    too), and ``forward`` and ``loss_fn`` on seeded frame embeddings
+    ``[HUBERT_BATCH, HUBERT_FRAMES, 1280]`` and labels in dequant, w8a8 and
+    w4a8: finite logits of ``[B, T, 504]`` (the lm_head stored padded to
+    512), the mode's kernel ``6 * 48 + 1`` times a call and nothing else."""
+    import torch
+    from repro_torch.core.apply import map_with_path
+    from repro_torch.core.ocs import OCSQuantLinear, to_w4a8
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.spec_decode import SpecConfig
+
+    out = {"serves": {}, "kernels": {}, "quantize": {}, "forward": {}, "b2": []}
+    iters = max(5, args.iters // 2)
+
+    # qwen2-vl-7b: M-RoPE (text tokens: one position in all three streams).
+    arch = "qwen2-vl-7b"
+    cfg = dense_model(arch)
+    q, t_q, peak = moe_quantized(cfg, args.seed, 0.02)
+    out["quantize"][arch] = dict(seconds=t_q, peak_gib=peak, layers=cfg.n_layers)
+    out["kernels"][arch] = slice_kernels(arch, q, cfg, gen, iters, args.seed)
+    out["b2"] += slice_b2(arch, cfg, gen)
+    sv = out["serves"]
+    sv[f"{arch} dequant"] = serve_phase(f"{arch} dequant", cfg, q, args.seed, card, serve_cfg,
+                                        "ocs_matmul")
+    sv[f"{arch} w8a8"] = serve_phase(f"{arch} w8a8", cfg, q, args.seed, card,
+                                     serve_cfg.replace(matmul_mode="w8a8", kv_bits=8),
+                                     "fused_qmatmul")
+    short = min(args.short_layers, cfg.n_layers)
+    c_short = dense_model(arch, short)
+    sv[f"{arch} w4a8"] = serve_phase(f"{arch} w4a8 ({short} layers)", c_short,
+                                     head_layers(q, short), args.seed, card,
+                                     serve_cfg.replace(matmul_mode="w4a8", kv_bits=4),
+                                     "w4a8_qmatmul")
+    sv[f"{arch} spec dequant"] = serve_phase(f"{arch} spec dequant", cfg, q, args.seed, card,
+                                             serve_cfg.replace(spec=SpecConfig()),
+                                             "ocs_matmul", plain=sv[f"{arch} dequant"])
+    out["forward"][arch] = forward_first_tokens(f"forward {arch}", cfg, q,
+                                                sv[f"{arch} dequant"], "dequant")
+    del q
+    torch.cuda.empty_cache()
+
+    # minitron-8b: the widest lm_head served (N = 256000).
+    arch = "minitron-8b"
+    cfg = dense_model(arch)
+    q, t_q, peak = moe_quantized(cfg, args.seed, 0.02)
+    out["quantize"][arch] = dict(seconds=t_q, peak_gib=peak, layers=cfg.n_layers)
+    out["kernels"][arch] = slice_kernels(arch, q, cfg, gen, iters, args.seed)
+    out["b2"] += slice_b2(arch, cfg, gen)
+    sv[f"{arch} dequant"] = serve_phase(f"{arch} dequant", cfg, q, args.seed, card, serve_cfg,
+                                        "ocs_matmul")
+    del q
+    torch.cuda.empty_cache()
+
+    # hubert-xlarge: the encoder, through forward and loss_fn only.
+    arch = "hubert-xlarge"
+    cfg = dense_model(arch)
+    q, t_q, peak = moe_quantized(cfg, args.seed, 0.02)
+    out["quantize"][arch] = dict(seconds=t_q, peak_gib=peak, layers=cfg.n_layers)
+    rows = HUBERT_BATCH * HUBERT_FRAMES
+    out["kernels"][arch] = slice_kernels(arch, q, cfg, gen, iters, args.seed,
+                                         m_rows=(1, 8, 256, rows))
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 2)
+    embeds = torch.randn((HUBERT_BATCH, HUBERT_FRAMES, cfg.d_model), generator=g,
+                         device="cuda")
+    labels = torch.randint(0, cfg.vocab, (HUBERT_BATCH, HUBERT_FRAMES), generator=g,
+                           device="cuda")
+    mods = counters()
+    argmax = {}
+    for mode in ("dequant", "w8a8", "w4a8"):
+        params = q if mode != "w4a8" else map_with_path(
+            lambda _p, leaf: to_w4a8(leaf, W4A8_RATIO) if isinstance(leaf, OCSQuantLinear)
+            else leaf, q)
+        for mod, _ in mods.values():
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits = T.forward(params, None, cfg, mode=mode, embeds=embeds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: getattr(mod, attr) for name, (mod, attr) in mods.items()}
+        with torch.no_grad():
+            loss = float(T.loss_fn(params, {"embeds": embeds, "labels": labels}, cfg,
+                                   mode=mode))
+        want = {name: 0 for name in counts}
+        want[MODE_KERNEL[mode]] = matmuls_per_step(cfg)
+        if counts != want:
+            raise AssertionError(f"hubert-xlarge forward {mode}: launch counts {counts}, "
+                                 f"want {want}")
+        if (logits.shape != (HUBERT_BATCH, HUBERT_FRAMES, cfg.vocab)
+                or not torch.isfinite(logits.float()).all() or not math.isfinite(loss)):
+            raise AssertionError(f"hubert-xlarge forward {mode}: logits "
+                                 f"{tuple(logits.shape)}, loss {loss}, or nonfinite")
+        argmax[mode] = logits.argmax(-1)
+        agree = float((argmax[mode] == argmax["dequant"]).float().mean())
+        out["forward"][f"{arch} {mode}"] = dict(wall_s=wall, launches=counts, loss=loss,
+                                                rows=rows, frames_per_s=rows / wall,
+                                                argmax_agreement_dequant=agree)
+        log(f"forward {arch} {mode} ({cfg.n_layers} layers, embeds [{HUBERT_BATCH}, "
+            f"{HUBERT_FRAMES}, {cfg.d_model}], M = {rows} a GEMM): wall {wall:.3f} s "
+            f"({rows / wall:.0f} frames/s), logits [{HUBERT_BATCH}, {HUBERT_FRAMES}, "
+            f"{cfg.vocab}] finite, loss_fn {loss:.4f} on seeded labels (ln {cfg.vocab} = "
+            f"{math.log(cfg.vocab):.4f}); {MODE_KERNEL[mode]} {counts[MODE_KERNEL[mode]]} "
+            f"launches = 6 x {cfg.n_layers} + lm_head, others 0; argmax agreement with "
+            f"dequant {agree:.4f}")
+        del params, logits
+    del q, embeds
+    torch.cuda.empty_cache()
+    return out
+
+
+def forward_smoke_logits(qp, cfg, seed, dev, mode):
+    """``forward`` of 2 seeded sequences of 40 (tokens, or frame embeddings
+    for the audio frontend): logits [2, 40, V] f32."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+
+    rng = np.random.default_rng(seed)
+    tokens = embeds = None
+    if cfg.frontend == "audio":
+        embeds = torch.as_tensor(rng.normal(size=(2, 40, cfg.d_model)), dtype=torch.float32,
+                                 device=dev)
+    else:
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 40)), device=dev)
+    with torch.no_grad():
+        return T.forward(qp, tokens, cfg, mode=mode, embeds=embeds).float().cpu()
+
+
+def forward_reference_check(seed):
+    """``forward`` of the smoke hubert-xlarge, qwen2-vl-7b and hymba-1.5b,
+    card kernels vs CPU plain versions from one tree (quantized on the
+    CPU), in each matmul mode: logits within ``FORWARD_CARD_RTOL`` of the
+    mode of the largest."""
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.apply import map_with_path, quantize_params, tree_to
+    from repro_torch.core.ocs import OCSQuantLinear, to_w4a8
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.models import transformer as T
+
+    out = {}
+    for arch in ("hubert-xlarge", "qwen2-vl-7b", "hymba-1.5b"):
+        cfg = smoke_config(arch)
+        q = quantize_params(T.init_params(cfg, seed=seed, device="cpu"),
+                            QuantRecipe(w_bits=8, w_clip="mse", ocs_ratio=0.02,
+                                        per_channel=True, pad_to=1), device="cpu")
+        for mode in ("dequant", "w8a8", "w4a8"):
+            qp = q if mode != "w4a8" else map_with_path(
+                lambda _p, leaf: to_w4a8(leaf, W4A8_RATIO)
+                if isinstance(leaf, OCSQuantLinear) else leaf, q)
+            cpu = forward_smoke_logits(qp, cfg, seed, "cpu", mode)
+            card = forward_smoke_logits(tree_to(qp, torch.device("cuda")), cfg, seed, "cuda",
+                                        mode)
+            scale = cpu.abs().max().item()
+            err = (card - cpu).abs().max().item()
+            rtol = FORWARD_CARD_RTOL[mode]
+            label = f"forward {arch} {mode}"
+            if not torch.isfinite(card).all() or err > rtol * scale:
+                raise AssertionError(f"reference check ({label}): max |d logits| {err} > "
+                                     f"{rtol} x {scale}")
+            agree = float((card.argmax(-1) == cpu.argmax(-1)).float().mean())
+            log(f"reference check ({label}; smoke size, 2 x 40 positions, card kernels vs "
+                f"CPU plain): max |d logits| {err:.6g} of max |logit| {scale:.6g} "
+                f"({err / scale:.3g}; limit {rtol}); argmax agreement {agree:.4f}")
+            out[label] = dict(max_abs_err=err, logit_scale=scale, argmax_agreement=agree)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=40,
@@ -2962,7 +3377,6 @@ def main(argv=None) -> int:
               "the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
-    from repro_torch.configs import get_config
     from repro_torch.core.apply import quantize_params
     from repro_torch.core.recipe import QuantRecipe
     from repro_torch.kernels import build
@@ -2986,16 +3400,8 @@ def main(argv=None) -> int:
     t_build = time.perf_counter() - t0
     log(f"build: {t_build:.1f} s ({len(logs)} sources)")
 
-    depth = get_config("glm4-9b").n_layers
-
     def model(layers):
-        cfg = dataclasses.replace(get_config("glm4-9b"), n_layers=layers)
-        cut = ("no cut" if layers == depth
-               else f"cut: n_layers {layers} of {depth}")
-        log(f"model: glm4-9b at full width (d_model {cfg.d_model}, heads {cfg.n_heads}/"
-            f"{cfg.n_kv_heads}, hd {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), "
-            f"{cfg.n_layers} layers ({cut})")
-        return cfg
+        return dense_model("glm4-9b", layers)
 
     def quantized(cfg, ratio):
         """The seeded weights, quantized on the card; the float weights are
@@ -3044,6 +3450,11 @@ def main(argv=None) -> int:
                                 args.seed),
         "w8a8": verify_check("w8a8, int8 pages", cfg, qparams, "w8a8", 8, args.seed),
         "w4a8": verify_check("w4a8, int4 pages", cfg, q_w4a8, "w4a8", 4, args.seed),
+        # The unpaged engine's verify: its dense caches, float32 and int8.
+        "dequant unpaged": verify_check("dequant, float32 dense caches", cfg, qparams,
+                                        "dequant", None, args.seed, paged=False),
+        "w8a8 unpaged": verify_check("w8a8, int8 dense caches", cfg, qparams, "w8a8", 8,
+                                     args.seed, paged=False),
     }
     del q_w4a8
     mark("verify checks")
@@ -3077,30 +3488,39 @@ def main(argv=None) -> int:
         serves[label] = serve_phase(label, cfg, qparams, args.seed, card, ecfg,
                                     MODE_KERNEL[ecfg.matmul_mode], plain=serves[plain])
     mark("spec serves")
-    serves.update(lifecycle_phases(cfg, qparams, args.seed, card, serve_cfg, serves))
-    mark("lifecycle serves")
     serves.update(glm_unpaged_phases(cfg, qparams, args.seed, card, serve_cfg, serves))
+    serves["unpaged spec dequant"] = unpaged_spec_dequant_phase(
+        cfg, qparams, args.seed, card, serve_cfg, serves["unpaged dequant"])
     mark("unpaged glm4-9b serves")
-    serves["traced dequant"] = traced_phase(cfg, qparams, args.seed, card, serve_cfg, serves,
-                                            args.out)
-    serves["router w8a8"] = router_phase(cfg, qparams, args.seed, serve_cfg, serves)
-    mark("traced and router serves")
-    # A window of 16 (verify Q = 17) drafting in the target's own mode (the
-    # draft is the target, so every draft must be accepted), on the first
-    # --short-layers layers of the same tree against a plain w8a8 phase of
-    # that depth.
+    # The first --short-layers layers of the same tree (the second cut): the
+    # lifecycle, traced and router phases (cut to this depth), held
+    # against plain dequant and w8a8 phases of that depth, then a window of
+    # 16 (verify Q = 17) drafting in the target's own mode (the draft is the
+    # target, so every draft must be accepted), speculation on int8 dense
+    # caches, and the chaos phase.
     cfg_short = model(min(args.short_layers, cfg.n_layers))
     q_short = head_layers(qparams, cfg_short.n_layers)
     w8a8_cfg = serve_cfg.replace(matmul_mode="w8a8", kv_bits=8)
     serves["w8a8 short"] = serve_phase(f"w8a8 ({cfg_short.n_layers} layers)", cfg_short,
                                        q_short, args.seed, card, w8a8_cfg, "fused_qmatmul")
+    serves["dequant short"] = serve_phase(f"dequant ({cfg_short.n_layers} layers)", cfg_short,
+                                          q_short, args.seed, card, serve_cfg, "ocs_matmul")
+    short_plain = {"dequant": serves["dequant short"], "w8a8": serves["w8a8 short"]}
+    lifecycle = lifecycle_phases(cfg_short, q_short, args.seed, card, serve_cfg, short_plain)
+    serves.update(lifecycle)
+    mark("lifecycle serves")
+    serves["traced dequant"] = traced_phase(cfg_short, q_short, args.seed, card, serve_cfg,
+                                            short_plain, args.out)
+    serves["router w8a8"] = router_phase(cfg_short, q_short, args.seed, serve_cfg, lifecycle)
+    mark("traced and router serves")
     serves["spec k=16"] = serve_phase(
         f"spec k=16 ({cfg_short.n_layers} layers)", cfg_short, q_short, args.seed, card,
         w8a8_cfg.replace(spec=SpecConfig(k=16, adaptive=False)), "fused_qmatmul",
         plain=serves["w8a8 short"])
     if serves["spec k=16"]["stats"]["spec_acceptance_rate"] != 1.0:
         raise AssertionError("spec k=16: a draft in the target's own mode was rejected")
-    mark("k=16 serves")
+    serves.update(unpaged_spec_w8a8_phases(cfg_short, q_short, args.seed, card, serve_cfg))
+    mark("k=16 and unpaged w8a8 serves")
     serves["chaos"] = chaos_phase(cfg_short, q_short, args.seed, serve_cfg,
                                   serves["w8a8 short"]["outputs"])
     mark("chaos serves")
@@ -3125,9 +3545,12 @@ def main(argv=None) -> int:
     mark("MoE phases")
     ssm = ssm_phases(args, card, gen_k)
     mark("SSM and hybrid phases")
+    sl = slice_phases(args, card, serve_cfg, gen_k)
+    mark("qwen2-vl-7b, minitron-8b and hubert-xlarge phases")
     refc = reference_check(args.seed)
     refc.update(moe_reference_check(args.seed))
     refc.update(ssm_reference_check(args.seed))
+    refc.update(forward_reference_check(args.seed))
     mark("reference check")
 
     L = cfg.n_layers
@@ -3248,6 +3671,34 @@ def main(argv=None) -> int:
                              source=f"src/repro_torch/csrc/{base}.cu"))
         ssm_what[name] = (f"one {depth}-layer {arch} decode step's "
                           f"calls, M=8; launches from the {label} serve (unpaged engine)")
+    # qwen2-vl-7b's and minitron-8b's decode steps (M = 8) at the depth each
+    # mode was served, launches from that serve; hubert-xlarge's forward
+    # (M = 4000 a GEMM), launches from its forward runs.
+    slice_what = {}
+    slice_runs = {
+        ("qwen2-vl-7b", "dequant"): sl["serves"]["qwen2-vl-7b dequant"],
+        ("qwen2-vl-7b", "w8a8"): sl["serves"]["qwen2-vl-7b w8a8"],
+        ("qwen2-vl-7b", "w4a8"): sl["serves"]["qwen2-vl-7b w4a8"],
+        ("minitron-8b", "dequant"): sl["serves"]["minitron-8b dequant"],
+        ("hubert-xlarge", "dequant"): sl["forward"]["hubert-xlarge dequant"],
+        ("hubert-xlarge", "w8a8"): sl["forward"]["hubert-xlarge w8a8"],
+        ("hubert-xlarge", "w4a8"): sl["forward"]["hubert-xlarge w4a8"],
+    }
+    for (arch, mode), run in slice_runs.items():
+        base, kind, replaces = ssm_kind[mode]
+        rows = sl["kernels"][arch][kind]
+        fwd = arch == "hubert-xlarge"
+        depth = sl["quantize"][arch]["layers"] if fwd else run["n_layers"]
+        m = HUBERT_BATCH * HUBERT_FRAMES if fwd else 8
+        t = step_sum(rows, depth, "weight-only" if kind == "B4" else None, m)
+        err = wo_err(rows) if kind == "B4" else 0.0
+        name = f"{base}_{arch.split('-')[0]}"
+        kernels.append(entry(name, replaces, run["launches"][base], err, t,
+                             source=f"src/repro_torch/csrc/{base}.cu"))
+        slice_what[name] = (
+            f"one {depth}-layer {arch} forward's calls, M={m}; launches from its {mode} forward"
+            if fwd else f"one {depth}-layer {arch} decode step's calls, M=8; launches from "
+            f"the {arch} {mode} serve (paged engine)")
     # Every kernel's launches on every serving path (the first serve of each
     # path in the mode that runs it; B2 runs on none of the unpaged paths).
     paths = {
@@ -3262,6 +3713,21 @@ def main(argv=None) -> int:
                                    "w4a8_qmatmul": moe["serves"]["w4a8"],
                                    "paged_attention": moe["serves"]["w8a8"]},
     }
+    paths["glm4-9b unpaged spec"] = {
+        "ocs_matmul": serves["unpaged spec dequant"],
+        "fused_qmatmul": serves["unpaged spec w8a8 short"],
+        "paged_attention": serves["unpaged spec dequant"]}
+    paths["qwen2-vl-7b paged"] = {
+        "ocs_matmul": sl["serves"]["qwen2-vl-7b dequant"],
+        "fused_qmatmul": sl["serves"]["qwen2-vl-7b w8a8"],
+        "w4a8_qmatmul": sl["serves"]["qwen2-vl-7b w4a8"],
+        "paged_attention": sl["serves"]["qwen2-vl-7b w8a8"]}
+    paths["minitron-8b paged"] = {"ocs_matmul": sl["serves"]["minitron-8b dequant"],
+                                  "paged_attention": sl["serves"]["minitron-8b dequant"]}
+    paths["hubert-xlarge forward"] = {
+        ssm_kind[mode][0]: sl["forward"][f"hubert-xlarge {mode}"]
+        for mode in ("dequant", "w8a8", "w4a8")}
+    paths["hubert-xlarge forward"]["paged_attention"] = sl["forward"]["hubert-xlarge dequant"]
     for arch in ("mamba2-1.3b", "hymba-1.5b"):
         paths[f"{arch} unpaged"] = {
             ssm_kind[mode][0]: ssm["serves"][ssm_serve[(arch, mode)]]
@@ -3292,6 +3758,7 @@ def main(argv=None) -> int:
                       f"(E=64, C=8: w_gate, w_up, w_down a layer); launches from the "
                       f"{stack_serve[base]} MoE serve phase")
     what.update(ssm_what)
+    what.update(slice_what)
     for k in kernels:
         lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
         dev = (f" device_ms={k['device_ms']:.4f}" if "device_ms" in k else "") + (
@@ -3308,6 +3775,7 @@ def main(argv=None) -> int:
                   peak_mem_gib=peak_gb, b1=b1, b2=b2, b2v=b2v, b2v_replay=b2v_replay, b3=b3,
                   b4=b4, b5=b5, b6=b6,
                   verify_check=verify, serve=serves, phase_end_s=marks, moe=moe, ssm=ssm,
+                  slice=sl,
                   reference_check=refc, kernels=kernels)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
@@ -3316,7 +3784,10 @@ def main(argv=None) -> int:
         f"{t_quant_clip:.1f} s, deepseek-moe-16b {moe['quantize_s']:.1f} + "
         f"{moe['quantize_clip_s']:.1f} s, phi3.5-moe {moe['phi_quantize_s']:.1f} s, mamba2-1.3b "
         f"{ssm['quantize']['mamba2-1.3b']['seconds']:.1f} s, hymba-1.5b "
-        f"{ssm['quantize']['hymba-1.5b']['seconds']:.1f} s), depth {L} "
+        f"{ssm['quantize']['hymba-1.5b']['seconds']:.1f} s, qwen2-vl-7b "
+        f"{sl['quantize']['qwen2-vl-7b']['seconds']:.1f} s, minitron-8b "
+        f"{sl['quantize']['minitron-8b']['seconds']:.1f} s, hubert-xlarge "
+        f"{sl['quantize']['hubert-xlarge']['seconds']:.1f} s), depth {L} "
         f"layers (clip-only tree {cfg_clip.n_layers}; deepseek-moe-16b {Lm}, its clip-only "
         f"tree {moe['clip_layers']}; phi3.5-moe {moe['phi_layers']}), peak device memory "
         f"{peak_gb:.1f} GiB")

@@ -1,10 +1,14 @@
 """Serving launcher: random model -> OCS PTQ -> batched serving.
 
-The port of ``repro.launch.serve`` for the path the port has: a freshly
-initialized dense, MoE, Mamba2 or hymba model (weights from ``--seed``,
-``--arch`` any of the registry's: ``deepseek-moe-16b``,
-``phi3.5-moe-42b-a6.6b``, ``mamba2-1.3b`` and ``hymba-1.5b`` among them;
-each leaf is drawn and quantized before the next), quantized once with the
+The port of ``repro.launch.serve``: a freshly initialized dense, MoE,
+Mamba2 or hymba model (weights from ``--seed``; ``--arch`` any of the
+registry's decoders: ``glm4-9b``, ``minitron-8b``, ``deepseek-7b``,
+``qwen3-14b``, ``qwen2-vl-7b`` (M-RoPE; served text tokens),
+``deepseek-moe-16b``, ``phi3.5-moe-42b-a6.6b``, ``mamba2-1.3b`` and
+``hymba-1.5b``; the encoder ``hubert-xlarge`` has no decode step, and the
+engine refuses it as the reference's does: it runs through
+``models.transformer.forward``; each leaf is drawn and quantized before
+the next), quantized once with the
 reference launcher's recipe (``QuantRecipe(w_bits=--bits, w_clip=--clip,
 ocs_ratio=--ocs-ratio, per_channel=True, pad_to=1)``), then served through
 :class:`repro_torch.serving.ServingEngine`. Engine flags are generated from
@@ -25,7 +29,7 @@ optimistic`` admits on prompt pages and preempts under pool pressure,
 {auto,on,off}`` picks the KV cache: ``auto`` pages dense and MoE models and
 serves Mamba2 and hymba on the unpaged engine's dense caches (their prompts
 replay through the decode step, one call a token), ``off`` serves a dense
-or MoE model unpaged too. Runs on the card; ``--device cpu`` runs the
+or MoE model unpaged too (``--spec-k`` included). Runs on the card; ``--device cpu`` runs the
 plain PyTorch path at smoke size.
 
 ``--replicas N`` serves through N engine replicas (one shared quantized
@@ -54,7 +58,9 @@ around the run; progress is logged at ``--log-level``.
     python -m repro_torch.launch.serve --arch deepseek-moe-16b --smoke --device cpu
     python -m repro_torch.launch.serve --arch hymba-1.5b --smoke --device cpu \
         --matmul-mode w8a8 --kv-bits 8
-    python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu --paged off
+    python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu --paged off \
+        --spec-k 4
+    python -m repro_torch.launch.serve --arch qwen2-vl-7b --smoke --device cpu
     python -m repro_torch.launch.serve --arch deepseek-moe-16b   # the card, full size
 """
 from __future__ import annotations

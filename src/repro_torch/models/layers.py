@@ -46,6 +46,8 @@ sampled forward).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..core import tap
@@ -53,7 +55,7 @@ from ..core.ocs import OCSQuantLinear, W4A8Linear
 from ..kernels import ops as kops
 from ..kernels.quant_matmul import stack_scales
 
-__all__ = ["MODES", "dense", "rms_norm", "embed", "silu", "swiglu"]
+__all__ = ["MODES", "dense", "rms_norm", "layer_norm", "embed", "silu", "swiglu", "gelu"]
 
 MODES = ("dequant", "w8a8", "w4a8")
 
@@ -214,6 +216,22 @@ def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.T
     return (x * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(dtype)
 
 
+def layer_norm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm: float32 mean and (biased) variance, ``(x - mu) *
+    rsqrt(var + eps) * scale + bias``, cast back to ``x``'s dtype. The
+    sums are :func:`_row_sum`'s, so a row does not depend on the call's
+    row count."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    d = x.shape[-1]
+    mu = _row_sum(x) / d
+    xc = x - mu
+    var = _row_sum(xc * xc) / d
+    y = xc * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(dtype)
+
+
 def embed(table: torch.Tensor, ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     return table[ids.long()].to(dtype)
 
@@ -229,3 +247,24 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     """``silu(gate) * up``."""
     return silu(gate) * up
+
+
+# ``jax.nn.gelu``'s constants, rounded to bfloat16 as the reference's
+# weakly typed Python floats are on a bfloat16 operand.
+_GELU_C = 0.044715
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation ``x * 0.5 * (1 + tanh(sqrt(2/pi) * (x +
+    0.044715 x^3)))``, as ``jax.nn.gelu`` spells it: op by op, each result
+    rounded to ``x``'s dtype, the constants in that dtype, and ``x^3`` as
+    ``x * (x * x)`` (``F.gelu`` rounds once and parts from the reference
+    on bfloat16)."""
+    def c(v):
+        return torch.tensor(v, dtype=x.dtype, device=x.device)
+
+    cube = x * (x * x)
+    inner = c(_SQRT_2_OVER_PI) * (x + c(_GELU_C) * cube)
+    cdf = c(0.5) * (c(1.0) + torch.tanh(inner))
+    return x * cdf

@@ -1,11 +1,15 @@
-"""Decoder LM (the port of ``repro.models.transformer``: the dense, MoE,
-Mamba2 and hymba blocks).
+"""The language model (the port of ``repro.models.transformer``: the dense,
+MoE, Mamba2 and hymba blocks; RMSNorm or LayerNorm, SwiGLU or GELU, RoPE or
+M-RoPE, causal decoders and the encoder).
 
 Parameters are a nested dict of tensors laid out like the reference's
 ``init_params``: per-layer leaves are stacked ``[L, ...]`` under
 ``params["layers"]``, quantized leaves are ``OCSQuantLinear`` (or
-``W4A8Linear`` in the ``w4a8`` tier). Serving runs these functions:
+``W4A8Linear`` in the ``w4a8`` tier). The entry points:
 
+* :func:`forward` / :func:`loss_fn` — full-sequence logits and their mean
+  cross-entropy (evaluation; an encoder's only path), every block kind,
+  from tokens or from a stub frontend's embeddings;
 * :func:`prefill_into_pages` — one request's prompt suffix through the
   full-sequence block, its K/V written straight into the page pools (the
   paged engine; dense and MoE);
@@ -13,15 +17,15 @@ Parameters are a nested dict of tensors laid out like the reference's
   prompt, or one budgeted chunk of it, into a b = 1 dense cache of
   :func:`init_cache` (the unpaged engine; dense and MoE: SSM and hybrid
   prompts replay through :func:`decode_step`, as the reference's do);
-* :func:`decode_step` — one token per lane against the paged caches
-  (``layers_limit`` runs only the first layers: the early-exit drafter of
-  self-speculative decoding) or against the dense caches of
-  :func:`init_cache` (every block kind; a ``mamba2`` layer carries its SSM
-  state and conv window, a ``hymba`` layer its attention cache, a ring
-  buffer on a sliding-window layer, its meta K/V and its SSM state);
+* :func:`decode_step` — one token per lane against the paged caches or
+  against the dense caches of :func:`init_cache` (every block kind; a
+  ``mamba2`` layer carries its SSM state and conv window, a ``hymba``
+  layer its attention cache, a ring buffer on a sliding-window layer, its
+  meta K/V and its SSM state); ``layers_limit`` runs only the first layers
+  (the early-exit drafter of self-speculative decoding; dense and MoE);
 * :func:`verify_step` — the k + 1 tokens of a speculative window per lane
-  in one call on the paged caches, each token's logits bitwise those of
-  sequential :func:`decode_step` calls.
+  in one call on either cache (dense and MoE), each token's logits bitwise
+  those of sequential :func:`decode_step` calls.
 
 All take ``mode``, the quantized-matmul mode every ``layers.dense`` call
 of the model runs (``"dequant"``, the reference's default, ``"w8a8"`` or
@@ -46,13 +50,16 @@ from ..core.apply import map_with_path, path_str
 from ..core.ocs import OCSQuantLinear, W4A8Linear
 from ..device import resolve_device
 from ..kernels.paged_attention import quant_rows
-from .attention import attention, attention_decode, attention_params_shape, init_kv_cache
-from .layers import dense, embed, rms_norm
+from .attention import (attention, attention_decode, attention_params_shape, init_kv_cache,
+                        rope_positions)
+from .layers import dense, embed, layer_norm, rms_norm
 from .mlp import mlp, mlp_params_shape
 from .moe import moe, moe_params_shape
-from .ssm import init_ssm_cache, mamba2_decode, ssm_params_shape
+from .ssm import init_ssm_cache, mamba2, mamba2_decode, ssm_params_shape
 
 __all__ = [
+    "forward",
+    "loss_fn",
     "init_params",
     "model_params_shape",
     "layer_params",
@@ -68,21 +75,28 @@ __all__ = [
 ATTN_BLOCKS = ("dense", "moe")  # blocks whose caches page and whose prompts prefill
 
 
-def check_block(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` (naming ROADMAP A13) for a model the
-    port has not reached: a block other than dense, MoE, Mamba2 and hymba,
-    an encoder, LayerNorm, a non-SwiGLU MLP or M-RoPE."""
-    if (cfg.block not in ATTN_BLOCKS + ("mamba2", "hymba") or cfg.norm != "rms"
-            or not cfg.causal):
-        raise NotImplementedError(
-            f"{cfg.name}: the port has the dense, MoE, Mamba2 and hymba causal "
-            "RMSNorm decoders (other blocks: ROADMAP A13)"
-        )
-    if cfg.act != "swiglu":
-        raise NotImplementedError(f"act {cfg.act!r}: the port has swiglu (ROADMAP A13)")
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError("M-RoPE: ROADMAP A13")
+BLOCKS = ATTN_BLOCKS + ("mamba2", "hymba")
 
+
+def check_block(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a block kind the model has no code for (the
+    reference's own refusal)."""
+    if cfg.block not in BLOCKS:
+        raise ValueError(cfg.block)
+
+
+def _norm(cfg: ModelConfig, p, x):
+    """The config's norm: RMSNorm, or LayerNorm (``cfg.norm == "ln"``)
+    with its bias."""
+    if cfg.norm == "rms":
+        return rms_norm(p["scale"], x, cfg.norm_eps)
+    return layer_norm(p["scale"], p["bias"], x, cfg.norm_eps)
+
+
+def _norm_shape(cfg: ModelConfig, d: int):
+    if cfg.norm == "rms":
+        return {"scale": (d,)}
+    return {"scale": (d,), "bias": (d,)}
 
 
 def _is_shape(x) -> bool:
@@ -91,7 +105,7 @@ def _is_shape(x) -> bool:
 
 def layer_params_shape(cfg: ModelConfig) -> Dict:
     d = cfg.d_model
-    shapes: Dict[str, Any] = {"norm1": {"scale": (d,)}}
+    shapes: Dict[str, Any] = {"norm1": _norm_shape(cfg, d)}
     if cfg.block == "mamba2":
         shapes["ssm"] = ssm_params_shape(cfg)
         return shapes
@@ -100,7 +114,7 @@ def layer_params_shape(cfg: ModelConfig) -> Dict:
         shapes["ssm"] = ssm_params_shape(cfg)
         shapes["attn_fuse_norm"] = {"scale": (d,)}
         shapes["ssm_fuse_norm"] = {"scale": (d,)}
-    shapes["norm2"] = {"scale": (d,)}
+    shapes["norm2"] = _norm_shape(cfg, d)
     if cfg.block == "moe":
         shapes["moe"] = moe_params_shape(cfg)
     else:
@@ -113,7 +127,7 @@ def model_params_shape(cfg: ModelConfig) -> Dict:
     d = cfg.d_model
     shapes: Dict[str, Any] = {
         "embed": (cfg.vocab, d),
-        "final_norm": {"scale": (d,)},
+        "final_norm": _norm_shape(cfg, d),
         "layers": map_with_path(
             lambda _p, s: (cfg.n_layers,) + s, layer_params_shape(cfg),
             is_leaf=_is_shape,
@@ -193,15 +207,103 @@ def _head(params, cfg: ModelConfig):
 
 def _block(cfg: ModelConfig, p, x, positions, *, mode: str, kv_prefix=None,
            prefix_len=None):
-    """One dense or MoE layer over a full sequence; returns (x, (k, v))."""
-    h = rms_norm(p["norm1"]["scale"], x, cfg.norm_eps)
+    """One dense or MoE layer over a full sequence (causal, or unmasked in
+    an encoder); returns (x, (k, v))."""
+    h = _norm(cfg, p["norm1"], x)
     a, kv = attention(
-        p["attn"], h, cfg, positions=positions, mode=mode, kv_prefix=kv_prefix,
+        p["attn"], h, cfg, positions=positions, mode=mode,
+        kind="causal" if cfg.causal else "full", kv_prefix=kv_prefix,
         prefix_len=prefix_len, return_kv=True,
     )
     x = x + a
-    h = rms_norm(p["norm2"]["scale"], x, cfg.norm_eps)
+    h = _norm(cfg, p["norm2"], x)
     return x + _ffn(cfg, p, h, mode), kv
+
+
+def _forward_block(cfg: ModelConfig, p, x, positions, *, mode: str, is_global=None):
+    """One layer of any block kind over a full sequence (:func:`forward`).
+    ``is_global``: a hymba layer's static global/window choice."""
+    if cfg.block in ATTN_BLOCKS:
+        return _block(cfg, p, x, positions, mode=mode)[0]
+    h = _norm(cfg, p["norm1"], x)
+    if cfg.block == "mamba2":
+        return x + mamba2(p["ssm"], h, cfg, mode=mode)
+    a = attention(p["attn"], h, cfg, positions=positions, mode=mode,
+                  kind="causal" if is_global else "window", window=cfg.hymba.swa_window,
+                  n_prefix=cfg.hymba.n_meta_tokens)
+    s_out = mamba2(p["ssm"], h, cfg, mode=mode)
+    x = x + 0.5 * (rms_norm(p["attn_fuse_norm"]["scale"], a, cfg.norm_eps)
+                   + rms_norm(p["ssm_fuse_norm"]["scale"], s_out, cfg.norm_eps))
+    h = _norm(cfg, p["norm2"], x)
+    return x + mlp(p["mlp"], h, cfg, mode=mode)
+
+
+def _segments(flags: np.ndarray):
+    """Contiguous same-flag runs ``[(lo, hi, flag), ...]`` covering every
+    layer (hymba's window and global layers, each run's choice static)."""
+    out = []
+    lo = 0
+    for i in range(1, len(flags) + 1):
+        if i == len(flags) or flags[i] != flags[lo]:
+            out.append((lo, i, bool(flags[lo])))
+            lo = i
+    return out
+
+
+def _positions(cfg: ModelConfig, b: int, s: int, offset: int = 0, device=None):
+    """Sequence positions ``offset .. offset + s - 1`` per row, ``[b, s]``
+    (``[b, s, 3]`` under M-RoPE)."""
+    pos = (torch.arange(s, device=device) + offset)[None, :].expand(b, s)
+    return rope_positions(cfg, pos)
+
+
+def forward(params, tokens: Optional[torch.Tensor], cfg: ModelConfig, *,
+            mode: str = "dequant", embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence logits ``[B, S, V]`` (the encoder's, and a decoder's
+    for evaluation). tokens: ``[B, S]``; or ``embeds`` ``[B, S, d]``, the
+    stub frontends' precomputed frame or patch embeddings (cast to
+    bfloat16). Every block kind: a hymba model's learnt meta tokens are
+    prepended (positions 0 .. M - 1, visible to every query) and stripped
+    before the final norm, and its layers run in segments whose
+    window/global choice is static (the skipped-chunk window path). The
+    layer loop is the reference's unrolled one (``scan=False``); every
+    linear layer runs in ``mode`` at M = B * S."""
+    check_block(cfg)
+    if embeds is not None:
+        x = embeds.to(torch.bfloat16)
+    else:
+        x = embed(params["embed"], tokens)
+    b, s = x.shape[0], x.shape[1]
+    n_meta = cfg.hymba.n_meta_tokens if cfg.block == "hymba" else 0
+    if n_meta:
+        meta = params["meta_tokens"].to(x.dtype)[None].expand(b, n_meta, cfg.d_model)
+        x = torch.cat([meta, x], dim=1)
+    positions = _positions(cfg, b, s + n_meta, device=x.device)
+    if cfg.block == "hymba":
+        for lo, hi, glob in _segments(_hymba_flags(cfg)):
+            for i in range(lo, hi):
+                x = _forward_block(cfg, layer_params(params, i), x, positions, mode=mode,
+                                   is_global=glob)
+    else:
+        for i in range(cfg.n_layers):
+            x = _forward_block(cfg, layer_params(params, i), x, positions, mode=mode)
+    if n_meta:
+        x = x[:, n_meta:]
+    x = _norm(cfg, params["final_norm"], x)
+    return dense(_head(params, cfg), x, mode=mode, name="lm_head")
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+            mode: str = "dequant") -> torch.Tensor:
+    """Mean token cross-entropy in float32 (``logsumexp`` minus the gold
+    logit), for evaluation: no gradients are taken. batch: ``labels``
+    ``[B, S]`` and ``tokens`` or ``embeds``."""
+    logits = forward(params, batch.get("tokens"), cfg, mode=mode,
+                     embeds=batch.get("embeds")).to(torch.float32)
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.mean(logz - gold)
 
 
 def _ffn(cfg: ModelConfig, p, h, mode: str):
@@ -235,8 +337,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32, 
     ``{"attn", "meta_k", "meta_v", "ssm"}``: a ring buffer of
     ``min(max_len, window)`` rows on a sliding-window layer, and meta K/V
     ``[batch, n_meta, KV, hd]`` of zeros that serving never writes, as in
-    the reference."""
+    the reference. An encoder has none (``ValueError``)."""
     check_block(cfg)
+    if not cfg.causal:
+        raise ValueError("encoder-only models have no decode step")
     dev = resolve_device(device)
     if cfg.block in ATTN_BLOCKS:
         layers = [{"attn": init_kv_cache(cfg, batch, max_len, dtype=dtype, device=dev)}
@@ -263,14 +367,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32, 
 def _decode_layer_unpaged(cfg: ModelConfig, p, x, cache, pos, window: int, mode: str):
     """One layer, one token against the dense caches of :func:`init_cache`.
     Returns (x, the layer's new cache tree)."""
-    h = rms_norm(p["norm1"]["scale"], x, cfg.norm_eps)
+    h = _norm(cfg, p["norm1"], x)
     if cfg.block == "mamba2":
         s_out, new_ssm = mamba2_decode(p["ssm"], h, cache["ssm"], cfg, mode=mode)
         return x + s_out, {"ssm": new_ssm}
     if cfg.block in ATTN_BLOCKS:
         a, new_attn = attention_decode(p["attn"], h, cache["attn"], pos, cfg, mode=mode)
         x = x + a
-        h = rms_norm(p["norm2"]["scale"], x, cfg.norm_eps)
+        h = _norm(cfg, p["norm2"], x)
         return x + _ffn(cfg, p, h, mode), {"attn": new_attn}
     a, new_attn = attention_decode(p["attn"], h, cache["attn"], pos, cfg, mode=mode,
                                    window=window, kv_prefix=(cache["meta_k"], cache["meta_v"]))
@@ -278,7 +382,7 @@ def _decode_layer_unpaged(cfg: ModelConfig, p, x, cache, pos, window: int, mode:
     fused = 0.5 * (rms_norm(p["attn_fuse_norm"]["scale"], a, cfg.norm_eps)
                    + rms_norm(p["ssm_fuse_norm"]["scale"], s_out, cfg.norm_eps))
     x = x + fused
-    h = rms_norm(p["norm2"]["scale"], x, cfg.norm_eps)
+    h = _norm(cfg, p["norm2"], x)
     x = x + mlp(p["mlp"], h, cfg, mode=mode)
     return x, {"attn": new_attn, "meta_k": cache["meta_k"], "meta_v": cache["meta_v"],
                "ssm": new_ssm}
@@ -289,27 +393,29 @@ def decode_tokens(params, tokens: torch.Tensor, caches, cfg: ModelConfig, *,
     """Q tokens per lane ``[B, Q]`` against the caches -> (logits ``[B, Q,
     V]``, caches with ``pos`` advanced by Q).
 
-    Paged caches (dense and MoE) hold ``layers[i]["attn"]`` (page pools),
-    ``table`` ``[B, T]`` and ``pos`` ``[B]``; on the card the pools are
-    updated in place. The Q tokens take positions ``pos .. pos + Q - 1``;
-    query ``j`` attends over positions ``<= pos + j``, so the logits equal Q
-    sequential one-token calls. ``layers_limit`` runs only the first L
-    layers and projects their output through the final norm and the
-    lm_head (the speculative drafter); the skipped layers' pools pass
-    through untouched.
-
-    Dense caches (:func:`init_cache`, no ``table``) take Q = 1 and every
-    block kind; their attention rows are written in place."""
+    The Q tokens take positions ``pos .. pos + Q - 1``; query ``j`` attends
+    over positions ``<= pos + j``, so the logits equal Q sequential
+    one-token calls. Paged caches (dense and MoE) hold
+    ``layers[i]["attn"]`` (page pools), ``table`` ``[B, T]`` and ``pos``
+    ``[B]``; dense caches (:func:`init_cache`, no ``table``) hold every
+    block kind's per-layer trees. Either is updated in place.
+    ``layers_limit`` runs only the first L layers and projects their output
+    through the final norm and the lm_head (the speculative drafter); the
+    skipped layers' caches pass through untouched. Q > 1 and
+    ``layers_limit`` take dense and MoE models only, as in the reference:
+    an SSM or hybrid state cannot roll back a rejected tail."""
     check_block(cfg)
     pos = caches["pos"]
     table = caches.get("table")
     qn = tokens.shape[1]
-    if table is None and (qn != 1 or layers_limit is not None):
+    if qn > 1 and cfg.block not in ATTN_BLOCKS:
         raise NotImplementedError(
-            "multi-token decode and the early-exit drafter on the unpaged engine's "
-            "dense caches: ROADMAP A16")
+            f"multi-token decode: attention archs only, got {cfg.block} "
+            "(SSM/hybrid decode states cannot roll back a rejected tail)")
     n_run = cfg.n_layers
     if layers_limit is not None:
+        if cfg.block not in ATTN_BLOCKS:
+            raise NotImplementedError("layers_limit: dense/moe drafters only")
         n_run = max(1, min(layers_limit, cfg.n_layers))
     x = embed(params["embed"], tokens)
     flags = _hymba_flags(cfg) if cfg.block == "hymba" else None
@@ -324,15 +430,15 @@ def decode_tokens(params, tokens: torch.Tensor, caches, cfg: ModelConfig, *,
             x, nc = _decode_layer_unpaged(cfg, p, x, caches["layers"][i], pos, window, mode)
             new_layers.append(nc)
             continue
-        h = rms_norm(p["norm1"]["scale"], x, cfg.norm_eps)
+        h = _norm(cfg, p["norm1"], x)
         a, pool = attention_decode(
             p["attn"], h, caches["layers"][i]["attn"], pos, cfg, table=table, mode=mode
         )
         x = x + a
-        h = rms_norm(p["norm2"]["scale"], x, cfg.norm_eps)
+        h = _norm(cfg, p["norm2"], x)
         x = x + _ffn(cfg, p, h, mode)
         new_layers.append({"attn": pool})
-    x = rms_norm(params["final_norm"]["scale"], x, cfg.norm_eps)
+    x = _norm(cfg, params["final_norm"], x)
     logits = dense(_head(params, cfg), x, mode=mode, name="lm_head")
     new_caches = {"layers": new_layers, "pos": pos + qn}
     if table is not None:
@@ -358,9 +464,10 @@ def verify_step(params, tokens: torch.Tensor, caches, cfg: ModelConfig, *,
     draft proposals. Returns (logits ``[B, Q, V]``, caches with ``pos``
     advanced by Q): ``logits[:, j]`` is bitwise what a plain decode loop
     gives after consuming ``tokens[:, :j+1]`` (every kernel sums a row in
-    one order whatever the row count, and B2 gives a query row what its
-    one-token call gives it), so greedy acceptance commits exactly the
-    tokens plain greedy decode emits. The caller rolls a rejected tail back
+    one order whatever the row count; B2 gives a query row what its
+    one-token call gives it, and the dense cache attends each query row
+    alone), so greedy acceptance commits exactly the tokens plain greedy
+    decode emits. The caller rolls a rejected tail back
     by rewinding ``pos`` (``serving.kv_cache.rewind_positions``): K/V
     written past the committed position is invisible to the causal mask and
     overwritten later.
@@ -397,7 +504,7 @@ def prefill_into_pages(
     if b != 1:
         raise ValueError("paged prefill is per-request (page_ids are per-seq)")
     n_hit = prefix_ids.shape[0] * pools[0]["k"].shape[2]
-    positions = (torch.arange(s, device=tokens.device) + n_hit)[None, :]
+    positions = _positions(cfg, 1, s, n_hit, device=tokens.device)
     x = embed(params["embed"], tokens)
     new_pools = []
     for i in range(cfg.n_layers):
@@ -405,7 +512,7 @@ def prefill_into_pages(
         kv_prefix = _kvc.gather_prefix(pools[i], prefix_ids) if n_hit else None
         x, (k, v) = _block(cfg, p, x, positions, mode=mode, kv_prefix=kv_prefix)
         new_pools.append(_kvc.write_prompt_pages(pools[i], k, v, page_ids))
-    x = rms_norm(params["final_norm"]["scale"], x, cfg.norm_eps)
+    x = _norm(cfg, params["final_norm"], x)
     # Only the last real token goes through the lm_head (the widest matmul).
     last_h = x[:, length.long() - 1]  # [1, 1, d]
     return dense(_head(params, cfg), last_h, mode=mode, name="lm_head")[:, 0, :], new_pools
@@ -422,7 +529,7 @@ def _check_attention_block(cfg: ModelConfig, what: str) -> None:
 def _last_logits(params, x, length, cfg: ModelConfig, mode: str):
     """The final norm, then the lm_head on each sequence's last real token
     only (the widest matmul): ``[B, V]``."""
-    x = rms_norm(params["final_norm"]["scale"], x, cfg.norm_eps)
+    x = _norm(cfg, params["final_norm"], x)
     rows = torch.arange(x.shape[0], device=x.device)
     last_h = x[rows, length.long() - 1][:, None]  # [B, 1, d]
     return dense(_head(params, cfg), last_h, mode=mode, name="lm_head")[:, 0, :]
@@ -467,7 +574,7 @@ def prefill_with_cache(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: 
     if length is None:
         length = torch.full((b,), s, dtype=torch.int32, device=dev)
     length = length.to(torch.int32).reshape(-1).expand(b)
-    positions = torch.arange(s, device=dev)[None, :].expand(b, s)
+    positions = _positions(cfg, b, s, device=dev)
     caches = init_cache(cfg, b, max_len, dtype=cache_dtype, device=dev)
     x = embed(params["embed"], tokens)
     idx = torch.arange(s, device=dev)
@@ -502,7 +609,7 @@ def prefill_chunk_with_cache(params, tokens: torch.Tensor, cfg: ModelConfig, cac
         raise ValueError("chunked prefill is per-request (b=1 scratch cache)")
     dev = tokens.device
     length = length.to(torch.int32).reshape(1)
-    positions = (torch.arange(s, device=dev) + start)[None, :]
+    positions = _positions(cfg, 1, s, start, device=dev)
     idx = start + torch.arange(s, device=dev)
     st = torch.tensor(start, device=dev)
     row_ok = (torch.arange(prefix_pad, device=dev) < start)[None, :, None, None]

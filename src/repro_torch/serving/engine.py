@@ -13,8 +13,10 @@ its paged and unpaged engines and the request lifecycle).
   budgeted, :func:`models.transformer.prefill_chunk_with_cache` chunks);
   Mamba2 and hymba prompts replay through the decode step, one call per
   prompt token, as the reference's do. Admission is always *reserve*
-  (fixed slots never oversubscribe), nothing preempts, the page stats read
-  0, and speculation refuses (ROADMAP A16).
+  (fixed slots never oversubscribe), nothing preempts, and the page stats
+  read 0. Speculation runs on either cache (dense and MoE models): the
+  verify writes its window's rows into the dense cache, and a rejected
+  tail is rolled back by rewinding ``pos``, as on the pools.
 
 * **request lifecycle** -- ``submit(Request)`` queues; per-request
   :class:`~repro_torch.serving.config.SamplingParams` select greedy (the
@@ -105,8 +107,10 @@ Every linear layer of prefill and decode runs in ``EngineConfig.matmul_mode``
 or packed int4 (4; B2's int4 branch). The engine runs on the card unless
 built with ``device="cpu"``. It serves the dense and the MoE decoders
 (deepseek-moe-16b, phi3.5-moe-42b-a6.6b) paged or unpaged, and the
-Mamba2 (mamba2-1.3b) and hymba (hymba-1.5b) decoders unpaged. The other
-architectures are later slices (ROADMAP A13).
+Mamba2 (mamba2-1.3b) and hymba (hymba-1.5b) decoders unpaged. An
+encoder-only model (hubert-xlarge) has no decode step: it runs through
+:func:`models.transformer.forward`, and the engine refuses it, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -366,6 +370,8 @@ class ServingEngine:
     ):
         self.device = resolve_device(device)
         config = config if config is not None else EngineConfig()
+        if not cfg.causal:
+            raise ValueError("encoder-only arch: no decode serving")
         T.check_block(cfg)
         # Paged KV cache: attention archs only (SSM and hybrid decode states
         # are O(1) per lane: nothing to page).
@@ -377,9 +383,6 @@ class ServingEngine:
                 "kv_bits=4 packs nibbles into page pools; this engine resolved to "
                 f"an unpaged cache (block={cfg.block!r}) -- the dense cache has no "
                 "int4 layout")
-        if not self.paged and config.spec is not None:
-            raise NotImplementedError(
-                "speculative decoding on the unpaged engine: ROADMAP A16")
         if self.device.type == "cuda" and self.paged:  # refuse up front
             check_layout(cfg.hd, config.page_size)
         if config.kv_bits is not None and config.kv_bits != cfg.kv_bits:
@@ -781,9 +784,14 @@ class ServingEngine:
         request queued -- only when the pool cannot hold it."""
         if req.output:
             if not self.paged:
+                # The reference's unpaged install (repro/serving/engine.py:1066-1093)
+                # re-prefills the prompt alone and appends a fresh first token
+                # after the committed output, with the whole budget again: the
+                # stream restarts past its budget. No resume is defined there.
                 raise NotImplementedError(
-                    f"request {req.uid} carries committed output: resuming it needs the "
-                    "paged engine's replay (ROADMAP A16)")
+                    f"request {req.uid} carries committed output: the unpaged engine has "
+                    "no resume (an unpaged engine never preempts; the reference's "
+                    "unpaged install restarts such a stream past its budget)")
             return self._resume_paged(slot_idx, req)
         if self.chunked:
             return self._install_chunked(slot_idx, req)
@@ -1465,7 +1473,7 @@ class ServingEngine:
         faulted: List[Request] = []
         for i, slot in enumerate(self.slots):
             if slot.req is None:
-                continue  # idle lanes drafted/verified into the trash page
+                continue  # idle lanes drafted/verified into the trash page or own rows
             if not bool(finite[i]):
                 # Nonfinite verify logits: commit nothing (the whole window
                 # is suspect), leave the position at the round start; other

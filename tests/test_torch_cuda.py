@@ -681,6 +681,53 @@ def test_paged_attention_cuda_multirow(kind, qn, heads):
         assert _same_bits(seq_p[key][1:], got_p[key][1:]), key
 
 
+def _check_gqa_heads(kind, qn, H, KV):
+    """B2 at ``H`` query heads over ``KV`` KV heads, Q = ``qn``, on
+    ``test_paged_attention_cuda_multirow``'s lanes: pools bitwise the plain
+    version's (the trash page aside), every row bitwise the sequential
+    Q = 1 launches, the retired lane zeros; the outputs, up to ~14 on these
+    int8 pools (scales up to 0.11), within ``B2_ATOL`` of the largest
+    output magnitude (float32 sums in another order: 2.3e-5 absolute,
+    1.7e-6 relative, was read on an H100 at rep 7, Q = 2)."""
+    cuda_or_skip()
+    pool, (table, pos, q, kn, vn) = _multirow_case(kind, qn, H, KV, qn * (H // KV) + 1)
+    want_o, want_p = tpa.paged_attention_plain(pool, table, pos, q, kn, vn)
+    got_o, got_p = tpa.paged_attention_cuda({k: v.clone() for k, v in pool.items()},
+                                            table, pos, q, kn, vn)
+    seq_p, outs = {k: v.clone() for k, v in pool.items()}, []
+    for j in range(qn):
+        o, seq_p = tpa.paged_attention_cuda(seq_p, table, pos + j, q[:, j:j + 1].contiguous(),
+                                            kn[:, j:j + 1].contiguous(),
+                                            vn[:, j:j + 1].contiguous())
+        outs.append(o)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got_o).all() and (got_o[3] == 0).all()
+    scale = max(1.0, want_o.abs().max().item())
+    torch.testing.assert_close(got_o, want_o, atol=B2_ATOL * scale, rtol=0)
+    assert _same_bits(torch.cat(outs, 1), got_o)
+    for key in want_p:
+        assert _same_bits(got_p[key][1:], want_p[key][1:]), key
+        assert _same_bits(seq_p[key][1:], got_p[key][1:]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qn", [1, 2, 5, 17])
+@pytest.mark.parametrize("kind", ["float32", "int8", "int4"])
+def test_paged_attention_cuda_rep7(kind, qn):
+    """B2 at qwen2-vl-7b's heads (28 query heads over 4 KV heads, rep 7),
+    Q = 1 and the Q > 1 rows of a verify (:func:`_check_gqa_heads`)."""
+    _check_gqa_heads(kind, qn, 28, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qn", [1, 2, 5, 17])
+@pytest.mark.parametrize("kind", ["float32", "int8", "int4"])
+def test_paged_attention_cuda_rep4(kind, qn):
+    """B2 at minitron-8b's heads (32 query heads over 8 KV heads, rep 4),
+    Q = 1 and the Q > 1 rows of a verify (:func:`_check_gqa_heads`)."""
+    _check_gqa_heads(kind, qn, 32, 8)
+
+
 def _row_independence_cases():
     """(name, fn of x [M, 4096] bf16): ``dense`` on glm4-9b-sized leaves
     quantized on the card in each mode (dequant through B4 and, for the
@@ -1912,7 +1959,12 @@ def test_gemms_at_the_ssm_and_hybrid_shapes_cuda(name, m):
     within the weight-only bound (bf16 outputs plus one bf16 ulp); each one
     launch."""
     cuda_or_skip()
-    k, s, n = SSM_SHAPES[name]
+    _gemms_checked(*SSM_SHAPES[name], m)
+
+
+def _gemms_checked(k, s, n, m):
+    """B1, B4, B5 and B6 at (K, S, N) and M rows against their plain
+    versions, as ``test_gemms_at_the_ssm_and_hybrid_shapes_cuda`` states."""
     npad = tqm.padded_cols(n, 16)
     g, w8, ws, src = _b1_weights(k, s, n, m + k + n)
     w8, ws = tqm.pad_cols(w8, npad), tqm.pad_cols(ws, npad)
@@ -2097,3 +2149,149 @@ def test_dense_cache_int8_attention_card_vs_cpu_cuda(window):
         assert _same_bits(outs["cuda"][1][key], outs["cpu"][1][key]), key
     err = (outs["cuda"][0] - outs["cpu"][0]).abs().max().item()
     assert err <= 0.01 * outs["cpu"][0].abs().max().item(), err
+
+
+# ---------------------------------------------------------------------------
+# The slice of the full-sequence entry point and the last configs: their
+# GEMM shapes, the unpaged engine's Q > 1 rows, forward card vs CPU.
+
+# (K, S, N) of qwen2-vl-7b, minitron-8b and hubert-xlarge, S as the serving
+# recipe leaves it (r = 0.02); hubert's lm_head (N 504) is stored padded to
+# 512.
+SLICE_SHAPES = {
+    "qwen2-vl wq/wo": (3584, 72, 3584), "qwen2-vl wk/wv": (3584, 72, 512),
+    "qwen2-vl w_gate/w_up": (3584, 72, 18944), "qwen2-vl w_down": (18944, 379, 3584),
+    "qwen2-vl lm_head": (3584, 72, 152064),
+    "minitron wq/wo": (4096, 82, 4096), "minitron wk/wv": (4096, 82, 1024),
+    "minitron w_gate/w_up": (4096, 82, 16384), "minitron w_down": (16384, 328, 4096),
+    "minitron lm_head": (4096, 82, 256000),
+    "hubert wq/wk/wv/wo": (1280, 26, 1280), "hubert w_in": (1280, 26, 5120),
+    "hubert w_out2": (5120, 103, 1280), "hubert lm_head": (1280, 26, 504),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 257])
+@pytest.mark.parametrize("name", list(SLICE_SHAPES))
+def test_gemms_at_the_slice_shapes_cuda(name, m):
+    """B1, B4, B5 and B6 at every qwen2-vl-7b, minitron-8b and
+    hubert-xlarge linear shape, a decode row, a decode step and a ragged
+    257-row full-sequence call (the prefill tile's class), against their
+    plain versions as at the SSM shapes."""
+    cuda_or_skip()
+    _gemms_checked(*SLICE_SHAPES[name], m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,kv_bits", [("dequant", None), ("w8a8", 8)])
+def test_verify_step_dense_cache_cuda_bitwise_sequential(mode, kv_bits):
+    """The unpaged engine's verify on the card: ``verify_step`` over 5
+    tokens on float32 and int8 dense caches is bitwise 5 sequential
+    ``decode_step`` calls (logits, every layer's cache, positions) on a
+    two-layer glm4-9b-shaped model, lanes at ragged positions inside the
+    cache; and a window run past the cache's end writes the rows the CPU
+    writes (the rows clipped onto the last slot carry the last query's
+    row, whatever order the card takes the writes in)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import transformer as T
+
+    cuda_or_skip()
+    cfg = dataclasses.replace(smoke_config("glm4-9b"), d_model=4096, n_heads=32,
+                              n_kv_heads=2, head_dim=128, d_ff=1024, vocab=2048,
+                              kv_bits=kv_bits)
+    q = quantize_params(T.init_params(cfg, seed=0, device="cpu"),
+                        QuantRecipe(w_bits=8, w_clip="mse", ocs_ratio=0.02,
+                                    per_channel=True, pad_to=1), device="cpu")
+    rng = np.random.default_rng(5)
+    ctx = rng.integers(0, cfg.vocab, (6, 3))
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (3, 5)), dtype=torch.int32)
+    runs = {}
+    for dev, start in (("cuda", [0, 9, 30]), ("cuda-past", [0, 9, 39]),
+                       ("cpu-past", [0, 9, 39])):
+        d = dev.split("-")[0]
+        params = tree_to(q, d)
+        caches = T.init_cache(cfg, 3, 48, device=d)
+        caches["pos"] = torch.tensor(start, dtype=torch.int32, device=d)
+        with torch.no_grad():
+            for t in ctx:
+                _, caches = T.decode_step(params, torch.as_tensor(t[:, None], dtype=torch.int32,
+                                                                  device=d), caches, cfg,
+                                          mode=mode)
+            tk = toks.to(d)
+            seq, outs = copy.deepcopy(caches), []
+            if dev == "cuda":
+                for j in range(5):
+                    lg, seq = T.decode_step(params, tk[:, j:j + 1].contiguous(), seq, cfg,
+                                            mode=mode)
+                    outs.append(lg)
+            lg_v, ver = T.verify_step(params, tk, caches, cfg, mode=mode)
+        runs[dev] = (outs, seq, lg_v, ver)
+    torch.cuda.synchronize()
+    outs, seq, lg_v, ver = runs["cuda"]
+    assert _same_bits(torch.stack(outs, 1).float(), lg_v.float())
+    assert torch.equal(ver["pos"], seq["pos"])
+    for i in range(cfg.n_layers):
+        for key, val in ver["layers"][i]["attn"].items():
+            assert _same_bits(val, seq["layers"][i]["attn"][key]), (i, key)
+    if mode == "w8a8":  # B1 and the row quantizer are bitwise the CPU's
+        card, cpu = runs["cuda-past"][3], runs["cpu-past"][3]
+        for i in range(cfg.n_layers):
+            for key, val in card["layers"][i]["attn"].items():
+                assert _same_bits(val, cpu["layers"][i]["attn"][key]), (i, key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dequant", "w8a8", "w4a8"])
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "qwen2-vl-7b", "hymba-1.5b"])
+def test_forward_card_vs_cpu_cuda(arch, mode):
+    """``transformer.forward`` of the smoke hubert-xlarge (frame
+    embeddings, LayerNorm, GELU, unmasked attention), qwen2-vl-7b (M-RoPE)
+    and hymba-1.5b (meta tokens, the skipped-chunk window) on the card and
+    on the CPU from one quantized tree: finite logits within
+    ``chip_smoke.FORWARD_CARD_RTOL`` of the mode of the largest, and one
+    launch of the mode's kernel per quantized matrix (``B * S`` rows a
+    call)."""
+    cuda_or_skip()
+    from repro_torch.models import transformer as T
+
+    cfg, q = _smoke_tree(mode, arch)
+    kernel = {"dequant": tom, "w8a8": tfq, "w4a8": tw4}[mode]
+    rng = np.random.default_rng(6)
+    tokens = embeds = None
+    if cfg.frontend == "audio":
+        embeds = torch.as_tensor(rng.normal(size=(2, 40, cfg.d_model)), dtype=torch.float32)
+    else:
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 40)))
+    # Quantized matrices a layer: attention 4, the MLP 3 (SwiGLU) or 2
+    # (GELU), hymba's SSM projections 2; then the lm_head.
+    per = 4 + (3 if cfg.act == "swiglu" else 2) + (2 if cfg.block == "hymba" else 0)
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        kernel.reset_launches()
+        with torch.no_grad():
+            out = T.forward(tree_to(q, dev), None if tokens is None else tokens.to(dev), cfg,
+                            mode=mode, embeds=None if embeds is None else embeds.to(dev))
+        logits[dev] = out.float().cpu()
+        if dev == "cuda":
+            assert kernel.launches == per * cfg.n_layers + 1
+    err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+    top = logits["cpu"].abs().max().item()
+    print(f"{arch} {mode}: forward card vs CPU max |d logits| {err:.4g} of {top:.4g}")
+    assert torch.isfinite(logits["cuda"]).all()
+    assert err <= _forward_card_rtol(mode) * top, (err, top)
+
+
+def _forward_card_rtol(mode):
+    """``chip_smoke.FORWARD_CARD_RTOL``: ``forward``'s card vs CPU logits of
+    the smoke models, of the largest logit, by matmul mode."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.FORWARD_CARD_RTOL[mode]

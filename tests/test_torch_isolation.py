@@ -56,7 +56,8 @@ def test_imports_without_jax_or_repro():
               "repro_torch.serving.chaos", "repro_torch.models.moe",
               "repro_torch.configs.deepseek_moe_16b", "repro_torch.configs.phi35_moe_42b",
               "repro_torch.models.ssm", "repro_torch.configs.mamba2_1p3b",
-              "repro_torch.configs.hymba_1p5b"):
+              "repro_torch.configs.hymba_1p5b", "repro_torch.configs.qwen2_vl_7b",
+              "repro_torch.configs.minitron_8b", "repro_torch.configs.hubert_xlarge"):
         assert m in mods
     code = (
         "import sys, importlib, importlib.util\n"
@@ -233,9 +234,10 @@ def test_dense_refuses_unported_modes():
 
 def test_unported_modes_raise_at_engine_construction():
     """The A9 policies (optimistic admission, budgeted chunked prefill)
-    construct and serve; a model the port has not reached (A13: qwen2-vl's
-    M-RoPE) still raises; the A12 tier (``matmul_mode="w4a8"``,
-    ``kv_bits=4``) constructs, converting the int8 leaves once."""
+    construct and serve; a model with qwen2-vl's M-RoPE constructs and
+    serves, and an encoder raises the reference's ``ValueError``; the A12
+    tier (``matmul_mode="w4a8"``, ``kv_bits=4``) constructs, converting the
+    int8 leaves once."""
     import dataclasses
 
     from repro_torch.core.ocs import W4A8Linear
@@ -251,8 +253,13 @@ def test_unported_modes_raise_at_engine_construction():
         (r,) = eng.run()
         assert r.finish_reason == "length" and len(r.output) == 3
         assert eng.stats()["kv_pages_in_use"] == 0.0
-    with pytest.raises(NotImplementedError, match="A13"):
-        ServingEngine(dataclasses.replace(cfg, mrope_sections=(2, 3, 3)), params,
+    eng = ServingEngine(dataclasses.replace(cfg, mrope_sections=(2, 3, 3)), params,
+                        EngineConfig(max_len=64), device="cpu")
+    eng.submit(Request(uid=0, prompt=list(range(1, 21)), max_new_tokens=3))
+    (r,) = eng.run()
+    assert r.finish_reason == "length" and len(r.output) == 3
+    with pytest.raises(ValueError, match="encoder-only"):
+        ServingEngine(dataclasses.replace(cfg, causal=False), params,
                       EngineConfig(max_len=64), device="cpu")
     q = quantize_params(params, QuantRecipe(w_bits=8, ocs_ratio=0.02, per_channel=True),
                         device="cpu")

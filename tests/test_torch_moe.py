@@ -559,17 +559,23 @@ def test_launch_serve_moe_smoke_on_cpu(mode):
 
 
 def test_engine_refuses_unreached_blocks():
-    """Models the port has not reached keep refusing and name A13: qwen2-vl's
-    M-RoPE, a non-SwiGLU MLP (minitron's and hubert's ``act``), and the
-    encoder-only hubert (LayerNorm, not causal)."""
+    """Every causal block the reference serves, the port serves: a MoE
+    model with qwen2-vl's M-RoPE sections and one with a ``gelu`` act (the
+    MoE block's experts are SwiGLU whatever ``act`` says, in both packages)
+    construct and serve a request; an encoder-only model (hubert's
+    LayerNorm, not causal) keeps the reference's refusal, a
+    ``ValueError``."""
     cfg = t_smoke("deepseek-moe-16b")
-    params = TT.init_params(cfg, seed=0, device="cpu")
     for change in (dict(mrope_sections=(2, 3, 3)), dict(act="gelu")):
-        with pytest.raises(NotImplementedError, match="A13"):
-            ServingEngine(dataclasses.replace(cfg, **change), params,
-                          EngineConfig(max_len=64), device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        ServingEngine(dataclasses.replace(cfg, causal=False, norm="ln"), params,
+        c = dataclasses.replace(cfg, **change)
+        eng = ServingEngine(c, TT.init_params(c, seed=0, device="cpu"),
+                            EngineConfig(max_len=64), device="cpu")
+        eng.submit(Request(uid=0, prompt=list(range(1, 12)), max_new_tokens=3))
+        (r,) = eng.run()
+        assert r.finish_reason == "length" and len(r.output) == 3
+    enc = dataclasses.replace(cfg, causal=False, norm="ln")
+    with pytest.raises(ValueError, match="encoder-only"):
+        ServingEngine(enc, TT.init_params(enc, seed=0, device="cpu"),
                       EngineConfig(max_len=64), device="cpu")
 
 

@@ -11,8 +11,9 @@ migration offset); random interleavings of the router lifecycle never
 leak pages on any replica; one FaultPlan replayed twice gives the same
 outputs. Migration resumes through the engine's bit-exact resume (prompt
 re-prefill, committed tokens replayed through the decode path). The
-reference's MoE parametrisations are not ported yet (ROADMAP A13). Its
-unpaged-replica case runs on the port's unpaged engines: a dense one built
+reference's MoE parametrisations (``arch`` in glm4-9b and
+deepseek-moe-16b, with the reference's prompt seeds) run on the port's
+MoE engines. Its unpaged-replica case runs on the port's unpaged engines: a dense one built
 with ``paged=False``, and the Mamba2 and hymba ones, which resolve to
 unpaged.
 """
@@ -60,13 +61,20 @@ from repro_torch.serving import router as trouter
 _PARAMS = {}
 
 
-def _setup():
-    """The smoke glm4-9b and the port's seed-0 float weights (the
-    reference's router tests serve its float init params)."""
-    if "glm" not in _PARAMS:
-        cfg = smoke_config("glm4-9b")
-        _PARAMS["glm"] = (cfg, T.init_params(cfg, seed=0, device="cpu"))
-    return _PARAMS["glm"]
+def _setup(arch="glm4-9b"):
+    """A smoke model and the port's seed-0 float weights (the reference's
+    router tests serve its float init params): glm4-9b, or the MoE
+    deepseek-moe-16b of the reference's MoE parametrisations."""
+    if arch not in _PARAMS:
+        cfg = smoke_config(arch)
+        _PARAMS[arch] = (cfg, T.init_params(cfg, seed=0, device="cpu"))
+    return _PARAMS[arch]
+
+
+# The reference's prompt seeds: 7, and 3 for the MoE model ("MoE smoke
+# models have argmax knife-edges at some seeds; pinned to a well-posed
+# region", tests/test_router.py).
+_PROMPT_SEED = {"glm4-9b": 7, "deepseek-moe-16b": 3}
 
 
 @pytest.fixture(scope="module")
@@ -279,20 +287,26 @@ def test_replica_set_build_runs_on_the_card_by_default(dense_setup, monkeypatch)
 # Crash-and-migrate is oracle-exact
 
 
-@pytest.mark.parametrize("tree", ["float", "w8a8-int8", "w4a8-int4"])
-def test_kill_migrate_greedy_exact(dense_setup, port_smoke, tree):
+@pytest.mark.parametrize("arch,tree", [
+    pytest.param("glm4-9b", "float", id="float"),
+    pytest.param("glm4-9b", "w8a8-int8", id="w8a8-int8"),
+    pytest.param("glm4-9b", "w4a8-int4", id="w4a8-int4"),
+    pytest.param("deepseek-moe-16b", "float", id="deepseek-moe-16b-float"),
+])
+def test_kill_migrate_greedy_exact(port_smoke, arch, tree):
     """Kill a replica mid-decode: every request, the harvested in-flight
     lanes carrying committed tokens included, completes on the survivor
     token for token the uncontended oracle's; the survivor replayed the
-    committed tails through the decode path."""
+    committed tails through the decode path. The reference's MoE case
+    (deepseek-moe-16b, float weights) too."""
     if tree == "float":
-        cfg, params = dense_setup
+        cfg, params = _setup(arch)
         conf = {}
     else:
         cfg, params = port_smoke
         conf = (dict(matmul_mode="w8a8", kv_bits=8) if tree == "w8a8-int8"
                 else dict(matmul_mode="w4a8", kv_bits=4))
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(_PROMPT_SEED[arch])
     reqs = _mk(rng, cfg.vocab, [7, 5, 3, 6])
     oracle = _oracle(cfg, params, _clone(reqs), **conf)
     router = _router(cfg, params, n=2, **conf)
@@ -311,12 +325,15 @@ def test_kill_migrate_greedy_exact(dense_setup, port_smoke, tree):
     assert router.replicas[1].engine.replay_lengths
 
 
-@pytest.mark.parametrize("kill_at", [1, 2, 3, 4, 5])
-def test_migration_offset_sweep_seeded_sampling_exact(dense_setup, kill_at):
+@pytest.mark.parametrize("arch,kill_at", [
+    pytest.param(arch, kill_at, id=str(kill_at) if arch == "glm4-9b" else f"{arch}-{kill_at}")
+    for arch in ("glm4-9b", "deepseek-moe-16b") for kill_at in (1, 2, 3, 4, 5)])
+def test_migration_offset_sweep_seeded_sampling_exact(arch, kill_at):
     """Seeded (non-greedy) sampling migrated at every offset reproduces the
-    oracle stream bit for bit: a draw depends on (seed, position) only."""
-    cfg, params = dense_setup
-    rng = np.random.default_rng(7)
+    oracle stream bit for bit: a draw depends on (seed, position) only. The
+    reference's ``arch`` x ``kill_at`` grid, its MoE model included."""
+    cfg, params = _setup(arch)
+    rng = np.random.default_rng(_PROMPT_SEED[arch])
     sampling = SamplingParams(temperature=0.8, top_k=20, seed=123)
     reqs = _mk(rng, cfg.vocab, [6, 4], max_new=6, sampling=sampling)
     oracle = _oracle(cfg, params, _clone(reqs))

@@ -1,5 +1,5 @@
-"""Port parity, the unpaged engine and its dense caches (ROADMAP A16), and
-the Mamba2 and hymba decoders served on it (A13), against ``repro`` on the
+"""Port parity, the unpaged engine and its dense caches, and the Mamba2 and
+hymba decoders served on it, against ``repro`` on the
 same weights and the same numpy inputs.
 
 * ``init_cache``: the per-layer trees, shapes and dtypes of the
@@ -38,8 +38,9 @@ same weights and the same numpy inputs.
   once, hymba w4a8 twice), each at a margin of one to four bf16 steps of
   the logits (0.0078 with logits within 0.47, 0.0156 within 2.9).
 * The unpaged engine's refusals and policies: ``kv_bits=4`` raises
-  ``ConfigError``, admission is always ``reserve``, speculation raises
-  naming A16, and a paged SSM engine is refused; ``launch.serve`` on the
+  ``ConfigError``, admission is always ``reserve``, a dense model
+  speculates while an SSM model refuses to (the reference's
+  ``ValueError``), and a paged SSM engine is refused; ``launch.serve`` on the
   unpaged engine at smoke size; and the reference's paged == unpaged
   sampling case (``test_sampling.py``): a fixed-seed sampled request is
   bit-reproducible and the two engines sample it alike.
@@ -463,9 +464,19 @@ def test_unpaged_engine_refusals_and_policies():
         ServingEngine(cfg, params, EngineConfig(kv_bits=4), device="cpu")
     with pytest.raises(ValueError, match="paged"):
         ServingEngine(cfg, params, EngineConfig(paged=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="A16"):
-        ServingEngine(t_smoke("glm4-9b"), TT.init_params(t_smoke("glm4-9b"), device="cpu"),
-                      EngineConfig(paged=False, spec=SpecConfig(k=2)), device="cpu")
+    # Speculation on the unpaged engine: a dense model serves (held token for
+    # token in test_torch_unpaged_spec.py); an SSM model keeps the
+    # reference's refusal.
+    glm = t_smoke("glm4-9b")
+    spec_eng = ServingEngine(glm, TT.init_params(glm, device="cpu"),
+                             EngineConfig(paged=False, max_len=32, spec=SpecConfig(k=2)),
+                             device="cpu")
+    spec_eng.submit(Request(uid=0, prompt=[1, 2, 3], max_new_tokens=5))
+    (r,) = spec_eng.run()
+    assert r.finish_reason == "length" and len(r.output) == 5
+    assert spec_eng.stats()["spec_rounds"] > 0
+    with pytest.raises(ValueError, match="roll back"):
+        ServingEngine(cfg, params, EngineConfig(spec=SpecConfig(k=2)), device="cpu")
     eng = ServingEngine(cfg, params, EngineConfig(max_len=32, admission="optimistic"),
                         device="cpu")
     assert eng.admission == "reserve" and eng.paged is False
