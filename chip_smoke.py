@@ -7,8 +7,9 @@ Cuts, each logged where it is made: glm4-9b's depth (``--layers``, default
 its published 40); at ``--short-layers`` (default 10): the clip-only
 trees, glm4-9b's lifecycle, traced, router, k=16 spec, unpaged w8a8 and
 chaos phases, hymba-1.5b's and qwen2-vl-7b's w4a8 phases; the SSM and
-hybrid phases' repeats at ``SSM_REPEAT_LAYERS`` (4); deepseek-moe-16b at
-``MOE_LAYERS`` (12 of 28),
+hybrid serves at ``SSM_SERVE_LAYERS`` (mamba2-1.3b 24 of 48, hymba-1.5b
+16 of 32); the SSM and hybrid phases' repeats at ``SSM_REPEAT_LAYERS``
+(4); deepseek-moe-16b at ``MOE_LAYERS`` (8 of 28),
 phi3.5-moe at ``--phi-layers`` (default 4 of 32); the SSM and hybrid
 serve phases' prompts: 16-20 tokens (8 requests on 8 lanes, 32 new tokens
 each; their prompts replay through the decode step, one full step a
@@ -131,7 +132,7 @@ Phases (any failure raises, and the script exits non-zero with no result):
 6. MoE serving: the glm4-9b trees are freed; deepseek-moe-16b at its
    published width (d_model 2048, 16/16 heads, hd 128, 64 routed experts
    top-6 of expert_ff 1408, 2 shared experts fused to width 2816,
-   capacity factor 1.25, vocab 102400) and ``MOE_LAYERS`` deep (12 of
+   capacity factor 1.25, vocab 102400) and ``MOE_LAYERS`` deep (8 of
    its published 28, a cut that keeps the script within 60% of its time
    limit), its seeded weights drawn leaf by leaf on the
    card and quantized as drawn (``init_params(lazy=True)`` through
@@ -174,7 +175,7 @@ Phases (any failure raises, and the script exits non-zero with no result):
    last, token for token it. After the MoE phases: (a) mamba2-1.3b at
    its published width (d_model 2048, 64 SSM heads of 64, d_state 128,
    d_inner 4096, vocab 50280, the lm_head the tied float embedding) and
-   depth (48, never cut), and (b) hymba-1.5b (d_model 1600, 25/5 heads of
+   depth (48), and (b) hymba-1.5b (d_model 1600, 25/5 heads of
    64, d_ff 5504, 50 SSM heads, d_state 16, 128 meta tokens, window 1024,
    global layers 0/15/31, vocab 32001: its in_proj's 6482 and lm_head's
    32001 columns stored padded to 6496 and 32016 once) at its 32 layers,
@@ -184,12 +185,14 @@ Phases (any failure raises, and the script exits non-zero with no result):
    their plain versions to the bounds above (bitwise for B1, B6 and the
    int8 paths). Served on the unpaged engine (``max_batch=8,
    max_len=64``, 8 requests of 16-20-token prompts, 32 new tokens: every
-   decode step M = 8): mamba2-1.3b in dequant, w8a8 and w4a8, hymba-1.5b
-   in dequant and w8a8 on int8 caches, and in w4a8 at ``--short-layers``
-   (a cut); each phase once, then twice at ``SSM_REPEAT_LAYERS`` (4; the
-   repeat's depth cut), the second token for token the first;
-   the mode's kernel 96 times a step and a prompt token (mamba2: in_proj
-   and out_proj of 48 layers) or 289 (hymba: 9 x 32 + lm_head), B2 never.
+   decode step M = 8), at ``SSM_SERVE_LAYERS`` (cuts):
+   mamba2-1.3b at 24 layers in dequant, w8a8 and w4a8, hymba-1.5b at 16
+   (global layers 0 and 15) in dequant and w8a8 on int8 caches, and in
+   w4a8 at ``--short-layers`` (a cut); each phase once, then twice at
+   ``SSM_REPEAT_LAYERS`` (4; the repeat's depth cut), the second token for
+   token the first; the mode's kernel 2 x L times a step and a prompt
+   token (mamba2 at L layers: its in_proj and out_proj) or 9 x L + 1
+   (hymba), B2 never.
    One decode step of each profiled (device operations, busy share).
 6c. The last configs. qwen2-vl-7b at its published width (d_model 3584,
    28/4 heads of 128, d_ff 18944, vocab 152064, M-RoPE sections (16, 24,
@@ -212,6 +215,33 @@ Phases (any failure raises, and the script exits non-zero with no result):
    1280]`` (20 s of audio at 50 Hz: M = 4000 a GEMM) and seeded labels in
    dequant, w8a8 and w4a8: finite logits and loss, the mode's kernel
    6*48+1 times a call and nothing else.
+6d. (n) The paper's weight-PTQ experiments (``repro_torch.experiments``)
+   at their full size. The convnet, the LSTM and the bench LM are trained
+   on the card from their seeded init, 400 steps each at the reference's
+   settings, fresh on every run (no cache; cuDNN deterministic from here
+   on, so the convnet's training repeats): each one's loss at the logged
+   steps, wall time and steps/s printed; the convnet's held-out accuracy
+   at least twice chance (``EXP_MIN_ACC``), the LMs' perplexity below half
+   their vocabulary (``EXP_MAX_PPL``); each one's float forward card vs
+   CPU on the trained weights within ``EXP_F32_RTOL`` / ``EXP_LM_RTOL`` of
+   the largest logit. The quick arms of Tables 1, 2, 5, 6 and 7 on the
+   trained trees, each table printed. Fake-quantized leaves built on the
+   card bitwise the same built on the CPU (the bench LM with no clip, MSE,
+   ACIQ and KL, and with knapsack allocation; the convnet with KL; the
+   LSTM with ACIQ, per-channel). The precision-tier gate
+   (``launch/quality_eval.py``) on the trained bench LM: every tier's
+   metrics and the reference's verdict printed, the floors held, the
+   OCS-beats-naive comparisons printed (not held: the reference calibrated
+   them on its own trained LM), the launches per tier counted (B1 in int8,
+   B6 in the two w4a8 tiers, B4 in a dequant row of the int8 tree, 7 x 4 +
+   1 a forward), each tier's logits card vs CPU within
+   ``FORWARD_CARD_RTOL``; B1, B4 and B6 at the bench LM's shapes (K + S =
+   131 and 262, M = 1024; B6 with 14 and 27 outlier rows, ``to_w4a8(.,
+   0.1)``, and with none) as in (c). glm4-9b's layer-0 and lm_head leaves
+   at full width quantized on the card with ACIQ and with KL clipping (w8,
+   OCS r = 0.02, per-tensor): the seconds printed, the lm_head's split
+   table, int grid and scale bitwise the CPU's (layer 0's are held so by
+   ``tests/test_torch_cuda.py``).
 7. Reference check: a smoke-size glm4-9b run through prefill and
    teacher-forced decode on the card (kernels) and on the CPU (plain
    versions) from the same weights, in w8a8 (int8 pages), dequant (float
@@ -231,8 +261,9 @@ Output: a ``time:`` line at the end of each phase (seconds since the
 start), a ``kernels`` JSON line (every kernel's launches on its path,
 ``launches_by_path`` for the matmul kernels and B2 on every serving path
 and hubert-xlarge's forward, the SSM, hybrid, qwen2-vl-7b, minitron-8b
-and hubert-xlarge models' GEMMs as entries of their own; error, times and
-bound), the ``nvidia-smi`` line, and last
+and hubert-xlarge models' GEMMs and the bench LM's in the quality gate
+(``*_benchlm``) as entries of their own; error, times and bound), the
+``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Per-shape detail goes to
 ``<out>/chip_smoke.json``.
 """
@@ -1060,11 +1091,12 @@ def w4a8_bound_ms(m, k, s, t, n):
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
-def to_w4a8_checked(name, leaf):
-    """``to_w4a8(leaf, W4A8_RATIO)`` on the card, as the engine converts
-    its tree, held bitwise against the same conversion of ``leaf`` on the
-    CPU (which tests/test_torch_w4a8.py holds bitwise against the
-    reference's numpy conversion): all five arrays and the padded spec."""
+def to_w4a8_checked(name, leaf, ratio=W4A8_RATIO):
+    """``to_w4a8(leaf, ratio)`` on the card, as the engine converts its
+    tree (``W4A8_RATIO``), held bitwise against the same conversion of
+    ``leaf`` on the CPU (which tests/test_torch_w4a8.py holds bitwise
+    against the reference's numpy conversion): all five arrays and the
+    padded spec."""
     from repro_torch.core.apply import tree_to
     from repro_torch.core.ocs import to_w4a8
 
@@ -1073,8 +1105,8 @@ def to_w4a8_checked(name, leaf):
                 "outlier_idx": lin.outlier_idx, "spec.src": lin.spec.src,
                 "spec.mult": lin.spec.mult, "spec.bias": lin.spec.bias}
 
-    card = to_w4a8(leaf, W4A8_RATIO)
-    cpu = to_w4a8(tree_to(leaf, "cpu"), W4A8_RATIO)
+    card = to_w4a8(leaf, ratio)
+    cpu = to_w4a8(tree_to(leaf, "cpu"), ratio)
     got, want = arrays(card), arrays(cpu)
     bad = [k for k in got if got[k].shape != want[k].shape
            or not same_bits(got[k].cpu(), want[k])]
@@ -1149,10 +1181,10 @@ def b6_times(run_kern, x, w4, s4, w8, s8, src, oidx, iters):
                 library_ms=time_ms(run_lib, iters), library_device_ms=graph_ms(run_lib, iters))
 
 
-def kernel_phase_b6(qparams, gen, iters, m_rows=(1, 8, 256)):
+def kernel_phase_b6(qparams, gen, iters, m_rows=(1, 8, 256), ratio=W4A8_RATIO):
     """w4a8_qmatmul at every linear shape of the tree (glm4-9b's first) x M
     in ``m_rows``: the
-    layer-0 and lm_head leaves converted with ``to_w4a8`` on the card (every
+    layer-0 and lm_head leaves converted with ``to_w4a8(., ratio)`` on the card (every
     one, and a stacked two-layer ``w_down``, bitwise the CPU's conversion);
     bitwise against the plain version with f32 and bf16 outputs; timed with
     bf16 outputs, as ``dense`` calls it, wall and device (a CUDA graph of the
@@ -1162,10 +1194,11 @@ def kernel_phase_b6(qparams, gen, iters, m_rows=(1, 8, 256)):
 
     weights = layer_weights(qparams)
     t0 = time.perf_counter()
-    converted = {name: to_w4a8_checked(name, w) for name, w in weights.items()}
+    converted = {name: to_w4a8_checked(name, w, ratio) for name, w in weights.items()}
     part = "mlp" if "mlp" in qparams["layers"] else "ssm"
     key = next(k for k in ("w_down", "w_out2", "out_proj") if k in qparams["layers"][part])
-    to_w4a8_checked(f"{key} layers 0-1 (stacked)", stacked_head(qparams["layers"][part][key], 2))
+    to_w4a8_checked(f"{key} layers 0-1 (stacked)", stacked_head(qparams["layers"][part][key], 2),
+                    ratio)
     log(f"to_w4a8 on the card: bitwise the CPU's conversion (w4, s4, w8, s8, outlier_idx, "
         f"spec) for {', '.join(weights)} and a stacked two-layer {key} "
         f"({time.perf_counter() - t0:.1f} s with the CPU side)")
@@ -2022,8 +2055,8 @@ def reference_check(seed):
 STACK_CS = (8, 32)
 # deepseek-moe-16b's depth (of its published 28): a cut, since its
 # quantization takes ~4.4 s a layer on an H100 80GB HBM3 and the script
-# aims at 60% of its time limit.
-MOE_LAYERS = 12
+# aims at 60% of its time limit with phase (n) in it.
+MOE_LAYERS = 8
 # Card vs CPU at the MoE smoke sizes: the card routes as the CPU did, and
 # where its own router picks another expert set the k-th and (k+1)-th
 # probabilities must be this close (a flipped near-tie; the CPU test's
@@ -2466,7 +2499,7 @@ def moe_step_profile(label, cfg, params, ecfg, seed, steps=2, reqs=None):
 
 
 def moe_phases(args, card, serve_cfg, gen):
-    """deepseek-moe-16b at ``MOE_LAYERS`` (12 of 28): quantized leaf
+    """deepseek-moe-16b at ``MOE_LAYERS`` (8 of 28): quantized leaf
     by leaf on the card; served in w8a8 (int8 pages), dequant (float32
     pages) and w4a8 (int4 pages); each step profiled once; a spec w8a8
     phase; its clip-only tree at --short-layers or MOE_LAYERS, the
@@ -2723,6 +2756,15 @@ SSM_MAX_LEN = 64
 # token the first), which keeps the script within 60% of its time limit:
 # a replayed prompt token costs a full step at any depth.
 SSM_REPEAT_LAYERS = 4
+# The depth of the SSM and hybrid serves (cuts that make room for phase
+# (n); the quantize and the kernel checks stay at the full 48 and
+# 32): a replayed prompt token costs a full step, on an H100 80GB HBM3
+# 21-24 s a serve at mamba2-1.3b's 48 layers and 42-62 s at hymba-1.5b's
+# 32 (9-10 s at 24; 17 s at 16). hymba-1.5b's first 16 layers hold two of its
+# three global layers (0, 15); the rest are window layers whose 1024-row
+# window the 64-row serves never fill. hymba's w4a8 serve runs at
+# --short-layers.
+SSM_SERVE_LAYERS = {"mamba2-1.3b": 24, "hymba-1.5b": 16}
 # Card (kernels) vs CPU (plain versions) logits of the SSM and hybrid smoke
 # models, relative to the largest logit, by matmul mode. B1 and B6 are
 # bitwise their plain versions and the recurrence, the conv and the
@@ -2903,9 +2945,11 @@ def ssm_model(arch, layers):
 
 
 def ssm_phases(args, card, gen):
-    """(a) mamba2-1.3b at 48 layers (never cut) in dequant, w8a8 and w4a8,
-    and (b) hymba-1.5b at 32 layers in dequant and w8a8 on int8 caches and,
-    at ``--short-layers`` (a cut), w4a8: each quantized leaf by leaf on the
+    """(a) mamba2-1.3b quantized at 48 layers, served at its
+    ``SSM_SERVE_LAYERS`` (a cut) in dequant, w8a8 and w4a8, and (b)
+    hymba-1.5b quantized at 32 layers, served at its ``SSM_SERVE_LAYERS``
+    (a cut) in dequant and w8a8 on int8 caches and, at ``--short-layers``
+    (a cut), w4a8: each quantized leaf by leaf on the
     card, served on the unpaged engine, and served twice more at
     ``SSM_REPEAT_LAYERS`` (the repeat's depth cut), the second token for
     token the first; one decode step of each profiled. (c) B1, B4 and B6 at
@@ -2914,12 +2958,13 @@ def ssm_phases(args, card, gen):
     import torch
     from repro_torch.serving import EngineConfig
 
-    out = {"serves": {}, "profiles": {}, "kernels": {}, "quantize": {}}
+    out = {"serves": {}, "first": {}, "profiles": {}, "kernels": {}, "quantize": {}}
     base = EngineConfig(max_batch=SSM_REQUESTS, max_len=SSM_MAX_LEN)
     iters = max(5, args.iters // 2)
-    for arch, modes in (("mamba2-1.3b", (("dequant", None, None), ("w8a8", None, None),
-                                         ("w4a8", None, None))),
-                        ("hymba-1.5b", (("dequant", None, None), ("w8a8", 8, None),
+    mamba, hymba = SSM_SERVE_LAYERS["mamba2-1.3b"], SSM_SERVE_LAYERS["hymba-1.5b"]
+    for arch, modes in (("mamba2-1.3b", (("dequant", None, mamba), ("w8a8", None, mamba),
+                                         ("w4a8", None, mamba))),
+                        ("hymba-1.5b", (("dequant", None, hymba), ("w8a8", 8, hymba),
                                         ("w4a8", None, args.short_layers)))):
         cfg = ssm_model(arch, None)
         q, t_q, peak_q = moe_quantized(cfg, args.seed, 0.02)
@@ -2942,6 +2987,7 @@ def ssm_phases(args, card, gen):
             first = unpaged_serve_phase(label, c, qm, card, ecfg, MODE_KERNEL[mode],
                                         ssm_requests(c, args.seed))
             out["serves"][label] = first
+            out["first"][f"{arch} {mode}"] = label
             # The repeat (a depth cut): at SSM_REPEAT_LAYERS, served twice
             # there, the second token for token the first (a phase already
             # that short repeats itself).
@@ -3350,6 +3396,281 @@ def forward_reference_check(seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase (n): the paper's weight-PTQ experiments (``repro_torch.experiments``)
+# and the precision-tier gate (``launch/quality_eval.py``) on the card: the
+# three subjects trained from their seeded init, the tables' quick arms, the
+# fake-quantized leaves held bitwise against the CPU's, the gate on the
+# trained bench LM through B1, B4 and B6 (held at its shapes), and glm4-9b's
+# layer-0 and lm_head leaves quantized with ACIQ and KL clipping.
+
+# Training must have worked: the convnet at least twice chance (16
+# classes), the LMs' held-out perplexity below half their vocabulary (512).
+EXP_MIN_ACC = 2 * 100.0 / 16
+EXP_MAX_PPL = 256.0
+# The trained subjects' float forward, card against CPU on the same
+# weights, of the largest logit: the float32 convnet and LSTM (cuDNN and
+# cuBLAS sums against the CPU's), and the bench LM's bfloat16 activations
+# (tests/test_torch_forward.py's FLOAT_RTOL).
+EXP_F32_RTOL = 1e-3
+EXP_LM_RTOL = 0.02
+# The gate's GEMMs: one call per linear layer of a [16, 64] batch.
+EXP_M = 16 * 64
+# The gate's w4a8_ocs outlier fraction (tools/quality_eval.py's default).
+EXP_OUTLIER_RATIO = 0.1
+
+
+def _flat_leaves(tree):
+    from repro_torch.core.apply import map_with_path
+
+    out = []
+    map_with_path(lambda p, leaf: out.append(("/".join(map(str, p)), leaf)), tree)
+    return out
+
+
+def fake_quant_holds(trained, cpu):
+    """Fake-quantized leaves built on the card bitwise the same leaves built
+    on the CPU: the bench LM once per clip method (none, mse, aciq, kl) and
+    once with knapsack allocation, the convnet (KL) and the LSTM (ACIQ,
+    per-channel)."""
+    import torch
+    from repro_torch.core.apply import fake_quantize_params
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.experiments import common
+
+    cases = [("lm", QuantRecipe(w_bits=4, w_clip=c, ocs_ratio=0.02))
+             for c in (None, "mse", "aciq", "kl")]
+    cases += [("lm", QuantRecipe(w_bits=3, w_clip="mse", ocs_ratio=0.02, alloc="knapsack")),
+              ("convnet", QuantRecipe(w_bits=4, w_clip="kl", ocs_ratio=0.05)),
+              ("lstm", QuantRecipe(w_bits=4, w_clip="aciq", ocs_ratio=0.05, per_channel=True))]
+    out = []
+    for subj, rec in cases:
+        fq = common.fake_quant_convnet if subj == "convnet" else fake_quantize_params
+        t0 = time.perf_counter()
+        got = fq(trained[subj], rec)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = fq(cpu[subj], rec)
+        t_cpu = time.perf_counter() - t0
+        n = 0
+        for (path, g), (_, w) in zip(_flat_leaves(got), _flat_leaves(want)):
+            if not same_bits(g.cpu(), w):
+                raise AssertionError(f"fake_quantize {subj} {rec}: leaf {path} differs "
+                                     "between the card and the CPU")
+            n += 1
+        what = (f"w{rec.w_bits} clip={rec.w_clip} r={rec.ocs_ratio} alloc={rec.alloc}"
+                + (" per-channel" if rec.per_channel else ""))
+        out.append(dict(subject=subj, recipe=what, leaves=n, card_s=t_card, cpu_s=t_cpu))
+        log(f"experiments: fake-quantized {subj} ({what}) on the card bitwise the CPU's, "
+            f"{n} leaves ({t_card:.2f} s card, {t_cpu:.2f} s CPU)")
+    return out
+
+
+def gate_phase(lm, gen, iters):
+    """The precision-tier gate on the trained bench LM: each tier's logits
+    on the eval and stress batches with the launches of every kernel
+    counted per tier (B1 in int8, B6 in the w4a8 tiers, B4 in int8_dequant;
+    7 x L + 1 calls a forward), the gate's metrics and verdict printed, its
+    floors held (the OCS-beats-naive criteria printed, not held: they were
+    calibrated on the reference's trained LM), each tier's logits on one
+    eval batch held against the CPU's (``FORWARD_CARD_RTOL`` of the mode),
+    then B1, B4 and B6 at the bench LM's shapes (M = 1024)."""
+    import torch
+    from repro_torch.core.apply import tree_to
+    from repro_torch.experiments import common
+    from repro_torch.launch import quality_eval as Q
+
+    cfg = common.LM_CFG
+    t0 = time.perf_counter()
+    batches = Q.eval_batches(8, "cuda")
+    stress = Q.stress_batches(8, cfg.vocab, device="cuda")
+    trees = Q.tier_trees(lm, EXP_OUTLIER_RATIO)
+    cnt = counters()
+    logits, slogits, launches = {}, {}, {}
+    for name, (p, mode) in trees.items():
+        for mod, attr in cnt.values():
+            setattr(mod, attr, 0)
+        logits[name] = Q.tier_logits(p, cfg, batches, mode)
+        slogits[name] = Q.tier_logits(p, cfg, stress, mode)
+        torch.cuda.synchronize()
+        launches[name] = {k: getattr(mod, attr) for k, (mod, attr) in cnt.items()
+                          if getattr(mod, attr)}
+    tiers = Q.tier_metrics(logits, slogits, batches)
+    wall = time.perf_counter() - t0
+    per_tier = (7 * cfg.n_layers + 1) * (len(batches) + len(stress))
+    want = {"float": {}, "int8": {"fused_qmatmul": per_tier},
+            "w4a8_ocs": {"w4a8_qmatmul": per_tier}, "w4a8_naive": {"w4a8_qmatmul": per_tier},
+            "int8_dequant": {"ocs_matmul": per_tier}}
+    if launches != want:
+        raise AssertionError(f"quality gate: launches per tier {launches}, want {want}")
+    for line in Q.format_tiers(tiers).splitlines():
+        log(f"quality gate: {line}")
+    violations = Q.gate(tiers)
+    log(f"quality gate (the reference's gate, unchanged): "
+        f"{'PASS' if not violations else 'FAIL'}" + "".join(f"; {v}" for v in violations))
+    low = [f"{n} {tiers[n]['top1_vs_float']:.4f} < {f}" for n, f in Q.FLOORS.items()
+           if tiers[n]["top1_vs_float"] < f]
+    if low:
+        raise AssertionError(f"quality gate: tiers below their floors: {low}")
+    ocs, naive = tiers["w4a8_ocs"], tiers["w4a8_naive"]
+    log(f"quality gate: floors held ({Q.FLOORS}); OCS vs naive (printed, not held): stress "
+        f"top-1 {ocs['top1_stress_vs_float']:.4f} vs {naive['top1_stress_vs_float']:.4f}, "
+        f"logit MSE {ocs['logit_mse_vs_float']:.4g} vs {naive['logit_mse_vs_float']:.4g}, "
+        f"stress logit MSE {ocs['logit_mse_stress_vs_float']:.4g} vs "
+        f"{naive['logit_mse_stress_vs_float']:.4g}; launches per tier {launches}; "
+        f"{wall:.1f} s")
+    card_cpu = {}
+    for name, (p, mode) in trees.items():
+        with torch.no_grad():
+            got = torch.from_numpy(logits[name][0])
+            want_l = Q.tier_logits(tree_to(p, "cpu"), cfg,
+                                   [{k: v.cpu() for k, v in batches[0].items()}], mode)[0]
+        rel = (got - want_l).abs().max().item() / max(abs(want_l).max(), 1e-30)
+        tol = EXP_LM_RTOL if name == "float" else FORWARD_CARD_RTOL[mode]
+        card_cpu[name] = rel
+        if not rel <= tol:
+            raise AssertionError(f"quality gate {name}: card logits {rel:.3g} of the largest "
+                                 f"from the CPU's (limit {tol})")
+    log(f"quality gate: each tier's logits on eval batch 0, card vs CPU, of the largest "
+        f"logit: {', '.join(f'{k} {v:.3g}' for k, v in card_cpu.items())}")
+    q = trees["int8"][0]
+    kern = {"B1": kernel_phase_b1(q, cfg, gen, iters, m_rows=(EXP_M,)),
+            "B4": kernel_phase_wo("B4", q, gen, iters, m_rows=(EXP_M,)),
+            "B6": kernel_phase_b6(q, gen, iters, m_rows=(EXP_M,), ratio=EXP_OUTLIER_RATIO),
+            "B6 naive": kernel_phase_b6(q, gen, iters, m_rows=(EXP_M,), ratio=0.0)}
+    log(f"kernel checks at the bench LM's shapes (K + S in 131, 262; M = {EXP_M}): B1 and B6 "
+        f"bitwise (outlier rows {sorted({r['T'] for r in kern['B6']})} and 0), B4 within "
+        "WO_TOL_FACTOR's bound")
+    return dict(tiers=tiers, violations=violations, launches=launches, seconds=wall,
+                card_vs_cpu=card_cpu, kernels=kern)
+
+
+def glm_clip_phase(seed):
+    """glm4-9b's layer-0 and lm_head leaves at full width, quantized on the
+    card with ACIQ and with KL clipping (w8, OCS r=0.02, per-tensor: the
+    threshold is the grid's range); the lm_head's split table, int grid
+    and scale bitwise the same quantization on the CPU. (Layer 0's leaves
+    are held card vs CPU by ``tests/test_torch_cuda.py::
+    test_glm4_9b_layer0_aciq_kl_card_vs_cpu_cuda``, which keeps their CPU
+    side out of the script's time.)"""
+    import torch
+    from repro_torch.core.apply import quantize_params
+    from repro_torch.core.ocs import OCSQuantLinear
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.models import transformer as T
+
+    cfg = dense_model("glm4-9b", 1)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    sub = {"layers": params["layers"], "lm_head": params["lm_head"]}
+    del params
+    head_cpu = {"lm_head": sub["lm_head"].cpu()}
+    out = {}
+    for method in ("aciq", "kl"):
+        recipe = QuantRecipe(w_bits=8, w_clip=method, ocs_ratio=0.02, per_channel=False)
+        t0 = time.perf_counter()
+        qc = quantize_params(sub, recipe, device="cuda")
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        qh = quantize_params(head_cpu, recipe, device="cpu")["lm_head"]
+        t_cpu = time.perf_counter() - t0
+        a = qc["lm_head"]
+        for what, x, y in (("values", a.weight.values, qh.weight.values),
+                           ("scale", a.weight.scale, qh.weight.scale),
+                           ("src", a.spec.src, qh.spec.src)):
+            if x.shape != y.shape or not same_bits(x.cpu(), y):
+                raise AssertionError(f"glm4-9b {method}: lm_head {what} differs between the "
+                                     "card and the CPU")
+        out[method] = dict(card_s=t_card, cpu_s=t_cpu, held="lm_head",
+                           leaves=[p for p, leaf in _flat_leaves(qc)
+                                   if isinstance(leaf, OCSQuantLinear)])
+        log(f"glm4-9b layer 0 + lm_head, w8 {method} clip, ocs r=0.02, per-tensor: quantized "
+            f"on the card in {t_card:.2f} s; the lm_head's split table, int grid and scale "
+            f"bitwise the CPU's (CPU {t_cpu:.2f} s)")
+        del qc, qh
+    del sub, head_cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def experiments_phase(args, gen):
+    """Phase (n). Trains the convnet, LSTM and bench LM 400 steps each on
+    the card (fresh every run: no cache), holds that training worked and
+    each subject's float forward card vs CPU, runs the quick arms of
+    Tables 1, 2, 5, 6 and 7 on the trained trees, holds fake-quantized
+    leaves card vs CPU (:func:`fake_quant_holds`), runs the gate
+    (:func:`gate_phase`) and glm4-9b's ACIQ/KL quantization
+    (:func:`glm_clip_phase`)."""
+    import torch
+    from repro_torch.core.apply import tree_to
+    from repro_torch.experiments import common, table1, table2, table5, table6, table7
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convnet import convnet_forward, make_synthetic_images
+    from repro_torch.models.lstm import lstm_forward
+
+    t_phase = time.perf_counter()
+    common.float32_deterministic()  # the convnet's training repeats run to run
+    bench = common.Bench("cuda", cache=False, out_dir=Path(args.out) / "experiments", log=log)
+    train = {}
+    for name in ("convnet", "lstm", "lm"):
+        bench.params(name)
+        sec, hist = bench.train_seconds[name], bench.histories[name]
+        train[name] = dict(seconds=sec, steps=common.STEPS, steps_per_s=common.STEPS / sec,
+                           history=hist)
+        log(f"experiments: trained {name} {common.STEPS} steps on the card in {sec:.1f} s "
+            f"({common.STEPS / sec:.1f} steps/s); loss at steps " + ", ".join(
+                f"{h['step']}: {h['loss']:.3f}" for h in hist))
+    trained = {n: bench.params(n) for n in ("convnet", "lstm", "lm")}
+    held = {"convnet_acc": bench.convnet_accuracy(trained["convnet"]),
+            "lstm_ppl": bench.lstm_ppl(trained["lstm"]), "lm_ppl": bench.lm_ppl(trained["lm"])}
+    log(f"experiments: trained float quality: convnet {held['convnet_acc']:.2f}% (>= "
+        f"{EXP_MIN_ACC}), LSTM ppl {held['lstm_ppl']:.2f}, bench LM ppl "
+        f"{held['lm_ppl']:.2f} (< {EXP_MAX_PPL})")
+    if not (held["convnet_acc"] >= EXP_MIN_ACC and held["lstm_ppl"] < EXP_MAX_PPL
+            and held["lm_ppl"] < EXP_MAX_PPL):
+        raise AssertionError(f"experiments: training did not work: {held}")
+
+    cpu = {n: tree_to(p, "cpu") for n, p in trained.items()}
+    images = torch.from_numpy(
+        make_synthetic_images(256, common.CONV_CFG, seed=777)["images"]).cuda()
+    lstm_t = torch.from_numpy(common.LSTM_DS.batch_at(common.PPL_START)["tokens"]).cuda()
+    lm_t = torch.from_numpy(common.LM_DS.batch_at(common.PPL_START)["tokens"]).cuda()
+    fwd = {"convnet": (lambda p, x: convnet_forward(p, x, common.CONV_CFG), images,
+                       EXP_F32_RTOL),
+           "lstm": (lambda p, x: lstm_forward(p, x, common.LSTM_CFG), lstm_t, EXP_F32_RTOL),
+           "lm": (lambda p, x: T.forward(p, x, common.LM_CFG), lm_t, EXP_LM_RTOL)}
+    card_cpu = {}
+    for name, (f, x, tol) in fwd.items():
+        with torch.no_grad():
+            got = f(trained[name], x).float().cpu()
+            want = f(cpu[name], x.cpu()).float()
+        rel = (got - want).abs().max().item() / want.abs().max().item()
+        card_cpu[name] = rel
+        if not rel <= tol:
+            raise AssertionError(f"experiments: {name} float forward card vs CPU {rel:.3g} of "
+                                 f"the largest logit (limit {tol})")
+    log(f"experiments: float forward card vs CPU on the trained weights, of the largest "
+        f"logit: {', '.join(f'{k} {v:.3g}' for k, v in card_cpu.items())} (limits "
+        f"{EXP_F32_RTOL}, {EXP_F32_RTOL}, {EXP_LM_RTOL})")
+
+    tables, table_s = {}, {}
+    for name, mod in (("table1", table1), ("table2", table2), ("table5", table5),
+                      ("table6", table6), ("table7", table7)):
+        t0 = time.perf_counter()
+        tables[name] = mod.run(quick=True, bench=bench)
+        table_s[name] = time.perf_counter() - t0
+        log(f"experiments: {name} (quick) on the card in {table_s[name]:.1f} s")
+    holds = fake_quant_holds(trained, cpu)
+    gate = gate_phase(trained["lm"], gen, max(5, args.iters // 2))
+    glm = glm_clip_phase(args.seed)
+    wall = time.perf_counter() - t_phase
+    log(f"experiments phase: {wall:.1f} s")
+    return dict(train=train, held=held, forward_card_vs_cpu=card_cpu, tables=tables,
+                table_seconds=table_s, fake_quant_holds=holds, gate=gate, glm_clip=glm,
+                seconds=wall)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=40,
@@ -3547,6 +3868,8 @@ def main(argv=None) -> int:
     mark("SSM and hybrid phases")
     sl = slice_phases(args, card, serve_cfg, gen_k)
     mark("qwen2-vl-7b, minitron-8b and hubert-xlarge phases")
+    exp = experiments_phase(args, gen_k)
+    mark("experiments phase")
     refc = reference_check(args.seed)
     refc.update(moe_reference_check(args.seed))
     refc.update(ssm_reference_check(args.seed))
@@ -3647,14 +3970,9 @@ def main(argv=None) -> int:
     # calls (its lm_head is the tied float embedding), hymba-1.5b's 9 x L +
     # lm_head at the depth each mode was served (w4a8 at --short-layers);
     # launches from the first serve of each mode.
-    ssm_serve = {("mamba2-1.3b", "dequant"): "mamba2-1.3b dequant",
-                 ("mamba2-1.3b", "w8a8"): "mamba2-1.3b w8a8",
-                 ("mamba2-1.3b", "w4a8"): "mamba2-1.3b w4a8",
-                 ("hymba-1.5b", "dequant"): "hymba-1.5b dequant",
-                 ("hymba-1.5b", "w8a8"): "hymba-1.5b w8a8 int8 caches",
-                 ("hymba-1.5b", "w4a8"): next(k for k in ssm["serves"]
-                                              if k.startswith("hymba-1.5b w4a8")
-                                              and not k.endswith("again"))}
+    ssm_serve = {(arch, mode): ssm["first"][f"{arch} {mode}"]
+                 for arch in ("mamba2-1.3b", "hymba-1.5b")
+                 for mode in ("dequant", "w8a8", "w4a8")}
     ssm_kind = {"dequant": ("ocs_matmul", "B4", "src/repro/kernels/ocs_matmul.py:44"),
                 "w8a8": ("fused_qmatmul", "B1", "src/repro/kernels/fused_qmatmul.py:60"),
                 "w4a8": ("w4a8_qmatmul", "B6", "src/repro/kernels/fused_qmatmul.py:220")}
@@ -3699,6 +4017,28 @@ def main(argv=None) -> int:
             f"one {depth}-layer {arch} forward's calls, M={m}; launches from its {mode} forward"
             if fwd else f"one {depth}-layer {arch} decode step's calls, M=8; launches from "
             f"the {arch} {mode} serve (paged engine)")
+    # The bench LM's GEMMs in the quality gate (one forward's calls, M =
+    # 1024), launches from the gate's tiers: B1 int8, B6 the two w4a8
+    # tiers, B4 int8_dequant.
+    exp_what = {}
+    gl = exp["gate"]["launches"]
+    exp_launches = {"fused_qmatmul": gl["int8"].get("fused_qmatmul", 0),
+                    "ocs_matmul": gl["int8_dequant"].get("ocs_matmul", 0),
+                    "w4a8_qmatmul": gl["w4a8_ocs"].get("w4a8_qmatmul", 0)
+                    + gl["w4a8_naive"].get("w4a8_qmatmul", 0)}
+    exp_tiers = {"fused_qmatmul": "int8", "ocs_matmul": "int8_dequant",
+                 "w4a8_qmatmul": "w4a8_ocs and w4a8_naive"}
+    Lb = 4
+    for base, kind in (("fused_qmatmul", "B1"), ("ocs_matmul", "B4"), ("w4a8_qmatmul", "B6")):
+        rows = exp["gate"]["kernels"][kind]
+        t = step_sum(rows, Lb, "weight-only" if kind == "B4" else None, EXP_M)
+        name = f"{base}_benchlm"
+        kernels.append(entry(name, ssm_kind[{"B1": "w8a8", "B4": "dequant",
+                                             "B6": "w4a8"}[kind]][2],
+                             exp_launches[base], wo_err(rows) if kind == "B4" else 0.0, t,
+                             source=f"src/repro_torch/csrc/{base}.cu"))
+        exp_what[name] = (f"one {Lb}-layer trained bench-LM forward's calls, M={EXP_M}; "
+                          f"launches from the quality gate's {exp_tiers[base]} tier(s)")
     # Every kernel's launches on every serving path (the first serve of each
     # path in the mode that runs it; B2 runs on none of the unpaged paths).
     paths = {
@@ -3728,6 +4068,8 @@ def main(argv=None) -> int:
         ssm_kind[mode][0]: sl["forward"][f"hubert-xlarge {mode}"]
         for mode in ("dequant", "w8a8", "w4a8")}
     paths["hubert-xlarge forward"]["paged_attention"] = sl["forward"]["hubert-xlarge dequant"]
+    paths["bench-lm quality gate"] = {base: {"launches": {base: n}}
+                                      for base, n in exp_launches.items()}
     for arch in ("mamba2-1.3b", "hymba-1.5b"):
         paths[f"{arch} unpaged"] = {
             ssm_kind[mode][0]: ssm["serves"][ssm_serve[(arch, mode)]]
@@ -3759,6 +4101,7 @@ def main(argv=None) -> int:
                       f"{stack_serve[base]} MoE serve phase")
     what.update(ssm_what)
     what.update(slice_what)
+    what.update(exp_what)
     for k in kernels:
         lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
         dev = (f" device_ms={k['device_ms']:.4f}" if "device_ms" in k else "") + (
@@ -3775,7 +4118,7 @@ def main(argv=None) -> int:
                   peak_mem_gib=peak_gb, b1=b1, b2=b2, b2v=b2v, b2v_replay=b2v_replay, b3=b3,
                   b4=b4, b5=b5, b6=b6,
                   verify_check=verify, serve=serves, phase_end_s=marks, moe=moe, ssm=ssm,
-                  slice=sl,
+                  slice=sl, experiments=exp,
                   reference_check=refc, kernels=kernels)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
@@ -3787,7 +4130,9 @@ def main(argv=None) -> int:
         f"{ssm['quantize']['hymba-1.5b']['seconds']:.1f} s, qwen2-vl-7b "
         f"{sl['quantize']['qwen2-vl-7b']['seconds']:.1f} s, minitron-8b "
         f"{sl['quantize']['minitron-8b']['seconds']:.1f} s, hubert-xlarge "
-        f"{sl['quantize']['hubert-xlarge']['seconds']:.1f} s), depth {L} "
+        f"{sl['quantize']['hubert-xlarge']['seconds']:.1f} s), experiments phase "
+        f"{exp['seconds']:.1f} s (training "
+        f"{sum(t['seconds'] for t in exp['train'].values()):.1f} s), depth {L} "
         f"layers (clip-only tree {cfg_clip.n_layers}; deepseek-moe-16b {Lm}, its clip-only "
         f"tree {moe['clip_layers']}; phi3.5-moe {moe['phi_layers']}), peak device memory "
         f"{peak_gb:.1f} GiB")

@@ -1,6 +1,10 @@
 """Apply a :class:`QuantRecipe` to a whole parameter tree (the port of
-``repro.core.apply``, serving path).
+``repro.core.apply``).
 
+:func:`fake_quantize_params` replaces every quantizable weight by its
+OCS + clip + quantize-dequantize "effective" float equivalent (the expanded
+layer collapsed back with ``ocs.collapse_expanded``): same shape, dtype and
+device, so model code runs unchanged (the paper's accuracy tables).
 :func:`quantize_params` turns every quantizable weight into an
 :class:`OCSQuantLinear` leaf (expanded int8 values + scales + expansion
 spec). Weights with leading stack dims (``[L, Cin, Cout]``, a MoE layer's
@@ -13,16 +17,19 @@ drawn one at a time in the tree's order.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, Optional
 
 import torch
 
 from ..device import resolve_device
-from .ocs import OCSQuantLinear, OCSSpec, W4A8Linear, make_ocs_quant_linear, pad_out_cols
-from .quantizer import QuantParams
+from .allocate import knapsack_allocate
+from .ocs import (OCSQuantLinear, OCSSpec, W4A8Linear, collapse_expanded,
+                  make_ocs_quant_linear, pad_out_cols, split_weights)
+from .quantizer import QuantParams, fake_quant
 from .recipe import QuantRecipe
 
-__all__ = ["quantize_params", "path_str", "map_with_path", "tree_to"]
+__all__ = ["fake_quantize_params", "knapsack_splits", "quantize_params", "path_str",
+           "map_with_path", "tree_to"]
 
 
 def path_str(path) -> str:
@@ -84,6 +91,68 @@ def _is_quantizable(path: str, leaf, recipe: QuantRecipe) -> bool:
     if not leaf.is_floating_point():
         return False
     return not recipe.should_skip(path)
+
+
+def _fake_quant_2d(w: torch.Tensor, recipe: QuantRecipe,
+                   n_splits: Optional[int] = None) -> torch.Tensor:
+    """OCS split -> clip -> quantize -> dequantize -> collapse, ``[Cin,
+    Cout]`` float32 on ``w``'s device. Per-channel scales take each
+    expanded column's own max (the reference quantizes column by column,
+    unclipped; one broadcast division per element is the same arithmetic)."""
+    w_exp, spec, thresh = split_weights(
+        w, recipe.ocs_ratio, recipe.w_bits, qa=recipe.qa_split,
+        clip_method=recipe.w_clip, n_splits=n_splits,
+    )
+    if recipe.per_channel:
+        wq = fake_quant(w_exp, recipe.w_bits, channel_axis=1)
+    else:
+        wq = fake_quant(w_exp, recipe.w_bits, clip=thresh)
+    return collapse_expanded(wq, spec, w.shape[0])[0]
+
+
+def _map_stacked(w: torch.Tensor, fn: Callable[[int, torch.Tensor], torch.Tensor]):
+    """``fn(i, slice)`` over the leading stack dims of ``[..., Cin, Cout]``
+    (each slice in float32), restacked; the result is float32."""
+    flat = w.reshape((-1,) + tuple(w.shape[-2:]))
+    out = torch.stack([fn(i, flat[i].to(torch.float32)) for i in range(flat.shape[0])])
+    return out.reshape(tuple(w.shape[:-2]) + tuple(out.shape[1:]))
+
+
+def knapsack_splits(params, recipe: QuantRecipe) -> Dict[str, int]:
+    """Global split allocation (§3.4 knapsack variant): ``"path#slice"`` ->
+    split count, over every slice of every quantizable leaf (the
+    allocation does not depend on the order the slices come in)."""
+    layers = []
+
+    def collect(path, leaf):
+        p = path_str(path)
+        if _is_quantizable(p, leaf, recipe):
+            flat = leaf.reshape((-1,) + tuple(leaf.shape[-2:]))
+            layers.extend((f"{p}#{i}", flat[i]) for i in range(flat.shape[0]))
+        return leaf
+
+    map_with_path(collect, params)
+    return knapsack_allocate(layers, recipe.ocs_ratio)
+
+
+def fake_quantize_params(params, recipe: QuantRecipe):
+    """Replace quantizable weights with their PTQ'd float equivalents, each
+    on its own device in its own dtype (the tree is not moved).
+    ``recipe.alloc == "knapsack"`` swaps the per-layer ``ceil(r*C)`` split
+    count for the globally budgeted allocation (same total overhead)."""
+    if not recipe.wants_weight_quant():
+        return params
+    alloc = knapsack_splits(params, recipe) if recipe.alloc == "knapsack" else None
+
+    def visit(path, leaf):
+        p = path_str(path)
+        if not _is_quantizable(p, leaf, recipe):
+            return leaf
+        out = _map_stacked(leaf, lambda i, w2d: _fake_quant_2d(
+            w2d, recipe, n_splits=None if alloc is None else alloc[f"{p}#{i}"]))
+        return out.to(leaf.dtype)
+
+    return map_with_path(visit, params)
 
 
 def _quant_linear_stacked(w: torch.Tensor, recipe: QuantRecipe) -> OCSQuantLinear:

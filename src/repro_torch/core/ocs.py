@@ -38,8 +38,10 @@ from .quantizer import QuantParams, div_exact, qmax, quantize_tensor
 __all__ = [
     "OCSSpec",
     "n_splits_for_ratio",
+    "expanded_channels",
     "split_weights",
     "expand_activations",
+    "collapse_expanded",
     "OCSQuantLinear",
     "make_ocs_quant_linear",
     "W4A8Linear",
@@ -77,6 +79,15 @@ def n_splits_for_ratio(n_channels: int, ratio: float) -> int:
     if ratio <= 0:
         return 0
     return int(math.ceil(ratio * n_channels))
+
+
+def expanded_channels(cin: int, ratio: float, *, pad_to: int = 1) -> int:
+    """Expanded (and padded) contraction dim after OCS, shape arithmetic
+    only: what :func:`make_ocs_quant_linear` builds for ``cin`` input
+    channels (the reference's with ``groups=1``, the only grouping the
+    port has)."""
+    c = cin + n_splits_for_ratio(cin, ratio)
+    return c + ((-c) % pad_to)
 
 
 def expand_activations(x: torch.Tensor, spec: OCSSpec) -> torch.Tensor:
@@ -170,6 +181,44 @@ def split_weights(
         bias=torch.zeros(c_exp, dtype=torch.float32, device=w.device),
     )
     return w_exp, spec, float(thresh)
+
+
+# ---------------------------------------------------------------------------
+# Collapse (fake-quant evaluation)
+
+
+def collapse_expanded(
+    w_exp: torch.Tensor, spec: OCSSpec, n_orig: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold an expanded layer back to its original shape, on ``w_exp``'s
+    device: ``(w_eff [n_orig, Cout], y_bias [Cout])``, float32, with
+    ``x_exp @ w_exp == x @ w_eff + y_bias`` for every x.
+
+    The reference sums ``mult[c] * w_exp[c]`` into row ``src[c]`` in
+    float64 with ``np.add.at``, i.e. row by row in index order. Here the
+    rows go in waves: wave k holds every row that is the k-th of its
+    ``src``, so no wave adds twice into one row and each output row gets
+    its terms in the reference's order; the float64 sums, and so their
+    float32 roundings, are bitwise the reference's. ``y_bias = bias @
+    w_exp`` is a float64 product on the device, as the reference's numpy
+    one, rounded once to float32 (exactly zero when ``bias`` is: weight
+    OCS)."""
+    dev = w_exp.device
+    src = spec.src.detach().cpu().numpy().astype(np.int64)
+    w64 = w_exp.to(torch.float64) * spec.mult.to(device=dev, dtype=torch.float64)[:, None]
+    # rank[c]: how many rows before c share its src (np.add.at's order).
+    order = np.argsort(src, kind="stable")
+    sorted_src = src[order]
+    first = np.searchsorted(sorted_src, sorted_src, side="left")
+    rank = np.empty_like(src)
+    rank[order] = np.arange(src.size) - first
+    w_eff = torch.zeros((n_orig, w_exp.shape[1]), dtype=torch.float64, device=dev)
+    for k in range(int(rank.max()) + 1 if rank.size else 0):
+        rows = np.nonzero(rank == k)[0]
+        w_eff.index_add_(0, torch.from_numpy(src[rows]).to(dev),
+                         w64.index_select(0, torch.from_numpy(rows).to(dev)))
+    y_bias = spec.bias.to(device=dev, dtype=torch.float64) @ w_exp.to(torch.float64)
+    return w_eff.to(torch.float32), y_bias.to(torch.float32)
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ __all__ = [
     "compute_scale",
     "quantize_int",
     "dequantize",
+    "fake_quant",
     "QuantParams",
     "quantize_tensor",
     "storage_dtype",
@@ -113,6 +114,21 @@ def dequantize(
 ) -> torch.Tensor:
     s = _broadcast_scale(scale, q.ndim, channel_axis)
     return (q.to(torch.float32) * s).to(dtype)
+
+
+def fake_quant(
+    x: torch.Tensor,
+    bits: int,
+    *,
+    channel_axis: Optional[int] = None,
+    clip: Optional[float] = None,
+) -> torch.Tensor:
+    """Quantize-dequantize in float, on ``x``'s grid (the integer path's:
+    :func:`compute_scale`, :func:`quantize_int`, :func:`dequantize`), in
+    ``x``'s dtype. Values beyond ``clip`` saturate."""
+    scale = compute_scale(x, bits, channel_axis=channel_axis, clip=clip)
+    q = quantize_int(x, scale, bits, channel_axis=channel_axis)
+    return dequantize(q, scale, channel_axis=channel_axis, dtype=x.dtype)
 
 
 @dataclasses.dataclass

@@ -12,7 +12,7 @@ __all__ = ["QuantRecipe", "PAPER_BASELINE", "W8A8_SERVING"]
 class QuantRecipe:
     # Weight quantization.
     w_bits: int = 8
-    w_clip: Optional[str] = None  # None/'none' | 'mse' (| 'aciq' | 'kl' later)
+    w_clip: Optional[str] = None  # None/'none' | 'mse' | 'aciq' | 'kl'
     ocs_ratio: float = 0.0  # weight OCS expand ratio r (ceil(r*C) splits)
     qa_split: bool = True  # quantization-aware splitting (§3.3)
     per_channel: bool = False  # beyond-paper: per-output-channel scales

@@ -8,8 +8,9 @@ Parameters are a nested dict of tensors laid out like the reference's
 ``W4A8Linear`` in the ``w4a8`` tier). The entry points:
 
 * :func:`forward` / :func:`loss_fn` — full-sequence logits and their mean
-  cross-entropy (evaluation; an encoder's only path), every block kind,
-  from tokens or from a stub frontend's embeddings;
+  cross-entropy (evaluation, an encoder's only path, and training: on a
+  float dense tree both are differentiable by ``torch.autograd``), every
+  block kind, from tokens or from a stub frontend's embeddings;
 * :func:`prefill_into_pages` — one request's prompt suffix through the
   full-sequence block, its K/V written straight into the page pools (the
   paged engine; dense and MoE);
@@ -296,8 +297,14 @@ def forward(params, tokens: Optional[torch.Tensor], cfg: ModelConfig, *,
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
             mode: str = "dequant") -> torch.Tensor:
     """Mean token cross-entropy in float32 (``logsumexp`` minus the gold
-    logit), for evaluation: no gradients are taken. batch: ``labels``
-    ``[B, S]`` and ``tokens`` or ``embeds``."""
+    logit). batch: ``labels`` ``[B, S]`` and ``tokens`` or ``embeds``.
+
+    On a float tree of the dense block (the experiments' bench LM) it is
+    differentiable by ``torch.autograd`` when the leaves require grad: the
+    path has no in-place operation and no host read-back. Quantized leaves
+    are evaluation-only (no kernel has a backward, as the reference trains
+    only float trees); gradients through the MoE, SSM and hybrid blocks are
+    not held against the reference (ROADMAP A15)."""
     logits = forward(params, batch.get("tokens"), cfg, mode=mode,
                      embeds=batch.get("embeds")).to(torch.float32)
     labels = batch["labels"].long()

@@ -17,6 +17,8 @@ weight-only paths within the float32 summation-order bound
 outputs and within it plus one bf16 ulp for bf16 outputs (outputs near zero
 after cancellation can be several bf16 steps apart within the f32 bound).
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -1962,9 +1964,11 @@ def test_gemms_at_the_ssm_and_hybrid_shapes_cuda(name, m):
     _gemms_checked(*SSM_SHAPES[name], m)
 
 
-def _gemms_checked(k, s, n, m):
+def _gemms_checked(k, s, n, m, outlier_ratios=(0.05,)):
     """B1, B4, B5 and B6 at (K, S, N) and M rows against their plain
-    versions, as ``test_gemms_at_the_ssm_and_hybrid_shapes_cuda`` states."""
+    versions, as ``test_gemms_at_the_ssm_and_hybrid_shapes_cuda`` states;
+    B6 with the outlier rows ``to_w4a8`` keeps at each of
+    ``outlier_ratios`` (its default 0.05)."""
     npad = tqm.padded_cols(n, 16)
     g, w8, ws, src = _b1_weights(k, s, n, m + k + n)
     w8, ws = tqm.pad_cols(w8, npad), tqm.pad_cols(ws, npad)
@@ -1993,11 +1997,13 @@ def _gemms_checked(k, s, n, m):
         g16, p16 = call(torch.bfloat16).float(), plain(torch.bfloat16).float()
         ulp = _bf16_ulp(torch.maximum(g16.abs(), p16.abs()))
         assert ((g16 - p16).abs() <= bound + ulp).all(), label
-    t = -(-(k + s) * 5 // 100)  # to_w4a8's outlier rows at its default ratio 0.05
-    args = _w4a8_case(m, k, n, s, t, torch.bfloat16, m * 7 + k + t)
-    for dt in (torch.float32, torch.bfloat16):
-        assert _same_bits(tw4.w4a8_matmul_cuda(*args, out_dtype=dt),
-                          tw4.w4a8_matmul_plain(*args, out_dtype=dt)), dt
+    for ratio in outlier_ratios:
+        # to_w4a8's outlier rows: ceil(ratio * K_exp), K_exp = K + S made even.
+        t = math.ceil(ratio * (k + s + (k + s) % 2))
+        args = _w4a8_case(m, k, n, s, t, torch.bfloat16, m * 7 + k + t)
+        for dt in (torch.float32, torch.bfloat16):
+            assert _same_bits(tw4.w4a8_matmul_cuda(*args, out_dtype=dt),
+                              tw4.w4a8_matmul_plain(*args, out_dtype=dt)), (dt, t)
 
 
 @pytest.mark.cuda
@@ -2295,3 +2301,140 @@ def _forward_card_rtol(mode):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.FORWARD_CARD_RTOL[mode]
+
+
+# ---------------------------------------------------------------------------
+# The paper's weight-PTQ experiments and the precision-tier gate: the bench
+# LM's GEMM shapes, training on the card, ACIQ/KL quantization at full
+# width.
+
+# The bench LM's linear shapes (K, S, N) under the gate's recipe (r = 0.02,
+# pad_to=1): K + S = 131 and 262. to_w4a8 pads the odd 131 with a dead row
+# and keeps ceil(0.1 K_exp) rows at 8 bits in the gate's w4a8_ocs tier (14
+# and 27), none in w4a8_naive.
+BENCH_LM_SHAPES = {"wq/wo": (128, 3, 128), "wk/wv": (128, 3, 64),
+                   "w_gate/w_up": (128, 3, 256), "w_down": (256, 6, 128),
+                   "lm_head": (128, 3, 512)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 1024])
+@pytest.mark.parametrize("name", list(BENCH_LM_SHAPES))
+def test_gemms_at_the_bench_lm_shapes_cuda(name, m):
+    """B1, B4, B5 and B6 at every bench-LM linear shape (M = 1024 is one
+    gate batch, 16 x 64), B6 with the gate's outlier counts (ratio 0.1 and
+    0), against their plain versions as at the SSM shapes."""
+    cuda_or_skip()
+    _gemms_checked(*BENCH_LM_SHAPES[name], m, outlier_ratios=(0.1, 0.0))
+
+
+# The subjects' training steps, card against CPU from the same init and
+# batches (the port on both). The first step's gradients, each leaf's
+# largest difference within TRAIN_CARD_GRAD of the leaf's largest
+# gradient; the loss at every step within TRAIN_CARD_LOSS relative; each
+# leaf's change over the steps (trained minus init), the root sum of
+# squares of the difference within TRAIN_CARD_DELTA of the change's own.
+# AdamW's first steps move an element by about the learning rate whatever
+# its gradient's size, so an element on a noise-level gradient can move
+# either way: the change is held by its root sum of squares, not its
+# largest element. A tree that did not move, or moved along other
+# gradients, reads 1 or more. Seen on an H100 (gradient, loss, change):
+# convnet 3.2e-6, 4.8e-7, 9.3e-4; LSTM 6.8e-6, 7.7e-8, 9.1e-6; bench LM
+# (bfloat16 activations) 0.011, 1.3e-4, 0.066.
+TRAIN_CARD_GRAD = {"convnet": 1e-4, "lstm": 1e-4, "lm": 0.05}
+TRAIN_CARD_LOSS = {"convnet": 1e-5, "lstm": 1e-5, "lm": 1e-3}
+TRAIN_CARD_DELTA = {"convnet": 5e-3, "lstm": 5e-3, "lm": 0.12}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subject", ["convnet", "lstm", "lm"])
+def test_train_steps_card_vs_cpu_cuda(subject, monkeypatch):
+    """Five ``train_loop`` steps of each experiment subject (a five-step
+    schedule, all warmup: learning rates 0, 0.2, 0.4, 0.6 and 0.8 of the
+    subject's; the loss logged at every step) on the card and on the CPU
+    from the same seeded init (drawn on the CPU) and batches: the first
+    step's gradients, the loss at every step and each leaf's change, within
+    ``TRAIN_CARD_GRAD``, ``TRAIN_CARD_LOSS`` and ``TRAIN_CARD_DELTA``."""
+    cuda_or_skip()
+    from repro_torch.core.apply import map_with_path
+    from repro_torch.experiments import common
+    from repro_torch.optim.adamw import tree_map
+
+    for mod, flag, val in ((torch.backends.cuda.matmul, "allow_tf32", False),
+                           (torch.backends.cudnn, "allow_tf32", False),
+                           (torch.backends.cudnn, "deterministic", True),
+                           (torch.backends.cudnn, "benchmark", False)):
+        monkeypatch.setattr(mod, flag, val)  # as common.float32_deterministic
+    init = common.init_subject(subject, "cpu")
+    _, batches, loss_fn, lr, _ = common.SUBJECTS[subject]
+
+    def flat(tree):
+        out = []
+        map_with_path(lambda p, t: out.append(("/".join(map(str, p)), t.detach().cpu())), tree)
+        return out
+
+    grads, out, hist = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        b = batches(5, dev)
+        p = tree_map(lambda t: t.detach().to(dev).requires_grad_(True), init)
+        loss_fn(p, b[0]).backward()
+        grads[dev] = flat(tree_map(lambda t: t.grad, p))
+        hist[dev] = []
+        out[dev] = flat(common.train_loop(tree_to(init, dev), loss_fn, b, lr=lr,
+                                          history=hist[dev]))
+    reads = {"grad": 0.0, "loss": 0.0, "delta": 0.0}
+    for (path, a), (_, g) in zip(grads["cpu"], grads["cuda"]):
+        reads["grad"] = max(reads["grad"], ((g - a).abs().max() / a.abs().max()).item())
+    assert [h["step"] for h in hist["cuda"]] == list(range(5))
+    for a, g in zip(hist["cpu"], hist["cuda"]):
+        reads["loss"] = max(reads["loss"], abs(a["loss"] - g["loss"]) / abs(a["loss"]))
+    for (path, a), (_, g), (_, i) in zip(out["cpu"], out["cuda"], flat(init)):
+        d_cpu, d_card = a.double() - i.double(), g.double() - i.double()
+        assert d_cpu.abs().max() > 0, path
+        reads["delta"] = max(reads["delta"],
+                             ((d_card - d_cpu).norm() / d_cpu.norm()).item())
+    print(f"train card vs CPU {subject}: {reads}")
+    assert reads["grad"] <= TRAIN_CARD_GRAD[subject], reads
+    assert reads["loss"] <= TRAIN_CARD_LOSS[subject], reads
+    assert reads["delta"] <= TRAIN_CARD_DELTA[subject], reads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["aciq", "kl"])
+def test_glm4_9b_layer0_aciq_kl_card_vs_cpu_cuda(method):
+    """glm4-9b's layer-0 leaves at full width (d_model 4096, d_ff 13696),
+    quantized on the card with ACIQ or KL clipping (w8, OCS r=0.02,
+    per-tensor: the threshold is the grid's range) and fake-quantized: the
+    split tables, int grids and scales, and the fake-quantized leaves,
+    bitwise the same on the CPU."""
+    cuda_or_skip()
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.apply import fake_quantize_params
+    from repro_torch.core.ocs import OCSQuantLinear
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config("glm4-9b"), n_layers=1, vocab=1024)
+    params = T.init_params(cfg, seed=0, device="cuda")
+    sub = {"layers": params["layers"]}
+    cpu = tree_to(sub, "cpu")
+    recipe = QuantRecipe(w_bits=8, w_clip=method, ocs_ratio=0.02)
+    qc, qh = quantize_params(sub, recipe, device="cuda"), quantize_params(cpu, recipe,
+                                                                         device="cpu")
+    n = 0
+    for part in ("attn", "mlp"):
+        for name, a in qc["layers"][part].items():
+            b = qh["layers"][part][name]
+            if not isinstance(a, OCSQuantLinear):
+                continue
+            n += 1
+            for x, y in ((a.weight.values, b.weight.values), (a.weight.scale, b.weight.scale),
+                         (a.spec.src, b.spec.src)):
+                assert x.shape == y.shape and _same_bits(x, y), name
+    assert n == 7
+    recipe4 = QuantRecipe(w_bits=4, w_clip=method, ocs_ratio=0.02)
+    fc, fh = fake_quantize_params(sub, recipe4), fake_quantize_params(cpu, recipe4)
+    for part in ("attn", "mlp"):
+        for name, a in fc["layers"][part].items():
+            assert _same_bits(a, fh["layers"][part][name]), name

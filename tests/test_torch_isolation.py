@@ -57,7 +57,14 @@ def test_imports_without_jax_or_repro():
               "repro_torch.configs.deepseek_moe_16b", "repro_torch.configs.phi35_moe_42b",
               "repro_torch.models.ssm", "repro_torch.configs.mamba2_1p3b",
               "repro_torch.configs.hymba_1p5b", "repro_torch.configs.qwen2_vl_7b",
-              "repro_torch.configs.minitron_8b", "repro_torch.configs.hubert_xlarge"):
+              "repro_torch.configs.minitron_8b", "repro_torch.configs.hubert_xlarge",
+              "repro_torch.core.allocate", "repro_torch.data.pipeline",
+              "repro_torch.optim.adamw", "repro_torch.models.convnet",
+              "repro_torch.models.lstm", "repro_torch.experiments.common",
+              "repro_torch.experiments.table1", "repro_torch.experiments.table2",
+              "repro_torch.experiments.table5", "repro_torch.experiments.table6",
+              "repro_torch.experiments.table7", "repro_torch.experiments.run",
+              "repro_torch.launch.quality_eval"):
         assert m in mods
     code = (
         "import sys, importlib, importlib.util\n"
@@ -121,6 +128,27 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
         serve.main(["--arch", "glm4-9b", "--smoke"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "glm4-9b", "--smoke", "--replicas", "2"])
+
+
+def test_experiment_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
+    """The experiments' and the gate's entry points (the subjects' inits,
+    the bench, ``experiments.run``, ``launch.quality_eval``) want the card
+    unless given ``device="cpu"``; with no card they raise."""
+    _no_gpu(monkeypatch)
+    from repro_torch.experiments import common, run
+    from repro_torch.launch import quality_eval
+    from repro_torch.models import convnet, lstm
+
+    for fn in (lambda: convnet.init_convnet(common.CONV_CFG, seed=0),
+               lambda: lstm.init_lstm(common.LSTM_CFG, seed=0),
+               lambda: common.init_subject("lm"), lambda: common.Bench(),
+               lambda: run.main(["--only", "table5", "--out", str(tmp_path)]),
+               lambda: quality_eval.main(["--quick", "--out", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
+    assert not (tmp_path / "cache").exists()
+    convnet.init_convnet(common.CONV_CFG, seed=0, device="cpu")
+    common.Bench("cpu", out_dir=tmp_path)
 
 
 def test_ops_refuse_devices_without_a_kernel():
