@@ -241,7 +241,25 @@ Phases (any failure raises, and the script exits non-zero with no result):
    at full width quantized on the card with ACIQ and with KL clipping (w8,
    OCS r = 0.02, per-tensor): the seconds printed, the lm_head's split
    table, int grid and scale bitwise the CPU's (layer 0's are held so by
-   ``tests/test_torch_cuda.py``).
+   ``tests/test_torch_cuda.py``). The activation side: the
+   convnet's 19 activation sites calibrated on the card and on the CPU
+   (3 x 32 training images), the split specs equal and the clips within
+   ``ACT_CLIP_RTOL``; the quick arms of Tables 3 and 4 printed with their
+   claim lines; the w8 convnet under a static-OCS and an oracle context
+   (a4, r 0.02, 8 images) card vs CPU within ``EXP_F32_RTOL``. The
+   static-grid W8A8 tier of the trained bench LM (a8 mse grids calibrated
+   on the card, ``act_scales_from_collector``, as each leaf's
+   ``a_scale``): its top-1 against float and pseudo-perplexity printed
+   beside the float and int8 tiers (ungated), B5's int8 route launched 7
+   x 4 + 1 times a forward and B1 never, and each of its GEMMs at M =
+   1024 (K + S = 131, 262) bitwise B5's plain version, timed. A17 on
+   glm4-9b at ``--short-layers``: ``launch.serve``'s ``main`` with
+   ``--float-serve`` and with ``--compare-float`` (w8a8), the agreement
+   printed; an ``attn_probe`` engine mid-decode, ``attn_step_ms``
+   printed and every live pool byte, the table, the positions and the
+   allocator held across ``stats()``; the port's three examples
+   (``repro_torch.examples``), each once. Each new step's seconds
+   printed.
 7. Reference check: a smoke-size glm4-9b run through prefill and
    teacher-forced decode on the card (kernels) and on the CPU (plain
    versions) from the same weights, in w8a8 (int8 pages), dequant (float
@@ -262,7 +280,8 @@ start), a ``kernels`` JSON line (every kernel's launches on its path,
 ``launches_by_path`` for the matmul kernels and B2 on every serving path
 and hubert-xlarge's forward, the SSM, hybrid, qwen2-vl-7b, minitron-8b
 and hubert-xlarge models' GEMMs and the bench LM's in the quality gate
-(``*_benchlm``) as entries of their own; error, times and bound), the
+(``*_benchlm``, and ``quant_matmul_static_benchlm``, B5's int8 route in
+the static-grid tier) as entries of their own; error, times and bound), the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Per-shape detail goes to
 ``<out>/chip_smoke.json``.
@@ -3594,6 +3613,415 @@ def glm_clip_phase(seed):
     return out
 
 
+# Phase (n), the activation side of the experiments (A14's second half) and
+# A17: Tables 3 and 4 on the trained convnet, the static-grid W8A8 tier on
+# the trained bench LM through B5's int8 route, and, on glm4-9b at
+# --short-layers, the launcher's float arms, the attention probe and the
+# port's three examples.
+
+# The card's calibration against the CPU's on the same trained weights: the
+# activation-OCS split specs (every r of Table 3) equal, the clips (every
+# method and width of the quick arms, and Table 4's oracle grid) within
+# ACT_CLIP_RTOL relative. The two sides' float32 convolutions part by ulps,
+# so a site's profiled max does too (1.1e-6 at most over 285 clips, 146 of
+# 266 equal, H100 80GB HBM3); a count moved across a histogram bin's edge
+# would move an MSE threshold by one of its 128 candidates (0.8% of the
+# range), which this limit would catch.
+ACT_CLIP_RTOL = 1e-4
+# The static-grid tier's activation width and clip method (act_scales_from_
+# collector's recipe); its grids come from 3 training batches of the LM.
+STATIC_A_BITS = 8
+STATIC_A_CLIP = "mse"
+STATIC_CALIB_BATCHES = 3
+
+
+def act_tables_phase(bench, trained, cpu):
+    """Tables 3 and 4 (quick arms) on the trained convnet: the card's
+    calibration held against the CPU's (specs equal, clips within
+    ``ACT_CLIP_RTOL``), both tables and their claim lines printed, and the
+    convnet's logits under one static-OCS (a4, r 0.02) and one oracle (a4,
+    r 0.02) context on 8 held-out images, card vs CPU within
+    ``EXP_F32_RTOL`` of the largest logit (the CPU's calibration on both)."""
+    import torch
+    from repro_torch.core.actquant import ActQuantCtx, act_quant_ctx
+    from repro_torch.core.ocs import OCSSpec
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.experiments import common, table3, table4
+    from repro_torch.models.convnet import convnet_forward, make_synthetic_images
+
+    t0 = time.perf_counter()
+    coll = common.calibrate_convnet(trained["convnet"])
+    coll_cpu = common.calibrate_convnet(cpu["convnet"])
+    if sorted(coll.sites) != sorted(coll_cpu.sites) or len(coll.sites) != 19:
+        raise AssertionError(f"calibration sites: card {sorted(coll.sites)}, CPU "
+                             f"{sorted(coll_cpu.sites)}")
+    cells = [(c, 0.0) for c in table3.CLIPS] + [(None, r) for r in table3.RATIOS]
+    worst, equal, n = 0.0, 0, 0
+    for bits in (4, 3):
+        for clip, r in cells:
+            card = common.build_ctx(coll, bits, clip, r, device="cpu")
+            host = common.build_ctx(coll_cpu, bits, clip, r, device="cpu")
+            for site, spec in host.specs.items():
+                got = card.specs[site]
+                if not all(torch.equal(getattr(got, a), getattr(spec, a))
+                           for a in ("src", "mult", "bias")):
+                    raise AssertionError(f"a{bits} clip={clip} r={r} {site}: the card's "
+                                         "calibration gives another split spec")
+            for site, want in host.clips.items():
+                rel = abs(card.clips[site] - want) / want
+                worst, equal, n = max(worst, rel), equal + (card.clips[site] == want), n + 1
+    for site, st in coll_cpu.sites.items():
+        want = table4._oracle_clip(st, table4.RATIO)
+        rel = abs(table4._oracle_clip(coll.sites[site], table4.RATIO) - want) / want
+        worst, n = max(worst, rel), n + 1
+    if not worst <= ACT_CLIP_RTOL:
+        raise AssertionError(f"activation clips: card vs CPU calibration {worst:.3g} relative "
+                             f"(limit {ACT_CLIP_RTOL})")
+    t_calib = time.perf_counter() - t0
+    log(f"experiments: activation calibration on the card vs the CPU (19 sites, 3 x 32 "
+        f"training images): split specs equal at r {table3.RATIOS}; {n} clips (a4, a3 x "
+        f"none/mse/aciq/kl/OCS, Table 4's oracle grid) within {worst:.3g} relative "
+        f"({equal} of {n - len(coll.sites)} table-3 clips equal; limit {ACT_CLIP_RTOL}); "
+        f"{t_calib:.1f} s")
+    out = {"calibration": dict(sites=len(coll.sites), clips=n, worst_rel=worst, equal=equal,
+                               seconds=t_calib)}
+    for name, mod in (("table3", table3), ("table4", table4)):
+        t0 = time.perf_counter()
+        out[name] = mod.run(quick=True, bench=bench)
+        out[f"{name}_seconds"] = time.perf_counter() - t0
+        log(f"experiments: {name} (quick) on the card in {out[f'{name}_seconds']:.1f} s")
+    w8 = common.fake_quant_convnet(trained["convnet"], QuantRecipe(w_bits=8))
+    w8_cpu = common.fake_quant_convnet(cpu["convnet"], QuantRecipe(w_bits=8))
+    x = torch.from_numpy(make_synthetic_images(8, common.CONV_CFG, seed=777)["images"])
+    static = common.build_ctx(coll_cpu, table4.BITS, None, table4.RATIO, device="cpu")
+    oracle_clips = {s: table4._oracle_clip(st, table4.RATIO) for s, st in coll_cpu.sites.items()}
+    ctxs = {"static OCS": (static, ActQuantCtx(
+                bits=static.bits, clips=static.clips,
+                specs={s: OCSSpec(sp.src.cuda(), sp.mult.cuda(), sp.bias.cuda())
+                       for s, sp in static.specs.items()})),
+            "oracle": tuple(ActQuantCtx(bits=table4.BITS, clips=oracle_clips,
+                                        oracle_ratio=table4.RATIO) for _ in range(2))}
+    held = {}
+    for name, (host, card) in ctxs.items():
+        with torch.no_grad():
+            with act_quant_ctx(host):
+                want = convnet_forward(w8_cpu, x, common.CONV_CFG)
+            with act_quant_ctx(card):
+                got = convnet_forward(w8, x.cuda(), common.CONV_CFG).cpu()
+        held[name] = (got - want).abs().max().item() / want.abs().max().item()
+        if not held[name] <= EXP_F32_RTOL:
+            raise AssertionError(f"convnet under the {name} context: card vs CPU "
+                                 f"{held[name]:.3g} of the largest logit (limit {EXP_F32_RTOL})")
+    log(f"experiments: the convnet (w8) under a4 r={table4.RATIO} contexts, 8 images, card vs "
+        f"CPU of the largest logit: " + ", ".join(f"{k} {v:.3g}" for k, v in held.items())
+        + f" (limit {EXP_F32_RTOL})")
+    out["context_card_vs_cpu"] = held
+    return out
+
+
+# A dense decoder's quantized leaves and the tap sites of their inputs.
+LEAF_SITE = {"wq": "attn_q", "wk": "attn_k", "wv": "attn_v", "wo": "attn_o",
+             "w_gate": "mlp_gate", "w_up": "mlp_up", "w_down": "mlp_down", "lm_head": "lm_head"}
+
+
+def with_act_grids(q, clips, bits):
+    """The quantized tree ``q`` with a calibrated activation grid on every
+    leaf whose tap site has a clip: ``a_bits`` and ``a_scale = clip /
+    qmax`` in float32, ``[L, 1, 1]`` on a stacked leaf (site ``name#l`` for
+    layer l), ``[1, 1]`` on the lm_head (``lm_head#0``)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.apply import map_with_path
+    from repro_torch.core.ocs import OCSQuantLinear
+    from repro_torch.core.quantizer import qmax
+
+    def grid(site, n):
+        return [np.float32(clips[f"{site}#{i}"]) / np.float32(qmax(bits)) for i in range(n)]
+
+    def visit(path, leaf):
+        if not isinstance(leaf, OCSQuantLinear):
+            return leaf
+        site = LEAF_SITE[path[-1]]
+        vals = leaf.weight.values
+        n = vals.shape[0] if vals.ndim == 3 else 1
+        shape = (n, 1, 1) if vals.ndim == 3 else (1, 1)
+        a = torch.tensor(grid(site, n), dtype=torch.float32, device=vals.device).reshape(shape)
+        return dataclasses.replace(leaf, a_bits=bits, a_scale=a)
+
+    return map_with_path(visit, q, is_leaf=lambda x: isinstance(x, OCSQuantLinear))
+
+
+def static_grid_bound_ms(m, ke, n):
+    byts = m * ke + ke * n + n * 4 + m * n * 2
+    ops = 2.0 * m * ke * n
+    t_b, t_o = byts / HBM_BPS, ops / INT8_OPS
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def static_grid_phase(lm, iters):
+    """The static-grid W8A8 tier on the trained bench LM: its sites
+    calibrated on the card (``STATIC_CALIB_BATCHES`` training batches),
+    ``act_scales_from_collector`` (a8, mse) made each leaf's ``a_scale``,
+    the gate's 8 + 8 batches served in ``w8a8`` through ``dense``'s static
+    branch (B5's int8 route: 7 x L + 1 launches a forward, B1 none), its
+    top-1 against float and pseudo-perplexity printed beside the float and
+    int8 tiers (ungated: the reference has no such tier), then each of its
+    GEMM shapes at M = 1024 (K + S 131 and 262) bitwise B5's plain version
+    on the same card inputs, timed."""
+    import numpy as np
+    import torch
+    from repro_torch.core import tap
+    from repro_torch.core.apply import act_scales_from_collector, quantize_params
+    from repro_torch.core.ocs import expand_activations
+    from repro_torch.core.quantizer import qmax
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.experiments import common
+    from repro_torch.kernels import fused_qmatmul as fq
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.launch import quality_eval as Q
+    from repro_torch.models import transformer as T
+
+    cfg = common.LM_CFG
+    t0 = time.perf_counter()
+    coll = tap.Collector()
+    with tap.collecting(coll), torch.no_grad():
+        for i in range(STATIC_CALIB_BATCHES):
+            coll.begin_batch()
+            T.forward(lm, common.batch_to(common.LM_DS.batch_at(i), "cuda")["tokens"], cfg)
+    clips = act_scales_from_collector(coll, QuantRecipe(a_bits=STATIC_A_BITS,
+                                                        a_clip=STATIC_A_CLIP))
+    q = quantize_params(lm, Q.RECIPE, device="cuda")
+    qa = with_act_grids(q, clips, STATIC_A_BITS)
+    batches = Q.eval_batches(8, "cuda")
+    stress = Q.stress_batches(8, cfg.vocab, device="cuda")
+    logits, slogits = {}, {}
+    for name, (p, mode) in (("float", (lm, "dequant")), ("int8", (q, "w8a8")),
+                            ("static_w8a8", (qa, "w8a8"))):
+        qm.reset_launches()
+        fq.reset_launches()
+        logits[name] = Q.tier_logits(p, cfg, batches, mode)
+        slogits[name] = Q.tier_logits(p, cfg, stress, mode)
+        torch.cuda.synchronize()
+        if name == "static_w8a8":
+            launches = {"quant_matmul": qm.launches, "fused_qmatmul": fq.launches}
+    want = {"quant_matmul": (7 * cfg.n_layers + 1) * (len(batches) + len(stress)),
+            "fused_qmatmul": 0}
+    if launches != want:
+        raise AssertionError(f"static-grid tier: launches {launches}, want {want}")
+    tiers = Q.tier_metrics(logits, slogits, batches)
+    wall = time.perf_counter() - t0
+    for line in Q.format_tiers(tiers).splitlines():
+        log(f"static-grid w8a8 (a{STATIC_A_BITS} {STATIC_A_CLIP} grids from "
+            f"{STATIC_CALIB_BATCHES} training batches; ungated): {line}")
+    log(f"static-grid w8a8: {len(clips)} site grids, launches {launches}; {wall:.1f} s")
+
+    # B5's int8 route at each of the tier's GEMM shapes, M = 1024.
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    layer0 = {name: leaf.layer(0) for part in ("attn", "mlp")
+              for name, leaf in qa["layers"][part].items()}
+    layer0["lm_head"] = qa["lm_head"]
+    groups = {}
+    for name, w in layer0.items():
+        groups.setdefault((w.n_orig, w.weight.values.shape[0], w.weight.values.shape[1]),
+                          []).append(name)
+    rows = []
+    for (k, ke, n), names in groups.items():
+        w = layer0[names[0]]
+        w8 = w.weight.values
+        ws = w.weight.scale.reshape(-1).contiguous()
+        a_s = w.a_scale.reshape(())
+        x = (torch.randn((EXP_M, k), generator=gen, device="cuda")
+             * float(a_s) * qmax(STATIC_A_BITS) * 0.5).to(torch.bfloat16)
+        xe = expand_activations(x, w.spec)
+        x8 = torch.clamp(torch.floor(xe / a_s + 0.5), -127, 127).to(torch.int8).contiguous()
+        got = qm.quant_matmul_cuda(x8, w8, ws, a_s, out_dtype=torch.bfloat16)
+        want_y = qm.quant_matmul_plain(x8, w8, ws, a_s, out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want_y):
+            raise AssertionError(f"static-grid {names} M={EXP_M}: B5's int8 route is not "
+                                 "bitwise its plain version")
+        copies = cycled(w8)
+        run_kernel = cycling(lambda wt: qm.quant_matmul_cuda(
+            x8, wt, ws, a_s, out_dtype=torch.bfloat16), copies)
+        kp = ke + (-ke) % 8
+        xp = torch.zeros((EXP_M, kp), dtype=torch.int8, device="cuda")
+        xp[:, :ke] = x8
+        wp = torch.zeros((kp, n), dtype=torch.int8, device="cuda")
+        wp[:ke] = w8
+        scale = (a_s * ws)[None, :]
+        run_lib = cycling(lambda wpc: (torch._int_mm(xp, wpc).float() * scale).to(
+            torch.bfloat16), cycled(wp))
+        bound, by = static_grid_bound_ms(EXP_M, ke, n)
+        row = dict(names=names, M=EXP_M, K=k, S=ke - k, N=n, ms=time_ms(run_kernel, iters),
+                   device_ms=graph_ms(run_kernel, iters),
+                   plain_ms=time_ms(lambda: qm.quant_matmul_plain(
+                       x8, w8, ws, a_s, out_dtype=torch.bfloat16), max(2, iters // 5),
+                       warmup=1),
+                   library_ms=time_ms(run_lib, iters), library_device_ms=graph_ms(run_lib, iters),
+                   bound_ms=bound, bound_by=by, max_abs_err=0.0)
+        rows.append(row)
+        del copies, wp
+        log(f"B5 quant_matmul (int8 route, static grid) {'/'.join(names)} M={EXP_M} K={k}+"
+            f"{ke - k} N={n}: kernel_ms={row['ms']:.4f} device_ms={row['device_ms']:.4f} "
+            f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+            f"library_device_ms={row['library_device_ms']:.4f} bound_ms={bound:.4f} ({by}) "
+            "bitwise=yes")
+    return dict(tiers=tiers, launches=launches, seconds=wall, sites=len(clips), kernels=rows,
+                clips={k: float(v) for k, v in sorted(clips.items())})
+
+
+# A17 on glm4-9b at --short-layers: launch.serve's main (its config cut in
+# depth: the launcher serves a registry config), the probe and the examples.
+A17_REQUESTS = ["--n-requests", "8", "--max-new", "16"]
+
+
+class _LogLines:
+    """Collects what a ``repro_torch`` logger logs (the launcher's report
+    goes to its logger, not to stdout)."""
+
+    def __init__(self, name):
+        import logging
+
+        self.lines = []
+        self.logger = logging.getLogger(name)
+        outer = self
+
+        class _H(logging.Handler):
+            def emit(self, record):
+                outer.lines.append(record.getMessage())
+
+        self.handler = _H()
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self.lines
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def serve_main_cut(cfg, argv):
+    """``launch.serve.main(argv)`` with ``--arch`` resolving to ``cfg`` (a
+    depth cut of the registry's config): (stats, logged lines, launches of
+    every kernel during the run)."""
+    import torch
+    from repro_torch.launch import serve as S
+
+    cnt = counters()
+    for mod, attr in cnt.values():
+        setattr(mod, attr, 0)
+    get_config = S.get_config
+    S.get_config = lambda arch: cfg
+    try:
+        with _LogLines("repro_torch.launch.serve") as lines:
+            stats = S.main(argv)
+    finally:
+        S.get_config = get_config
+    torch.cuda.synchronize()
+    return stats, lines, {k: getattr(m, a) for k, (m, a) in cnt.items() if getattr(m, a)}
+
+
+def a17_phase(args, out_dir):
+    """A17 on the card. glm4-9b at ``--short-layers`` depth: one
+    ``--float-serve`` run (B2 on float32 pages, float leaves through ``x @
+    w``; no matmul kernel) and one ``--compare-float`` run in w8a8 (B1, B2
+    on int8 pages, then the float serve) through ``launch.serve``'s
+    ``main``, the agreement printed; an engine with ``attn_probe`` on a
+    quantized tree of that depth, mid-decode, its ``attn_step_ms`` printed
+    and every live pool byte, the table and the positions held across
+    ``stats()``. Then the port's three examples, each run once on the card
+    (``calibrate_activations`` on the phase's trained convnet, cached for
+    it)."""
+    import torch
+    from repro_torch.core.apply import quantize_params
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.examples import calibrate_activations, quickstart, serve_quantized
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import EngineConfig, ServingEngine
+
+    out = {}
+    cfg = dense_model("glm4-9b", args.short_layers)
+    base = ["--arch", "glm4-9b", "--seed", str(args.seed)] + A17_REQUESTS
+    for label, extra, need in (
+            ("float-serve", ["--float-serve"], ("paged_attention",)),
+            ("compare-float", ["--matmul-mode", "w8a8", "--kv-bits", "8", "--compare-float"],
+             ("fused_qmatmul", "paged_attention"))):
+        t0 = time.perf_counter()
+        stats, lines, launches = serve_main_cut(cfg, base + extra)
+        wall = time.perf_counter() - t0
+        missing = [k for k in need if not launches.get(k)]
+        if missing or stats["completed"] != 8:
+            raise AssertionError(f"launch.serve {label}: completed {stats['completed']}, "
+                                 f"launches {launches} (none of {missing})")
+        agree = [ln for ln in lines if ln.startswith("int8-vs-float token agreement")]
+        if (label == "compare-float") != bool(agree):
+            raise AssertionError(f"launch.serve {label}: agreement lines {agree}")
+        out[label] = dict(seconds=wall, launches=launches, agreement=agree,
+                          decode_tok_per_s=stats["decode_tok_per_s"],
+                          attn_step_ms=stats["attn_step_ms"], matmul_mode=stats["matmul_mode"])
+        log(f"A17 launch.serve {label} (glm4-9b, {cfg.n_layers} layers, 8 requests x 16): "
+            f"{stats['matmul_mode']}, decode {stats['decode_tok_per_s']:.1f} tok/s, probed "
+            f"attn step {stats['attn_step_ms']:.3f} ms, launches {launches}"
+            + (f"; {agree[0]}" if agree else "") + f"; {wall:.1f} s")
+
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=args.seed, device="cuda", lazy=True)
+    q = quantize_params(params, QuantRecipe(w_bits=8, w_clip="mse", ocs_ratio=0.02,
+                                            per_channel=True, pad_to=1), device="cuda")
+    eng = ServingEngine(cfg, q, EngineConfig(max_batch=8, max_len=512, attn_probe=True),
+                        device="cuda")
+    for r in seeded_requests(cfg, args.seed):
+        eng.submit(r)
+    for _ in range(6):
+        eng.step()
+    pools = [{k: t.clone() for k, t in layer["attn"].items()} for layer in eng.caches["layers"]]
+    table, pos = eng.caches["table"].clone(), eng.caches["pos"].clone()
+    alloc = alloc_state(eng.allocator)
+    probe = [eng.stats()["attn_step_ms"] for _ in range(2)]
+    torch.cuda.synchronize()
+    for layer, old in zip(eng.caches["layers"], pools):
+        for k, t in layer["attn"].items():
+            if not same_bits(t, old[k]):
+                raise AssertionError(f"attn_probe: layer pool {k} changed across stats()")
+    if not (torch.equal(eng.caches["table"], table) and torch.equal(eng.caches["pos"], pos)
+            and alloc_state(eng.allocator) == alloc and min(probe) > 0):
+        raise AssertionError(f"attn_probe: table, positions or allocator moved, or "
+                             f"attn_step_ms {probe}")
+    eng.run()
+    out["attn_probe"] = dict(attn_step_ms=probe, seconds=time.perf_counter() - t0)
+    log(f"A17 attn_probe (glm4-9b, {cfg.n_layers} layers, dequant, 8 lanes mid-decode): "
+        f"attn_step_ms {probe[0]:.4f}, {probe[1]:.4f} (layer 0's attention at position 256, "
+        "best of 3 CUDA-event calls); every live pool byte, the table, the positions and the "
+        "allocator unchanged across stats()")
+    del eng, q, params, pools
+    torch.cuda.empty_cache()
+
+    from repro_torch.experiments import common
+
+    cnt = counters()
+    for name, fn, argv, need in (
+            ("quickstart", quickstart.main, ["--device", "cuda"], ()),
+            ("serve_quantized", serve_quantized.main,
+             ["--device", "cuda", "--spec", "--inject-nan", "3"],
+             ("ocs_matmul", "paged_attention", "paged_attention_verify")),
+            ("calibrate_activations", calibrate_activations.main,
+             ["--device", "cuda", "--out", str(out_dir)], ())):
+        for mod, attr in cnt.values():
+            setattr(mod, attr, 0)
+        t0 = time.perf_counter()
+        res = fn(argv)
+        torch.cuda.synchronize()
+        launches = {k: getattr(m, a) for k, (m, a) in cnt.items() if getattr(m, a)}
+        missing = [k for k in need if not launches.get(k)]
+        if missing:
+            raise AssertionError(f"example {name}: launches {launches} (none of {missing})")
+        out[name] = dict(seconds=time.perf_counter() - t0, launches=launches,
+                         result=res if name != "serve_quantized" else None)
+        log(f"A17 example {name} on the card: {out[name]['seconds']:.1f} s, launches "
+            f"{launches}")
+    return out
+
+
 def experiments_phase(args, gen):
     """Phase (n). Trains the convnet, LSTM and bench LM 400 steps each on
     the card (fresh every run: no cache), holds that training worked and
@@ -3663,11 +4091,28 @@ def experiments_phase(args, gen):
         log(f"experiments: {name} (quick) on the card in {table_s[name]:.1f} s")
     holds = fake_quant_holds(trained, cpu)
     gate = gate_phase(trained["lm"], gen, max(5, args.iters // 2))
+    steps = {}
+    t0 = time.perf_counter()
+    act = act_tables_phase(bench, trained, cpu)
+    steps["tables 3 and 4"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    static = static_grid_phase(trained["lm"], max(5, args.iters // 2))
+    steps["static-grid w8a8"] = time.perf_counter() - t0
     glm = glm_clip_phase(args.seed)
+    # The calibration example reads the trained convnet from its cache.
+    path = bench.cache_path("convnet")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(tree_to(trained["convnet"], "cpu"), path)
+    t0 = time.perf_counter()
+    a17 = a17_phase(args, bench.out_dir)
+    steps["A17"] = time.perf_counter() - t0
     wall = time.perf_counter() - t_phase
+    log("experiments phase, the new steps: " + ", ".join(f"{k} {v:.1f} s"
+                                                        for k, v in steps.items()))
     log(f"experiments phase: {wall:.1f} s")
     return dict(train=train, held=held, forward_card_vs_cpu=card_cpu, tables=tables,
                 table_seconds=table_s, fake_quant_holds=holds, gate=gate, glm_clip=glm,
+                act_tables=act, static_grid=static, a17=a17, step_seconds=steps,
                 seconds=wall)
 
 
@@ -4039,6 +4484,17 @@ def main(argv=None) -> int:
                              source=f"src/repro_torch/csrc/{base}.cu"))
         exp_what[name] = (f"one {Lb}-layer trained bench-LM forward's calls, M={EXP_M}; "
                           f"launches from the quality gate's {exp_tiers[base]} tier(s)")
+    # B5's int8 route under dense's static-grid branch: the trained bench
+    # LM's calibrated w8a8 tier (one forward's calls, M = 1024), launches
+    # from that tier's 8 + 8 forwards.
+    stg = exp["static_grid"]
+    kernels.append(entry("quant_matmul_static_benchlm", "src/repro/kernels/quant_matmul.py:39",
+                         stg["launches"]["quant_matmul"], 0.0,
+                         step_sum(stg["kernels"], Lb, None, EXP_M),
+                         source="src/repro_torch/csrc/quant_matmul.cu"))
+    exp_what["quant_matmul_static_benchlm"] = (
+        f"one {Lb}-layer trained bench-LM forward's calls in the static-grid w8a8 tier (B5's "
+        f"int8 route, calibrated a_scale), M={EXP_M}; launches from that tier's forwards")
     # Every kernel's launches on every serving path (the first serve of each
     # path in the mode that runs it; B2 runs on none of the unpaged paths).
     paths = {
@@ -4070,6 +4526,11 @@ def main(argv=None) -> int:
     paths["hubert-xlarge forward"]["paged_attention"] = sl["forward"]["hubert-xlarge dequant"]
     paths["bench-lm quality gate"] = {base: {"launches": {base: n}}
                                       for base, n in exp_launches.items()}
+    paths["bench-lm static-grid w8a8"] = {"quant_matmul": stg}
+    a17 = exp["a17"]
+    paths["glm4-9b launch.serve --float-serve"] = {"paged_attention": a17["float-serve"]}
+    paths["glm4-9b launch.serve --compare-float"] = {
+        "fused_qmatmul": a17["compare-float"], "paged_attention": a17["compare-float"]}
     for arch in ("mamba2-1.3b", "hymba-1.5b"):
         paths[f"{arch} unpaged"] = {
             ssm_kind[mode][0]: ssm["serves"][ssm_serve[(arch, mode)]]

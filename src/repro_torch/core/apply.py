@@ -23,13 +23,14 @@ import torch
 
 from ..device import resolve_device
 from .allocate import knapsack_allocate
+from .clipping import find_clip
 from .ocs import (OCSQuantLinear, OCSSpec, W4A8Linear, collapse_expanded,
                   make_ocs_quant_linear, pad_out_cols, split_weights)
 from .quantizer import QuantParams, fake_quant
 from .recipe import QuantRecipe
 
-__all__ = ["fake_quantize_params", "knapsack_splits", "quantize_params", "path_str",
-           "map_with_path", "tree_to"]
+__all__ = ["fake_quantize_params", "knapsack_splits", "quantize_params",
+           "act_scales_from_collector", "path_str", "map_with_path", "tree_to"]
 
 
 def path_str(path) -> str:
@@ -226,3 +227,13 @@ def quantize_params(params, recipe: QuantRecipe, *, device=None):
         return pad_out_cols(_quant_linear_stacked(leaf, recipe))
 
     return map_with_path(visit, params)
+
+
+def act_scales_from_collector(collector, recipe: QuantRecipe) -> Dict[str, float]:
+    """Per-site activation clip thresholds from calibration stats (§5.3):
+    ``find_clip`` of each site's histogram at ``recipe.a_bits`` with
+    ``recipe.a_clip``; ``{}`` when the recipe keeps activations float."""
+    if not recipe.wants_act_quant():
+        return {}
+    return {name: find_clip(stats.hist, recipe.a_bits, recipe.a_clip)
+            for name, stats in collector.sites.items()}

@@ -41,6 +41,10 @@ __all__ = [
     "expanded_channels",
     "split_weights",
     "expand_activations",
+    "split_activations_spec",
+    "duplicate_weight_rows",
+    "fold_expansion_mult",
+    "oracle_expand",
     "collapse_expanded",
     "OCSQuantLinear",
     "make_ocs_quant_linear",
@@ -181,6 +185,83 @@ def split_weights(
         bias=torch.zeros(c_exp, dtype=torch.float32, device=w.device),
     )
     return w_exp, spec, float(thresh)
+
+
+# ---------------------------------------------------------------------------
+# Activation OCS (calibration-driven) and Oracle OCS
+
+
+def split_activations_spec(stats, ratio: float, *, act_delta: float = 0.0, qa: bool = False,
+                           device=None) -> OCSSpec:
+    """An expansion spec splitting the top-outlier activation channels of a
+    calibrated site (``core.histogram.ChannelStats``), on ``device``.
+
+    The first ``ceil(r * C)`` channels of ``stats.split_order()`` (most
+    99th-percentile exceedances, ties by the larger abs-max, §5.3) are each
+    split once: both copies carry mult 1/2 (Eq. 4). With ``qa`` and the
+    grid step ``act_delta``, biases -/+ Δ/4 make the split
+    quantization-preserving. Bitwise the reference's for the same stats."""
+    c = stats.n_channels
+    order = stats.split_order()[:n_splits_for_ratio(c, ratio)]
+    src = list(range(c))
+    mult = [1.0] * c
+    bias = [0.0] * c
+    for ch in order:
+        ch = int(ch)
+        mult[ch] = 0.5
+        bias[ch] = -0.25 * act_delta if qa else 0.0
+        src.append(ch)
+        mult.append(0.5)
+        bias.append(+0.25 * act_delta if qa else 0.0)
+    return OCSSpec(
+        src=torch.tensor(src, dtype=torch.int32, device=device),
+        mult=torch.tensor(mult, dtype=torch.float32, device=device),
+        bias=torch.tensor(bias, dtype=torch.float32, device=device),
+    )
+
+
+def duplicate_weight_rows(w: torch.Tensor, spec: OCSSpec) -> torch.Tensor:
+    """Weight expansion for *activation* OCS: rows are copied unchanged."""
+    return w.index_select(0, spec.src.to(device=w.device, dtype=torch.long))
+
+
+def fold_expansion_mult(w_exp: torch.Tensor, spec: OCSSpec) -> Tuple[torch.Tensor, OCSSpec]:
+    """Fold the activation-side multipliers into the expanded weight rows:
+    ``(x[:, src] * mult) @ W == x[:, src] @ (mult[:, None] * W)``, so an
+    expansion whose bias is zero can be *packed* (float32 ``mult[:, None] *
+    w_exp``, and the spec with mult 1 everywhere: pure duplication, the
+    dynamic-W8A8 contract). Fold before quantizing: the multiplier changes
+    the rows' range. A spec with a non-zero bias (a QA activation split's
+    -/+ Δ/4) raises ``ValueError``: a bias cannot move into the weights."""
+    if spec.bias.numel() and bool((spec.bias != 0.0).any()):
+        raise ValueError(
+            "fold_expansion_mult requires bias == 0 (QA activation splits "
+            "carry a +-delta/4 bias that cannot move into the weights)"
+        )
+    mult = spec.mult.to(device=w_exp.device, dtype=torch.float32)
+    w_folded = w_exp.to(torch.float32) * mult[:, None]
+    return w_folded, OCSSpec(src=spec.src, mult=torch.ones_like(spec.mult), bias=spec.bias)
+
+
+def oracle_expand(x: torch.Tensor, n_split: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Oracle OCS (Table 4): the ``n_split`` channels of the last axis with
+    the largest |x| *in this batch* are halved, both copies. Returns
+    ``(x_expanded [..., C + n_split], src int32 [C + n_split])``; gather the
+    weight rows with ``src``.
+
+    The reference selects with ``lax.top_k``: largest first, ties to the
+    lower index. ``torch.topk`` promises no order among ties on the card,
+    and the order of the duplicates is the order of the summation after
+    them (ReLU leaves whole channels at 0, which tie), so the selection is
+    a stable descending sort. The result keeps ``x``'s dtype, as the
+    reference's weakly typed multiplier does."""
+    c = x.shape[-1]
+    ch_max = x.reshape(-1, c).abs().amax(dim=0)
+    top = torch.sort(ch_max, descending=True, stable=True).indices[:n_split]
+    mult = torch.ones(c, dtype=x.dtype, device=x.device)
+    mult[top] = 0.5
+    src = torch.cat([torch.arange(c, device=x.device), top]).to(torch.int32)
+    return torch.cat([x * mult, x[..., top] * 0.5], dim=-1), src
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""The paper's weight-PTQ experiments on the port (Tables 1, 2, 5, 6, 7).
+"""The paper's PTQ experiments on the port: weights (Tables 1, 2, 5, 6, 7)
+and activations (Tables 3, 4).
 
 ``python -m repro_torch.experiments.run [--quick] [--only table2,table6]
 [--device cpu]`` trains the three subjects (``common``) on first use and

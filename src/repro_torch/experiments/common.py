@@ -36,7 +36,10 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..core import tap
+from ..core.actquant import ActQuantCtx, act_quant_ctx, post_ocs_clip
 from ..core.apply import _fake_quant_2d, map_with_path, path_str
+from ..core.ocs import OCSSpec, split_activations_spec
 from ..data import SyntheticLM
 from ..device import resolve_device
 from ..models import transformer as T
@@ -47,7 +50,7 @@ from ..optim.adamw import adamw_init, adamw_update, cosine_schedule, tree_map
 
 __all__ = ["CONV_CFG", "LSTM_CFG", "LSTM_DS", "LM_CFG", "LM_DS", "SUBJECTS", "Bench",
            "STEPS", "train_loop", "conv_batches", "batch_to", "fake_quant_convnet", "render_table",
-           "OUT_DIR"]
+           "OUT_DIR", "calibrate_convnet", "build_ctx", "eval_under_ctx"]
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments_out"
 
@@ -209,13 +212,15 @@ class Bench:
                                   torch.from_numpy(d["labels"]).to(self.device))
         return self._data["conv"]
 
-    def convnet_accuracy(self, params) -> float:
-        """Top-1 accuracy (%) on the held-out images, batches of 256."""
+    def convnet_accuracy(self, params, forward=None) -> float:
+        """Top-1 accuracy (%) on the held-out images, batches of 256, through
+        ``forward(params, images)`` (default ``convnet_forward``)."""
+        fwd = forward or (lambda p, x: convnet_forward(p, x, CONV_CFG))
         images, labels = self._conv_data()
         correct = 0
         with torch.no_grad():
             for i in range(0, self.conv_n, 256):
-                logits = convnet_forward(params, images[i:i + 256], CONV_CFG)
+                logits = fwd(params, images[i:i + 256])
                 correct += int((logits.argmax(-1) == labels[i:i + 256]).sum())
         return 100.0 * correct / self.conv_n
 
@@ -270,6 +275,52 @@ def fake_quant_convnet(params: Dict, recipe) -> Dict:
         return leaf
 
     return map_with_path(visit, params)
+
+
+# ---------------------------------------------------------------------------
+# Activation calibration and evaluation under a context (Tables 3 and 4)
+
+
+def calibrate_convnet(params, n_batches: int = 3) -> tap.Collector:
+    """Per-site ``ChannelStats`` of the float convnet's activation sites
+    (``s{s}b{b}_c{1,2}#0`` and ``fc#0``): ``n_batches`` training batches of
+    32 images (seeds 10000 + i) through ``convnet_forward`` on the params'
+    device under a tap collector, as the reference calibrates."""
+    dev = params["stem"]["conv_w"].device
+    coll = tap.Collector()
+    with tap.collecting(coll), torch.no_grad():
+        for i in range(n_batches):
+            d = make_synthetic_images(32, CONV_CFG, seed=10_000 + i)
+            coll.begin_batch()
+            convnet_forward(params, torch.from_numpy(d["images"]).to(dev), CONV_CFG)
+    return coll
+
+
+def build_ctx(coll: tap.Collector, bits: int, clip_method: Optional[str], ocs_ratio: float,
+              device=None) -> ActQuantCtx:
+    """The activation-PTQ context of one Table 3 cell: per site, an
+    activation-OCS spec (``ocs_ratio`` > 0; on ``device``) and the clip
+    after its halving (``post_ocs_clip`` with ``clip_method``)."""
+    clips: Dict[str, float] = {}
+    specs: Dict[str, OCSSpec] = {}
+    for site, stats in coll.sites.items():
+        spec = None
+        if ocs_ratio > 0:
+            spec = specs[site] = split_activations_spec(stats, ocs_ratio, device=device)
+        clips[site] = post_ocs_clip(stats, spec, clip_method, bits)
+    return ActQuantCtx(bits=bits, clips=clips, specs=specs)
+
+
+def eval_under_ctx(bench: "Bench", params, ctx: ActQuantCtx) -> float:
+    """Held-out accuracy (%) of the convnet under ``ctx``. The site
+    ordinals restart before every forward (the port runs eagerly)."""
+
+    def fwd(p, x):
+        ctx.reset()
+        return convnet_forward(p, x, CONV_CFG)
+
+    with act_quant_ctx(ctx):
+        return bench.convnet_accuracy(params, forward=fwd)
 
 
 # ---------------------------------------------------------------------------

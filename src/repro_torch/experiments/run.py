@@ -1,4 +1,4 @@
-"""Run the paper's weight-PTQ tables on the port.
+"""Run the paper's PTQ tables (weights: 1, 2, 5, 6, 7; activations: 3, 4) on the port.
 
     python -m repro_torch.experiments.run [--quick] [--only table2,table6]
         [--device cpu] [--out DIR]
@@ -16,11 +16,13 @@ import argparse
 import time
 import traceback
 
-from . import common, table1, table2, table5, table6, table7
+from . import common, table1, table2, table3, table4, table5, table6, table7
 
 TABLES = {
     "table1": table1.run,
     "table2": table2.run,
+    "table3": table3.run,  # activation PTQ: clipping vs static activation OCS
+    "table4": table4.run,  # Oracle OCS against the batch size
     "table5": table5.run,
     "table6": table6.run,
     "table7": table7.run,  # §3.4 knapsack variant (the paper's negative result)

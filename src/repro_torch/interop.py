@@ -4,8 +4,8 @@
 reference package's parameters, flattened to numpy by the caller — into the
 port's tree on ``device``, so both packages can compute on identical
 weights. Float leaves become float tensors; a quantized leaf is a dict
-``{values, scale, src, mult, bias, n_orig, a_bits}`` (optionally ``bits``)
-and becomes an :class:`~repro_torch.core.ocs.OCSQuantLinear`; a W4A8 leaf
+``{values, scale, src, mult, bias, n_orig, a_bits}`` (optionally ``bits``,
+and ``a_scale``, a calibrated activation grid) and becomes an :class:`~repro_torch.core.ocs.OCSQuantLinear`; a W4A8 leaf
 is a dict ``{w4, s4, w8, s8, outlier_idx, src, mult, bias, n_orig,
 a_bits}`` and becomes a :class:`~repro_torch.core.ocs.W4A8Linear`. It takes
 numpy, not JAX, so it lives in the package; the JAX -> numpy flattening
@@ -64,6 +64,8 @@ def _quant_leaf(d, dev) -> OCSQuantLinear:
         spec=_spec(d, dev),
         n_orig=int(d["n_orig"]),
         a_bits=None if d.get("a_bits") is None else int(d["a_bits"]),
+        a_scale=(None if d.get("a_scale") is None
+                 else _tensor(np.asarray(d["a_scale"], np.float32), dev)),
     )
 
 

@@ -32,6 +32,14 @@ replay through the decode step, one call a token), ``off`` serves a dense
 or MoE model unpaged too (``--spec-k`` included). Runs on the card; ``--device cpu`` runs the
 plain PyTorch path at smoke size.
 
+``--float-serve`` skips PTQ and serves the float weights (in ``dequant``:
+float leaves run ``x @ w``, attention B2 on float32 pages);
+``--compare-float`` serves the same requests again on the float weights
+and logs the token agreement ("int8-vs-float token agreement: a/t (p%)"),
+the serving-side analogue of the paper's accuracy tables. A dense or MoE
+engine probes its attention step (``EngineConfig.attn_probe``), as the
+reference's launcher does, and logs it.
+
 ``--replicas N`` serves through N engine replicas (one shared quantized
 tree) behind the fault-tolerant router (``--placement``). Observability:
 ``--trace`` records the engine's span ring and ``--trace-out`` exports it
@@ -48,6 +56,9 @@ around the run; progress is logged at ``--log-level``.
         --matmul-mode w4a8 --kv-bits 4
     python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu \
         --spec-k 4 --draft-layers 1
+    python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu \
+        --matmul-mode w8a8 --kv-bits 8 --compare-float
+    python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu --float-serve
     python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu \
         --temperature 0.8 --top-k 40 --prefill-budget 16 --chunk-size 16 \
         --admission optimistic
@@ -101,6 +112,9 @@ def build_parser():
     ap.add_argument("--bits", type=int, default=8)
     ap.add_argument("--ocs-ratio", type=float, default=0.02)
     ap.add_argument("--clip", default="mse")
+    ap.add_argument("--float-serve", action="store_true",
+                    help="skip PTQ, serve float weights")
+    ap.add_argument("--compare-float", action="store_true")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="request sampling temperature (0 = greedy)")
     ap.add_argument("--top-k", type=int, default=0,
@@ -221,19 +235,28 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
 
     # Drawn leaf by leaf and quantized as drawn: a full-size MoE tree never
-    # holds all of its float32 weights (deepseek-moe-16b: 67.5 GB).
-    params = T.init_params(cfg, seed=args.seed, device=dev, lazy=True)
-    recipe = QuantRecipe(
-        w_bits=args.bits, w_clip=args.clip, ocs_ratio=args.ocs_ratio,
-        per_channel=True, pad_to=1,
-    )
-    t0 = time.time()
-    qparams = quantize_params(params, recipe, device=dev)
-    get_logger("launch.ptq").info(
-        "quantized in %.1fs (w%d, ocs r=%s, clip=%s)",
-        time.time() - t0, args.bits, args.ocs_ratio, args.clip)
+    # holds all of its float32 weights (deepseek-moe-16b: 67.5 GB). The
+    # float arms keep the float tree (the same draws, eagerly).
+    keep_float = args.float_serve or args.compare_float
+    params = T.init_params(cfg, seed=args.seed, device=dev, lazy=not keep_float)
+    if args.float_serve:
+        qparams = params
+    else:
+        recipe = QuantRecipe(
+            w_bits=args.bits, w_clip=args.clip, ocs_ratio=args.ocs_ratio,
+            per_channel=True, pad_to=1,
+        )
+        t0 = time.time()
+        qparams = quantize_params(params, recipe, device=dev)
+        get_logger("launch.ptq").info(
+            "quantized in %.1fs (w%d, ocs r=%s, clip=%s)",
+            time.time() - t0, args.bits, args.ocs_ratio, args.clip)
 
     ecfg = engine_config_from_args(args)
+    if cfg.block in ("dense", "moe") and not ecfg.attn_probe:
+        ecfg = ecfg.replace(attn_probe=True)  # the probed attention step in the report
+    if args.float_serve and ecfg.matmul_mode != "dequant":
+        ecfg = ecfg.replace(matmul_mode="dequant")
     sampling = None
     if args.temperature > 0:
         sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
@@ -272,6 +295,8 @@ def main(argv=None):
         "throughput: prefill %.1f tok/s | decode %.1f tok/s | errors %d",
         stats["prefill_tok_per_s"], stats["decode_tok_per_s"], stats["errors"],
     )
+    if stats["kv_page_size"]:
+        log.info("paged attention: probed attn step %.3f ms/layer", stats["attn_step_ms"])
     log.info(
         "scheduler: %s, %d chunks, peak %d prefill tokens a step | preempted %d, "
         "shed %d, timed out %d | queue wait p50 %.1f ms / p95 %.1f ms",
@@ -318,6 +343,20 @@ def main(argv=None):
         log.info("metrics: Prometheus exposition -> %s", args.metrics_out)
     if args.metrics_jsonl:
         log.info("metrics: JSONL snapshots -> %s", args.metrics_jsonl)
+
+    if args.compare_float and not args.float_serve:
+        freqs = _make_requests(args.n_requests, cfg.vocab, np.random.default_rng(args.seed),
+                               args.max_new, sampling=sampling)
+        fdone, _, _ = serve_once(cfg, params, freqs,
+                                 ecfg.replace(matmul_mode="dequant", spec=None), device=dev)
+        by_uid = {r.uid: r.output for r in fdone}
+        agree = total = 0
+        for r in done:
+            for a, b in zip(r.output, by_uid.get(r.uid, [])):
+                agree += int(a == b)
+                total += 1
+        log.info("int8-vs-float token agreement: %d/%d (%.1f%%)",
+                 agree, total, 100.0 * agree / max(total, 1))
     return stats
 
 

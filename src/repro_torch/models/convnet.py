@@ -20,10 +20,16 @@ and right: a 3x3 stride-2 convolution of an even size pads (0, 1), where
 pixel. :func:`_conv` pads explicitly with ``F.pad`` and convolves with
 ``padding=0``.
 
-The first layer (the stem) is never quantized (paper §5). The activation
-quantization sites of the reference's ``_qconv`` come with activation PTQ;
-here every convolution but the stem's and the projections tags its input
-with ``core.tap`` under the reference's site names.
+The first layer (the stem) is never quantized (paper §5), nor are the 1x1
+projections. Every other convolution and the head is an activation site:
+its input is tagged with ``core.tap`` under the reference's site names
+(calibration), and under an activation-PTQ context (``core.actquant``,
+Tables 3 and 4) it is expanded (static OCS or the oracle) and
+fake-quantized on the calibrated grid, with the weight's input channels
+gathered to match. The channel axis of the reference's NHWC ``[..., C]``
+is axis 1 of the port's NCHW activations: they are expanded and quantized
+in NHWC (the oracle's per-channel max over N*H*W) and permuted back, and
+the HWIO weight is gathered on its axis 2.
 """
 from __future__ import annotations
 
@@ -34,8 +40,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core import tap
+from ..core import actquant, tap
 from ..core.apply import map_with_path
+from ..core.ocs import expand_activations, oracle_expand
 from ..device import resolve_device
 
 __all__ = [
@@ -121,9 +128,28 @@ def _conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
 
 
 def _qconv(x: torch.Tensor, w: torch.Tensor, name: str, stride: int = 1) -> torch.Tensor:
-    """A quantizable convolution: its input tagged at site ``name`` (NHWC,
-    as the reference tags it), then :func:`_conv`."""
+    """A quantizable convolution (x NCHW, w HWIO): its input tagged at site
+    ``name`` (NHWC, as the reference tags it); under an activation-PTQ
+    context, expanded and fake-quantized as the reference's ``_qconv``
+    does; then :func:`_conv`."""
     tap.tag(name, x.permute(0, 2, 3, 1))
+    site = actquant.site_key(name)
+    if site is not None:
+        ctx = actquant.active_ctx()
+        clip = ctx.clips.get(site)
+        xh = x.permute(0, 2, 3, 1)
+        if ctx.oracle_ratio > 0:
+            n = max(1, math.ceil(ctx.oracle_ratio * xh.shape[-1]))
+            xh, src = oracle_expand(xh, n)
+            w = w.index_select(2, src.long())
+        else:
+            spec = ctx.specs.get(site)
+            if spec is not None:
+                xh = expand_activations(xh, spec)
+                w = w.index_select(2, spec.src.long())
+        if clip is not None:
+            xh = actquant._fake_quant_fixed(xh, ctx.bits, clip)
+        x = xh.permute(0, 3, 1, 2)
     return _conv(x, w, stride)
 
 
@@ -142,7 +168,11 @@ def convnet_forward(params: Dict, x: torch.Tensor, cfg: ConvNetConfig) -> torch.
             h = F.relu(y + sc)
     h = torch.mean(h, dim=(2, 3))  # global average pool
     tap.tag("fc", h)
-    return h @ params["head"]["fc_w"]
+    site = actquant.site_key("fc")
+    wfc = params["head"]["fc_w"]
+    if site is not None:
+        h, wfc = actquant.apply_act_quant(h, wfc, site)
+    return h @ wfc
 
 
 def convnet_loss(params, batch, cfg: ConvNetConfig) -> torch.Tensor:

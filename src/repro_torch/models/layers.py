@@ -34,10 +34,23 @@ covers all E experts, each expert's slice bitwise the 2-D call on it; on
 the CPU the plain version loops over the experts. Any other stacked
 weight, or a stack with ``x`` of another shape, raises.
 
-The mode is an argument, never a module global. Calibrated activation grids
-(``a_scale``) have no producer on the serving path and are not ported.
-Activations stay bfloat16 between layers, as in the reference (``embed``
-casts).
+A leaf with a calibrated activation grid (``a_bits`` and ``a_scale``, the
+paper's static W8A8, Tables 3 and 4) takes the **static-grid** branch in
+``w8a8``: the activations expanded by the leaf's spec, quantized on the
+fixed grid (``floor(x / a_scale + 0.5)`` with a true division, clamped to
+``±qmax``; ``a_scale`` is a leaf of the tree, a runtime value in the
+reference's compiled step too) and multiplied as int8 x int8 -> int32 by
+``ops.quant_matmul`` (B5's int8 route) with the epilogue ``acc * (a_scale
+* w_scale)``: bitwise the reference's ``_int8_matmul``. In ``dequant`` the
+grid is not used, as in the reference.
+
+The mode is an argument, never a module global. Activations stay bfloat16
+between layers, as in the reference (``embed`` casts).
+
+A **float** weight is a site of the activation-PTQ context
+(``core.actquant``, Tables 3 and 4): under a context its input is expanded
+and fake-quantized with the weight's rows gathered to match; with none the
+call is ``x @ w``.
 
 Every call first hands its input to ``core.tap.tag`` under its ``name``
 (the reference's tap sites: ``attn_q`` ... ``mlp_down``, ``lm_head``),
@@ -50,12 +63,14 @@ import math
 
 import torch
 
-from ..core import tap
-from ..core.ocs import OCSQuantLinear, W4A8Linear
+from ..core import actquant, tap
+from ..core.ocs import OCSQuantLinear, W4A8Linear, expand_activations
+from ..core.quantizer import qmax
 from ..kernels import ops as kops
 from ..kernels.quant_matmul import stack_scales
 
-__all__ = ["MODES", "dense", "rms_norm", "layer_norm", "embed", "silu", "swiglu", "gelu"]
+__all__ = ["MODES", "dense", "rms_norm", "layer_norm", "embed", "act_quant", "silu", "swiglu",
+           "gelu"]
 
 MODES = ("dequant", "w8a8", "w4a8")
 
@@ -99,6 +114,25 @@ def _ocs_dequant(w: OCSQuantLinear, x: torch.Tensor) -> torch.Tensor:
         x2, w.weight.values, _flat_w_scale(w), w.spec.src[w.n_orig:],
         tail_mult=w.spec.mult[w.n_orig:], tail_is_mask=w.is_packed(), out_dtype=x.dtype,
     )
+    return y.reshape(lead + (y.shape[-1],))
+
+
+def _static_w8a8(w: OCSQuantLinear, x: torch.Tensor, what: str) -> torch.Tensor:
+    """The calibrated static-grid W8A8 matmul (see the module docstring):
+    any spec (the expansion is applied to the activations before the
+    grid, so multipliers and biases need not be folded), a per-tensor
+    ``a_scale``."""
+    a_s = w.a_scale
+    if a_s.numel() != 1:
+        raise ValueError(f"{what}: a static activation grid takes one a_scale per tensor, "
+                         f"got shape {tuple(a_s.shape)}")
+    q = qmax(w.a_bits)
+    a_s = a_s.to(device=x.device, dtype=torch.float32).reshape(())
+    xe = expand_activations(x, w.spec)
+    x8 = torch.clamp(torch.floor(xe / a_s + 0.5), -q, q).to(torch.int8)
+    lead = x.shape[:-1]
+    y = kops.quant_matmul(x8.reshape(-1, x8.shape[-1]).contiguous(), w.weight.values,
+                          _flat_w_scale(w), a_s, out_dtype=x.dtype)
     return y.reshape(lead + (y.shape[-1],))
 
 
@@ -174,13 +208,11 @@ def _dense(w, x: torch.Tensor, mode: str, name: str) -> torch.Tensor:
             )
         if mode not in MODES:
             raise ValueError(f"{what}: matmul mode must be one of {MODES}, got {mode!r}")
-        if w.a_bits is not None and w.a_scale is not None:
-            raise NotImplementedError(
-                f"{what}: static calibrated activation grids (a_scale) are not "
-                "ported (ROADMAP A14)"
-            )
+        static = mode == "w8a8" and w.a_bits is not None and w.a_scale is not None
         bits = w.a_bits if w.a_bits is not None else 8
         if _is_expert_stack(w.weight.values, w.spec.mult, x):
+            if static:
+                raise ValueError(f"{what}: an expert stack has no static activation grid")
             if mode == "dequant":
                 return _ocs_dequant_stack(w, x)
             _check_packed(w)
@@ -192,8 +224,13 @@ def _dense(w, x: torch.Tensor, mode: str, name: str) -> torch.Tensor:
             )
         if mode == "dequant":
             return _ocs_dequant(w, x)
+        if static:
+            return _static_w8a8(w, x, what)
         _check_packed(w)
         return _fused_w8a8(w, x, bits)
+    site = actquant.site_key(name)
+    if site is not None:  # an activation-PTQ context (Tables 3 and 4)
+        x, w = actquant.apply_act_quant(x, w.to(x.dtype), site)
     return x @ w.to(x.dtype)
 
 
@@ -234,6 +271,20 @@ def layer_norm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
 
 def embed(table: torch.Tensor, ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     return table[ids.long()].to(dtype)
+
+
+def act_quant(x: torch.Tensor, bits, clip) -> torch.Tensor:
+    """Fake-quantize an activation on a *fixed* calibrated grid (paper §5):
+    ``floor(x / step + 0.5)`` with ``step = clip / qmax`` in float32 and a
+    true division (the reference's form for a runtime ``clip``), clamped,
+    times ``step``, in ``x``'s dtype. ``bits`` or ``clip`` None: ``x``."""
+    if bits is None or clip is None:
+        return x
+    q = qmax(bits)
+    step = torch.as_tensor(clip, dtype=torch.float32, device=x.device) / torch.tensor(
+        float(q), dtype=torch.float32, device=x.device)
+    v = torch.clamp(torch.floor(x.to(torch.float32) / step + 0.5), -q, q)
+    return (v * step).to(x.dtype)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

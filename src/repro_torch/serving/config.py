@@ -2,8 +2,10 @@
 per-request :class:`SamplingParams`, and ``EngineConfig`` with the fields
 the engine uses (the paged or unpaged cache, speculation, admission, the
 step scheduler, the bounded queue, the watchdog, and the observability
-layer's span trace, profiler window and drift monitor), the same defaults,
-help texts and validation as the reference, and the argparse flags
+layer's span trace, profiler window and drift monitor, and the
+attention-time probe), the same defaults,
+help texts (the probe's names the port's own timing) and validation as
+the reference, and the argparse flags
 generated from it (``spec`` becomes ``--spec-k`` / ``--draft-layers``;
 ``trace`` a ``store_true`` flag; ``paged`` a three-state ``--paged
 {auto,on,off}``). Contradicting fields raise :class:`ConfigError`.
@@ -118,6 +120,14 @@ class EngineConfig:
         metadata={
             "help": "KV pool pages (0/unset = the fixed-slot footprint)",
             "optional_int": True,
+        },
+    )
+    attn_probe: bool = dataclasses.field(
+        default=False,
+        metadata={
+            "help": "probe per-step attention time into stats().attn_step_ms "
+            "(layer 0's paged attention on a copy of its pool, timed on the device)",
+            "store_true": True,
         },
     )
     admission: str = dataclasses.field(

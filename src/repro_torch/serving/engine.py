@@ -224,8 +224,8 @@ class TokenEvent:
 class EngineStats:
     """Typed serving counters under the reference's field names: its stats
     schema v10 without the fields of what the port does not have (JAX
-    backends, jit traces and compile time, the kernel fallback, the
-    attention-time probe); ``spec_compile_s`` stays 0. ``device`` is the
+    backends, jit traces and compile time, the kernel fallback);
+    ``spec_compile_s`` stays 0. ``device`` is the
     port's own. Every field is derived from the engine's metrics registry,
     as the reference's v8+ is: counts read registry counters, latency means
     and percentiles the registry histograms (nearest-rank over a rolling
@@ -274,6 +274,7 @@ class EngineStats:
     kv_bits: float = 0.0
     kv_bytes_per_token: float = 0.0
     kv_pool_capacity_tokens: float = 0.0
+    attn_step_ms: float = 0.0
     spec_enabled: float = 0.0
     spec_rounds: float = 0.0
     spec_k: float = 0.0
@@ -504,6 +505,9 @@ class ServingEngine:
                       if config.spec is not None else None)
         if self._spec is not None:
             self._spec.trace = self.trace  # draft/verify spans, engine lane
+        # Per-step attention-time probe (stats()["attn_step_ms"]); paged
+        # engines only, off by default.
+        self.attn_probe = config.attn_probe and self.paged
 
     # ------------------------------------------------------------- sampling
 
@@ -1801,6 +1805,48 @@ class ServingEngine:
         """Per-site drift diagnostics ({} when ``drift_every`` is off)."""
         return self._drift.report() if self._drift is not None else {}
 
+    def _attn_step_ms(self) -> float:
+        """Probe the decode-attention hot path: the best of 3 warm calls
+        (after one warm-up) of layer 0's ``attention_decode`` (its
+        projections and B2) at positions ``max_len // 2`` on every lane,
+        over the live page table, in ms: CUDA events on the card, the host
+        clock on the CPU. An instrument, not an average over the run, at a
+        fixed position so that runs compare. The call appends its K/V rows
+        into the pool it is given (in place on the card), so it runs on a
+        copy of layer 0's pool: the live pools, positions and allocator are
+        untouched. The input is zeros in bfloat16, the serving activations'
+        dtype. 0.0 when the probe is off or the engine unpaged."""
+        if not self.attn_probe:
+            return 0.0
+        p0 = T.layer_params(self.params, 0)["attn"]
+        pool = {k: t.clone() for k, t in self.caches["layers"][0]["attn"].items()}
+        table = self.caches["table"]
+        pos = torch.full((self.max_batch,), self.max_len // 2, dtype=torch.int32,
+                         device=self.device)
+        x = torch.zeros((self.max_batch, 1, self.cfg.d_model), dtype=torch.bfloat16,
+                        device=self.device)
+
+        def call():
+            T.attention_decode(p0, x, pool, pos, self.cfg, table=table, mode=self.matmul_mode)
+
+        cuda = self.device.type == "cuda"
+        best = float("inf")
+        with torch.no_grad():
+            call()  # warm
+            for _ in range(3):
+                if cuda:
+                    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    t0.record()
+                    call()
+                    t1.record()
+                    t1.synchronize()
+                    best = min(best, t0.elapsed_time(t1))
+                else:
+                    t0 = time.perf_counter()
+                    call()
+                    best = min(best, (time.perf_counter() - t0) * 1e3)
+        return best
+
     def engine_stats(self) -> EngineStats:
         """The typed stats record (``stats()`` is its dict view), derived
         from the metrics registry: counts read registry counters (through
@@ -1868,6 +1914,7 @@ class ServingEngine:
             trace_events=float(len(self.trace)) if self.trace is not None else 0.0,
             trace_dropped=float(self.trace.dropped) if self.trace is not None else 0.0,
             drift_enabled=1.0 if self._drift is not None else 0.0,
+            attn_step_ms=self._attn_step_ms(),
             device=str(self.device),
         )
         if self._spec is not None:

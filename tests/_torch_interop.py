@@ -14,7 +14,7 @@ import torch
 def jax_tree_to_numpy(tree):
     """repro params (dicts of jax arrays / OCSQuantLinear / W4A8Linear) ->
     nested dicts of numpy arrays, quantized leaves as ``{values, scale, src,
-    mult, bias, n_orig, a_bits, bits}``, W4A8 leaves as ``{w4, s4, w8, s8,
+    mult, bias, n_orig, a_bits, bits, a_scale}``, W4A8 leaves as ``{w4, s4, w8, s8,
     outlier_idx, src, mult, bias, n_orig, a_bits}``."""
     from repro.core.ocs import OCSQuantLinear, W4A8Linear
 
@@ -42,6 +42,7 @@ def jax_tree_to_numpy(tree):
             "n_orig": tree.n_orig,
             "a_bits": tree.a_bits,
             "bits": tree.weight.bits,
+            "a_scale": None if tree.a_scale is None else np.asarray(tree.a_scale, np.float32),
         }
     if isinstance(tree, dict):
         return {k: jax_tree_to_numpy(v) for k, v in tree.items()}

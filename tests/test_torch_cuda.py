@@ -2438,3 +2438,146 @@ def test_glm4_9b_layer0_aciq_kl_card_vs_cpu_cuda(method):
     for part in ("attn", "mlp"):
         for name, a in fc["layers"][part].items():
             assert _same_bits(a, fh["layers"][part][name]), name
+
+
+# ---------------------------------------------------------------------------
+# The activation side of the experiments: the static-grid W8A8 branch of
+# ``dense`` (B5's int8 route), the convnet under activation-PTQ contexts,
+# and the engine's attention probe.
+
+
+def _chip_smoke_const(name):
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return getattr(mod, name)
+
+
+def _static_leaf(k, s, n, seed, a_scale):
+    """A quantized leaf with an OCS tail of ``s`` halved duplicates (its
+    multipliers unfolded: the static branch expands the activations) and a
+    calibrated grid."""
+    from repro_torch.core.ocs import OCSQuantLinear, OCSSpec
+    from repro_torch.core.quantizer import QuantParams
+
+    g, w8, ws, src = _b1_weights(k, s, n, seed)
+    npad = tqm.padded_cols(n, 16)
+    mult = torch.ones(k + s, device="cuda")
+    mult[src.long()] = 0.5
+    mult[k:] = 0.5
+    spec = OCSSpec(src=torch.cat([torch.arange(k, device="cuda", dtype=torch.int32), src]),
+                   mult=mult, bias=torch.zeros(k + s, device="cuda"))
+    return g, OCSQuantLinear(QuantParams(tqm.pad_cols(w8, npad), tqm.pad_cols(ws, npad)[None],
+                                         8), spec, n_orig=k, a_bits=8,
+                             a_scale=torch.tensor([[a_scale]], device="cuda"), n_out=n)
+
+
+# (shape, M): glm4-9b's at decode rows (the CPU's plain int8 GEMM of a
+# 1024-row glm4-9b call would take the test's time), the bench LM's at a
+# gate batch too.
+STATIC_GRID_CASES = [(sh, m) for sh in ("glm4-9b wq", "glm4-9b w_down") for m in (1, 8)] + [
+    (sh, m) for sh in ("bench-lm wq", "bench-lm w_down", "bench-lm lm_head")
+    for m in (1, 8, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,m", STATIC_GRID_CASES)
+def test_static_grid_w8a8_card_vs_cpu_cuda(shape, m):
+    """``dense`` in w8a8 on a leaf with a calibrated grid, on the card (the
+    expansion, the grid and B5's int8 route) and on the CPU (the plain
+    version) on the same inputs: bitwise, at glm4-9b's and the bench LM's
+    shapes; one B5 launch a call."""
+    cuda_or_skip()
+    from repro_torch.core.apply import tree_to
+    from repro_torch.models import layers
+
+    k, s, n = {"glm4-9b wq": (4096, 82, 4096), "glm4-9b w_down": (13696, 274, 4096),
+               "bench-lm wq": (128, 3, 128), "bench-lm w_down": (256, 6, 128),
+               "bench-lm lm_head": (128, 3, 512)}[shape]
+    g, leaf = _static_leaf(k, s, n, m + k, 0.0123)
+    x = (torch.randn((m, k), generator=g, device="cuda") * 0.3).to(torch.bfloat16)
+    n0 = tqm.launches
+    got = layers.dense(leaf, x, mode="w8a8")
+    torch.cuda.synchronize()
+    assert tqm.launches == n0 + 1
+    cpu = tree_to({"w": leaf}, "cpu")["w"]
+    want = layers.dense(cpu, x.cpu(), mode="w8a8")
+    assert got.shape == want.shape == (m, n) and _same_bits(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["static_ocs", "oracle"])
+def test_convnet_act_quant_card_vs_cpu_cuda(kind, monkeypatch):
+    """The experiments' convnet (its seeded init) under a static-OCS
+    context (r 0.05, a4) and an oracle context (r 0.02, a4, batch 8),
+    calibrated on the CPU: the logits on the card within
+    ``chip_smoke.EXP_F32_RTOL`` of the largest CPU logit, and the card's
+    calibration giving the same split specs."""
+    cuda_or_skip()
+    from repro_torch.core.actquant import ActQuantCtx, act_quant_ctx
+    from repro_torch.core.ocs import OCSSpec
+    from repro_torch.experiments import common
+    from repro_torch.experiments.table4 import _oracle_clip
+    from repro_torch.models.convnet import convnet_forward, make_synthetic_images
+
+    for mod, flag, val in ((torch.backends.cuda.matmul, "allow_tf32", False),
+                           (torch.backends.cudnn, "allow_tf32", False),
+                           (torch.backends.cudnn, "deterministic", True)):
+        monkeypatch.setattr(mod, flag, val)
+    p_cpu = common.init_subject("convnet", "cpu")
+    p_card = tree_to(p_cpu, "cuda")
+    coll = common.calibrate_convnet(p_cpu)
+    coll_card = common.calibrate_convnet(p_card)
+    assert sorted(coll.sites) == sorted(coll_card.sites)
+    if kind == "static_ocs":
+        ctx = common.build_ctx(coll, 4, None, 0.05, device="cpu")
+        card = common.build_ctx(coll_card, 4, None, 0.05, device="cuda")
+        for site, spec in ctx.specs.items():
+            assert torch.equal(card.specs[site].src.cpu(), spec.src), site
+        card = ActQuantCtx(bits=4, clips=ctx.clips,
+                           specs={site: OCSSpec(sp.src.cuda(), sp.mult.cuda(), sp.bias.cuda())
+                                  for site, sp in ctx.specs.items()})
+    else:
+        clips = {s: _oracle_clip(st, 0.02) for s, st in coll.sites.items()}
+        ctx = ActQuantCtx(bits=4, clips=clips, oracle_ratio=0.02)
+        card = ActQuantCtx(bits=4, clips=clips, oracle_ratio=0.02)
+    x = torch.from_numpy(make_synthetic_images(8, common.CONV_CFG, seed=777)["images"])
+    with torch.no_grad():
+        with act_quant_ctx(ctx):
+            want = convnet_forward(p_cpu, x, common.CONV_CFG)
+        with act_quant_ctx(card):
+            got = convnet_forward(p_card, x.cuda(), common.CONV_CFG).cpu()
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    print(f"convnet {kind} card vs CPU: {err:.3g}")
+    assert err <= _chip_smoke_const("EXP_F32_RTOL"), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,kv_bits", [("dequant", None), ("w8a8", 8)])
+def test_attn_probe_leaves_the_pool_cuda(mode, kv_bits):
+    """On the card B2 appends in place: the probe runs on a copy of layer
+    0's pool, so every live pool byte, the table and the positions are
+    unchanged across ``stats()``, and ``attn_step_ms`` (CUDA events) > 0."""
+    cuda_or_skip()
+    from repro_torch.serving import EngineConfig, ServingEngine
+
+    cfg, q = _smoke_tree("w8a8")
+    eng = ServingEngine(cfg, q, EngineConfig(max_batch=3, max_len=64, matmul_mode=mode,
+                                             kv_bits=kv_bits, attn_probe=True), device="cuda")
+    for r in _lifecycle_reqs(cfg, 3, (5, 9, 12), 10):
+        eng.submit(r)
+    for _ in range(4):
+        eng.step()
+    before = [{k: t.clone() for k, t in layer["attn"].items()} for layer in eng.caches["layers"]]
+    table, pos = eng.caches["table"].clone(), eng.caches["pos"].clone()
+    st = eng.stats()
+    torch.cuda.synchronize()
+    assert st["attn_step_ms"] > 0.0
+    for layer, old in zip(eng.caches["layers"], before):
+        for k, t in layer["attn"].items():
+            assert _same_bits(t, old[k]), k
+    assert torch.equal(eng.caches["table"], table) and torch.equal(eng.caches["pos"], pos)

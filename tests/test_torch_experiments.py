@@ -304,4 +304,4 @@ def test_experiments_run_cli_cpu(tmp_path, capsys):
     assert (tmp_path / "results" / "table5.json").exists()
     assert (tmp_path / "results" / "tables.json").exists()
     with pytest.raises(SystemExit):
-        R.main(["--only", "table3", "--device", "cpu", "--out", str(tmp_path)])
+        R.main(["--only", "table9", "--device", "cpu", "--out", str(tmp_path)])

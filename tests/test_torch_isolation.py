@@ -64,7 +64,11 @@ def test_imports_without_jax_or_repro():
               "repro_torch.experiments.table1", "repro_torch.experiments.table2",
               "repro_torch.experiments.table5", "repro_torch.experiments.table6",
               "repro_torch.experiments.table7", "repro_torch.experiments.run",
-              "repro_torch.launch.quality_eval"):
+              "repro_torch.launch.quality_eval", "repro_torch.core.actquant",
+              "repro_torch.experiments.table3", "repro_torch.experiments.table4",
+              "repro_torch.examples", "repro_torch.examples.quickstart",
+              "repro_torch.examples.serve_quantized",
+              "repro_torch.examples.calibrate_activations"):
         assert m in mods
     code = (
         "import sys, importlib, importlib.util\n"

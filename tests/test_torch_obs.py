@@ -541,11 +541,13 @@ def test_observability_config_validation():
         EngineConfig(drift_threshold=1.0)
     from repro.serving import EngineConfig as JConfig
 
-    for f in ("trace", "trace_capacity", "profile_dir", "drift_every", "drift_threshold"):
+    for f in ("trace", "trace_capacity", "profile_dir", "drift_every", "drift_threshold",
+              "attn_probe"):
         jf = next(x for x in dataclasses.fields(JConfig) if x.name == f)
         tf = next(x for x in dataclasses.fields(EngineConfig) if x.name == f)
         assert tf.default == jf.default, f
-        if f != "profile_dir":  # the port's window is torch.profiler's
+        # The port's window is torch.profiler's; its probe compiles nothing.
+        if f not in ("profile_dir", "attn_probe"):
             assert tf.metadata["help"] == jf.metadata["help"], f
 
 
