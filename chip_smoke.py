@@ -260,6 +260,31 @@ Phases (any failure raises, and the script exits non-zero with no result):
    allocator held across ``stats()``; the port's three examples
    (``repro_torch.examples``), each once. Each new step's seconds
    printed.
+6e. (o) Training and its infrastructure (``training_phase``).
+   hymba-1.5b at its published width and depth (1.641 B parameters, 128
+   meta tokens, window 1024, global layers 0/15/31) trained
+   ``TRAIN_STEPS`` (5) steps and deepseek-moe-16b at full width and
+   ``TRAIN_MOE_LAYERS`` (4 of 28, a cut: its whole tree with gradients and
+   moments is ~251.5 GiB) 3 steps, each through ``launch.train``'s
+   ``main`` at batch 8 x 128 with no checkpoint (one would be 15 GB or
+   more): every step's loss and grad norm finite, each step's seconds,
+   steps/s, peak device memory and the MoE's dropped assignments
+   printed. One ``make_train_step`` on the card and on the CPU from the
+   same smoke weights for seven configs (every block kind; MoE routing
+   forced to the CPU's, ``ROUTE_TIE``), held to ``TRAIN_DELTA_RTOL`` and
+   its neighbours. The kill-and-restart drill (``DRILL_ARGS``: the
+   reference test's deepseek-7b smoke, 10 steps of 2 x 32, a checkpoint
+   every 3): ``python -m repro_torch.launch.train`` uninterrupted (with
+   ``--ptq-after``) and killed after step 6 at once, then the killed
+   command again; exit codes 0, 1, 0, "restored step 6", the final
+   checkpoints bitwise equal, and bitwise the same run in this process;
+   the ``--ptq-after`` losses within ``PTQ_CARD_RTOL`` of the CPU's on the
+   same checkpoint. ``launch.serve --ckpt-dir`` on that checkpoint in
+   dequant (counts set to 0 just before): B4 and B2 launched (the path
+   ``deepseek-7b smoke launch.serve --ckpt-dir`` in ``launches_by_path``),
+   every token bitwise the in-memory trained tree's. The
+   ``train_then_quantize`` example once, at its 300 steps, with its claim
+   check. Each step's seconds printed.
 7. Reference check: a smoke-size glm4-9b run through prefill and
    teacher-forced decode on the card (kernels) and on the CPU (plain
    versions) from the same weights, in w8a8 (int8 pages), dequant (float
@@ -281,7 +306,9 @@ start), a ``kernels`` JSON line (every kernel's launches on its path,
 and hubert-xlarge's forward, the SSM, hybrid, qwen2-vl-7b, minitron-8b
 and hubert-xlarge models' GEMMs and the bench LM's in the quality gate
 (``*_benchlm``, and ``quant_matmul_static_benchlm``, B5's int8 route in
-the static-grid tier) as entries of their own; error, times and bound), the
+the static-grid tier) as entries of their own; ``launches_by_path`` also
+holds the ``launch.serve --ckpt-dir`` path of phase (o); error, times
+and bound), the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Per-shape detail goes to
 ``<out>/chip_smoke.json``.
@@ -4116,6 +4143,433 @@ def experiments_phase(args, gen):
                 seconds=wall)
 
 
+# ---------------------------------------------------------------------------
+# Phase (o): training and its infrastructure on the card.
+
+# hymba-1.5b at its published width and depth, deepseek-moe-16b at full
+# width and TRAIN_MOE_LAYERS deep (a cut: its whole tree with gradients and
+# AdamW moments is ~251.5 GiB), each through launch.train's loop at batch
+# TRAIN_BATCH x TRAIN_SEQ tokens, no checkpoint (one would be 15 GB or more).
+TRAIN_STEPS = {"hymba-1.5b": 5, "deepseek-moe-16b": 3}
+TRAIN_MOE_LAYERS = 4
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+# One make_train_step on the card and on the CPU from the same smoke
+# weights and batch (a schedule at its full lr from the first step). A
+# first Adam update is about +-lr a weight, its sign the gradient's: where
+# a gradient is near zero, a bf16 rounding may flip it, a difference of two
+# updates. So the update as a whole is held, ||card - cpu|| / ||cpu -
+# init|| over every weight within TRAIN_DELTA_RTOL (the CPU tests' limit
+# for the port against the reference, tests/_torch_steps.py), each weight
+# only within TRAIN_PARAM_TOL learning rates (the sign-flip bound), the
+# share of flipped weights printed; each leaf of m (0.1 x the clipped
+# gradient) within TRAIN_GRAD_RTOL of its largest, the loss within
+# TRAIN_LOSS_RTOL and the grad norm within TRAIN_GNORM_RTOL, relative.
+TRAIN_CARD_ARCHS = ("deepseek-7b", "qwen2-vl-7b", "hubert-xlarge", "deepseek-moe-16b",
+                    "phi3.5-moe-42b-a6.6b", "mamba2-1.3b", "hymba-1.5b")
+TRAIN_PARAM_TOL = 2.0
+TRAIN_DELTA_RTOL = 0.08
+TRAIN_GRAD_RTOL = 0.05
+TRAIN_LOSS_RTOL = 2e-3
+TRAIN_GNORM_RTOL = 0.02
+# The kill-and-restart drill: the reference test's size and schedule.
+DRILL_ARGS = ["--arch", "deepseek-7b", "--smoke", "--steps", "10", "--batch", "2", "--seq",
+              "32", "--ckpt-every", "3", "--log-every", "1"]
+DRILL_FAIL_AT = 6
+# The drill's --ptq-after losses (float and three recipes) on the card vs
+# the same evaluation of the same checkpoint on the CPU, relative, plus the
+# printed rounding (4 decimals).
+PTQ_CARD_RTOL = 2e-3
+
+
+def train_main_cut(cfg, argv):
+    """``launch.train.main(argv)`` with ``--arch`` resolving to ``cfg``
+    (a cut of the registry's config), its printed lines captured:
+    (return value, printed lines)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as TR
+
+    get_config = TR.get_config
+    TR.get_config = lambda arch: cfg
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = TR.main(argv)
+    finally:
+        TR.get_config = get_config
+    return res, buf.getvalue().splitlines()
+
+
+def full_train_run(arch, cfg, out_dir):
+    """``launch.train``'s loop at full width on the card, TRAIN_STEPS[arch]
+    steps of TRAIN_BATCH x TRAIN_SEQ, no checkpoint: every step's loss and
+    grad norm finite; seconds a step, steps/s, peak device memory and (MoE)
+    the dropped assignments printed."""
+    import torch
+
+    steps = TRAIN_STEPS[arch]
+    n_params = _n_params(cfg)
+    metrics = Path(out_dir) / f"train_{arch}.jsonl"
+    metrics.parent.mkdir(parents=True, exist_ok=True)
+    metrics.unlink(missing_ok=True)
+    PEAK_BYTES[0] = max(PEAK_BYTES[0], torch.cuda.max_memory_allocated())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    routing = RoutingCounts()
+    t0 = time.perf_counter()
+    with routing:
+        routing.kind = "train"
+        train_main_cut(cfg, ["--arch", arch, "--steps", str(steps), "--batch", str(TRAIN_BATCH),
+                             "--seq", str(TRAIN_SEQ), "--log-every", "1", "--metrics-out",
+                             str(metrics)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    recs = [json.loads(line) for line in metrics.read_text().splitlines()]
+    if [r["step"] for r in recs] != list(range(steps)) or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in recs):
+        raise AssertionError(f"train {arch}: steps or values wrong: {recs}")
+    step_s = [r["dt_s"] for r in recs]
+    drops = routing.summary().get("train")
+    for r in recs:
+        log(f"train {arch} ({cfg.n_layers} layers, {n_params / 1e9:.3f} B params, batch "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ}): step {r['step']} loss {r['loss']} grad_norm "
+            f"{r['grad_norm']} lr {r['lr']:.3g} {r['dt_s']:.3f} s")
+    later = step_s[1:] or step_s
+    log(f"train {arch}: {steps} steps in {wall:.1f} s (init and optimizer state included); "
+        f"steps after the first {sum(later) / len(later):.3f} s a step, "
+        f"{len(later) / sum(later):.3f} steps/s; peak device memory {peak / 2**30:.2f} GiB"
+        + (f"; MoE routing: {drops['dropped']} of {drops['assigned']} assignments dropped "
+           f"over {drops['calls']} routings" + (
+               " (cfg.remat: each layer routes in its forward and again, identically, in "
+               "its backward)" if cfg.remat else "") if drops else ""))
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, params=n_params, steps=recs, seconds=wall,
+                step_s=step_s, steps_per_s=len(later) / sum(later), peak_mem_gib=peak / 2**30,
+                moe_drops=drops)
+
+
+def _n_params(cfg) -> int:
+    from repro_torch.core.apply import map_with_path
+    from repro_torch.models import transformer as T
+
+    sizes = []
+    map_with_path(lambda _p, s: sizes.append(math.prod(s)), T.model_params_shape(cfg),
+                  is_leaf=lambda x: isinstance(x, tuple))
+    return sum(sizes)
+
+
+def _smoke_train_batch(cfg, seed, dev):
+    """A smoke batch of 4 x 32: the synthetic stream's tokens and labels
+    (the encoder: seeded frame embeddings with the stream's labels)."""
+    import numpy as np
+    import torch
+    from repro_torch.data import SyntheticLM
+
+    batch = SyntheticLM(cfg.vocab, 32, 4, seed=seed).batch_at(0)
+    if cfg.frontend == "audio":
+        rng = np.random.default_rng(seed)
+        batch = {"embeds": rng.normal(size=(4, 32, cfg.d_model)).astype(np.float32),
+                 "labels": batch["labels"]}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in batch.items()}
+
+
+def train_card_vs_cpu(arch, seed=0):
+    """One ``make_train_step`` of the smoke ``arch`` on the card and on the
+    CPU from the same weights (drawn on the CPU) and batch, a MoE model's
+    card routing forced to the CPU's (its own choice may part only at a
+    near-tie, ``ROUTE_TIE``): the limits of TRAIN_PARAM_TOL and its
+    neighbours. Returns the readings."""
+    import torch
+    from repro_torch.checkpoint import flatten_with_path as _flat
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.steps import TrainHyper, make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_map
+
+    cfg = smoke_config(arch)
+    params = T.init_params(cfg, seed=seed, device="cpu")
+    step = make_train_step(cfg, TrainHyper(lr=3e-3, warmup=0, total_steps=10))
+    # Copies: the step updates its input in place, and params stays the init.
+    pg = tree_map(lambda t: t.to("cuda", copy=True), params)
+    pc = tree_map(torch.clone, params)
+    with ForcedRoutes() as rec:
+        pc, oc, mc = step(pc, adamw_init(pc), _smoke_train_batch(cfg, seed, "cpu"))
+    with ForcedRoutes(rec.routes) as rep:
+        pd, od, md = step(pg, adamw_init(pg), _smoke_train_batch(cfg, seed, "cuda"))
+    lr = float(mc["lr"])
+    reads = {"params_lr_units": 0.0, "delta": 0.0, "flipped": 0.0, "m": 0.0,
+             "loss": abs(float(md["loss"]) - float(mc["loss"])) / abs(float(mc["loss"])),
+             "grad_norm": abs(float(md["grad_norm"]) - float(mc["grad_norm"]))
+             / float(mc["grad_norm"]), "route_flips": len(rep.margins),
+             "routings": len(rec.routes)}
+    num = den = flipped = total = 0.0
+    for (path, a), (_, b), (_, i) in zip(_flat(pc), _flat(pd), _flat(params)):
+        d = (b.cpu().double() - a.double()).abs()
+        reads["params_lr_units"] = max(reads["params_lr_units"], d.max().item() / lr)
+        num += float((d * d).sum())
+        den += float(((a.double() - i.double()) ** 2).sum())
+        flipped += float((d > lr).sum())
+        total += d.numel()
+    reads["delta"] = (num / den) ** 0.5
+    reads["flipped"] = flipped / total
+    for (path, a), (_, b) in zip(_flat(oc.m), _flat(od.m)):
+        if not torch.isfinite(b).all():
+            raise AssertionError(f"train card vs CPU {arch}: m/{path} not finite")
+        reads["m"] = max(reads["m"], (b.cpu() - a).abs().max().item()
+                         / max(a.abs().max().item(), 1e-30))
+    ok = (reads["params_lr_units"] <= TRAIN_PARAM_TOL and reads["delta"] <= TRAIN_DELTA_RTOL
+          and reads["m"] <= TRAIN_GRAD_RTOL
+          and reads["loss"] <= TRAIN_LOSS_RTOL and reads["grad_norm"] <= TRAIN_GNORM_RTOL
+          and all(m <= ROUTE_TIE for m in rep.margins))
+    if not ok:
+        raise AssertionError(f"train card vs CPU {arch}: {reads}, margins {rep.margins}")
+    return reads
+
+
+def _final_checkpoint(d):
+    """(manifest, {path: array}) of the newest checkpoint in ``d``."""
+    import numpy as np
+    from repro_torch.checkpoint import CheckpointManager
+
+    step = CheckpointManager(str(d), async_write=False).latest_step()
+    sd = Path(d) / f"step_{step:08d}"
+    man = json.loads((sd / "manifest.json").read_text())
+    return man, {p: np.load(sd / r["file"]) for p, r in man["arrays"].items()}
+
+
+def _run_all(cmds, env, timeout):
+    """Run the commands at once; (stdout, stderr, exit code) of each, in
+    order. Every process is ended before this returns."""
+    procs = [subprocess.Popen(c, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    try:
+        return [p.communicate(timeout=timeout) + (p.returncode,) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def train_drill(out_dir, seed=0):
+    """The kill-and-restart drill on the card, at the reference test's size
+    (``DRILL_ARGS``): ``python -m repro_torch.launch.train`` run
+    uninterrupted (with ``--ptq-after``) and, at the same time, killed
+    after step ``DRILL_FAIL_AT``; then the killed run's command again. Exit
+    codes 0, 1, 0; "restored step 6"; every array of the two final
+    checkpoints bitwise equal. The same run in this process (the launcher's
+    ``main``), its trained tree kept: its checkpoint bitwise the
+    subprocesses'. The ``--ptq-after`` losses against the same evaluation on
+    the CPU of the final checkpoint, within PTQ_CARD_RTOL."""
+    import ast
+    import os
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import CheckpointManager, place
+    from repro_torch.checkpoint import flatten_with_path as _flat
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.apply import fake_quantize_params
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as TR
+
+    root = Path(out_dir) / "train_drill"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    a, b, c = (str(root / n) for n in "abc")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.train"] + DRILL_ARGS
+    t0 = time.perf_counter()
+    ra, rb1 = _run_all([base + ["--ckpt-dir", a, "--ptq-after"],
+                        base + ["--ckpt-dir", b, "--simulate-failure", str(DRILL_FAIL_AT)]],
+                       env, 600)
+    (rb2,) = _run_all([base + ["--ckpt-dir", b]], env, 600)
+    t_sub = time.perf_counter() - t0
+    codes = (ra[2], rb1[2], rb2[2])
+    if codes != (0, 1, 0) or f"restored step {DRILL_FAIL_AT}" not in rb2[0]:
+        raise AssertionError(f"train drill: exit codes {codes}; stderr "
+                             f"{[r[1][-1500:] for r in (ra, rb1, rb2)]}; resumed stdout "
+                             f"{rb2[0][-1500:]}")
+    kept = {}
+    make = TR.make_train_step
+
+    def keeping(cfg, hyper):
+        step = make(cfg, hyper)
+
+        def run(params, opt_state, batch):
+            kept["params"], kept["opt"], m = step(params, opt_state, batch)
+            return kept["params"], kept["opt"], m
+
+        return run
+
+    TR.make_train_step = keeping
+    t1 = time.perf_counter()
+    try:
+        train_main_cut(smoke_config("deepseek-7b"), DRILL_ARGS + ["--ckpt-dir", c])
+    finally:
+        TR.make_train_step = make
+    torch.cuda.synchronize()
+    t_in = time.perf_counter() - t1
+    ma, xa = _final_checkpoint(a)
+    for other in (b, c):
+        mo, xo = _final_checkpoint(other)
+        if mo != ma or any(not (xa[p].dtype == xo[p].dtype and (xa[p] == xo[p]).all())
+                           for p in xa):
+            raise AssertionError(f"train drill: {other}'s final checkpoint is not bitwise "
+                                 f"the uninterrupted run's")
+    for (p, t) in _flat(kept["params"]):
+        if not (t.cpu().numpy() == xa["0/" + p]).all():
+            raise AssertionError(f"train drill: kept tree {p} differs from its checkpoint")
+    line = next(ln for ln in ra[0].splitlines() if ln.startswith("[ptq]"))
+    card = ast.literal_eval(line.split("eval loss: ", 1)[1])
+    cfg = smoke_config("deepseek-7b")
+    t2 = time.perf_counter()
+    (params, _), _ = CheckpointManager(a, async_write=False).restore(
+        (kept["params"], kept["opt"]))
+    params = place(params, "cpu")
+    ds = SyntheticLM(cfg.vocab, 32, 2, seed=seed)
+    cpu = {"float": TR.evaluate(params, cfg, ds, torch.device("cpu"))}
+    for name, recipe in TR.ptq_recipes(5, 0.02):
+        cpu[name] = TR.evaluate(fake_quantize_params(params, recipe), cfg, ds,
+                                torch.device("cpu"))
+    t_cpu = time.perf_counter() - t2
+    err = {k: abs(card[k] - cpu[k]) for k in cpu}
+    if any(err[k] > PTQ_CARD_RTOL * abs(cpu[k]) + 5e-5 for k in cpu):
+        raise AssertionError(f"train drill --ptq-after: card {card} vs CPU {cpu}")
+    log(f"train drill (deepseek-7b smoke, 10 steps of 2 x 32, checkpoint every 3, killed "
+        f"after step {DRILL_FAIL_AT}): exit codes {codes}, restored step {DRILL_FAIL_AT}; "
+        f"{len(xa)} arrays of the final checkpoints bitwise equal (uninterrupted, resumed, "
+        f"in this process); subprocesses {t_sub:.1f} s, in-process run {t_in:.1f} s")
+    log(f"train drill --ptq-after (w5, r 0.02) on the card {card}, the CPU on the same "
+        f"checkpoint {{{', '.join(f'{k!r}: {v:.5f}' for k, v in cpu.items())}}}: max |d| "
+        f"{max(err.values()):.3g} (limit {PTQ_CARD_RTOL} relative + 5e-5); CPU "
+        f"{t_cpu:.1f} s")
+    return dict(dirs={"a": a, "b": b, "c": c}, exit_codes=codes, arrays=len(xa),
+                ptq_card=card, ptq_cpu=cpu, kept=kept["params"], seconds_subprocess=t_sub,
+                seconds_in_process=t_in)
+
+
+def ckpt_serve_phase(drill, seed=0):
+    """``launch.serve --ckpt-dir`` on the drill's checkpoint (deepseek-7b
+    smoke, dequant, float32 pages; counts set to 0 just before and read
+    just after): B4 and B2 launched, every request finished, and the tokens
+    bitwise those served (after the read) from the trained tree held in
+    memory, quantized with the launcher's recipe."""
+    import numpy as np
+    import torch
+    from repro_torch.core.apply import quantize_params
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.launch import serve as S
+
+    served = {}
+    serve_once = S.serve_once
+
+    def recording(cfg, params, reqs, ecfg, **kw):
+        done, stats, eng = serve_once(cfg, params, reqs, ecfg, **kw)
+        served.update(cfg=cfg, ecfg=ecfg, outputs={r.uid: list(r.output) for r in done})
+        return done, stats, eng
+
+    cnt = counters()
+    for mod, attr in cnt.values():
+        setattr(mod, attr, 0)
+    S.serve_once = recording
+    t0 = time.perf_counter()
+    try:
+        with _LogLines("repro_torch.launch.serve") as lines:
+            stats = S.main(["--arch", "deepseek-7b", "--smoke", "--ckpt-dir", drill["dirs"]["a"],
+                            "--n-requests", "8", "--max-new", "16", "--seed", str(seed)])
+    finally:
+        S.serve_once = serve_once
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: getattr(m, a) for k, (m, a) in cnt.items() if getattr(m, a)}
+    restored = [ln for ln in lines if ln.startswith("restored")]
+    if (not launches.get("ocs_matmul") or not launches.get("paged_attention")
+            or stats["completed"] != 8 or not restored):
+        raise AssertionError(f"serve --ckpt-dir: launches {launches}, completed "
+                             f"{stats['completed']}, lines {lines[:3]}")
+    recipe = QuantRecipe(w_bits=8, w_clip="mse", ocs_ratio=0.02, per_channel=True, pad_to=1)
+    q = quantize_params(drill["kept"], recipe, device="cuda")
+    reqs = S._make_requests(8, served["cfg"].vocab, np.random.default_rng(seed), 16)
+    done, _, _ = serve_once(served["cfg"], q, reqs, served["ecfg"], device="cuda")
+    if {r.uid: list(r.output) for r in done} != served["outputs"]:
+        raise AssertionError("serve --ckpt-dir: tokens differ from the in-memory tree's")
+    log(f"launch.serve --ckpt-dir (the drill's checkpoint: {restored[0]}; dequant, float32 "
+        f"pages, 8 requests x 16): every token bitwise the in-memory trained tree's; "
+        f"launches {launches}; decode {stats['decode_tok_per_s']:.1f} tok/s; {wall:.1f} s")
+    return dict(launches=launches, seconds=wall, stats_decode_tok_per_s=stats["decode_tok_per_s"],
+                restored=restored[0])
+
+
+def training_phase(args):
+    """Phase (o): full-width training through launch.train's loop
+    (hymba-1.5b whole, deepseek-moe-16b at TRAIN_MOE_LAYERS), one train
+    step card vs CPU for every block kind (smoke), the kill-and-restart
+    drill, ``launch.serve --ckpt-dir`` on its checkpoint, and the
+    ``train_then_quantize`` example."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.examples import train_then_quantize
+
+    t_phase = time.perf_counter()
+    steps = {}
+    out = {"full": {}}
+    base = get_config("hymba-1.5b")
+    log(f"model: hymba-1.5b at its published width and depth for training (d_model "
+        f"{base.d_model}, {base.n_layers} layers, {base.hymba.n_meta_tokens} meta tokens, "
+        f"window {base.hymba.swa_window}, global layers {base.hymba.global_layers}; no cut)")
+    out["full"]["hymba-1.5b"] = full_train_run("hymba-1.5b", base, args.out)
+    moe_cfg = moe_model("deepseek-moe-16b", TRAIN_MOE_LAYERS)
+    out["full"]["deepseek-moe-16b"] = full_train_run("deepseek-moe-16b", moe_cfg, args.out)
+    steps["full-width training"] = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    out["card_vs_cpu"] = {}
+    for arch in TRAIN_CARD_ARCHS:
+        r = train_card_vs_cpu(arch, args.seed)
+        out["card_vs_cpu"][arch] = r
+        log(f"train step card vs CPU ({arch} smoke, one make_train_step at lr 3e-3 from the "
+            f"same weights): update {r['delta']:.3g} of its norm apart (limit "
+            f"{TRAIN_DELTA_RTOL}), {r['flipped']:.3g} of the weights flipped, each within "
+            f"{r['params_lr_units']:.3g} lr (limit {TRAIN_PARAM_TOL}), m {r['m']:.3g} of its "
+            f"largest (limit {TRAIN_GRAD_RTOL}), "
+            f"loss {r['loss']:.3g}, grad norm {r['grad_norm']:.3g} relative"
+            + (f"; {r['routings']} routings forced, the card's own parting at "
+               f"{r['route_flips']} rows" if r["routings"] else ""))
+    steps["card vs CPU"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    drill = train_drill(args.out, args.seed)
+    steps["drill"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["ckpt_serve"] = ckpt_serve_phase(drill, args.seed)
+    steps["serve --ckpt-dir"] = time.perf_counter() - t0
+    out["drill"] = {k: v for k, v in drill.items() if k != "kept"}
+    del drill
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = train_then_quantize.main(["--ckpt-dir", str(Path(args.out) / "train_e2e"),
+                                        "--device", "cuda"])
+    torch.cuda.synchronize()
+    steps["train_then_quantize"] = time.perf_counter() - t0
+    out["train_then_quantize"] = res
+    log(f"example train_then_quantize on the card (qwen3-14b smoke, 300 steps of 8 x 96, "
+        f"w5): eval loss {res}; claim check OCS+clip <= clip alone + 0.05 holds; "
+        f"{steps['train_then_quantize']:.1f} s")
+    out["step_seconds"] = steps
+    out["seconds"] = time.perf_counter() - t_phase
+    log("training phase steps: " + ", ".join(f"{k} {v:.1f} s" for k, v in steps.items())
+        + f"; {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=40,
@@ -4315,6 +4769,8 @@ def main(argv=None) -> int:
     mark("qwen2-vl-7b, minitron-8b and hubert-xlarge phases")
     exp = experiments_phase(args, gen_k)
     mark("experiments phase")
+    trn = training_phase(args)
+    mark("training phase")
     refc = reference_check(args.seed)
     refc.update(moe_reference_check(args.seed))
     refc.update(ssm_reference_check(args.seed))
@@ -4527,6 +4983,9 @@ def main(argv=None) -> int:
     paths["bench-lm quality gate"] = {base: {"launches": {base: n}}
                                       for base, n in exp_launches.items()}
     paths["bench-lm static-grid w8a8"] = {"quant_matmul": stg}
+    paths["deepseek-7b smoke launch.serve --ckpt-dir"] = {
+        base: {"launches": {base: trn["ckpt_serve"]["launches"][base]}}
+        for base in ("ocs_matmul", "paged_attention")}
     a17 = exp["a17"]
     paths["glm4-9b launch.serve --float-serve"] = {"paged_attention": a17["float-serve"]}
     paths["glm4-9b launch.serve --compare-float"] = {
@@ -4579,7 +5038,7 @@ def main(argv=None) -> int:
                   peak_mem_gib=peak_gb, b1=b1, b2=b2, b2v=b2v, b2v_replay=b2v_replay, b3=b3,
                   b4=b4, b5=b5, b6=b6,
                   verify_check=verify, serve=serves, phase_end_s=marks, moe=moe, ssm=ssm,
-                  slice=sl, experiments=exp,
+                  slice=sl, experiments=exp, training=trn,
                   reference_check=refc, kernels=kernels)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
@@ -4593,7 +5052,8 @@ def main(argv=None) -> int:
         f"{sl['quantize']['minitron-8b']['seconds']:.1f} s, hubert-xlarge "
         f"{sl['quantize']['hubert-xlarge']['seconds']:.1f} s), experiments phase "
         f"{exp['seconds']:.1f} s (training "
-        f"{sum(t['seconds'] for t in exp['train'].values()):.1f} s), depth {L} "
+        f"{sum(t['seconds'] for t in exp['train'].values()):.1f} s), training phase "
+        f"{trn['seconds']:.1f} s, depth {L} "
         f"layers (clip-only tree {cfg_clip.n_layers}; deepseek-moe-16b {Lm}, its clip-only "
         f"tree {moe['clip_layers']}; phi3.5-moe {moe['phi_layers']}), peak device memory "
         f"{peak_gb:.1f} GiB")

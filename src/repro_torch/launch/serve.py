@@ -32,6 +32,12 @@ replay through the decode step, one call a token), ``off`` serves a dense
 or MoE model unpaged too (``--spec-k`` included). Runs on the card; ``--device cpu`` runs the
 plain PyTorch path at smoke size.
 
+``--ckpt-dir DIR`` serves the newest checkpoint's parameters (the ``0/...``
+arrays of a ``launch.train`` checkpoint, or of the reference's) in place
+of the random ones; the memory-mapped arrays are the lazy leaves of
+``quantize_params``, each moved to the device when it is quantized, so the
+float tree is never whole on the card.
+
 ``--float-serve`` skips PTQ and serves the float weights (in ``dequant``:
 float leaves run ``x @ w``, attention B2 on float32 pages);
 ``--compare-float`` serves the same requests again on the float weights
@@ -72,18 +78,23 @@ around the run; progress is logged at ``--log-level``.
     python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu --paged off \
         --spec-k 4
     python -m repro_torch.launch.serve --arch qwen2-vl-7b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch deepseek-7b --smoke --device cpu \
+        --ckpt-dir ckpt   # a launch.train checkpoint
     python -m repro_torch.launch.serve --arch deepseek-moe-16b   # the card, full size
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import time
 
 import numpy as np
+import torch
 
+from ..checkpoint import CheckpointManager, place
 from ..configs import get_config, list_archs, smoke_config
-from ..core.apply import quantize_params
+from ..core.apply import map_with_path, quantize_params
 from ..core.recipe import QuantRecipe
 from ..device import resolve_device
 from ..models import transformer as T
@@ -128,6 +139,8 @@ def build_parser():
                     choices=["least_loaded", "round_robin"],
                     help="router placement policy (only with --replicas > 1)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default="",
+                    help="serve the newest checkpoint's parameters (launch.train's format)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the plain PyTorch path)")
     ap.add_argument("--trace-out", default="",
@@ -166,6 +179,22 @@ _MAX_STATS = (
     "step_p50_ms", "step_p95_ms", "step_stalled", "queue_wait_p50_s",
     "queue_wait_p95_s", "kv_pool_peak_occupancy",
 )
+
+
+def restore_params(cfg, ckpt_dir: str, device, *, lazy: bool):
+    """The newest checkpoint's parameters in ``cfg``'s tree, restored by
+    their ``0/...`` paths (a checkpoint of ``(params, opt_state)``; the
+    optimizer state is not read). ``lazy``: each leaf a zero-argument
+    callable that places its memory-mapped array on ``device``; otherwise
+    the whole tree placed."""
+    ckpt = CheckpointManager(ckpt_dir, async_write=False)
+    shapes = map_with_path(lambda _p, s: torch.empty(s, device="meta"),
+                           T.model_params_shape(cfg), is_leaf=lambda x: isinstance(x, tuple))
+    (arrays,), meta = ckpt.restore((shapes,))
+    log.info("restored %s step %s from %s", meta.get("arch"), ckpt.latest_step(), ckpt_dir)
+    if lazy:
+        return map_with_path(lambda _p, a: functools.partial(place, a, device), arrays)
+    return place(arrays, device)
 
 
 def serve_replicated(cfg, params, reqs, ecfg: EngineConfig, n: int, placement: str, *,
@@ -238,7 +267,10 @@ def main(argv=None):
     # holds all of its float32 weights (deepseek-moe-16b: 67.5 GB). The
     # float arms keep the float tree (the same draws, eagerly).
     keep_float = args.float_serve or args.compare_float
-    params = T.init_params(cfg, seed=args.seed, device=dev, lazy=not keep_float)
+    if args.ckpt_dir:
+        params = restore_params(cfg, args.ckpt_dir, dev, lazy=not keep_float)
+    else:
+        params = T.init_params(cfg, seed=args.seed, device=dev, lazy=not keep_float)
     if args.float_serve:
         qparams = params
     else:

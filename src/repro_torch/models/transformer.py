@@ -9,7 +9,7 @@ Parameters are a nested dict of tensors laid out like the reference's
 
 * :func:`forward` / :func:`loss_fn` — full-sequence logits and their mean
   cross-entropy (evaluation, an encoder's only path, and training: on a
-  float dense tree both are differentiable by ``torch.autograd``), every
+  float tree both are differentiable by ``torch.autograd``), every
   block kind, from tokens or from a stub frontend's embeddings;
 * :func:`prefill_into_pages` — one request's prompt suffix through the
   full-sequence block, its K/V written straight into the page pools (the
@@ -45,6 +45,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.apply import map_with_path, path_str
@@ -239,6 +240,12 @@ def _forward_block(cfg: ModelConfig, p, x, positions, *, mode: str, is_global=No
     return x + mlp(p["mlp"], h, cfg, mode=mode)
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
 def _segments(flags: np.ndarray):
     """Contiguous same-flag runs ``[(lo, hi, flag), ...]`` covering every
     layer (hymba's window and global layers, each run's choice static)."""
@@ -268,7 +275,11 @@ def forward(params, tokens: Optional[torch.Tensor], cfg: ModelConfig, *,
     before the final norm, and its layers run in segments whose
     window/global choice is static (the skipped-chunk window path). The
     layer loop is the reference's unrolled one (``scan=False``); every
-    linear layer runs in ``mode`` at M = B * S."""
+    linear layer runs in ``mode`` at M = B * S. Under autograd (a leaf of
+    ``params`` requires grad) a config with ``remat`` keeps only each
+    layer's input for the backward and runs the layer again there, as the
+    reference's ``jax.checkpoint`` of its scanned layer does; the gradients
+    are the same."""
     check_block(cfg)
     if embeds is not None:
         x = embeds.to(torch.bfloat16)
@@ -280,14 +291,19 @@ def forward(params, tokens: Optional[torch.Tensor], cfg: ModelConfig, *,
         meta = params["meta_tokens"].to(x.dtype)[None].expand(b, n_meta, cfg.d_model)
         x = torch.cat([meta, x], dim=1)
     positions = _positions(cfg, b, s + n_meta, device=x.device)
-    if cfg.block == "hymba":
-        for lo, hi, glob in _segments(_hymba_flags(cfg)):
-            for i in range(lo, hi):
-                x = _forward_block(cfg, layer_params(params, i), x, positions, mode=mode,
-                                   is_global=glob)
-    else:
-        for i in range(cfg.n_layers):
-            x = _forward_block(cfg, layer_params(params, i), x, positions, mode=mode)
+    flags = _hymba_flags(cfg) if cfg.block == "hymba" else np.zeros(cfg.n_layers, dtype=bool)
+    remat = cfg.remat and torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in _leaves(params))
+    for lo, hi, glob in _segments(flags):
+        for i in range(lo, hi):
+            def layer(h, i=i, glob=glob):
+                return _forward_block(cfg, layer_params(params, i), h, positions, mode=mode,
+                                      is_global=glob)
+
+            # cfg.remat: the reference's jax.checkpoint of each layer (only
+            # the layer's input is kept for the backward, which runs the
+            # layer again).
+            x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
     if n_meta:
         x = x[:, n_meta:]
     x = _norm(cfg, params["final_norm"], x)
@@ -299,12 +315,17 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     """Mean token cross-entropy in float32 (``logsumexp`` minus the gold
     logit). batch: ``labels`` ``[B, S]`` and ``tokens`` or ``embeds``.
 
-    On a float tree of the dense block (the experiments' bench LM) it is
-    differentiable by ``torch.autograd`` when the leaves require grad: the
-    path has no in-place operation and no host read-back. Quantized leaves
-    are evaluation-only (no kernel has a backward, as the reference trains
-    only float trees); gradients through the MoE, SSM and hybrid blocks are
-    not held against the reference (ROADMAP A15)."""
+    On a float tree of any block kind it is differentiable by
+    ``torch.autograd`` when the leaves require grad (the training step,
+    ``launch.steps.make_train_step``): no leaf that requires grad is
+    written in place (the MoE dispatch and combine write into fresh
+    buffers), nothing is read back to the host, and the SSM scan masks its
+    upper triangle before the ``exp``, so the masked entries carry zero
+    gradients, not NaN. The gradients of every block kind are held against
+    ``jax.value_and_grad`` of the reference's (``tests/test_torch_grads.py``;
+    MoE with the routing forced to the reference's). Quantized leaves are
+    evaluation-only (no kernel has a backward, as the reference trains
+    only float trees)."""
     logits = forward(params, batch.get("tokens"), cfg, mode=mode,
                      embeds=batch.get("embeds")).to(torch.float32)
     labels = batch["labels"].long()

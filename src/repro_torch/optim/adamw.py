@@ -83,17 +83,21 @@ def adamw_update(
     eps: float = 1e-8,
     weight_decay: float = 0.1,
     clip_norm: float = 1.0,
+    inplace: bool = False,
 ) -> Tuple[object, AdamWState]:
     """One AdamW step: gradients clipped to ``clip_norm`` by their global
     norm, bias-corrected moments, decoupled weight decay on leaves with
-    ``ndim >= 2`` only. ``lr`` is a float or a scalar tensor."""
+    ``ndim >= 2`` only. ``lr`` is a float or a scalar tensor.
+
+    ``inplace`` writes the results into the tensors of ``params`` and
+    ``state`` (the training launcher's counterpart of the reference's
+    donated buffers) and returns those trees: each leaf is computed as in
+    the functional form, then copied in, so the numbers are the same and
+    the peak holds one leaf's temporaries instead of a second tree."""
     gnorm = global_norm(grads)
     scale = torch.clamp_max(clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
-    grads = tree_map(lambda g: g.to(torch.float32) * scale, grads)
     count = state.count + 1
     c = count.to(torch.float32)
-    m = tree_map(lambda mm, g: b1 * mm + (1 - b1) * g, state.m, grads)
-    v = tree_map(lambda vv, g: b2 * vv + (1 - b2) * g * g, state.v, grads)
     mhat_s = 1.0 / (1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=c.device), c))
     vhat_s = 1.0 / (1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=c.device), c))
 
@@ -103,5 +107,24 @@ def adamw_update(
         step = u + weight_decay * pf if p.ndim >= 2 else u
         return (pf - lr * step).to(p.dtype)
 
+    if inplace:
+        def one(p, mm, vv, g):
+            g = g.to(torch.float32) * scale
+            m_new = b1 * mm + (1 - b1) * g
+            v_new = b2 * vv + (1 - b2) * g * g
+            p_new = upd(p, m_new, v_new)
+            with torch.no_grad():
+                mm.copy_(m_new)
+                vv.copy_(v_new)
+                p.copy_(p_new)
+            return p
+
+        tree_map(one, params, state.m, state.v, grads)
+        state.count.copy_(count)
+        return params, state
+
+    grads = tree_map(lambda g: g.to(torch.float32) * scale, grads)
+    m = tree_map(lambda mm, g: b1 * mm + (1 - b1) * g, state.m, grads)
+    v = tree_map(lambda vv, g: b2 * vv + (1 - b2) * g * g, state.v, grads)
     new_params = tree_map(upd, params, m, v)
     return new_params, AdamWState(m=m, v=v, count=count)

@@ -1,7 +1,9 @@
 """Test helpers for the port's tests: the JAX -> numpy flattening of the
 reference's trees (``repro_torch.interop.params_from_numpy`` takes numpy;
 the JAX side of the hand-off lives here, with the tests), comparison and
-thread-limit fixtures, the shared smoke-size weights, and the GPU skip.
+thread-limit fixtures, the shared smoke-size weights, MoE routing forced to
+the reference's choice (:func:`forced_routing`, :func:`recording_routes`),
+and the GPU skip.
 
 ``repro`` and ``jax`` are imported inside functions only, so the card's
 tests (``test_torch_cuda.py``) use this module where JAX is not installed.
@@ -101,6 +103,65 @@ def glm_smoke_served(glm_smoke):
     qt = t_quantize_params(params_from_numpy(jax_tree_to_numpy(params), "cpu"),
                            TRecipe(**SERVE_RECIPE), device="cpu")
     return qj, qt
+
+
+ROUTE_TIE = 0.01  # a routing flip is a near-tie (test_torch_moe.py's)
+
+
+class recording_routes:
+    """Context: every ``repro.models.moe._route`` call inside (traced, then
+    run under ``jax.jit``) appends its ``top_idx`` to ``routes`` as a numpy
+    array, in execution order; call ``jax.effects_barrier()`` before
+    reading them."""
+
+    def __init__(self, routes):
+        self.routes = routes
+
+    def __enter__(self):
+        import jax
+        from repro.models import moe as JM
+
+        self._route = route = JM._route
+        routes = self.routes
+
+        def recording_route(router_w, xf, k):
+            gate, top_idx = route(router_w, xf, k)
+            jax.debug.callback(lambda t: routes.append(np.asarray(t)), top_idx, ordered=True)
+            return gate, top_idx
+
+        JM._route = recording_route
+        return routes
+
+    def __exit__(self, *exc):
+        from repro.models import moe as JM
+
+        JM._route = self._route
+
+
+def forced_routing(monkeypatch, routes, margins):
+    """The port's ``moe.route`` takes the reference's experts (``routes``,
+    in call order) with its own renormalized probabilities; where its own
+    top-k differs, the k-th minus (k+1)-th probability goes to
+    ``margins``. Returns the iterator over ``routes`` (exhausted once
+    every recorded call was replayed)."""
+    from repro_torch.models import moe as TM
+
+    calls = iter(routes)
+    own_route = TM.route
+
+    def forced_route(router_w, xf, k):
+        probs = torch.softmax(xf.to(torch.float32) @ router_w.to(torch.float32), dim=-1)
+        _, own = own_route(router_w, xf, k)
+        want = torch.from_numpy(np.array(next(calls))).long().to(xf.device)
+        srt = torch.sort(probs, dim=-1, descending=True, stable=True).values
+        differ = (own.sort(-1).values != want.sort(-1).values).any(-1)
+        for r in torch.nonzero(differ).reshape(-1).tolist():
+            margins.append(float((srt[r, k - 1] - srt[r, k]).detach()))
+        gate = probs.gather(1, want)
+        return gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9), want
+
+    monkeypatch.setattr(TM, "route", forced_route)
+    return calls
 
 
 def cuda_or_skip():

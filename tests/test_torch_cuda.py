@@ -2581,3 +2581,69 @@ def test_attn_probe_leaves_the_pool_cuda(mode, kv_bits):
         for k, t in layer["attn"].items():
             assert _same_bits(t, old[k]), k
     assert torch.equal(eng.caches["table"], table) and torch.equal(eng.caches["pos"], pos)
+
+
+# ---------------------------------------------------------------------------
+# Training and its infrastructure: a train step card vs CPU for every block
+# kind, checkpoints across devices, the kill-and-restart drill and serving
+# its checkpoint (the same functions as chip_smoke.py's phase (o)).
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-7b", "qwen2-vl-7b", "hubert-xlarge",
+                                  "deepseek-moe-16b", "phi3.5-moe-42b-a6.6b", "mamba2-1.3b",
+                                  "hymba-1.5b"])
+def test_train_step_card_vs_cpu_blocks_cuda(arch):
+    """``chip_smoke.train_card_vs_cpu``: one ``make_train_step`` of the smoke
+    model on the card and on the CPU from the same weights (MoE routing
+    forced to the CPU's, flips only at near-ties): the update within
+    ``TRAIN_DELTA_RTOL`` of its norm, each weight within ``TRAIN_PARAM_TOL``
+    learning rates, ``m`` within ``TRAIN_GRAD_RTOL`` of each leaf's
+    largest, loss and grad norm within their limits."""
+    cuda_or_skip()
+    reads = _chip_smoke_const("train_card_vs_cpu")(arch, 0)
+    print(f"train step card vs CPU {arch}: {reads}")
+
+
+@pytest.mark.cuda
+def test_checkpoint_written_on_the_card_restores_anywhere_cuda(tmp_path):
+    """A ``(params, opt_state)`` checkpoint written from card tensors restores
+    bitwise onto the CPU, and a CPU-written one onto the card."""
+    cuda_or_skip()
+    from repro_torch.checkpoint import CheckpointManager, flatten_with_path, place
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+
+    cfg = smoke_config("hymba-1.5b")
+    card = T.init_params(cfg, seed=2, device="cuda")
+    state = (card, adamw_init(card))
+    writer = CheckpointManager(str(tmp_path / "card"), async_write=True)
+    writer.save(1, state)
+    writer.close()
+    mgr = CheckpointManager(str(tmp_path / "card"), async_write=False)
+    restored, _ = mgr.restore(state)
+    for dev in ("cpu", "cuda"):
+        placed = place(restored, dev)
+        for (path, a), (_, b) in zip(flatten_with_path(placed), flatten_with_path(state)):
+            assert a.device.type == dev and _same_bits(a, b), path
+    cpu = place(restored, "cpu")
+    CheckpointManager(str(tmp_path / "cpu"), async_write=False).save(2, cpu)
+    back, _ = CheckpointManager(str(tmp_path / "cpu"), async_write=False).restore(state)
+    for (path, a), (_, b) in zip(flatten_with_path(place(back, "cuda")),
+                                 flatten_with_path(state)):
+        assert _same_bits(a, b), path
+
+
+@pytest.mark.cuda
+def test_train_drill_and_ckpt_serve_cuda(tmp_path):
+    """``chip_smoke.train_drill`` and ``ckpt_serve_phase`` on the card: exit
+    codes 0, 1, 0, the final checkpoints (uninterrupted, resumed, in
+    process) bitwise equal, ``--ptq-after`` card vs CPU within
+    ``PTQ_CARD_RTOL``; ``launch.serve --ckpt-dir`` through B4 and B2, its
+    tokens bitwise the in-memory tree's."""
+    cuda_or_skip()
+    drill = _chip_smoke_const("train_drill")(tmp_path, 0)
+    assert drill["exit_codes"] == (0, 1, 0)
+    served = _chip_smoke_const("ckpt_serve_phase")(drill, 0)
+    assert served["launches"]["ocs_matmul"] > 0 and served["launches"]["paged_attention"] > 0

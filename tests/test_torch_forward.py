@@ -37,7 +37,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _torch_interop import SERVE_RECIPE, jax_tree_to_numpy, to_np, torch_threads  # noqa: F401
+from _torch_interop import (ROUTE_TIE, SERVE_RECIPE, forced_routing, jax_tree_to_numpy,  # noqa: F401
+                            recording_routes, to_np, torch_threads)
 
 from repro.configs import list_archs
 from repro.configs import smoke_config as j_smoke
@@ -47,7 +48,6 @@ from repro.core.ocs import to_w4a8 as j_to_w4a8
 from repro.core.recipe import QuantRecipe as JRecipe
 from repro.models import attention as JA
 from repro.models import layers as JL
-from repro.models import moe as JM
 from repro.models import transformer as JT
 
 from repro_torch.configs import smoke_config as t_smoke
@@ -57,7 +57,6 @@ from repro_torch.core.recipe import QuantRecipe as TRecipe
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
-from repro_torch.models import moe as TM
 from repro_torch.models import transformer as TT
 from repro_torch.serving import EngineConfig, ServingEngine
 
@@ -65,7 +64,6 @@ FLOAT_RTOL = 0.02  # logits, float weights (test_torch_model.py's)
 QUANT_RTOL = {"dequant": 0.02, "w8a8": 0.06, "w4a8": 0.06}  # logits (test_torch_moe.py's)
 LOSS_RTOL = 0.01  # the mean cross-entropy, relative
 ATTN_RTOL = 0.01  # an attention output, of its largest magnitude
-ROUTE_TIE = 0.01  # a routing flip is a near-tie (test_torch_moe.py's)
 W4A8_RATIO = 0.05
 
 _TREES = {}
@@ -119,13 +117,6 @@ def _kernel(mode):
 def _ref_forward(cfg, pj, batch, mode, routes=None):
     """The reference's forward logits and loss (unrolled layers) in
     ``mode``; each MoE routing's ``top_idx`` appended to ``routes``."""
-    route = JM._route
-
-    def recording_route(router_w, xf, k):
-        gate, top_idx = route(router_w, xf, k)
-        jax.debug.callback(lambda t: routes.append(np.asarray(t)), top_idx, ordered=True)
-        return gate, top_idx
-
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
 
     def run(p, bb):
@@ -133,37 +124,13 @@ def _ref_forward(cfg, pj, batch, mode, routes=None):
             logits = JT.forward(p, bb.get("tokens"), cfg, scan=False, embeds=bb.get("embeds"))
             return logits, JT.loss_fn(p, bb, cfg, scan=False)
 
-    if routes is not None:
-        JM._route = recording_route
-    try:
+    if routes is None:
         logits, loss = jax.jit(run)(pj, jb)
-        jax.effects_barrier()
-    finally:
-        JM._route = route
+    else:
+        with recording_routes(routes):
+            logits, loss = jax.jit(run)(pj, jb)
+            jax.effects_barrier()
     return np.asarray(logits.astype(jnp.float32)), float(loss)
-
-
-def _forced_routing(monkeypatch, routes, margins):
-    """The port's ``moe.route`` takes the reference's experts (``routes``,
-    in call order) with its own renormalized probabilities; where its own
-    top-k differs, the k-th minus (k+1)-th probability goes to
-    ``margins``."""
-    calls = iter(routes)
-    own_route = TM.route
-
-    def forced_route(router_w, xf, k):
-        probs = torch.softmax(xf.to(torch.float32) @ router_w.to(torch.float32), dim=-1)
-        _, own = own_route(router_w, xf, k)
-        want = torch.from_numpy(np.array(next(calls))).long()
-        srt = torch.sort(probs, dim=-1, descending=True, stable=True).values
-        differ = (own.sort(-1).values != want.sort(-1).values).any(-1)
-        for r in torch.nonzero(differ).reshape(-1).tolist():
-            margins.append(float(srt[r, k - 1] - srt[r, k]))
-        gate = probs.gather(1, want)
-        return gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9), want
-
-    monkeypatch.setattr(TM, "route", forced_route)
-    return calls
 
 
 def _port_forward(cfg, pt, batch, mode):
@@ -186,7 +153,7 @@ def test_forward_and_loss_match_reference(arch, tree, monkeypatch):
     if moe:
         # forward, then loss_fn's forward: the same routings twice.
         assert len(routes) == 2 * cfg.n_layers
-        calls = _forced_routing(monkeypatch, routes, margins)
+        calls = forced_routing(monkeypatch, routes, margins)
     got, got_loss = _port_forward(t_smoke(arch), pt, batch, mode)
     if moe:
         assert next(calls, None) is None

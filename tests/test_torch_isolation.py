@@ -68,7 +68,10 @@ def test_imports_without_jax_or_repro():
               "repro_torch.experiments.table3", "repro_torch.experiments.table4",
               "repro_torch.examples", "repro_torch.examples.quickstart",
               "repro_torch.examples.serve_quantized",
-              "repro_torch.examples.calibrate_activations"):
+              "repro_torch.examples.calibrate_activations",
+              "repro_torch.examples.train_then_quantize", "repro_torch.launch.train",
+              "repro_torch.launch.steps", "repro_torch.checkpoint",
+              "repro_torch.checkpoint.manager"):
         assert m in mods
     code = (
         "import sys, importlib, importlib.util\n"
@@ -153,6 +156,27 @@ def test_experiment_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
     assert not (tmp_path / "cache").exists()
     convnet.init_convnet(common.CONV_CFG, seed=0, device="cpu")
     common.Bench("cpu", out_dir=tmp_path)
+
+
+def test_train_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
+    """``launch.train``, the ``train_then_quantize`` example and ``launch.serve
+    --ckpt-dir`` want the card unless given ``--device cpu``; with no card
+    they raise before training or writing anything."""
+    _no_gpu(monkeypatch)
+    from repro_torch.examples import train_then_quantize
+    from repro_torch.launch import serve, train
+
+    ck = str(tmp_path / "ck")
+    for fn in (lambda: train.main(["--arch", "deepseek-7b", "--smoke", "--steps", "2",
+                                   "--ckpt-dir", ck]),
+               lambda: train_then_quantize.main(["--steps", "2", "--ckpt-dir", ck]),
+               lambda: serve.main(["--arch", "deepseek-7b", "--smoke", "--ckpt-dir", ck])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
+    assert not (tmp_path / "ck").exists()
+    train.main(["--arch", "deepseek-7b", "--smoke", "--steps", "2", "--batch", "2",
+                "--seq", "16", "--ckpt-dir", ck, "--device", "cpu"])
+    assert sorted(os.listdir(ck)) == ["heartbeat.json", "step_00000002"]
 
 
 def test_ops_refuse_devices_without_a_kernel():
